@@ -6,11 +6,16 @@
 Phases, in order; any failure exits non-zero:
 
 1. card: fails without CUDA; prints ``nvidia-smi``'s name and power limit.
-2. build: compiles the CUDA kernels from ``vmrframe_tpu_torch/kernels/csrc``.
-3. check: each kernel against its plain PyTorch version on the card, at the
-   shapes SeqPAN's Charades forward gives it (B=128, 4 heads of 32, L=64
-   video and 30 text positions, D=128), in f32 and bf16, with random
-   lengths and wholly masked rows.
+2. build: compiles the CUDA sources in ``vmrframe_tpu_torch/kernels/csrc``,
+   one ``nvcc`` for each, all started together.
+3. check: each kernel against its plain PyTorch version on the card, in f32
+   and bf16, with random lengths and wholly masked rows and samples: the
+   attention kernels at the shapes SeqPAN's Charades forward gives them
+   (B=128, 4 heads of 32, L=64 video and 30 text positions, D=128); the
+   banded kernel at the shapes ActionFormer's long config gives it (B=8, 4
+   heads of 128, window 19, T = 2304, 1152, 576), a ragged T=1000 and T=300
+   (padded length equal to its key window), on head-split views of one
+   (B, T, 3C) projection.
 4. time: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``), in bf16, timed
    with CUDA events; beside each, the least time the card could take.
@@ -20,6 +25,14 @@ Phases, in order; any failure exits non-zero:
    4 dual, 2 CQ and 2 masked per forward.
 6. verify: one f32 batch through the kernels on the card and through the
    plain versions on the CPU; the logits must agree.
+7. serve-AF: ActionFormer with ``configs/tacos_actionformer_long.yaml`` as
+   it is (2304-frame grids of 1024 dims, width 512, 7 transformer blocks),
+   bf16, seeded random weights, synthetic features, service batch 8; 256
+   concurrent ``predict`` calls; exactly 4 banded launches per forward.
+8. verify-AF: one f32 batch through the whole ActionFormer forward, kernel
+   on the card against plain on the CPU, with the AffineDropPath scales
+   drawn in [0.5, 1.5] (at their init of 1e-4 they would hide the attention
+   branches); cls_logits and offsets must agree.
 
 Prints one ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes the full record
@@ -51,12 +64,23 @@ BF16_ULPS = 2.0 ** -6  # bf16 check: 2-4 ulps of the output's largest magnitude
 TOL_MODEL_F32 = 1e-3  # whole f32 forward, card against CPU: ~40 layers of reordered f32 sums
 N_REQUESTS, CONCURRENCY, NUM_WORDS = 1024, 256, 1000
 SLEEP_CYCLES = 100_000_000  # ~50 ms of GPU clock: the host queues a timed run meanwhile
+AF_CONFIG = "configs/tacos_actionformer_long.yaml"
+B_AF, H_AF, HD_AF, WINDOW = 8, 4, 128, 19
+AF_LAUNCHES = {2304: 2, 1152: 1, 576: 1}  # banded launches per forward at each length
+AF_CHECK_T = tuple(AF_LAUNCHES) + (1000, 300)  # + a ragged length, and T_pad == K_WIN
+N_AF_REQUESTS, AF_CONCURRENCY = 256, 32
 REPLACES = {
     "fused_masked_attention": "vmrframe_tpu/kernels/attention.py:65",
     "fused_dual_attention": "vmrframe_tpu/kernels/attention.py:116",
     "fused_cq_attention": "vmrframe_tpu/kernels/attention.py:188",
+    "banded_attention": "vmrframe_tpu/kernels/window_attention.py:41",
 }
-SOURCE = "vmrframe_tpu_torch/kernels/csrc/attention.cu"
+SOURCES = {
+    "attention": "vmrframe_tpu_torch/kernels/csrc/attention.cu",
+    "window_attention": "vmrframe_tpu_torch/kernels/csrc/window_attention.cu",
+}
+SOURCE_OF = {"fused_masked_attention": "attention", "fused_dual_attention": "attention",
+             "fused_cq_attention": "attention", "banded_attention": "window_attention"}
 
 
 class SmokeFailure(RuntimeError):
@@ -103,6 +127,36 @@ def kernel_cases(g: torch.Generator):
     }
 
 
+def split_heads(qkv: torch.Tensor):
+    """q, k, v as the model passes them: head-split views of one (B, T, 3C)
+    projection, (B, H, T, hd) each."""
+    return [t.unflatten(-1, (H_AF, HD_AF)).transpose(1, 2)
+            for t in qkv.split(H_AF * HD_AF, dim=-1)]
+
+
+def banded_cases(g: torch.Generator, lengths):
+    """(qkv, kv_mask) per length; sample 0 is wholly masked."""
+    cases = []
+    for T in lengths:
+        lens = torch.randint(T // 2, T + 1, (B_AF,), generator=g, device="cuda")
+        lens[0] = 0
+        mask = (torch.arange(T, device="cuda")[None] < lens[:, None]).float()
+        cases.append((torch.randn(B_AF, T, 3 * H_AF * HD_AF, generator=g, device="cuda"), mask))
+    return cases
+
+
+def functions(K, W) -> dict:
+    """name -> (kernel wrapper, plain version), each taking one case's args."""
+    return {
+        "fused_masked_attention": (K.fused_masked_attention, K.masked_attention_plain),
+        "fused_dual_attention": (K.fused_dual_attention, K.dual_attention_plain),
+        "fused_cq_attention": (K.fused_cq_attention, K.cq_attention_plain),
+        "banded_attention": (
+            lambda qkv, m: W.banded_attention(*split_heads(qkv), m, WINDOW),
+            lambda qkv, m: W.banded_attention_plain(*split_heads(qkv), m, WINDOW)),
+    }
+
+
 def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -114,6 +168,11 @@ def work(name: str, args) -> tuple:
     """(bytes, operations) the function needs: each input read once, each
     output written once; the operations are its matrix products."""
     size = args[0].element_size()
+    if name == "banded_attention":  # q, k, v, out and the mask; the band's products
+        Bm, T = args[1].shape
+        half = WINDOW // 2
+        return (4 * Bm * H_AF * T * HD_AF + Bm * T) * size, \
+            4 * Bm * H_AF * T * (2 * half + 1) * HD_AF
     if name == "fused_cq_attention":
         c, q = args[0], args[1]
         Lc, Lq = c.shape[1], q.shape[1]
@@ -164,6 +223,14 @@ def sdpa_masked(q, k, v, mask):
 
 def library_call(name: str, args):
     """One PyTorch call computing the same function, or None; timed only."""
+    if name == "banded_attention":  # SDPA with the band-and-key boolean mask
+        qkv, mask = args
+        T = mask.shape[1]
+        i = torch.arange(T, device=mask.device)
+        band = (i[:, None] - i[None, :]).abs() <= WINDOW // 2
+        allowed = (band[None] & (mask[:, None, :] > 0))[:, None]  # (B, 1, T, T)
+        q, k, v = split_heads(qkv)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
     if name == "fused_masked_attention":
         return sdpa_masked(*args)
     if name == "fused_dual_attention":
@@ -179,32 +246,33 @@ def library_call(name: str, args):
 def phase_build() -> dict:
     from vmrframe_tpu_torch.kernels import attention as K
     from vmrframe_tpu_torch.kernels import build
+    from vmrframe_tpu_torch.kernels import window_attention as W
 
     t0 = time.perf_counter()
+    build.build_all(list(SOURCES))
     K.load_kernels()
+    W.load_kernels()
     seconds = time.perf_counter() - t0
-    log(f"[build] {SOURCE} built and loaded in {seconds:.1f} s")
-    report = build.library_path("attention").with_suffix(".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "Function properties" in line or "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+    log(f"[build] {', '.join(SOURCES.values())} built (in parallel) and loaded in {seconds:.1f} s")
+    for name in SOURCES:
+        report = build.library_path(name).with_suffix(".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "Function properties" in line or "registers" in line or "spill" in line:
+                    log(f"[build]   {name}: {line.strip()}")
     return {"seconds": seconds}
 
 
-def phase_check(K, cases) -> dict:
-    plain = {"fused_masked_attention": K.masked_attention_plain,
-             "fused_dual_attention": K.dual_attention_plain,
-             "fused_cq_attention": K.cq_attention_plain}
+def phase_check(fns, cases) -> dict:
     results = {}
     for name, shapes in cases.items():
-        wrapper = getattr(K, name)
+        wrapper, plain = fns[name]
         for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             err, tol = 0.0, 0.0
             for args in shapes:
                 args = tuple(a.to(dtype) for a in args)
                 got = as_tuple(wrapper(*args))
-                want = as_tuple(plain[name](*args))
+                want = as_tuple(plain(*args))
                 torch.cuda.synchronize()
                 for g_, w_ in zip(got, want):
                     if g_.shape != w_.shape or not torch.isfinite(g_.float()).all():
@@ -221,22 +289,21 @@ def phase_check(K, cases) -> dict:
     return results
 
 
-def phase_time(K, cases, card: str) -> dict:
-    plain = {"fused_masked_attention": K.masked_attention_plain,
-             "fused_dual_attention": K.dual_attention_plain,
-             "fused_cq_attention": K.cq_attention_plain}
+def phase_time(fns, cases, weights, card: str) -> dict:
+    """Per call, in bf16; a kernel's ms are its launch-weighted mean over the
+    shapes one forward gives it (``weights``: launches per forward)."""
     log(f"[time] bf16, per call, on {card}")
     results = {}
     for name, shapes in cases.items():
-        wrapper = getattr(K, name)
+        wrapper, plain = fns[name]
         rows = []
-        for args in shapes:
+        for args, weight in zip(shapes, weights[name]):
             args = tuple(a.to(torch.bfloat16) for a in args)
             lib = library_call(name, args)
             row = {
-                "shape": [list(a.shape) for a in args[:2]],
+                "shape": [list(a.shape) for a in args[:2]], "launches_per_forward": weight,
                 "ms": device_ms(lambda: wrapper(*args)),
-                "plain_ms": device_ms(lambda: plain[name](*args)),
+                "plain_ms": device_ms(lambda: plain(*args)),
                 "library_ms": device_ms(lib) if lib else None,
             }
             row["bound_ms"], row["bound_by"] = bound_ms(name, args)
@@ -246,11 +313,14 @@ def phase_time(K, cases, card: str) -> dict:
             log(f"[time] {name:24s} {row['shape']}  kernel {row['ms']['median']:.4f} ms  "
                 f"plain {row['plain_ms']['median']:.4f}  library {lib_txt}  "
                 f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
-        mean = lambda key: statistics.mean(r[key]["median"] for r in rows)  # noqa: E731
+        total = sum(r["launches_per_forward"] for r in rows)
+        mean = lambda f: sum(r["launches_per_forward"] * f(r) for r in rows) / total  # noqa: E731
         results[name] = {
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
-            "library_ms": mean("library_ms") if rows[0]["library_ms"] else None,
-            "bound_ms": statistics.mean(r["bound_ms"] for r in rows),
+            "ms": mean(lambda r: r["ms"]["median"]),
+            "plain_ms": mean(lambda r: r["plain_ms"]["median"]),
+            "library_ms": mean(lambda r: r["library_ms"]["median"]) if rows[0]["library_ms"]
+            else None,
+            "bound_ms": mean(lambda r: r["bound_ms"]),
             "bound_by": rows[0]["bound_by"], "shapes": rows,
         }
     return results
@@ -269,7 +339,55 @@ def charades_vocab(dataset, num_words: int, seed: int) -> None:
     dataset["n_words"] = len(words)
 
 
-def phase_serve(K, card: str):
+def drive(service, records, n_requests: int, concurrency: int, kernels) -> dict:
+    """``n_requests`` concurrent ``predict`` calls; the kernels' launch counts
+    are set to 0 just before and read just after."""
+    lat, results = [], []
+    lock = threading.Lock()
+
+    def one(i):
+        rec = records[i % len(records)]
+        t = time.perf_counter()
+        out = service.predict(rec["vid"], rec["sentence"], rec["duration"])
+        dt = time.perf_counter() - t
+        with lock:
+            lat.append(dt)
+            results.append(out["pred_frac"])
+
+    batches0 = service.metrics()["batches"]
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=concurrency) as ex:
+        list(ex.map(one, range(n_requests)))
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    metrics = service.metrics()
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    fracs = np.asarray(results)
+    if metrics["requests_ok"] < n_requests or metrics["requests_error"]:
+        raise SmokeFailure(f"serve: {metrics}")
+    if fracs.shape != (n_requests, 2) or not np.isfinite(fracs).all() \
+            or fracs.min() < 0 or fracs.max() > 1:
+        raise SmokeFailure("serve: predicted fractions are not finite spans in [0, 1]")
+    return {"requests": n_requests, "concurrency": concurrency,
+            "forwards": metrics["batches"] - batches0, "wall_s": wall,
+            "qps": n_requests / wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "failed": metrics["requests_error"], "launches": launches}
+
+
+def check_launches(phase: str, stats: dict, want: dict) -> None:
+    forwards, launches = stats["forwards"], stats["launches"]
+    for name, per_forward in want.items():
+        if forwards < 1 or launches[name] != per_forward * forwards:
+            raise SmokeFailure(f"{phase}: {launches[name]} launches of {name} in {forwards} "
+                               f"forwards, want {per_forward} per forward")
+    log(f"[{phase}] launches per forward: " +
+        ", ".join(f"{k} {v / forwards:g}" for k, v in launches.items()))
+
+
+def phase_serve(kernels, card: str):
     from vmrframe_tpu_torch.config import Derived
     from vmrframe_tpu_torch.testing import make_synthetic_data
     from vmrframe_tpu_torch.tools.serve import MomentRetrievalService, make_cfg
@@ -283,83 +401,93 @@ def phase_serve(K, card: str):
     service = MomentRetrievalService(cfg, derived, dataset["word_dict"], dataset["char_dict"],
                                      dataset["word_vector"], store, device="cuda", seed=0)
     boot_s = time.perf_counter() - t0
-    records = dataset["test_set"]
-    lat, results = [], []
-    lock = threading.Lock()
-
-    def one(i):
-        rec = records[i % len(records)]
-        t = time.perf_counter()
-        out = service.predict(rec["vid"], rec["sentence"], rec["duration"])
-        dt = time.perf_counter() - t
-        with lock:
-            lat.append(dt)
-            results.append(out["pred_frac"])
-
     try:
-        batches0 = service.metrics()["batches"]
-        for fn in K.KERNELS:
-            fn.launches = 0
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=CONCURRENCY) as ex:
-            list(ex.map(one, range(N_REQUESTS)))
-        wall = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in K.KERNELS}
-        metrics = service.metrics()
+        load = drive(service, dataset["test_set"], N_REQUESTS, CONCURRENCY, kernels)
     finally:
         service.close()
-    forwards = metrics["batches"] - batches0
-    peak = torch.cuda.max_memory_allocated()
-    lat_ms = np.sort(np.asarray(lat)) * 1e3
-    fracs = np.asarray(results)
     stats = {
         "card": card, "model": "SeqPAN", "batch_size": service.batch_size, "dtype": "bfloat16",
         "vlen": LV, "tlen": LT, "vdim": int(cfg.model.vdim), "dim": D, "heads": H,
-        "num_words": dataset["n_words"], "requests": N_REQUESTS, "concurrency": CONCURRENCY,
-        "forwards": forwards, "boot_s": boot_s, "wall_s": wall, "qps": N_REQUESTS / wall,
-        "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
-        "peak_device_mem_bytes": peak, "launches": launches,
+        "num_words": dataset["n_words"], "boot_s": boot_s, **load,
+        "peak_device_mem_bytes": torch.cuda.max_memory_allocated(),
     }
     log(f"[serve] {json.dumps(stats)}")
-    if metrics["requests_ok"] < N_REQUESTS or metrics["requests_error"]:
-        raise SmokeFailure(f"serve: {metrics}")
-    if fracs.shape != (N_REQUESTS, 2) or not np.isfinite(fracs).all() \
-            or fracs.min() < 0 or fracs.max() > 1:
-        raise SmokeFailure("serve: predicted fractions are not finite spans in [0, 1]")
-    want = {"fused_dual_attention": 4, "fused_cq_attention": 2, "fused_masked_attention": 2}
-    for name, per_forward in want.items():
-        if forwards < 1 or launches[name] != per_forward * forwards:
-            raise SmokeFailure(f"serve: {launches[name]} launches of {name} in {forwards} "
-                               f"forwards, want {per_forward} per forward")
-    log("[serve] launches per forward: " +
-        ", ".join(f"{k} {v // forwards}" for k, v in launches.items()))
+    check_launches("serve", stats, {"fused_dual_attention": 4, "fused_cq_attention": 2,
+                                    "fused_masked_attention": 2})
     return stats, dataset, store, derived, cfg
 
 
 def phase_verify(cfg, derived, dataset, store) -> dict:
     """One f32 batch: kernels on the card against the plain versions on the CPU."""
     from vmrframe_tpu_torch.data.batcher import Batcher
+
+    batch = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B)))
+    return verify_forward("verify", cfg, derived, dataset["word_vector"], batch,
+                          {"slogits": (B, LV), "elogits": (B, LV)})
+
+
+def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict) -> dict:
+    from vmrframe_tpu_torch.testing import lift_drop_path
     from vmrframe_tpu_torch.train.evaluator import Evaluator
 
     cfg32 = cfg.updated({"train.compute_dtype": "float32"})
-    batch = Batcher(dataset["test_set"], store, cfg32, derived).make_batch(list(range(B)))
     outs = {}
     for device in ("cuda", "cpu"):
-        ev = Evaluator(cfg32, derived, dataset["word_vector"], device=device, seed=0)
+        ev = Evaluator(cfg32, derived, word_vector, device=device, seed=0)
+        lift_drop_path(ev.model, seed=0)
         out = ev.forward(ev.to_device(batch))
-        outs[device] = {k: out[k].cpu() for k in ("slogits", "elogits")}
+        outs[device] = {k: out[k].cpu() for k in shapes}
     errs = {}
-    for key in ("slogits", "elogits"):
+    for key, shape in shapes.items():
         got, want = outs["cuda"][key], outs["cpu"][key]
-        if got.shape != (B, LV) or not torch.isfinite(got).all():
-            raise SmokeFailure(f"verify: {key} is not a finite ({B}, {LV}) tensor")
+        if got.shape != shape or not torch.isfinite(got).all():
+            raise SmokeFailure(f"{phase}: {key} is not a finite {shape} tensor")
         errs[key] = (got - want).abs().max().item()
     ok = max(errs.values()) <= TOL_MODEL_F32
-    log(f"[verify] f32 forward, kernels on the card vs plain on the CPU: "
+    log(f"[{phase}] f32 forward, kernels on the card vs plain on the CPU: "
         f"{json.dumps(errs)}  tol {TOL_MODEL_F32}  {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SmokeFailure("verify: kernel path and plain path disagree")
+        raise SmokeFailure(f"{phase}: kernel path and plain path disagree")
     return {"max_abs_err": errs, "tol": TOL_MODEL_F32}
+
+
+def phase_serve_af(kernels, card: str):
+    """ActionFormer on the long config as it is, bf16, service batch 8."""
+    from vmrframe_tpu_torch.config import load_config
+    from vmrframe_tpu_torch.tools.serve import build_service
+
+    cfg = load_config(AF_CONFIG).updated({"train.compute_dtype": "bfloat16"})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    service, dataset = build_service(cfg, batch_size=B_AF, n_synthetic=64, device="cuda")
+    boot_s = time.perf_counter() - t0
+    try:
+        load = drive(service, dataset["test_set"], N_AF_REQUESTS, AF_CONCURRENCY, kernels)
+    finally:
+        service.close()
+    af = cfg.actionformer
+    stats = {
+        "card": card, "model": "ActionFormer", "config": AF_CONFIG,
+        "batch_size": service.batch_size, "dtype": "bfloat16", "max_seq_len": af.max_seq_len,
+        "input_dim": af.input_dim, "embd_dim": af.embd_dim, "n_head": af.n_head,
+        "window": af.n_mha_win_size, "arch": list(af.backbone_arch), "boot_s": boot_s, **load,
+        "peak_device_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+    log(f"[serve-AF] {json.dumps(stats)}")
+    check_launches("serve-AF", stats, {"banded_attention": sum(AF_LAUNCHES.values())})
+    return stats, service, dataset, cfg
+
+
+def phase_verify_af(service, dataset, cfg) -> dict:
+    """One f32 batch through the whole ActionFormer forward."""
+    from vmrframe_tpu_torch.data.af_batcher import ActionFormerBatcher
+
+    batch = ActionFormerBatcher(dataset["test_set"], service.store, cfg, service.derived,
+                                batch_size=B_AF).make_batch(list(range(B_AF)))
+    P = sum(cfg.actionformer.max_seq_len // 2 ** i
+            for i in range(cfg.actionformer.backbone_arch[2] + 1))
+    return verify_forward("verify-AF", cfg, service.derived, None, batch,
+                          {"cls_logits": (B_AF, P, 1), "offsets": (B_AF, P, 2)})
 
 
 def main() -> int:
@@ -370,6 +498,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 1
     from vmrframe_tpu_torch.kernels import attention as K
+    from vmrframe_tpu_torch.kernels import window_attention as W
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -377,19 +506,41 @@ def main() -> int:
     log(card)
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
-    record = {"card": card, "build": phase_build()}
-    cases = kernel_cases(torch.Generator(device="cuda").manual_seed(0))
-    record["check"] = phase_check(K, cases)
-    record["time"] = phase_time(K, cases, card)
-    record["serve"], dataset, store, derived, cfg = phase_serve(K, card)
-    record["verify"] = phase_verify(cfg, derived, dataset, store)
+    kernels = K.KERNELS + W.KERNELS
+    fns = functions(K, W)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = kernel_cases(g)
+    check_cases = {**cases, "banded_attention": banded_cases(g, AF_CHECK_T)}
+    time_cases = {**cases, "banded_attention": banded_cases(g, tuple(AF_LAUNCHES))}
+    weights = {name: [1] * len(shapes) for name, shapes in cases.items()}
+    weights["banded_attention"] = list(AF_LAUNCHES.values())
+    record, seconds = {"card": card}, {}
 
-    kernels = []
-    for fn in K.KERNELS:
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[{name}] phase took {seconds[name]:.1f} s")
+        return out
+
+    record["build"] = phase("build", phase_build)
+    record["check"] = phase("check", phase_check, fns, check_cases)
+    record["time"] = phase("time", phase_time, fns, time_cases, weights, card)
+    record["serve"], dataset, store, derived, cfg = phase("serve", phase_serve, kernels, card)
+    record["verify"] = phase("verify", phase_verify, cfg, derived, dataset, store)
+    record["serve_af"], service, af_data, af_cfg = phase("serve-AF", phase_serve_af, kernels, card)
+    record["verify_af"] = phase("verify-AF", phase_verify_af, service, af_data, af_cfg)
+    record["seconds"] = seconds
+    main_path = {fn.__name__: "serve" for fn in K.KERNELS}
+    main_path["banded_attention"] = "serve_af"
+
+    out = []
+    for fn in kernels:
         name, t = fn.__name__, record["time"][fn.__name__]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": record["serve"]["launches"][name],
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCES[SOURCE_OF[name]],
+            "replaces": REPLACES[name],
+            "launches": record[main_path[name]]["launches"][name],
             "max_abs_err": record["check"][name]["bf16"]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -397,12 +548,12 @@ def main() -> int:
             "max_abs_err_f32": record["check"][name]["f32"]["max_abs_err"],
             "card": card,
         })
-    record["kernels"] = kernels
+    record["kernels"] = out
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,8 +6,8 @@ file imports no JAX, so it runs on a machine without it:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider -q
 
 (``--noconftest`` because ``tests/conftest.py`` sets JAX up.)  Shapes are
-ragged on purpose (lengths that are no multiple of a tile, head dims 16 and
-32) and the masks hold wholly masked rows and a wholly masked sample.
+ragged on purpose (lengths that are no multiple of a tile, head dims 16 to
+128) and the masks hold wholly masked rows and a wholly masked sample.
 Tolerances: f32 1e-4 (sums in another order); bf16 2**-6 of the largest
 output magnitude (a few bf16 ulps).
 """
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from vmrframe_tpu_torch.kernels import attention as K
+from vmrframe_tpu_torch.kernels import window_attention as W
 
 pytestmark = pytest.mark.gpu
 DTYPES = [torch.float32, torch.bfloat16]
@@ -117,7 +118,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 def test_seqpan_forward_on_kernels_matches_plain_on_cpu(cuda):
     from vmrframe_tpu_torch.config import Derived
     from vmrframe_tpu_torch.data.batcher import Batcher
-    from vmrframe_tpu_torch.testing import make_synthetic_data
+    from vmrframe_tpu_torch.testing import lift_drop_path, make_synthetic_data
     from vmrframe_tpu_torch.tools.serve import make_cfg
     from vmrframe_tpu_torch.train.evaluator import Evaluator
 
@@ -134,3 +135,77 @@ def test_seqpan_forward_on_kernels_matches_plain_on_cpu(cuda):
     got, want = outs
     torch.testing.assert_close(got["props"].cpu(), want["props"], rtol=0, atol=0)
     torch.testing.assert_close(got["loss"].cpu(), want["loss"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,window,hd", [(300, 19, 128), (1000, 19, 128), (513, 9, 64),
+                                         (640, 37, 32), (700, 300, 64)])
+def test_banded_attention_kernel_on_strided_views(cuda, dtype, T, window, hd):
+    """Head-split views of one (B, T, 3C) projection, ragged lengths, a
+    wholly masked sample; every row is compared, padding rows included."""
+    g = torch.Generator().manual_seed(3)
+    B, H = 3, 4
+    split = lambda x: x.unflatten(-1, (H, hd)).transpose(1, 2)  # noqa: E731
+    q, k, v = (split(t) for t in torch.randn(B, T, 3 * H * hd, generator=g)
+               .to(cuda, dtype).split(H * hd, dim=-1))
+    mask = _mask(g, B, T, cuda)
+    mask[2, 40:90] = 0.0  # a hole wider than the band: rows with no valid key
+    before = W.banded_attention.launches
+    got = W.banded_attention(q, k, v, mask, window)
+    torch.cuda.synchronize()
+    assert W.banded_attention.launches == before + 1
+    assert got.transpose(1, 2).is_contiguous()  # (B, T, H, hd) memory
+    _close(got, W.banded_attention_plain(q, k, v, mask, window), dtype)
+
+
+def test_banded_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 2, 384, 64, device=cuda)
+    mask = torch.ones(2, 384, device=cuda)
+    with pytest.raises(TypeError):
+        W.banded_attention(x.half(), x.half(), x.half(), mask, 19)
+    with pytest.raises(ValueError, match="head dims"):
+        W.banded_attention(x[..., :16], x[..., :16], x[..., :16], mask, 19)
+    with pytest.raises(ValueError, match="too small"):
+        W.banded_attention(x[:, :, :200], x[:, :, :200], x[:, :, :200], mask[:, :200], 19)
+    with pytest.raises(ValueError, match="unit stride"):
+        y = x.transpose(2, 3).contiguous().transpose(2, 3)
+        W.banded_attention(y, y, y, mask, 19)
+    with pytest.raises(ValueError):
+        W.banded_attention(x, x, x, mask[:, :100], 19)
+
+
+def test_actionformer_forward_on_the_kernel_matches_plain_on_cpu(cuda):
+    """The long config cut to width 64 and 512 frames, pallas_min_len 256:
+    both stem blocks take the banded kernel on the card (2 launches per
+    forward), the plain version on the CPU.  The AffineDropPath scales are
+    drawn in [0.5, 1.5]: at their init of 1e-4 they would hide the branches."""
+    from pathlib import Path
+
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.af_batcher import ActionFormerBatcher
+    from vmrframe_tpu_torch.testing import lift_drop_path, make_synthetic_data
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+
+    long_cfg = Path(__file__).resolve().parent.parent / "configs" / "tacos_actionformer_long.yaml"
+    cfg = load_config(str(long_cfg)).updated({
+        "train.batch_size": 8, "train.compute_dtype": "float32", "model.vlen": 512,
+        "model.vdim": 48, "actionformer.backbone_arch": [1, 2, 3], "actionformer.input_dim": 48,
+        "actionformer.embd_dim": 64, "actionformer.fpn_dim": 64, "actionformer.head_dim": 64,
+        "actionformer.n_head": 2, "actionformer.max_seq_len": 512,
+        "actionformer.pallas_min_len": 256})
+    ds, store = make_synthetic_data(cfg, seed=0, n_train=8, n_test=8)
+    der = Derived(num_words=ds["n_words"], num_chars=ds["n_chars"])
+    batch = ActionFormerBatcher(ds["test_set"], store, cfg, der).make_batch(list(range(6)))
+    before = W.banded_attention.launches
+    outs = []
+    for device in (cuda, "cpu"):
+        ev = Evaluator(cfg, der, None, device=device, seed=0)
+        lift_drop_path(ev.model, seed=0)
+        dbatch = ev.to_device(batch)
+        outs.append((ev.forward(dbatch), ev.eval_step(dbatch)))
+    assert W.banded_attention.launches - before == 4  # 2 per forward, two forwards
+    (got, got_step), (want, want_step) = outs
+    for key in ("cls_logits", "offsets", "fpn_mask"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got_step["loss"].cpu(), want_step["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got_step["props"].cpu(), want_step["props"], rtol=0, atol=1e-4)

@@ -138,3 +138,44 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_service(_tiny_cfg(), n_synthetic=8)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_service_assembles_with_the_registered_batcher(served):
+    from vmrframe_tpu_torch.data.batcher import Batcher
+
+    service, _ = served
+    assert service._batcher_cls is Batcher  # SeqPAN registers none: the base batcher
+
+
+class _CountingStore:
+    """A feature store that counts its reads."""
+
+    def __init__(self, store):
+        self.store, self.reads = store, 0
+
+    def __contains__(self, vid):
+        return vid in self.store
+
+    def __getitem__(self, vid):
+        self.reads += 1
+        return self.store[vid]
+
+    def lengths(self):
+        return self.store.lengths()
+
+
+def test_a_batch_reads_each_video_once_and_the_next_batch_reads_it_again(served):
+    service, dataset = served
+    rec = dataset["test_set"][0]
+    store = _CountingStore(service.store)
+    service.store = store
+    try:
+        records = [service._make_record(rec["vid"], s, rec["duration"])
+                   for s in ("a person opens the door", "someone closes a window")]
+        batch = service._assemble(records)
+        assert store.reads == 1  # two requests, one video: one read
+        np.testing.assert_array_equal(batch["vfeats"][0], batch["vfeats"][1])
+        service._assemble(records[:1])
+        assert store.reads == 2  # no cache outlives its batch
+    finally:
+        service.store = store.store

@@ -23,6 +23,7 @@ class Batcher:
 
     def __init__(self, dataset: List[dict], feature_store, cfg, derived,
                  batch_size: Optional[int] = None):
+        self.cfg = cfg
         self.dataset = dataset
         self.features = feature_store
         self.batch_size = batch_size or cfg.train.batch_size

@@ -1,10 +1,11 @@
 """Builds the port's CUDA sources into shared libraries at first use.
 
 One ``nvcc`` per source, for ``sm_90a``, into ``kernels/_build/`` (listed in
-``.gitignore``).  The library's name carries a hash of the source and the
-flags, so an edited source builds anew and an unchanged one is reused.  The
-libraries have a plain C interface and are loaded with ``ctypes``; nothing
-includes PyTorch's headers, so a build takes seconds.
+``.gitignore``); ``build_all`` starts the compilers of several sources
+together.  The library's name carries a hash of the source and the flags, so
+an edited source builds anew and an unchanged one is reused.  The libraries
+have a plain C interface and are loaded with ``ctypes``; nothing includes
+PyTorch's headers, so a build takes seconds.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -42,26 +44,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.  The
-    compiler's report (registers, shared memory, spills) goes to a ``.log``
-    beside the library."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                          capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: another process never loads a partial file
-    return out
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` for each, all started together.  A compiler's report
+    (registers, shared memory, spills) goes to a ``.log`` beside its
+    library."""
+    outs = {name: library_path(name) for name in names}
+    with _lock:
+        running = []
+        for name, out in outs.items():
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            with open(out.with_suffix(".log"), "w") as report:
+                proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                         str(CSRC / f"{name}.cu")],
+                                        stdout=report, stderr=subprocess.STDOUT)
+            running.append((name, out, tmp, proc))
+        failed = []
+        for name, out, tmp, proc in running:
+            if proc.wait() != 0:
+                failed.append(f"nvcc failed on {name}.cu:\n{out.with_suffix('.log').read_text()}")
+            else:
+                os.replace(tmp, out)  # atomic: another process never loads a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library for ``csrc/<name>.cu``, built on first use, loaded."""
-    with _lock:
-        path = build(name)
-    return ctypes.CDLL(str(path))
+    return ctypes.CDLL(str(build_all([name])[name]))

@@ -1,0 +1,325 @@
+"""ActionFormer's layers, eval half (counterpart of
+``vmrframe_tpu/layers/actionformer.py``).
+
+Channel-last (B, T, C) as in the JAX package; masks are (B, T) {0,1}.
+Parameter names follow the flax tree (``weights.py`` maps one onto the
+other): a conv or dense ``kernel`` is a torch ``weight``, and the scalars of
+``Scale`` and ``AffineDropPath``, ``scale`` in flax, are ``weight`` here.
+Eval only: dropout and drop-path are the identity.  Not ported yet:
+rel-PE, ``ConvBackbone``/``ConvBlock`` and ``FPN1D`` (ROADMAP).
+
+``MaskedMHCA`` with ``window_size > 0`` runs the banded attention kernel
+(``kernels/window_attention.py``) when T >= ``pallas_min_len_eval`` (the
+config key keeps the JAX package's name) and one key window fits the padded
+length; otherwise it computes the full (T, T) scores with a band mask, as the
+JAX package does.  Both routes give the same values on every valid row.  An
+unset ``pallas_min_len_eval`` means the same threshold as ``pallas_min_len``:
+the JAX model routes eval away from its TPU kernel by default because of a
+TPU measurement, and the port does not inherit that.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vmrframe_tpu_torch.kernels.window_attention import banded_attention, key_window, padded_len
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channels, eps 1e-5, statistics in f32, the result
+    in x's type.  Ones and zeros at init (``weights.init_weights`` reads
+    ``init_value`` and zeroes the bias)."""
+
+    init_value = 1.0
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.full((dim,), self.init_value))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class Dense(nn.Linear):
+    """flax ``Dense(dtype=x.dtype)``: the bias is cast to the input's type.
+    Zero bias at init (``weights.init_weights`` reads ``zero_bias_init``)."""
+
+    zero_bias_init = True
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias.to(x.dtype))
+
+
+class _Conv1d(nn.Conv1d):
+    zero_bias_init = True
+
+
+class MaskedConv1D(nn.Module):
+    """Conv over (B, T, C) with symmetric k//2 padding; the output is masked
+    and the mask nearest-downsampled (``mask[:, ::stride]``) when strided."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 groups: int = 1, use_bias: bool = True):
+        super().__init__()
+        self.stride = stride
+        self.conv = _Conv1d(in_ch, out_ch, kernel_size, stride=stride,
+                            padding=kernel_size // 2, groups=groups, bias=use_bias)
+
+    def forward(self, x, mask):
+        c = self.conv
+        bias = None if c.bias is None else c.bias.to(x.dtype)
+        y = F.conv1d(x.transpose(1, 2), c.weight, bias, c.stride, c.padding, 1, c.groups)
+        out_mask = mask[:, ::self.stride] if self.stride > 1 else mask
+        return y.transpose(1, 2) * out_mask[..., None], out_mask
+
+
+@functools.lru_cache(maxsize=None)
+def get_sinusoid_encoding(n_position: int, d_hid: int) -> np.ndarray:
+    """(n_position, d_hid) sinusoid table."""
+    pos = np.arange(n_position)[:, None]
+    idx = np.arange(d_hid)[None, :]
+    angle = pos / np.power(10000, 2 * (idx // 2) / d_hid)
+    table = np.zeros((n_position, d_hid), dtype=np.float32)
+    table[:, 0::2] = np.sin(angle[:, 0::2])
+    table[:, 1::2] = np.cos(angle[:, 1::2])
+    return table
+
+
+class MaskedMHCA(nn.Module):
+    """Multi-head conv attention: depthwise (strided) convs and channel LN on
+    q/k/v, 1x1 projections, masked attention; ``window_size > 0`` limits it
+    to the band |i - j| <= window_size // 2."""
+
+    def __init__(self, n_embd: int, n_head: int, n_qx_stride: int = 1, n_kv_stride: int = 1,
+                 window_size: int = -1, use_rel_pe: bool = False, pallas_min_len: int = 512,
+                 pallas_min_len_eval: Optional[int] = None):
+        super().__init__()
+        if use_rel_pe:
+            raise NotImplementedError("MaskedMHCA: rel-PE is not ported yet")
+        self.n_embd, self.n_head = n_embd, n_head
+        self.window_size = window_size
+        self.min_len = pallas_min_len if pallas_min_len_eval is None else pallas_min_len_eval
+        q_ks = n_qx_stride + 1 if n_qx_stride > 1 else 3
+        kv_ks = n_kv_stride + 1 if n_kv_stride > 1 else 3
+        # as in the JAX package, the query conv is strided by n_kv_stride
+        self.query_conv = MaskedConv1D(n_embd, n_embd, q_ks, n_kv_stride, n_embd, use_bias=False)
+        self.key_conv = MaskedConv1D(n_embd, n_embd, kv_ks, n_kv_stride, n_embd, use_bias=False)
+        self.value_conv = MaskedConv1D(n_embd, n_embd, kv_ks, n_kv_stride, n_embd, use_bias=False)
+        self.query_norm = ChannelLayerNorm(n_embd)
+        self.key_norm = ChannelLayerNorm(n_embd)
+        self.value_norm = ChannelLayerNorm(n_embd)
+        self.query = Dense(n_embd, n_embd)
+        self.key = Dense(n_embd, n_embd)
+        self.value = Dense(n_embd, n_embd)
+        self.proj = Dense(n_embd, n_embd)
+
+    def use_banded_kernel(self, Tq: int, Tk: int) -> bool:
+        """The kernel route: a window, T at or above the eval threshold (-1
+        disables), Tq == Tk, and one key window within the padded length."""
+        if self.window_size <= 0 or self.min_len < 0:
+            return False
+        if Tq != Tk or Tq < self.min_len:
+            return False
+        return padded_len(Tq) >= key_window(self.window_size)
+
+    def forward(self, x, mask):
+        B = x.shape[0]
+        hd = self.n_embd // self.n_head
+        q, qx_mask = self.query_conv(x, mask)
+        k, kv_mask = self.key_conv(x, mask)
+        v, _ = self.value_conv(x, mask)
+        q = self.query(self.query_norm(q))
+        k = self.key(self.key_norm(k))
+        v = self.value(self.value_norm(v))
+        Tq, Tk = q.shape[1], k.shape[1]
+        heads = lambda t: t.unflatten(-1, (self.n_head, hd)).transpose(1, 2)  # noqa: E731
+        qh, kh, vh = heads(q), heads(k), heads(v)
+
+        if self.use_banded_kernel(Tq, Tk):
+            out = banded_attention(qh, kh, vh, kv_mask, self.window_size)
+        else:
+            att = (qh * (1.0 / math.sqrt(hd))) @ kh.transpose(-1, -2)
+            neg = torch.finfo(att.dtype).min
+            att = att.masked_fill(~(kv_mask[:, None, None, :] > 0), neg)
+            if self.window_size > 0:
+                qi = torch.arange(Tq, device=x.device)[:, None]
+                kj = torch.arange(Tk, device=x.device)[None, :]
+                att = att.masked_fill((qi - kj).abs() > self.window_size // 2, neg)
+            att = torch.softmax(att, dim=-1)
+            out = att @ (vh * kv_mask[:, None, :, None])
+        out = self.proj(out.transpose(1, 2).reshape(B, Tq, self.n_embd))
+        return out * qx_mask[..., None], qx_mask
+
+
+class AffineDropPath(nn.Module):
+    """Per-channel scale (``init_value`` at init); stochastic depth is off in
+    eval."""
+
+    init_value = 1e-4
+
+    def __init__(self, num_dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1, 1, num_dim), self.init_value))
+
+    def forward(self, x):
+        return self.weight * x
+
+
+def _maxpool1d(x, kernel_size: int, stride: int, padding: int):
+    """torch ``MaxPool1d`` over (B, T, C) (-inf padding)."""
+    return F.max_pool1d(x.transpose(1, 2), kernel_size, stride, padding).transpose(1, 2)
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN transformer block with optional stride-2 downsampling and a
+    max-pooled skip path; exact GELU."""
+
+    def __init__(self, n_embd: int, n_head: int, n_ds_stride: int = 1, path_pdrop: float = 0.0,
+                 mha_win_size: int = -1, use_rel_pe: bool = False, pallas_min_len: int = 512,
+                 pallas_min_len_eval: Optional[int] = None):
+        super().__init__()
+        self.n_ds_stride = n_ds_stride
+        self.ln1 = ChannelLayerNorm(n_embd)
+        self.attn = MaskedMHCA(n_embd, n_head, n_ds_stride, n_ds_stride, mha_win_size,
+                               use_rel_pe, pallas_min_len, pallas_min_len_eval)
+        self.ln2 = ChannelLayerNorm(n_embd)
+        self.mlp_fc1 = Dense(n_embd, 4 * n_embd)
+        self.mlp_fc2 = Dense(4 * n_embd, n_embd)
+        self.path_pdrop = path_pdrop
+        if path_pdrop > 0.0:
+            self.drop_path_attn = AffineDropPath(n_embd)
+            self.drop_path_mlp = AffineDropPath(n_embd)
+
+    def forward(self, x, mask):
+        out, out_mask = self.attn(self.ln1(x), mask)
+        s = self.n_ds_stride
+        skip = _maxpool1d(x, s + 1, s, (s + 1) // 2) if s > 1 else x
+        mf = out_mask[..., None]
+        out = skip * mf + (self.drop_path_attn(out) if self.path_pdrop > 0.0 else out)
+        h = F.gelu(self.mlp_fc1(self.ln2(out)))
+        h = self.mlp_fc2(h) * mf
+        return out + (self.drop_path_mlp(h) if self.path_pdrop > 0.0 else h), out_mask
+
+
+class ConvTransformerBackbone(nn.Module):
+    """Embedding convs, stem transformer blocks, then stride-2 branch blocks
+    producing the pyramid; returns per-level (feats, masks)."""
+
+    def __init__(self, n_in: int, n_embd: int, n_head: int, n_embd_ks: int, max_len: int,
+                 arch: Tuple[int, int, int] = (2, 2, 5), mha_win_size: Sequence[int] = (-1,) * 6,
+                 scale_factor: int = 2, with_ln: bool = True, path_pdrop: float = 0.0,
+                 use_abs_pe: bool = False, use_rel_pe: bool = False, pallas_min_len: int = 512,
+                 pallas_min_len_eval: Optional[int] = None):
+        super().__init__()
+        self.arch, self.with_ln = tuple(arch), with_ln
+        self.n_embd, self.max_len, self.use_abs_pe = n_embd, max_len, use_abs_pe
+        for idx in range(self.arch[0]):
+            setattr(self, f"embd_{idx}", MaskedConv1D(n_in if idx == 0 else n_embd, n_embd,
+                                                      n_embd_ks, use_bias=not with_ln))
+            if with_ln:
+                setattr(self, f"embd_norm_{idx}", ChannelLayerNorm(n_embd))
+        block = functools.partial(TransformerBlock, n_embd, n_head, path_pdrop=path_pdrop,
+                                  use_rel_pe=use_rel_pe, pallas_min_len=pallas_min_len,
+                                  pallas_min_len_eval=pallas_min_len_eval)
+        for idx in range(self.arch[1]):
+            setattr(self, f"stem_{idx}", block(1, mha_win_size=mha_win_size[0]))
+        for idx in range(self.arch[2]):
+            setattr(self, f"branch_{idx}", block(scale_factor, mha_win_size=mha_win_size[1 + idx]))
+
+    def forward(self, x, mask) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        for idx in range(self.arch[0]):
+            x, mask = getattr(self, f"embd_{idx}")(x, mask)
+            if self.with_ln:
+                x = getattr(self, f"embd_norm_{idx}")(x)
+            x = torch.relu(x)
+        if self.use_abs_pe:
+            T = x.shape[1]
+            pe = torch.from_numpy(get_sinusoid_encoding(self.max_len, self.n_embd)).to(x.device)
+            x = x + pe[None, :T] / (self.n_embd ** 0.5) * mask[..., None]
+        for idx in range(self.arch[1]):
+            x, mask = getattr(self, f"stem_{idx}")(x, mask)
+        feats, masks = [x], [mask]
+        for idx in range(self.arch[2]):
+            x, mask = getattr(self, f"branch_{idx}")(x, mask)
+            feats.append(x)
+            masks.append(mask)
+        return feats, masks
+
+
+class FPNIdentity(nn.Module):
+    """Per-level channel LN."""
+
+    def __init__(self, num_levels: int, dim: int, with_ln: bool = True):
+        super().__init__()
+        self.num_levels, self.with_ln = num_levels, with_ln
+        if with_ln:
+            for i in range(num_levels):
+                setattr(self, f"fpn_norm_{i}", ChannelLayerNorm(dim))
+
+    def forward(self, feats, masks):
+        if self.with_ln:
+            feats = [getattr(self, f"fpn_norm_{i}")(f) for i, f in enumerate(feats)]
+        return feats, masks
+
+
+def generate_points(max_seq_len: int, fpn_strides: Sequence[int],
+                    regression_range: Sequence[Sequence[float]]) -> List[np.ndarray]:
+    """Per-level point buffers (t, reg_min, reg_max, stride)."""
+    out = []
+    for stride, rng_l in zip(fpn_strides, regression_range):
+        ts = np.arange(0, max_seq_len, stride, dtype=np.float32)
+        out.append(np.stack([ts, np.full_like(ts, rng_l[0]), np.full_like(ts, rng_l[1]),
+                             np.full_like(ts, float(stride))], axis=1))
+    return out
+
+
+class ConvHead(nn.Module):
+    """Shared per-level conv tower -> per-point outputs (``out_dim`` classes or
+    2 offsets); ``final_bias_init`` (the class prior) is added to the output."""
+
+    def __init__(self, in_dim: int, feat_dim: int, out_dim: int, num_layers: int = 3,
+                 kernel_size: int = 3, with_ln: bool = True, final_bias_init: float = 0.0):
+        super().__init__()
+        self.n_hidden, self.with_ln = num_layers - 1, with_ln
+        self.final_bias_init = final_bias_init
+        for i in range(self.n_hidden):
+            setattr(self, f"head_{i}", MaskedConv1D(in_dim if i == 0 else feat_dim, feat_dim,
+                                                    kernel_size, use_bias=not with_ln))
+            if with_ln:
+                setattr(self, f"norm_{i}", ChannelLayerNorm(feat_dim))
+        self.final = MaskedConv1D(feat_dim if self.n_hidden else in_dim, out_dim, kernel_size)
+
+    def forward(self, feats, masks) -> List[torch.Tensor]:
+        outs = []
+        for cur, m in zip(feats, masks):
+            for i in range(self.n_hidden):
+                cur, _ = getattr(self, f"head_{i}")(cur, m)
+                cur = torch.relu(getattr(self, f"norm_{i}")(cur) if self.with_ln else cur)
+            cur, _ = self.final(cur, m)
+            if self.final_bias_init != 0.0:
+                cur = cur + self.final_bias_init
+            outs.append(cur)
+        return outs
+
+
+class Scale(nn.Module):
+    """Learnable scalar multiplier.  JAX promotes ``bf16 * f32[()]`` to f32;
+    torch would keep bf16 (a 0-dim tensor does not lift the result), so the
+    input is upcast explicitly."""
+
+    def __init__(self, init_value: float = 1.0):
+        super().__init__()
+        self.init_value = float(init_value)
+        self.weight = nn.Parameter(torch.tensor(self.init_value))
+
+    def forward(self, x):
+        return x.to(torch.promote_types(x.dtype, self.weight.dtype)) * self.weight

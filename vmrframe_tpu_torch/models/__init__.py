@@ -1,3 +1,3 @@
-"""Model zoo; importing it registers each model (SeqPAN so far)."""
+"""Model zoo; importing it registers each model (SeqPAN, ActionFormer)."""
 
-from vmrframe_tpu_torch.models import seqpan  # noqa: F401
+from vmrframe_tpu_torch.models import actionformer, seqpan  # noqa: F401

@@ -8,6 +8,12 @@ activations that the next matmul reads.
 
 The JAX trainer casts its f32 params on every step; a serving process has
 no f32 master copy to keep, so the port casts a module once, in place.
+
+On ActionFormer's tree the rule puts conv kernels (rank 3), dense kernels
+and ``AffineDropPath``'s (1, 1, D) scale in bf16, and keeps
+``ChannelLayerNorm``, the biases and ``Scale``'s rank-0 scalar in f32.
+JAX promotes ``bf16 * f32[()]`` to f32 where torch keeps bf16, so ``Scale``
+upcasts its input itself (``layers/actionformer.py``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Model registry (counterpart of ``vmrframe_tpu/registry.py``), trimmed to
-what serving needs: the module class, its loss and its span inference."""
+what serving needs: the module class, its batcher, its loss and its span
+inference."""
 
 from __future__ import annotations
 
@@ -13,8 +14,13 @@ MODEL_REGISTRY: Dict[str, "ModelEntry"] = {}
 class ModelEntry:
     name: str
     model_cls: Any  # nn.Module class, built as model_cls(cfg, derived, word_vectors)
+    batcher_cls: Any = None  # static-shape batch assembler; None = data.batcher.Batcher
     loss_fn: Optional[Callable] = None  # (outputs, batch, cfg) -> scalar tensor
     infer_fn: Optional[Callable] = None  # (outputs, batch, cfg) -> (B, 2) fractions
+    # stateful losses (ActionFormer's EMA loss normaliser):
+    # loss_fn(outputs, batch, cfg, extras) -> (loss, new_extras)
+    stateful: bool = False
+    init_extras: Optional[Callable] = None  # (cfg) -> dict of tensors
 
 
 def register_model(name: str, **kwargs):

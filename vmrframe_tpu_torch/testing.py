@@ -70,3 +70,20 @@ def make_synthetic_data(cfg, seed: int = 0, n_train: int = 64, n_test: int = 32,
         "n_chars": len(char_dict),
     }
     return dataset, store
+
+
+def lift_drop_path(model, seed: int = 0):
+    """Draws ActionFormer's ``AffineDropPath`` scales in [0.5, 1.5] from
+    ``seed``, the same on every device.  At their init of 1e-4 they shrink
+    each attention and MLP branch to almost nothing, so a comparison of two
+    whole forwards would not see what the branches compute."""
+    import torch
+
+    from vmrframe_tpu_torch.layers.actionformer import AffineDropPath
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, AffineDropPath):
+                mod.weight.copy_(torch.rand(mod.weight.shape, generator=g) + 0.5)
+    return model

@@ -1,13 +1,18 @@
 """Where the time of one served batch goes, on the card.
 
     python -m vmrframe_tpu_torch.tools.profile_serve [--batch-size 128] [--steps 10]
+    python -m vmrframe_tpu_torch.tools.profile_serve --config configs/tacos_actionformer_long.yaml
 
-Builds the serving path at SeqPAN's Charades width (bf16, seeded random
-weights, synthetic data: ``tools/serve.py::build_service``) and times, for one
-batch of ``batch-size`` requests, each stage a micro-batch passes through:
+Builds the serving path (bf16, seeded random weights, synthetic data:
+``tools/serve.py::build_service``) at SeqPAN's Charades width, or for the
+model and widths of ``--config`` (batch 8 unless ``--batch-size`` says
+otherwise), and times, for one batch of ``batch-size`` requests, each stage
+a micro-batch passes through:
 
-- host: request records (tokenize, vocabulary lookup), batch assembly
-  (``Batcher``: resampling, labels, padding), the copy to the card;
+- host: request records (tokenize, vocabulary lookup), batch assembly (the
+  model's batcher: features, resampling, labels, padding), of which the
+  reads of the batch's videos from the store (``host_store_reads_ms``; the
+  synthetic store draws them on each read), the copy to the card;
 - the eval step (forward, loss, spans, IoU) from its first launch to the
   spans on the host, which waits for the card;
 - on the card (``torch.profiler``): busy time per step, the count of device
@@ -25,9 +30,11 @@ import json
 import statistics
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
+from vmrframe_tpu_torch.config import load_config
 from vmrframe_tpu_torch.tools.serve import build_service, make_cfg
 
 
@@ -68,10 +75,15 @@ def _device_profile(step, steps: int) -> dict:
     }
 
 
-def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20) -> dict:
+def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20,
+                  config: Optional[str] = None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_serve measures the card: no CUDA device is available")
-    cfg = make_cfg(batch_size=batch_size)
+    if config:
+        cfg = load_config(config).updated({"train.compute_dtype": "bfloat16",
+                                           "train.batch_size": batch_size})
+    else:
+        cfg = make_cfg(batch_size=batch_size)
     service, dataset = build_service(cfg, n_synthetic=batch_size, device="cuda")
     try:
         ev = service.evaluator
@@ -79,14 +91,18 @@ def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20) -> dic
         make = lambda: [service._make_record(r["vid"], r["sentence"], r["duration"])  # noqa: E731
                         for r in reqs]
         record_ms, records = _median_ms(make, reps)
+        vids = sorted({r["vid"] for r in records})  # a batch reads each video once
+        reads_ms, _ = _median_ms(lambda: [service.store[v] for v in vids], reps)
         assemble_ms, batch = _median_ms(lambda: service._assemble(records), reps)
         h2d_ms, dbatch = _median_ms(lambda: ev.to_device(batch), reps)
         step = lambda: ev.eval_step(dbatch)["props"].cpu()  # noqa: E731
         step_ms, _ = _median_ms(step, reps)
         report = {
             "card": torch.cuda.get_device_name(0), "torch": torch.__version__,
+            "model": str(cfg.model.name), "config": config or "tools/serve.py::make_cfg",
             "batch_size": batch_size, "dtype": "bfloat16",
             "host_records_ms": record_ms, "host_assemble_ms": assemble_ms,
+            "host_store_reads_ms": reads_ms,
             "h2d_ms": h2d_ms, "eval_step_ms": step_ms,
             "batch_total_ms": record_ms + assemble_ms + h2d_ms + step_ms,
             **_device_profile(step, steps),
@@ -100,12 +116,16 @@ def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20) -> dic
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch-size", type=int, default=128)
+    ap.add_argument("--config", default=None,
+                    help="YAML config to serve (default: SeqPAN at Charades width)")
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="requests per batch (default: 128, or 8 with --config)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    report = profile_serve(args.batch_size, args.steps, args.reps)
+    batch_size = args.batch_size or (8 if args.config else 128)
+    report = profile_serve(batch_size, args.steps, args.reps, args.config)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

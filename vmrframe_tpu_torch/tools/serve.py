@@ -11,12 +11,17 @@
   requests through real HTTP and prints latency percentiles and throughput.
 
 The config is built in code (``make_cfg``: SeqPAN at Charades width) unless
-``--config`` names a YAML file.  ``--checkpoint`` takes a ``torch.save``d
-state_dict or an ``.npz`` of the JAX package's variables.
+``--config`` names a YAML file: ``configs/tacos_actionformer_long.yaml``
+serves ActionFormer on 2304-frame grids (the query text is carried and
+unused: the model has no text branch).  The batch comes from the model's
+registered batcher.  ``--checkpoint`` takes a ``torch.save``d state_dict or
+an ``.npz`` of the JAX package's variables.
 
 Usage:
   python -m vmrframe_tpu_torch.tools.serve --selftest [--device cuda]
   python -m vmrframe_tpu_torch.tools.serve --synthetic --port 8901
+  python -m vmrframe_tpu_torch.tools.serve --selftest --batch-size 8 \
+      --config configs/tacos_actionformer_long.yaml
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ class MomentRetrievalService:
     def __init__(self, cfg, derived, word_dict, char_dict, word_vector, feature_store,
                  checkpoint: Optional[str] = None, batch_size: Optional[int] = None,
                  flush_ms: float = 5.0, device=None, seed: int = 0):
+        from vmrframe_tpu_torch.data.batcher import Batcher
         from vmrframe_tpu_torch.train.evaluator import Evaluator
 
         self.cfg = cfg
@@ -62,6 +68,7 @@ class MomentRetrievalService:
         self.batch_size = int(batch_size or cfg.train.batch_size)
         self.flush_ms = float(flush_ms)
         self.evaluator = Evaluator(cfg, derived, word_vector, device=device, seed=seed)
+        self._batcher_cls = self.evaluator.entry.batcher_cls or Batcher
         if checkpoint:
             from vmrframe_tpu_torch.weights import load_checkpoint
 
@@ -100,10 +107,10 @@ class MomentRetrievalService:
         }
 
     def _assemble(self, records: List[dict]):
-        """Static-shape batch of the SERVICE batch size (padded, sample_mask)."""
-        from vmrframe_tpu_torch.data.batcher import Batcher
-
-        b = Batcher(records, self.store, self.cfg, self.derived, batch_size=self.batch_size)
+        """Static-shape batch of the SERVICE batch size (padded, sample_mask),
+        from the model's registered batcher."""
+        b = self._batcher_cls(records, self.store, self.cfg, self.derived,
+                              batch_size=self.batch_size)
         return b.make_batch(list(range(len(records))))
 
     def _run(self, batch) -> np.ndarray:

@@ -5,7 +5,10 @@ One eval step is the deterministic forward, the loss, span inference and
 per-sample IoU.  Under ``train.compute_dtype: bfloat16`` the model's rank >= 2
 weights and the batch's rank >= 2 floats run in bf16 (``ops/precision.py``);
 outputs come back to f32 before the loss and the spans, as
-``_cast_for_compute``/``_upcast_outputs`` do.  There is no optimizer here.
+``_cast_for_compute``/``_upcast_outputs`` do.  A stateful model's loss
+(ActionFormer's EMA normaliser) reads the ``extras`` its ``init_extras``
+made, as the trainer's eval step reads them from its state.  There is no
+optimizer here.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ class Evaluator:
         self.compute_dtype = _DTYPES[cfg.train.get("compute_dtype", "float32")]
         model = init_weights(self.entry.model_cls(cfg, derived, word_vectors), seed)
         self.model = cast_module_(model.to(self.device).eval(), self.compute_dtype)
+        self.extras = None
+        if self.entry.stateful:
+            self.extras = {k: v.to(self.device) for k, v in self.entry.init_extras(cfg).items()}
 
     def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
         """Load f32 weights; the bf16 policy casts them on the way in."""
@@ -54,7 +60,10 @@ class Evaluator:
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         outputs = self.forward(batch)
-        loss = self.entry.loss_fn(outputs, batch, self.cfg)
+        if self.entry.stateful:
+            loss, _ = self.entry.loss_fn(outputs, batch, self.cfg, self.extras)
+        else:
+            loss = self.entry.loss_fn(outputs, batch, self.cfg)
         props = self.entry.infer_fn(outputs, batch, self.cfg)
         ious = iou_device(batch["se_fracs"], props)
         return {"loss": loss, "ious": ious, "props": props, "sample_mask": batch["sample_mask"]}

@@ -5,10 +5,13 @@ in the other direction).
 The port's parameter names follow the flax tree, so a leaf maps by rule:
 
 - path ``a/b/kernel`` -> ``a.b.weight``: a dense (in, out) is transposed to
-  (out, in); a conv (k, in, out) -- depthwise (k, 1, D) or char conv
-  (k, char_dim, ch) -- becomes (out, in, k);
-- path ``a/b/scale`` (LayerNorm) -> ``a.b.weight``;
-- every other leaf keeps its name and shape: ``bias``, ``w4C``/``w4Q``
+  (out, in); a conv (k, in/groups, out) -- depthwise (k, 1, D), grouped, or
+  char conv (k, char_dim, ch) -- becomes (out, in/groups, k);
+- path ``a/b/scale`` -> ``a.b.weight`` in its own shape: a LayerNorm scale,
+  and ActionFormer's ``Scale`` (shape ()) and ``AffineDropPath`` (1, 1, D)
+  scalars, which the port's modules name ``weight``;
+- every other leaf keeps its name and shape: ``bias`` (ActionFormer's
+  ``ChannelLayerNorm`` has ``weight``/``bias`` in flax too), ``w4C``/``w4Q``
   (D, 1), ``w4mlu`` (1, 1, D), ``label_embs`` (dim, 4),
   ``weighted_pool/weight`` (dim, 1), embeddings, ``unk_vec``, and the GloVe
   constant ``text_encoder/word_emb/glove_vec`` (a buffer).
@@ -103,9 +106,12 @@ def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights with the JAX package's initialisers in kind:
-    torch's fan-in uniform for dense and conv layers, ones/zeros for
-    LayerNorm, N(0, 1) tables, Xavier-uniform vectors, orthogonal label
-    embeddings, zero BiLinear extra bias."""
+    torch's fan-in uniform for dense and conv layers (ActionFormer's with
+    zero biases: ``zero_bias_init``), ones/zeros for LayerNorm, N(0, 1)
+    tables, Xavier-uniform vectors, orthogonal label embeddings, zero
+    BiLinear extra bias; a module that states an ``init_value`` (ActionFormer's
+    ``ChannelLayerNorm``, ``Scale`` and ``AffineDropPath``) gets its weight
+    filled with it and its bias zeroed."""
     g = torch.Generator().manual_seed(seed)
 
     def uniform_(t, bound):
@@ -119,7 +125,14 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             bound = 1.0 / math.sqrt(mod.weight[0].numel())
             uniform_(mod.weight, bound)
             if getattr(mod, "bias", None) is not None:
-                uniform_(mod.bias, bound)
+                if getattr(mod, "zero_bias_init", False):
+                    mod.bias.zero_()
+                else:
+                    uniform_(mod.bias, bound)
+        elif hasattr(mod, "init_value"):
+            mod.weight.fill_(mod.init_value)
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("position_embeddings", "char_table"):
