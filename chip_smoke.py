@@ -33,6 +33,27 @@ Phases, in order; any failure exits non-zero:
    on the card against plain on the CPU, with the AffineDropPath scales
    drawn in [0.5, 1.5] (at their init of 1e-4 they would hide the attention
    branches); cls_logits and offsets must agree.
+9. train-AF: ActionFormer training on ``configs/tacos_actionformer_long.yaml``
+   as it is (batch 2, f32, droppath 0.1 live) through the CLI's ``main``
+   (``--synthetic --epochs 1``) in a temporary working directory, then
+   ``--eval`` of the best checkpoint, whose mIoU must equal the best that
+   ``fit`` logged; exactly 4 launches each of the banded forward (#5), dq
+   (#6) and dk/dv (#7) per train step, 4 of #5 per eval forward; finite
+   losses; the EMA loss normaliser moved.  Then >= 20 timed train steps
+   through ``Trainer`` (host clock per step, samples/s, peak device bytes)
+   and 3 steps in bf16.
+10. verify-train-AF: one f32 batch at full width, drop path off and the
+   kernel route on (``model.eval()`` with grads), the AffineDropPath scales
+   lifted: the loss and every parameter gradient on the card with the
+   kernels against the CPU with the plain versions, each gradient beyond
+   the distance of the card's band-mask route (no banded kernel) to the CPU.
+
+The check phase also holds the backward kernels (#6, #7) against their
+plain versions at the training shapes (B 2, 4 heads of 128, window 19,
+T = 2304, 1152, 576, 1000, 300) with a random cotangent on every row, and
+the ``autograd.Function``'s grads against ``torch.autograd`` through the
+plain forward; the time phase times them in f32 and bf16, with SDPA's
+backward (forward + backward, less forward) as their library yardstick.
 
 Prints one ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes the full record
@@ -48,6 +69,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -62,6 +84,10 @@ B, H, HD, LV, LT, D = 128, 4, 32, 64, 30, 128
 TOL_F32 = 1e-4  # f32 sums taken in another order, expf against torch.exp
 BF16_ULPS = 2.0 ** -6  # bf16 check: 2-4 ulps of the output's largest magnitude
 TOL_MODEL_F32 = 1e-3  # whole f32 forward, card against CPU: ~40 layers of reordered f32 sums
+# whole f32 loss and gradients, card against CPU (relative to the loss, and
+# to each gradient's largest magnitude beyond the card's band-mask route's
+# own distance to the CPU): ~40 layers of reordered f32 sums, forward and back
+TOL_TRAIN_F32 = 1e-3
 N_REQUESTS, CONCURRENCY, NUM_WORDS = 1024, 256, 1000
 SLEEP_CYCLES = 100_000_000  # ~50 ms of GPU clock: the host queues a timed run meanwhile
 AF_CONFIG = "configs/tacos_actionformer_long.yaml"
@@ -69,18 +95,24 @@ B_AF, H_AF, HD_AF, WINDOW = 8, 4, 128, 19
 AF_LAUNCHES = {2304: 2, 1152: 1, 576: 1}  # banded launches per forward at each length
 AF_CHECK_T = tuple(AF_LAUNCHES) + (1000, 300)  # + a ragged length, and T_pad == K_WIN
 N_AF_REQUESTS, AF_CONCURRENCY = 256, 32
+B_TRAIN = 2  # the long config's training batch
+N_TIMED_STEPS, N_WARMUP_STEPS, N_BF16_STEPS = 20, 2, 3
+BWD_KERNELS = ("banded_attention_dq", "banded_attention_dkv")
 REPLACES = {
     "fused_masked_attention": "vmrframe_tpu/kernels/attention.py:65",
     "fused_dual_attention": "vmrframe_tpu/kernels/attention.py:116",
     "fused_cq_attention": "vmrframe_tpu/kernels/attention.py:188",
     "banded_attention": "vmrframe_tpu/kernels/window_attention.py:41",
+    "banded_attention_dq": "vmrframe_tpu/kernels/window_attention.py:63",
+    "banded_attention_dkv": "vmrframe_tpu/kernels/window_attention.py:89",
 }
 SOURCES = {
     "attention": "vmrframe_tpu_torch/kernels/csrc/attention.cu",
     "window_attention": "vmrframe_tpu_torch/kernels/csrc/window_attention.cu",
 }
 SOURCE_OF = {"fused_masked_attention": "attention", "fused_dual_attention": "attention",
-             "fused_cq_attention": "attention", "banded_attention": "window_attention"}
+             "fused_cq_attention": "attention", "banded_attention": "window_attention",
+             "banded_attention_dq": "window_attention", "banded_attention_dkv": "window_attention"}
 
 
 class SmokeFailure(RuntimeError):
@@ -145,6 +177,21 @@ def banded_cases(g: torch.Generator, lengths):
     return cases
 
 
+def banded_bwd_cases(g: torch.Generator, lengths):
+    """(qkv, kv_mask, cotangent) per length at the training batch: sample 0
+    wholly masked, sample 1 of a random length with a hole wider than the
+    band; the cotangent random on every row, in (B, T, H, hd) memory as
+    autograd hands it back for the forward's output."""
+    cases = []
+    for T in lengths:
+        mask = torch.zeros(B_TRAIN, T, device="cuda")
+        mask[1, :int(torch.randint(T // 2, T + 1, (1,), generator=g, device="cuda"))] = 1.0
+        mask[1, T // 4:T // 4 + 3 * WINDOW] = 0.0
+        qkv = torch.randn(B_TRAIN, T, 3 * H_AF * HD_AF, generator=g, device="cuda")
+        cases.append((qkv, mask, torch.randn(B_TRAIN, T, H_AF, HD_AF, generator=g, device="cuda")))
+    return cases
+
+
 def functions(K, W) -> dict:
     """name -> (kernel wrapper, plain version), each taking one case's args."""
     return {
@@ -154,6 +201,16 @@ def functions(K, W) -> dict:
         "banded_attention": (
             lambda qkv, m: W.banded_attention(*split_heads(qkv), m, WINDOW),
             lambda qkv, m: W.banded_attention_plain(*split_heads(qkv), m, WINDOW)),
+        "banded_attention_dq": (
+            lambda qkv, m, c: W.banded_attention_dq(*split_heads(qkv), m, c.transpose(1, 2),
+                                                    WINDOW),
+            lambda qkv, m, c: W.banded_attention_dq_plain(*split_heads(qkv), m,
+                                                          c.transpose(1, 2), WINDOW)),
+        "banded_attention_dkv": (
+            lambda qkv, m, c: W.banded_attention_dkv(*split_heads(qkv), m, c.transpose(1, 2),
+                                                     WINDOW),
+            lambda qkv, m, c: W.banded_attention_dkv_plain(*split_heads(qkv), m,
+                                                           c.transpose(1, 2), WINDOW)),
     }
 
 
@@ -168,11 +225,17 @@ def work(name: str, args) -> tuple:
     """(bytes, operations) the function needs: each input read once, each
     output written once; the operations are its matrix products."""
     size = args[0].element_size()
-    if name == "banded_attention":  # q, k, v, out and the mask; the band's products
+    if name.startswith("banded_attention"):
+        # tensors read and written besides the mask (forward: q, k, v, out;
+        # dq: q, k, v, g, dq; dk/dv: q, k, v, g, dk, dv); the band's products
+        # (forward: scores, p v; dq: scores, dp, ds k; dk/dv: scores, dp,
+        # p^T g, ds^T q), each 2 * T * (2 half + 1) * hd per (batch, head)
+        tensors, products = {"banded_attention": (4, 2), "banded_attention_dq": (5, 3),
+                             "banded_attention_dkv": (6, 4)}[name]
         Bm, T = args[1].shape
-        half = WINDOW // 2
-        return (4 * Bm * H_AF * T * HD_AF + Bm * T) * size, \
-            4 * Bm * H_AF * T * (2 * half + 1) * HD_AF
+        band = 2 * (WINDOW // 2) + 1
+        return (tensors * Bm * H_AF * T * HD_AF + Bm * T) * size, \
+            products * 2 * Bm * H_AF * T * band * HD_AF
     if name == "fused_cq_attention":
         c, q = args[0], args[1]
         Lc, Lq = c.shape[1], q.shape[1]
@@ -221,15 +284,36 @@ def sdpa_masked(q, k, v, mask):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add)
 
 
+def band_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The band-and-key boolean mask, (B, 1, T, T)."""
+    i = torch.arange(mask.shape[1], device=mask.device)
+    band = (i[:, None] - i[None, :]).abs() <= WINDOW // 2
+    return (band[None] & (mask[:, None, :] > 0))[:, None]
+
+
+def library_ms(name: str, args):
+    """Device time of one PyTorch call computing the same function, or None;
+    timed only.  For the backward kernels: SDPA's backward with the same
+    boolean band mask (it computes dq, dk and dv together), timed as forward
+    plus backward less forward."""
+    if name in BWD_KERNELS:
+        qkv, mask, cot = args
+        q, k, v = (t.detach().requires_grad_() for t in split_heads(qkv))
+        allowed, g = band_mask(mask), cot.transpose(1, 2)
+        fwd = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)  # noqa: E731
+        both = device_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), g))
+        alone = device_ms(fwd)
+        return {key: both[key] - alone[key] for key in both}
+    lib = library_call(name, args)
+    return device_ms(lib) if lib else None
+
+
 def library_call(name: str, args):
     """One PyTorch call computing the same function, or None; timed only."""
     if name == "banded_attention":  # SDPA with the band-and-key boolean mask
         qkv, mask = args
-        T = mask.shape[1]
-        i = torch.arange(T, device=mask.device)
-        band = (i[:, None] - i[None, :]).abs() <= WINDOW // 2
-        allowed = (band[None] & (mask[:, None, :] > 0))[:, None]  # (B, 1, T, T)
         q, k, v = split_heads(qkv)
+        allowed = band_mask(mask)
         return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
     if name == "fused_masked_attention":
         return sdpa_masked(*args)
@@ -286,43 +370,76 @@ def phase_check(fns, cases) -> dict:
             if not ok:
                 raise SmokeFailure(f"{name} {key}: kernel and plain version disagree")
             results.setdefault(name, {})[key] = {"max_abs_err": err, "tol": tol}
+    results["autograd_function"] = check_autograd_function(cases["banded_attention_dq"])
     return results
 
 
+def check_autograd_function(cases) -> dict:
+    """The ``autograd.Function`` (kernels #5-#7) against ``torch.autograd``
+    through the plain forward, in f32, with the cotangent zero on rows that
+    have no valid key (there the TPU backward is not the exact gradient)."""
+    from vmrframe_tpu_torch.kernels import window_attention as W
+
+    err = 0.0
+    for qkv, mask, cot in cases:
+        has_key = band_mask(mask)[:, 0].any(-1).float()  # (B, T)
+        g = (cot * has_key[:, :, None, None]).transpose(1, 2)
+        grads = []
+        for fn in (W.banded_attention, W.banded_attention_plain):
+            leaves = [t.detach().requires_grad_() for t in split_heads(qkv)]
+            fn(*leaves, mask, WINDOW).backward(g)
+            grads.append([t.grad for t in leaves])
+        torch.cuda.synchronize()
+        for a, b in zip(*grads):
+            err = max(err, (a - b).abs().max().item())
+    ok = err <= TOL_F32
+    log(f"[check] autograd.Function f32 vs torch.autograd through the plain forward: "
+        f"max_abs_err {err:.3e}  tol {TOL_F32:.0e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("banded_attention: the Function's grads disagree with autograd's")
+    return {"max_abs_err": err, "tol": TOL_F32}
+
+
+DTYPE_KEYS = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
 def phase_time(fns, cases, weights, card: str) -> dict:
-    """Per call, in bf16; a kernel's ms are its launch-weighted mean over the
-    shapes one forward gives it (``weights``: launches per forward)."""
-    log(f"[time] bf16, per call, on {card}")
+    """Per call; a kernel's ms are its launch-weighted mean over the shapes
+    one forward (or train step) gives it (``weights``: launches per forward).
+    The forward kernels in bf16; the backward kernels in f32 (the long
+    config's type) and bf16."""
     results = {}
     for name, shapes in cases.items():
         wrapper, plain = fns[name]
-        rows = []
-        for args, weight in zip(shapes, weights[name]):
-            args = tuple(a.to(torch.bfloat16) for a in args)
-            lib = library_call(name, args)
-            row = {
-                "shape": [list(a.shape) for a in args[:2]], "launches_per_forward": weight,
-                "ms": device_ms(lambda: wrapper(*args)),
-                "plain_ms": device_ms(lambda: plain(*args)),
-                "library_ms": device_ms(lib) if lib else None,
+        for key in (("f32", "bf16") if name in BWD_KERNELS else ("bf16",)):
+            log(f"[time] {name} {key}, per call, on {card}")
+            rows = []
+            for args, weight in zip(shapes, weights[name]):
+                args = tuple(a.to(DTYPE_KEYS[key]) for a in args)
+                row = {
+                    "shape": [list(a.shape) for a in args[:2]], "launches_per_forward": weight,
+                    "ms": device_ms(lambda: wrapper(*args)),
+                    "plain_ms": device_ms(lambda: plain(*args)),
+                    "library_ms": library_ms(name, args),
+                }
+                row["bound_ms"], row["bound_by"] = bound_ms(name, args)
+                rows.append(row)
+                lib_txt = f"{row['library_ms']['median']:.4f}" if row["library_ms"] else \
+                    "none (no single PyTorch call computes it)"
+                log(f"[time] {name:24s} {key:4s} {row['shape']}  kernel "
+                    f"{row['ms']['median']:.4f} ms  plain {row['plain_ms']['median']:.4f}  "
+                    f"library {lib_txt}  bound {row['bound_ms']:.4f} ({row['bound_by']})")
+            total = sum(r["launches_per_forward"] for r in rows)
+            mean = lambda f: sum(  # noqa: E731
+                r["launches_per_forward"] * f(r) for r in rows) / total
+            results.setdefault(name, {})[key] = {
+                "ms": mean(lambda r: r["ms"]["median"]),
+                "plain_ms": mean(lambda r: r["plain_ms"]["median"]),
+                "library_ms": mean(lambda r: r["library_ms"]["median"]) if rows[0]["library_ms"]
+                else None,
+                "bound_ms": mean(lambda r: r["bound_ms"]),
+                "bound_by": rows[0]["bound_by"], "shapes": rows,
             }
-            row["bound_ms"], row["bound_by"] = bound_ms(name, args)
-            rows.append(row)
-            lib_txt = f"{row['library_ms']['median']:.4f}" if lib else \
-                "none (no single PyTorch call computes it)"
-            log(f"[time] {name:24s} {row['shape']}  kernel {row['ms']['median']:.4f} ms  "
-                f"plain {row['plain_ms']['median']:.4f}  library {lib_txt}  "
-                f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
-        total = sum(r["launches_per_forward"] for r in rows)
-        mean = lambda f: sum(r["launches_per_forward"] * f(r) for r in rows) / total  # noqa: E731
-        results[name] = {
-            "ms": mean(lambda r: r["ms"]["median"]),
-            "plain_ms": mean(lambda r: r["plain_ms"]["median"]),
-            "library_ms": mean(lambda r: r["library_ms"]["median"]) if rows[0]["library_ms"]
-            else None,
-            "bound_ms": mean(lambda r: r["bound_ms"]),
-            "bound_by": rows[0]["bound_by"], "shapes": rows,
-        }
     return results
 
 
@@ -490,6 +607,208 @@ def phase_verify_af(service, dataset, cfg) -> dict:
                           {"cls_logits": (B_AF, P, 1), "offsets": (B_AF, P, 2)})
 
 
+def train_launches(steps: int, evals: int = 0) -> dict:
+    """The launch counts a run of ``steps`` train steps and ``evals`` eval
+    forwards must show: 4 of each banded kernel per step, 4 forwards per eval."""
+    per_step = sum(AF_LAUNCHES.values())
+    return {"banded_attention": per_step * (steps + evals),
+            "banded_attention_dq": per_step * steps, "banded_attention_dkv": per_step * steps}
+
+
+def read_launches(phase: str, kernels, want: dict) -> dict:
+    got = {fn.__name__: fn.launches for fn in kernels if fn.__name__ in want}
+    log(f"[{phase}] banded launches {json.dumps(got)}, want {json.dumps(want)}")
+    if got != want:
+        raise SmokeFailure(f"{phase}: banded launches {got}, want {want}")
+    return got
+
+
+def zero_counts(kernels) -> None:
+    for fn in kernels:
+        fn.launches = 0
+
+
+def phase_train_af(W, card: str) -> dict:
+    """The CLI's train-then-eval on the long config, then timed steps."""
+    from vmrframe_tpu_torch.cli import main as cli_main
+
+    config = os.path.abspath(AF_CONFIG)
+    stats = {"card": card, "config": AF_CONFIG, "batch_size": B_TRAIN, "dtype": "float32"}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # ckpt/ and the log land here
+        try:
+            zero_counts(W.KERNELS)
+            t0 = time.perf_counter()
+            fit = cli_main(["--config", config, "--synthetic", "--epochs", "1", "--device", "cuda"])
+            stats["fit_s"] = time.perf_counter() - t0
+            steps, evals = fit["steps"], fit["eval_batches"]
+            stats["launches"] = read_launches("train-AF", W.KERNELS,
+                                              train_launches(steps, evals))
+            stats.update(steps=steps, eval_forwards=evals, best_miou=fit["best_miou"],
+                         train_loss=fit["history"][0]["train_loss"],
+                         loss_normalizer=float(fit["extras"]["loss_normalizer"]))
+            if not math.isfinite(stats["train_loss"]):
+                raise SmokeFailure(f"train-AF: the epoch's mean loss is {stats['train_loss']}")
+            if stats["loss_normalizer"] == 100.0:
+                raise SmokeFailure("train-AF: the EMA loss normaliser did not move")
+            zero_counts(W.KERNELS)
+            ev = cli_main(["--config", config, "--synthetic", "--eval", "--checkpoint",
+                           fit["best_path"], "--device", "cuda"])
+            stats["eval_launches"] = read_launches(
+                "train-AF eval", W.KERNELS, train_launches(0, ev["eval_batches"]))
+            stats["eval_miou"] = ev["miou"]
+            log(f"[train-AF] best mIoU logged by fit {fit['best_miou']!r}, "
+                f"--eval of its checkpoint {ev['miou']!r}")
+            if ev["miou"] != fit["best_miou"]:
+                raise SmokeFailure("train-AF: --eval of the best checkpoint gives another mIoU")
+        finally:
+            os.chdir(cwd)
+    stats["timed"] = timed_train_steps(W, "float32", N_WARMUP_STEPS + N_TIMED_STEPS, card)
+    stats["bf16"] = timed_train_steps(W, "bfloat16", N_BF16_STEPS, card)
+    log(f"[train-AF] {json.dumps(stats)}")
+    return stats
+
+
+def af_train_world(compute_dtype: str):
+    """The long config as it is (at ``compute_dtype``), its synthetic
+    dataset, derived record and train batcher."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.af_batcher import ActionFormerBatcher
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+
+    cfg = load_config(AF_CONFIG).updated({"train.compute_dtype": compute_dtype})
+    dataset, store = make_synthetic_data(cfg, seed=0)
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    batcher = ActionFormerBatcher(dataset["train_set"], store, cfg, derived, "train")
+    derived.num_train_steps = derived.steps_per_epoch = len(batcher)
+    return cfg, derived, batcher
+
+
+def timed_train_steps(W, compute_dtype: str, n: int, card: str) -> dict:
+    """``n`` train steps through ``Trainer`` on batches already on the card;
+    each step's host clock ends in a synchronise.  The first
+    ``N_WARMUP_STEPS`` of a long run are not in the median."""
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    cfg, derived, batcher = af_train_world(compute_dtype)
+    trainer = Trainer(cfg, derived, None, device="cuda")
+    batches = []
+    for batch in batcher.epoch(seed=0):
+        batches.append(trainer.to_device(batch))
+        if len(batches) == n:
+            break
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(W.KERNELS)
+    times, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(f"train-AF {compute_dtype}", W.KERNELS, train_launches(n))
+    if not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"train-AF {compute_dtype}: losses {losses}")
+    timed = times[N_WARMUP_STEPS:] if n > N_WARMUP_STEPS + 1 else times
+    median = statistics.median(timed)
+    out = {"card": card, "dtype": compute_dtype, "steps": n, "losses": losses,
+           "step_ms_median": median, "step_ms_min": min(timed), "step_ms_max": max(timed),
+           "samples_per_s": B_TRAIN / (median / 1e3), "launches": launches,
+           "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[train-AF] {compute_dtype}: {n} steps, median {median:.3f} ms/step (host clock), "
+        f"{out['samples_per_s']:.2f} samples/s, peak {out['peak_device_mem_bytes']} bytes, "
+        f"on {card}")
+    return out
+
+
+def phase_verify_train_af(W) -> dict:
+    """One f32 batch at full width, drop path off with the kernel route on:
+    the loss and every parameter gradient, kernels on the card against the
+    plain versions on the CPU, with the AffineDropPath scales lifted.
+
+    The card's f32 backward outside the kernels (cuDNN's convolution
+    gradients, the first conv's ill-conditioned weight sum) differs from the
+    CPU by up to ~3e-3 of a gradient's max on a few stem gradients, on the
+    band-mask route (no banded kernel) exactly as on the kernel route
+    (against an f64 reference; PERF.md).  So the card's band-mask route sets
+    the floor: each gradient of the kernel route must be within 1e-3 of its
+    max of the CPU's, beyond the band-mask route's own distance to it."""
+    from vmrframe_tpu_torch.layers.actionformer import SHIFT_INVARIANT
+    from vmrframe_tpu_torch.testing import lift_drop_path
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    cfg, derived, batcher = af_train_world("float32")
+    batch = batcher.make_batch(list(range(B_TRAIN)))
+    outs = {}
+    for label, device, min_len in (("kernels", "cuda", None), ("band", "cuda", -1),
+                                   ("plain", "cpu", None)):
+        zero_counts(W.KERNELS)
+        run_cfg = cfg if min_len is None else cfg.updated({"actionformer.pallas_min_len": min_len})
+        trainer = Trainer(run_cfg, derived, None, device=device)
+        lift_drop_path(trainer.model, seed=0)
+        trainer.model.eval()  # no drop path; the eval gate takes the same route
+        loss, grads, _, _ = trainer.loss_and_grads(trainer.to_device(batch))
+        outs[label] = (float(loss.detach()), {k: v.detach().cpu() for k, v in grads.items()})
+        read_launches(f"verify-train-AF {label}", W.KERNELS,
+                      train_launches(1 if label == "kernels" else 0))
+    (loss_k, g_k), (_, g_b), (loss_p, g_p) = outs["kernels"], outs["band"], outs["plain"]
+    ref = f64_reference(cfg, derived, batch)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    largest = max(v.abs().max().item() for v in g_p.values())
+    worst, worst_name, shift, floor = float("-inf"), None, 0.0, {}
+    for name, want in g_p.items():
+        got = g_k[name]
+        if not torch.isfinite(got).all():
+            raise SmokeFailure(f"verify-train-AF: {name}'s gradient is not finite")
+        if name.endswith(SHIFT_INVARIANT):  # zero up to rounding: held to the largest gradient
+            shift = max(shift, got.abs().max().item() / largest, want.abs().max().item() / largest)
+            continue
+        scale = max(want.abs().max().item(), 1e-30)
+        floor[name] = (g_b[name] - want).abs().max().item() / scale
+        rel = (got - want).abs().max().item() / scale - floor[name]
+        if rel > worst:
+            worst, worst_name = rel, name
+    top_floor = sorted(floor.items(), key=lambda kv: -kv[1])[:3]
+    # each f32 run's distance to the f64 reference on the gradients the card
+    # is furthest from the CPU on: the card's two routes alike, the CPU closer
+    f64_err = {label: {name: (g[name].double() - ref[name]).abs().max().item()
+                       / max(ref[name].abs().max().item(), 1e-300) for name, _ in top_floor}
+               for label, g in (("card_kernels", g_k), ("card_band", g_b), ("cpu_plain", g_p))}
+    log(f"[verify-train-AF] distance to an f64 CPU reference (band-mask route), of each "
+        f"gradient's max: {json.dumps(f64_err)}")
+    ok = max(loss_err, worst, shift) <= TOL_TRAIN_F32
+    log(f"[verify-train-AF] loss card {loss_k!r} cpu {loss_p!r} (rel {loss_err:.3e}); worst "
+        f"gradient {worst_name} at {worst:.3e} of its max beyond the card's band-mask route "
+        f"(whose largest distances to the CPU are {json.dumps(top_floor)}); the key biases' "
+        f"(zero up to rounding) at {shift:.3e} of the largest; {len(g_p)} gradients; "
+        f"tol {TOL_TRAIN_F32}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("verify-train-AF: kernel path and plain path disagree")
+    return {"loss_rel_err": loss_err, "worst_grad_rel_err_beyond_band": worst,
+            "worst_grad": worst_name, "band_route_rel_err_top": top_floor,
+            "f64_rel_err": f64_err,
+            "shift_invariant_grad_rel": shift, "n_grads": len(g_p), "tol": TOL_TRAIN_F32}
+
+
+def f64_reference(cfg, derived, batch) -> dict:
+    """Every parameter gradient of the same loss in f64 on the CPU, through
+    the band-mask route (the plain versions compute in f32)."""
+    from vmrframe_tpu_torch.testing import lift_drop_path
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg.updated({"actionformer.pallas_min_len": -1}), derived, None,
+                      device="cpu")
+    lift_drop_path(trainer.model, seed=0)
+    model = trainer.model.double().eval()
+    wide = lambda v: v.double() if v.is_floating_point() else v  # noqa: E731
+    b = {k: wide(v) for k, v in trainer.to_device(batch).items()}
+    extras = {k: wide(v) for k, v in trainer.extras.items()}
+    loss, _ = trainer.entry.loss_fn(model(b), b, trainer.cfg, extras)
+    named = dict(model.named_parameters())
+    return dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the full record to this JSON file")
@@ -512,8 +831,12 @@ def main() -> int:
     cases = kernel_cases(g)
     check_cases = {**cases, "banded_attention": banded_cases(g, AF_CHECK_T)}
     time_cases = {**cases, "banded_attention": banded_cases(g, tuple(AF_LAUNCHES))}
+    bwd_check, bwd_time = banded_bwd_cases(g, AF_CHECK_T), banded_bwd_cases(g, tuple(AF_LAUNCHES))
+    for name in BWD_KERNELS:  # the two backward kernels share their cases
+        check_cases[name], time_cases[name] = bwd_check, bwd_time
     weights = {name: [1] * len(shapes) for name, shapes in cases.items()}
-    weights["banded_attention"] = list(AF_LAUNCHES.values())
+    for name in ("banded_attention",) + BWD_KERNELS:
+        weights[name] = list(AF_LAUNCHES.values())
     record, seconds = {"card": card}, {}
 
     def phase(name, fn, *a):
@@ -530,22 +853,34 @@ def main() -> int:
     record["verify"] = phase("verify", phase_verify, cfg, derived, dataset, store)
     record["serve_af"], service, af_data, af_cfg = phase("serve-AF", phase_serve_af, kernels, card)
     record["verify_af"] = phase("verify-AF", phase_verify_af, service, af_data, af_cfg)
+    del service  # its model leaves the card before training measures its peak memory
+    torch.cuda.empty_cache()
+    record["train_af"] = phase("train-AF", phase_train_af, W, card)
+    record["verify_train_af"] = phase("verify-train-AF", phase_verify_train_af, W)
     record["seconds"] = seconds
+    # the main path each kernel's launches are read from, and the type of the
+    # numbers in its line: the serve phases run bf16, training the YAML's f32
     main_path = {fn.__name__: "serve" for fn in K.KERNELS}
     main_path["banded_attention"] = "serve_af"
+    line_dtype = {fn.__name__: "bf16" for fn in kernels}
+    for name in BWD_KERNELS:
+        main_path[name], line_dtype[name] = "train_af", "f32"
 
     out = []
     for fn in kernels:
-        name, t = fn.__name__, record["time"][fn.__name__]
+        name = fn.__name__
+        key = line_dtype[name]
+        t, c = record["time"][name][key], record["check"][name]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[SOURCE_OF[name]],
             "replaces": REPLACES[name],
             "launches": record[main_path[name]]["launches"][name],
-            "max_abs_err": record["check"][name]["bf16"]["max_abs_err"],
+            "max_abs_err": c[key]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "dtype": "bfloat16", "tol": record["check"][name]["bf16"]["tol"],
-            "max_abs_err_f32": record["check"][name]["f32"]["max_abs_err"],
+            "dtype": {"bf16": "bfloat16", "f32": "float32"}[key], "tol": c[key]["tol"],
+            "max_abs_err_f32": c["f32"]["max_abs_err"],
+            "max_abs_err_bf16": c["bf16"]["max_abs_err"],
             "card": card,
         })
     record["kernels"] = out

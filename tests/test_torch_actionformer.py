@@ -153,11 +153,16 @@ def test_band_gate_conditions():
         500, 500)  # padded 512 < K_WIN 640
     assert not L.MaskedMHCA(64, 4, window_size=19, pallas_min_len=-1).use_banded_kernel(512, 512)
     assert not L.MaskedMHCA(64, 4, window_size=-1, pallas_min_len=256).use_banded_kernel(512, 512)
-    # the eval threshold: -1 disables, a number replaces pallas_min_len
-    assert not L.MaskedMHCA(64, 4, window_size=19, pallas_min_len=256,
-                            pallas_min_len_eval=-1).use_banded_kernel(512, 512)
+    # the gate is mode-aware: in eval mode the eval threshold (-1 disables,
+    # a number replaces pallas_min_len), in train mode pallas_min_len
+    m2 = L.MaskedMHCA(64, 4, window_size=19, pallas_min_len=256, pallas_min_len_eval=-1)
+    assert not m2.eval().use_banded_kernel(512, 512)
+    assert m2.train().use_banded_kernel(512, 512)
     m3 = L.MaskedMHCA(64, 4, window_size=19, pallas_min_len=256, pallas_min_len_eval=1024)
-    assert not m3.use_banded_kernel(512, 512) and m3.use_banded_kernel(1024, 1024)
+    assert not m3.eval().use_banded_kernel(512, 512) and m3.use_banded_kernel(1024, 1024)
+    assert m3.train().use_banded_kernel(512, 512)
+    assert not L.MaskedMHCA(64, 4, window_size=19, pallas_min_len=-1,
+                            pallas_min_len_eval=256).train().use_banded_kernel(512, 512)
     with pytest.raises(NotImplementedError, match="rel-PE"):
         L.MaskedMHCA(64, 4, window_size=19, use_rel_pe=True)
     # the long config sets no eval threshold: every level with T >= 512 takes the kernel

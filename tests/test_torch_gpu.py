@@ -174,17 +174,87 @@ def test_banded_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         W.banded_attention(x, x, x, mask[:, :100], 19)
 
 
-def test_actionformer_forward_on_the_kernel_matches_plain_on_cpu(cuda):
-    """The long config cut to width 64 and 512 frames, pallas_min_len 256:
-    both stem blocks take the banded kernel on the card (2 launches per
-    forward), the plain version on the CPU.  The AffineDropPath scales are
-    drawn in [0.5, 1.5]: at their init of 1e-4 they would hide the branches."""
+def _banded_bwd_inputs(g, B, H, T, hd, dtype, device):
+    """q, k, v as head-split views of one (B, T, 3C) projection, a cotangent
+    in (B, T, H, hd) memory (as autograd hands it back for the forward's
+    output), ragged lengths, a hole wider than the band, a masked sample."""
+    split = lambda x: x.unflatten(-1, (H, hd)).transpose(1, 2)  # noqa: E731
+    q, k, v = (split(t) for t in torch.randn(B, T, 3 * H * hd, generator=g)
+               .to(device, dtype).split(H * hd, dim=-1))
+    cot = torch.randn(B, T, H, hd, generator=g).to(device, dtype).transpose(1, 2)
+    mask = _mask(g, B, T, device)
+    mask[-1, 40:90] = 0.0
+    return q, k, v, mask, cot
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,window,hd", [(300, 19, 128), (1000, 19, 128), (576, 19, 64),
+                                         (640, 37, 32), (700, 300, 64)])
+def test_banded_backward_kernels_on_strided_views(cuda, dtype, T, window, hd):
+    """#6 and #7 against their plain versions with a random cotangent on
+    every row, padding rows included."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v, mask, cot = _banded_bwd_inputs(g, 3, 4, T, hd, dtype, cuda)
+    before = (W.banded_attention_dq.launches, W.banded_attention_dkv.launches)
+    dq = W.banded_attention_dq(q, k, v, mask, cot, window)
+    dk, dv = W.banded_attention_dkv(q, k, v, mask, cot, window)
+    torch.cuda.synchronize()
+    assert (W.banded_attention_dq.launches, W.banded_attention_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for t in (dq, dk, dv):
+        assert t.transpose(1, 2).is_contiguous()  # (B, T, H, hd) memory
+    _close(dq, W.banded_attention_dq_plain(q, k, v, mask, cot, window), dtype)
+    _close((dk, dv), W.banded_attention_dkv_plain(q, k, v, mask, cot, window), dtype)
+
+
+def test_banded_autograd_function_on_the_kernels(cuda):
+    """The Function's grads on the card against torch.autograd through the
+    plain forward, with the cotangent zero on rows that have no valid key
+    (there the TPU backward is not the forward's exact gradient)."""
+    g = torch.Generator().manual_seed(5)
+    T, window = 1000, 19
+    q, k, v, mask, cot = _banded_bwd_inputs(g, 3, 4, T, 128, torch.float32, cuda)
+    i = torch.arange(T, device=cuda)
+    band = (i[:, None] - i[None, :]).abs() <= window // 2
+    has_key = ((band[None] & (mask[:, None, :] > 0)).any(-1)).float()  # (B, T)
+    cot = cot * has_key[:, None, :, None]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = [fn.launches for fn in W.KERNELS]
+    W.banded_attention(*leaves, mask, window).backward(cot)
+    assert [fn.launches - b for fn, b in zip(W.KERNELS, before)] == [1, 1, 1]
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    W.banded_attention_plain(*ref, mask, window).backward(cot)
+    for got, want in zip(leaves, ref):
+        assert (got.grad - want.grad).abs().max() <= 1e-4
+
+
+def test_banded_backward_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(2, 2, 384, 64, device=cuda)
+    mask = torch.ones(2, 384, device=cuda)
+    for fn in (W.banded_attention_dq, W.banded_attention_dkv):
+        with pytest.raises(TypeError):
+            fn(x.half(), x.half(), x.half(), mask, x.half(), 19)
+        with pytest.raises(ValueError, match="share"):
+            fn(x, x, x, mask, x.bfloat16(), 19)
+        with pytest.raises(ValueError, match="head dims"):
+            y = x[..., :16]
+            fn(y, y, y, mask, y, 19)
+        with pytest.raises(ValueError, match="too small"):
+            y = x[:, :, :200]
+            fn(y, y, y, mask[:, :200], y, 19)
+        with pytest.raises(ValueError, match="unit stride"):
+            y = x.transpose(2, 3).contiguous().transpose(2, 3)
+            fn(x, x, x, mask, y, 19)
+        with pytest.raises(ValueError):
+            fn(x, x, x, mask, x[:, :, :300], 19)
+
+
+def _af_tiny(updates=None):
+    """The long config cut to width 64 and 512 frames, pallas_min_len 256."""
     from pathlib import Path
 
     from vmrframe_tpu_torch.config import Derived, load_config
-    from vmrframe_tpu_torch.data.af_batcher import ActionFormerBatcher
-    from vmrframe_tpu_torch.testing import lift_drop_path, make_synthetic_data
-    from vmrframe_tpu_torch.train.evaluator import Evaluator
+    from vmrframe_tpu_torch.testing import make_synthetic_data
 
     long_cfg = Path(__file__).resolve().parent.parent / "configs" / "tacos_actionformer_long.yaml"
     cfg = load_config(str(long_cfg)).updated({
@@ -192,9 +262,63 @@ def test_actionformer_forward_on_the_kernel_matches_plain_on_cpu(cuda):
         "model.vdim": 48, "actionformer.backbone_arch": [1, 2, 3], "actionformer.input_dim": 48,
         "actionformer.embd_dim": 64, "actionformer.fpn_dim": 64, "actionformer.head_dim": 64,
         "actionformer.n_head": 2, "actionformer.max_seq_len": 512,
-        "actionformer.pallas_min_len": 256})
+        "actionformer.pallas_min_len": 256, **(updates or {})})
     ds, store = make_synthetic_data(cfg, seed=0, n_train=8, n_test=8)
-    der = Derived(num_words=ds["n_words"], num_chars=ds["n_chars"])
+    der = Derived(num_words=ds["n_words"], num_chars=ds["n_chars"], num_train_steps=4)
+    return cfg, ds, store, der
+
+
+def test_actionformer_train_step_on_the_kernels_matches_plain_on_cpu(cuda):
+    """droppath 0, so train mode is deterministic: the loss and every
+    gradient of a train-mode forward, kernels on the card against the plain
+    versions on the CPU, each gradient within 1e-3 of its max beyond the
+    card's band-mask route's own distance to the CPU (the card's cuDNN
+    convolution gradients differ from the CPU's on both routes alike).  Then
+    one train step: 2 launches each of #5, #6, #7 (both stem blocks)."""
+    from vmrframe_tpu_torch.data.af_batcher import ActionFormerBatcher
+    from vmrframe_tpu_torch.layers.actionformer import SHIFT_INVARIANT
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    cfg, ds, store, der = _af_tiny({"actionformer.train_cfg.droppath": 0.0})
+    batch = ActionFormerBatcher(ds["train_set"], store, cfg, der, "train").make_batch(
+        list(range(6)))
+    outs = {}
+    for label, device, min_len in (("kernels", cuda, 256), ("band", cuda, -1),
+                                   ("plain", "cpu", 256)):
+        trainer = Trainer(cfg.updated({"actionformer.pallas_min_len": min_len}), der, None,
+                          device=device)
+        trainer.model.train()
+        loss, grads, _, _ = trainer.loss_and_grads(trainer.to_device(batch))
+        outs[label] = (float(loss.detach()), {k: v.cpu() for k, v in grads.items()})
+    (loss_k, g_k), (_, g_b), (loss_p, g_p) = outs["kernels"], outs["band"], outs["plain"]
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    largest = max(v.abs().max().item() for v in g_p.values())
+    for name, want in g_p.items():
+        if name.endswith(SHIFT_INVARIANT):
+            assert g_k[name].abs().max() <= 1e-3 * largest
+            continue
+        scale = want.abs().max().item()
+        floor = (g_b[name] - want).abs().max().item()
+        assert (g_k[name] - want).abs().max().item() <= floor + 1e-3 * scale, name
+
+    trainer = Trainer(cfg, der, None, device=cuda)
+    before = [fn.launches for fn in W.KERNELS]
+    out = trainer.train_step(trainer.to_device(batch))
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(W.KERNELS, before)] == [2, 2, 2]
+    assert torch.isfinite(out["loss"]) and trainer.optimizer.state["count"] == 1
+
+
+def test_actionformer_forward_on_the_kernel_matches_plain_on_cpu(cuda):
+    """The long config cut to width 64 and 512 frames, pallas_min_len 256:
+    both stem blocks take the banded kernel on the card (2 launches per
+    forward), the plain version on the CPU.  The AffineDropPath scales are
+    drawn in [0.5, 1.5]: at their init of 1e-4 they would hide the branches."""
+    from vmrframe_tpu_torch.data.af_batcher import ActionFormerBatcher
+    from vmrframe_tpu_torch.testing import lift_drop_path
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+
+    cfg, ds, store, der = _af_tiny()
     batch = ActionFormerBatcher(ds["test_set"], store, cfg, der).make_batch(list(range(6)))
     before = W.banded_attention.launches
     outs = []

@@ -1,0 +1,132 @@
+"""Command line (counterpart of ``vmrframe_tpu/cli.py``): train and evaluate.
+
+    python -m vmrframe_tpu_torch --config configs/tacos_actionformer_long.yaml --synthetic
+    python -m vmrframe_tpu_torch --config ... --synthetic --eval --checkpoint ckpt/.../best_X.pt
+    python -m vmrframe_tpu_torch --config ... --synthetic --epochs 1 --device cpu
+
+The flags are the JAX package's (``--config --checkpoint --eval --suffix
+--seed --synthetic --epochs --bf16 --save-results``) plus ``--device``
+(default ``cuda``).  float32 means float32 on the card: no TF32
+(``device.strict_f32``).  ``--synthetic`` runs on deterministic random features
+and captions; real datasets need ``data/datasets.py``, which is not ported
+yet, so without it the CLI raises.  Checkpoints and a log file go to
+``<paths.ckpt_dir>/<task>_<suffix>/``, relative to the working directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(prog="python -m vmrframe_tpu_torch")
+    parser.add_argument("--config", type=str, required=True, help="config file path")
+    parser.add_argument("--checkpoint", type=str, default=None,
+                        help="checkpoint to evaluate (--eval) or to resume from")
+    parser.add_argument("--eval", action="store_true", help="only evaluate")
+    parser.add_argument("--suffix", type=str, default="", help="task suffix")
+    parser.add_argument("--seed", default=1234, type=int, help="random seed")
+    parser.add_argument("--synthetic", action="store_true", help="synthetic features/annotations")
+    parser.add_argument("--epochs", type=int, default=None, help="override train.epochs")
+    parser.add_argument("--save-results", type=str, default=None,
+                        help="--eval: per-sample predictions JSON; training: the metric history")
+    parser.add_argument("--bf16", action="store_true",
+                        help="mixed precision (train.compute_dtype: bfloat16; f32 masters)")
+    parser.add_argument("--device", type=str, default=None, help="torch device (default cuda)")
+    return parser.parse_args(argv)
+
+
+def setup_logger(ckpt_dir: str, title: str) -> logging.Logger:
+    """The ``vmrframe_tpu_torch`` logger: INFO to stderr and to a log file in
+    ``ckpt_dir``.  It propagates, so handlers above it see its records."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    logger = logging.getLogger("vmrframe_tpu_torch")
+    logger.setLevel(logging.INFO)
+    for handler in list(logger.handlers):  # a second run in one process: no double lines
+        logger.removeHandler(handler)
+        handler.close()
+    fmt = logging.Formatter("%(levelname)s:%(message)s")
+    log_file = os.path.join(ckpt_dir, time.strftime("%Y%m%d_%H%M%S") + f"_{title}.log")
+    for handler in (logging.StreamHandler(), logging.FileHandler(log_file)):
+        handler.setFormatter(fmt)
+        logger.addHandler(handler)
+    return logger
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.device import strict_f32
+    from vmrframe_tpu_torch.metrics import get_i345_mi
+    from vmrframe_tpu_torch.registry import get_model_entry
+    from vmrframe_tpu_torch.train.trainer import Trainer, fit
+
+    strict_f32()
+    if not args.synthetic:
+        raise NotImplementedError("real datasets need data/datasets.py, which is not ported "
+                                  "yet: pass --synthetic")
+    cfg = load_config(args.config)
+    if args.epochs is not None:
+        cfg = cfg.updated({"train.epochs": args.epochs})
+    if args.bf16:
+        cfg = cfg.updated({"train.compute_dtype": "bfloat16"})
+    derived = Derived(suffix=args.suffix, seed=args.seed)
+
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+
+    dataset, features = make_synthetic_data(cfg, seed=args.seed)
+    derived.num_words = dataset["n_words"]
+    derived.num_chars = dataset["n_chars"]
+
+    entry = get_model_entry(cfg.model.name)
+    batcher_cls = entry.batcher_cls or Batcher
+    train_batcher = batcher_cls(dataset["train_set"], features, cfg, derived, "train")
+    test_batcher = batcher_cls(dataset["test_set"], features, cfg, derived, "test")
+    derived.steps_per_epoch = len(train_batcher)
+    derived.num_train_steps = len(train_batcher) * cfg.train.epochs
+
+    ckpt_dir = os.path.join(cfg.paths.ckpt_dir, f"{cfg.task}_{derived.suffix}")
+    logger = setup_logger(ckpt_dir, cfg.model.name)
+    logger.info(str(args))
+
+    trainer = Trainer(cfg, derived, dataset["word_vector"], device=args.device)
+
+    if args.eval:
+        trainer.init_state(args.seed)
+        if args.checkpoint:
+            from vmrframe_tpu_torch.train.checkpoints import restore_into
+
+            restore_into(trainer, args.checkpoint)
+        ious, lossmeter, secs, props = trainer.run_eval_epoch(
+            test_batcher.epoch(seed=0), collect_props=True)
+        r1i3, r1i5, _, r1i7, mi = get_i345_mi(ious)
+        logger.info(f"TEST |\tR1I3: {r1i3:.2f}\tR1I5: {r1i5:.2f}\tR1I7: {r1i7:.2f}\t"
+                    f"mIoU: {mi:.2f}\tloss:{lossmeter.avg:.4f}\tcompute_s:{secs:.2f}")
+        if args.save_results:
+            out = []
+            for rec, p, iou in zip(dataset["test_set"], props, ious):
+                dur = rec["duration"]
+                out.append({"vid": rec["vid"], "sentence": rec["sentence"],
+                            "pred_time": [float(p[0]) * dur, float(p[1]) * dur],
+                            "gt_time": [float(rec["se_time"][0]), float(rec["se_time"][1])],
+                            "iou": float(iou)})
+            with open(args.save_results, "w", encoding="utf8") as f:
+                json.dump(out, f)
+            logger.info(f"wrote {len(out)} predictions to {args.save_results}")
+        return {"r1i3": r1i3, "r1i5": r1i5, "r1i7": r1i7, "miou": mi,
+                "eval_batches": len(test_batcher)}
+
+    result = fit(trainer, train_batcher, test_batcher, rng_seed=args.seed, ckpt_dir=ckpt_dir,
+                 log=logger.info, resume_from=args.checkpoint)
+    logger.info(f"best mIoU: {result['best_miou']:.2f}")
+    if args.save_results:
+        with open(args.save_results, "w", encoding="utf8") as f:
+            json.dump({k: result[k] for k in ("best_miou", "best_path", "history")}, f)
+        logger.info(f"wrote training history to {args.save_results}")
+    return {**result, "eval_batches": len(test_batcher)}

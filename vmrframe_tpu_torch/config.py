@@ -58,11 +58,15 @@ class Config:
 
 @dataclasses.dataclass
 class Derived:
-    """Runtime-derived quantities, kept apart from the user's config (the
-    serving slice's subset: vocabulary sizes and the char width)."""
+    """Runtime-derived quantities, kept apart from the user's config: the run's
+    suffix and seed, vocabulary sizes, step counts and the char width."""
 
+    suffix: str = ""
+    seed: int = 1234
     num_words: int = 0
     num_chars: int = 0
+    num_train_steps: int = 0
+    steps_per_epoch: int = 0
     # static char-sequence width per word
     char_len: int = 16
 

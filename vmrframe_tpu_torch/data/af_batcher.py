@@ -1,18 +1,19 @@
-"""ActionFormer batch assembly in test mode (counterpart of
-``vmrframe_tpu/data/af_batcher.py``).
+"""ActionFormer batch assembly (counterpart of ``vmrframe_tpu/data/af_batcher.py``).
 
 With ``force_upsampling`` every clip is linearly resized (torch
 ``F.interpolate``, ``align_corners=False``) to ``max_seq_len`` and its feature
 stride recomputed; the gt segment goes to feature-grid coordinates; the
 batch carries fps, duration, feat_stride and num_frames so spans decode back
-to seconds on the device.  Test mode is the identity augmentation, so a
-video's grid features depend on the vid alone and are cached with the
-base ``Batcher``'s resampled features.
+to seconds on the device.  The only augmentation ported is the identity, in
+test and train mode alike, so a video's grid features depend on the vid
+alone and are cached with the base ``Batcher``'s resampled features.  The
+JAX package's ``truncate_feats`` is called nowhere there and is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import random
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -32,8 +33,8 @@ def linear_resize(x: np.ndarray, size: int) -> np.ndarray:
 
 
 class ActionFormerBatcher(Batcher):
-    def __init__(self, dataset, feature_store, cfg, derived, batch_size=None):
-        super().__init__(dataset, feature_store, cfg, derived, batch_size)
+    def __init__(self, dataset, feature_store, cfg, derived, loadertype="test", batch_size=None):
+        super().__init__(dataset, feature_store, cfg, derived, loadertype, batch_size)
         dp = cfg.get("dataprocess")
         self.default_fps = float(dp.get("default_fps", 30)) if dp else 30.0
         self.feat_stride_cfg = float(dp.get("feat_stride", 16)) if dp else 16.0
@@ -42,12 +43,12 @@ class ActionFormerBatcher(Batcher):
         self.downsample_rate = int(dp.get("downsample_rate", 1)) if dp else 1
         self.max_seq_len = cfg.actionformer.max_seq_len
 
-    def _grid_feats(self, record: dict):
+    def _grid_feats(self, record: dict, rng: random.Random):
         """(features on the grid, valid length, feature stride, frames per feature)."""
         T = self.max_seq_len
         key = f"{record['vid']}/grid"
         if key not in self._resample_cache:
-            vfeat, _ = self._get_vfeat_label(record)
+            vfeat, _ = self._get_vfeat_label(record, rng)
             t0 = vfeat.shape[0]
             if self.force_upsampling:
                 stride = ((t0 - 1) * self.feat_stride_cfg + self.num_frames_cfg) / T
@@ -62,7 +63,9 @@ class ActionFormerBatcher(Batcher):
             self._resample_cache[key] = (vfeat, vfeat.shape[0], stride, nframes)
         return self._resample_cache[key]
 
-    def make_batch(self, indices: List[int]) -> Dict[str, np.ndarray]:
+    def make_batch(self, indices: List[int],
+                   rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+        rng = rng or random.Random(0)
         B, T = self.batch_size, self.max_seq_len
         C = self.cfg.actionformer.input_dim
         feats = np.zeros((B, T, C), dtype=np.float32)
@@ -77,7 +80,7 @@ class ActionFormerBatcher(Batcher):
 
         for slot, idx in enumerate(indices):
             record = self.dataset[idx]
-            vfeat, cur_len, stride, nframes = self._grid_feats(record)
+            vfeat, cur_len, stride, nframes = self._grid_feats(record, rng)
             offset = 0.5 * nframes / stride
             s_time, e_time = record["se_time"]
             feats[slot, :cur_len] = vfeat

@@ -1,10 +1,33 @@
-"""Fixed-grid resampling (counterpart of ``vmrframe_tpu/data/augment.py``'s
-``interpolate_average`` and ``sample_vfeat_linear``).  Serving applies no
-augmentation, so the augmentations wait for the training slice."""
+"""Fixed-grid resampling and the augmentation choice (counterpart of
+``vmrframe_tpu/data/augment.py``'s ``interpolate_average``,
+``sample_vfeat_linear`` and ``video_augmentation``).  Of the augmentations
+only ``unchanged`` is ported: ``dilation`` and ``erosion`` come with SeqPAN
+training."""
 
 from __future__ import annotations
 
+import random
+from typing import Dict, Tuple
+
 import numpy as np
+
+from vmrframe_tpu_torch.metrics import frac_idx
+
+
+def video_augmentation(sfrac: float, efrac: float, vfeat: np.ndarray, aug: Dict[str, float],
+                       rng: random.Random) -> Tuple[np.ndarray, np.ndarray]:
+    """(features, 0/1 label over the frames of [sfrac, efrac]) after one
+    augmentation drawn from ``aug``'s keys with ``rng``."""
+    label = np.zeros(vfeat.shape[0], dtype=np.float32)
+    sidx, eidx = frac_idx([sfrac, efrac], vfeat.shape[0])
+    label[sidx:eidx + 1] = 1.0
+    k = rng.choice(list(aug.keys()))
+    if k == "unchanged":
+        return vfeat, label
+    if k in ("dilation", "erosion"):
+        raise NotImplementedError(f"augmentation {k!r} is not ported yet; it comes with "
+                                  "SeqPAN training")
+    raise ValueError(f"unknown augmentation {k!r}")
 
 
 def _segment_bounds(vlen: int, size: int) -> np.ndarray:

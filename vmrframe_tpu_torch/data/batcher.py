@@ -1,19 +1,28 @@
-"""Static-shape batch assembly (counterpart of ``vmrframe_tpu/data/batcher.py``
-in test mode).
+"""Static-shape batch assembly and host-side prefetch (counterpart of
+``vmrframe_tpu/data/batcher.py``).
 
 Every batch has the same shapes: (B, vlen, vdim) features, (B, tlen) word
 ids, (B, tlen, char_len) char ids, plus masks and labels.  A partial batch is
-padded and carries a ``sample_mask``.  Serving applies no augmentation, so a
-video's resampled features depend on the vid alone and are cached.
+padded and carries a ``sample_mask``.  A ``train`` batcher shuffles each
+epoch with ``random.Random(seed)``, so its order is the JAX package's, and
+applies the config's augmentation; only ``unchanged`` is ported, and a
+``test`` batcher (serving, evaluation) applies none.  Under the identity
+augmentation with ``truncation``/``samelen`` sampling a video's resampled
+features depend on the vid alone and are cached, as in the JAX package.
+``BatchPrefetcher`` assembles the next batches on a thread while the device
+runs the current step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+import queue
+import random
+import threading
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
-from vmrframe_tpu_torch.data.augment import sample_vfeat_linear
+from vmrframe_tpu_torch.data.augment import sample_vfeat_linear, video_augmentation
 from vmrframe_tpu_torch.data.labels import dist_idx_label, label_span_from_curve, ner_label
 from vmrframe_tpu_torch.metrics import frac_idx
 
@@ -22,10 +31,11 @@ class Batcher:
     """Assemble fixed-shape numpy batches from records + a feature store."""
 
     def __init__(self, dataset: List[dict], feature_store, cfg, derived,
-                 batch_size: Optional[int] = None):
+                 loadertype: str = "test", batch_size: Optional[int] = None):
         self.cfg = cfg
         self.dataset = dataset
         self.features = feature_store
+        self.loadertype = loadertype
         self.batch_size = batch_size or cfg.train.batch_size
         self.vlen = cfg.model.vlen
         self.tlen = cfg.model.get("tlen", 30)
@@ -33,24 +43,44 @@ class Batcher:
         self.char_len = derived.char_len
         dp = cfg.get("dataprocess")
         self.sample_type = dp.get("sample_type", "truncation") if dp else "truncation"
+        aug = dp.get("video_augmentation") if dp else None
+        self.aug = {"unchanged": None}
+        if loadertype == "train" and aug:
+            self.aug = dict(aug.to_dict() if hasattr(aug, "to_dict") else aug)
+            unported = sorted(set(self.aug) - {"unchanged"})
+            if unported:
+                raise NotImplementedError(f"augmentations {unported} are not ported yet; "
+                                          "they come with SeqPAN training")
         self._resample_cache: Dict[str, tuple] = {}
 
-    def _get_vfeat_label(self, record: dict):
+    def __len__(self) -> int:
+        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+
+    @property
+    def num_samples(self) -> int:
+        return len(self.dataset)
+
+    def _get_vfeat_label(self, record: dict, rng: random.Random):
+        sfrac, efrac = record["se_frac"]
         vid = record["vid"]
-        if vid not in self._resample_cache:
+        if self.sample_type not in ("truncation", "samelen"):
+            # 'original': the augmentation's features and label as they are
+            return video_augmentation(sfrac, efrac, self.features[vid], self.aug, rng)
+        if vid not in self._resample_cache:  # identity augmentation: cacheable per vid
             raw = self.features[vid]
             vfeat, _ = sample_vfeat_linear(raw, np.zeros(raw.shape[0], np.float32),
                                            self.vlen, self.sample_type)
             self._resample_cache[vid] = (vfeat, raw.shape[0])
         vfeat, raw_len = self._resample_cache[vid]
         label = np.zeros(raw_len, dtype=np.float32)
-        sidx0, eidx0 = frac_idx(list(record["se_frac"]), raw_len)
+        sidx0, eidx0 = frac_idx([sfrac, efrac], raw_len)
         label[sidx0:eidx0 + 1] = 1.0
         _, label = sample_vfeat_linear(np.zeros((raw_len, 1), np.float32), label,
                                        self.vlen, self.sample_type)
         return vfeat, label
 
-    def make_batch(self, indices: List[int]) -> Dict[str, np.ndarray]:
+    def make_batch(self, indices: List[int],
+                   rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
         B, vlen, tlen, clen = self.batch_size, self.vlen, self.tlen, self.char_len
         vfeats = np.zeros((B, vlen, self.vdim), dtype=np.float32)
         vmasks = np.zeros((B, vlen), dtype=np.float32)
@@ -62,9 +92,10 @@ class Batcher:
         se_fracs = np.zeros((B, 2), dtype=np.float32)
         sample_mask = np.zeros((B,), dtype=np.float32)
 
+        rng = rng or random.Random(0)
         for slot, idx in enumerate(indices):
             record = self.dataset[idx]
-            vfeat, label = self._get_vfeat_label(record)
+            vfeat, label = self._get_vfeat_label(record, rng)
             cur_len = vfeat.shape[0]
             sidx, eidx = label_span_from_curve(label)
             vfeats[slot, :cur_len] = vfeat
@@ -94,7 +125,63 @@ class Batcher:
             "num_valid": np.int32(len(indices)),
         }
 
-    def epoch(self) -> Iterator[Dict[str, np.ndarray]]:
-        """The dataset in order, one batch at a time; the last may be partial."""
-        for i in range(0, len(self.dataset), self.batch_size):
-            yield self.make_batch(list(range(i, min(i + self.batch_size, len(self.dataset)))))
+    def epoch(self, seed: int = 0, shuffle: Optional[bool] = None
+              ) -> Iterator[Dict[str, np.ndarray]]:
+        """One pass over the dataset, one batch at a time; the last may be
+        partial.  Shuffled with ``random.Random(seed)`` when ``shuffle`` (by
+        default: a ``train`` batcher), which also draws the augmentations."""
+        shuffle = (self.loadertype == "train") if shuffle is None else shuffle
+        rng = random.Random(seed)
+        order = list(range(len(self.dataset)))
+        if shuffle:
+            rng.shuffle(order)
+        for i in range(0, len(order), self.batch_size):
+            yield self.make_batch(order[i:i + self.batch_size], rng)
+
+
+class BatchPrefetcher:
+    """Iterates ``batch_iter`` on a background thread, ``depth`` batches
+    ahead.  An error in the thread is raised to the consumer.  ``close()``
+    stops the thread early."""
+
+    def __init__(self, batch_iter: Iterator[Dict[str, Any]], depth: int = 2):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, args=(batch_iter,), daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self, batch_iter):
+        try:
+            for batch in batch_iter:
+                if not self._put(batch):
+                    return
+        except BaseException as e:  # raised again in the consumer
+            self._err = e
+        finally:
+            self._put(None)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._queue.get()
+        if item is None:
+            self._thread.join(timeout=10)
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)

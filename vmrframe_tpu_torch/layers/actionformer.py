@@ -1,21 +1,25 @@
-"""ActionFormer's layers, eval half (counterpart of
-``vmrframe_tpu/layers/actionformer.py``).
+"""ActionFormer's layers (counterpart of ``vmrframe_tpu/layers/actionformer.py``).
 
 Channel-last (B, T, C) as in the JAX package; masks are (B, T) {0,1}.
 Parameter names follow the flax tree (``weights.py`` maps one onto the
 other): a conv or dense ``kernel`` is a torch ``weight``, and the scalars of
 ``Scale`` and ``AffineDropPath``, ``scale`` in flax, are ``weight`` here.
-Eval only: dropout and drop-path are the identity.  Not ported yet:
-rel-PE, ``ConvBackbone``/``ConvBlock`` and ``FPN1D`` (ROADMAP).
+In train mode (``module.train()``) ``AffineDropPath`` applies stochastic
+depth (``drop_path``) with uniforms drawn from the ``torch.Generator`` the
+caller threads through ``forward``; dropout (``proj_pdrop``) is not ported
+and raises in train mode.  Not ported yet: rel-PE,
+``ConvBackbone``/``ConvBlock`` and ``FPN1D`` (ROADMAP).
 
-``MaskedMHCA`` with ``window_size > 0`` runs the banded attention kernel
-(``kernels/window_attention.py``) when T >= ``pallas_min_len_eval`` (the
-config key keeps the JAX package's name) and one key window fits the padded
-length; otherwise it computes the full (T, T) scores with a band mask, as the
-JAX package does.  Both routes give the same values on every valid row.  An
-unset ``pallas_min_len_eval`` means the same threshold as ``pallas_min_len``:
-the JAX model routes eval away from its TPU kernel by default because of a
-TPU measurement, and the port does not inherit that.
+``MaskedMHCA`` with ``window_size > 0`` runs the banded attention kernels
+(``kernels/window_attention.py``: the forward, and in backward the dq and
+dk/dv kernels) when one key window fits the padded length and T reaches the
+mode's threshold: ``pallas_min_len`` in train mode, ``pallas_min_len_eval``
+in eval mode (the config keys keep the JAX package's names), as the JAX
+gate does; otherwise it computes the full (T, T) scores with a band mask.
+Both routes give the same values on every valid row.  An unset
+``pallas_min_len_eval`` means the same threshold as ``pallas_min_len``: the
+JAX model routes eval away from its TPU kernel by default because of a TPU
+measurement, and the port does not inherit that.
 """
 
 from __future__ import annotations
@@ -33,9 +37,9 @@ from vmrframe_tpu_torch.kernels.window_attention import banded_attention, key_wi
 
 
 class ChannelLayerNorm(nn.Module):
-    """LayerNorm over the channels, eps 1e-5, statistics in f32, the result
-    in x's type.  Ones and zeros at init (``weights.init_weights`` reads
-    ``init_value`` and zeroes the bias)."""
+    """LayerNorm over the channels, eps 1e-5, statistics in f32 (f64 for an
+    f64 input), the result in x's type.  Ones and zeros at init
+    (``weights.init_weights`` reads ``init_value`` and zeroes the bias)."""
 
     init_value = 1.0
 
@@ -46,7 +50,8 @@ class ChannelLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        return F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias, self.eps).to(x.dtype)
+        wide = x.to(torch.promote_types(x.dtype, torch.float32))
+        return F.layer_norm(wide, x.shape[-1:], self.weight, self.bias, self.eps).to(x.dtype)
 
 
 class Dense(nn.Linear):
@@ -94,6 +99,11 @@ def get_sinusoid_encoding(n_position: int, d_hid: int) -> np.ndarray:
     return table
 
 
+# MaskedMHCA parameters that shift every key's score in a row by the same
+# amount: the softmax ignores them, so their gradients are zero up to rounding
+SHIFT_INVARIANT = ("key.bias", "key_norm.bias")
+
+
 class MaskedMHCA(nn.Module):
     """Multi-head conv attention: depthwise (strided) convs and channel LN on
     q/k/v, 1x1 projections, masked attention; ``window_size > 0`` limits it
@@ -107,6 +117,7 @@ class MaskedMHCA(nn.Module):
             raise NotImplementedError("MaskedMHCA: rel-PE is not ported yet")
         self.n_embd, self.n_head = n_embd, n_head
         self.window_size = window_size
+        self.min_len_train = pallas_min_len
         self.min_len = pallas_min_len if pallas_min_len_eval is None else pallas_min_len_eval
         q_ks = n_qx_stride + 1 if n_qx_stride > 1 else 3
         kv_ks = n_kv_stride + 1 if n_kv_stride > 1 else 3
@@ -123,11 +134,13 @@ class MaskedMHCA(nn.Module):
         self.proj = Dense(n_embd, n_embd)
 
     def use_banded_kernel(self, Tq: int, Tk: int) -> bool:
-        """The kernel route: a window, T at or above the eval threshold (-1
-        disables), Tq == Tk, and one key window within the padded length."""
-        if self.window_size <= 0 or self.min_len < 0:
+        """The kernel route: a window, T at or above the mode's threshold
+        (train: ``min_len_train``, eval: ``min_len``; -1 disables), Tq == Tk,
+        and one key window within the padded length."""
+        min_len = self.min_len_train if self.training else self.min_len
+        if self.window_size <= 0 or min_len < 0:
             return False
-        if Tq != Tk or Tq < self.min_len:
+        if Tq != Tk or Tq < min_len:
             return False
         return padded_len(Tq) >= key_window(self.window_size)
 
@@ -160,18 +173,31 @@ class MaskedMHCA(nn.Module):
         return out * qx_mask[..., None], qx_mask
 
 
+def drop_path(x, drop_prob: float, u: torch.Tensor):
+    """Stochastic depth per sample, given its uniforms ``u`` of shape
+    (B, 1, ..., 1): ``keep = floor(1 - drop_prob + u)``, ``x / keep_prob * keep``."""
+    keep_prob = 1.0 - drop_prob
+    return x / keep_prob * torch.floor(keep_prob + u)
+
+
 class AffineDropPath(nn.Module):
-    """Per-channel scale (``init_value`` at init); stochastic depth is off in
-    eval."""
+    """Per-channel scale (``init_value`` at init), then stochastic depth in
+    train mode, its uniforms drawn in x's type from ``generator``."""
 
     init_value = 1e-4
 
-    def __init__(self, num_dim: int):
+    def __init__(self, num_dim: int, drop_prob: float = 0.0):
         super().__init__()
+        self.drop_prob = drop_prob
         self.weight = nn.Parameter(torch.full((1, 1, num_dim), self.init_value))
 
-    def forward(self, x):
-        return self.weight * x
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        y = self.weight * x
+        if not self.training or self.drop_prob == 0.0:
+            return y
+        u = torch.rand((y.shape[0],) + (1,) * (y.dim() - 1), generator=generator,
+                       device=y.device, dtype=y.dtype)
+        return drop_path(y, self.drop_prob, u)
 
 
 def _maxpool1d(x, kernel_size: int, stride: int, padding: int):
@@ -185,9 +211,10 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, n_embd: int, n_head: int, n_ds_stride: int = 1, path_pdrop: float = 0.0,
                  mha_win_size: int = -1, use_rel_pe: bool = False, pallas_min_len: int = 512,
-                 pallas_min_len_eval: Optional[int] = None):
+                 pallas_min_len_eval: Optional[int] = None, proj_pdrop: float = 0.0):
         super().__init__()
         self.n_ds_stride = n_ds_stride
+        self.proj_pdrop = proj_pdrop
         self.ln1 = ChannelLayerNorm(n_embd)
         self.attn = MaskedMHCA(n_embd, n_head, n_ds_stride, n_ds_stride, mha_win_size,
                                use_rel_pe, pallas_min_len, pallas_min_len_eval)
@@ -196,18 +223,21 @@ class TransformerBlock(nn.Module):
         self.mlp_fc2 = Dense(4 * n_embd, n_embd)
         self.path_pdrop = path_pdrop
         if path_pdrop > 0.0:
-            self.drop_path_attn = AffineDropPath(n_embd)
-            self.drop_path_mlp = AffineDropPath(n_embd)
+            self.drop_path_attn = AffineDropPath(n_embd, path_pdrop)
+            self.drop_path_mlp = AffineDropPath(n_embd, path_pdrop)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, generator: Optional[torch.Generator] = None):
+        if self.training and self.proj_pdrop > 0.0:
+            raise NotImplementedError("TransformerBlock: dropout (proj_pdrop > 0) in train mode "
+                                      "is not ported yet; it comes with SeqPAN training")
         out, out_mask = self.attn(self.ln1(x), mask)
         s = self.n_ds_stride
         skip = _maxpool1d(x, s + 1, s, (s + 1) // 2) if s > 1 else x
         mf = out_mask[..., None]
-        out = skip * mf + (self.drop_path_attn(out) if self.path_pdrop > 0.0 else out)
+        out = skip * mf + (self.drop_path_attn(out, generator) if self.path_pdrop > 0.0 else out)
         h = F.gelu(self.mlp_fc1(self.ln2(out)))
         h = self.mlp_fc2(h) * mf
-        return out + (self.drop_path_mlp(h) if self.path_pdrop > 0.0 else h), out_mask
+        return out + (self.drop_path_mlp(h, generator) if self.path_pdrop > 0.0 else h), out_mask
 
 
 class ConvTransformerBackbone(nn.Module):
@@ -218,7 +248,7 @@ class ConvTransformerBackbone(nn.Module):
                  arch: Tuple[int, int, int] = (2, 2, 5), mha_win_size: Sequence[int] = (-1,) * 6,
                  scale_factor: int = 2, with_ln: bool = True, path_pdrop: float = 0.0,
                  use_abs_pe: bool = False, use_rel_pe: bool = False, pallas_min_len: int = 512,
-                 pallas_min_len_eval: Optional[int] = None):
+                 pallas_min_len_eval: Optional[int] = None, proj_pdrop: float = 0.0):
         super().__init__()
         self.arch, self.with_ln = tuple(arch), with_ln
         self.n_embd, self.max_len, self.use_abs_pe = n_embd, max_len, use_abs_pe
@@ -229,13 +259,14 @@ class ConvTransformerBackbone(nn.Module):
                 setattr(self, f"embd_norm_{idx}", ChannelLayerNorm(n_embd))
         block = functools.partial(TransformerBlock, n_embd, n_head, path_pdrop=path_pdrop,
                                   use_rel_pe=use_rel_pe, pallas_min_len=pallas_min_len,
-                                  pallas_min_len_eval=pallas_min_len_eval)
+                                  pallas_min_len_eval=pallas_min_len_eval, proj_pdrop=proj_pdrop)
         for idx in range(self.arch[1]):
             setattr(self, f"stem_{idx}", block(1, mha_win_size=mha_win_size[0]))
         for idx in range(self.arch[2]):
             setattr(self, f"branch_{idx}", block(scale_factor, mha_win_size=mha_win_size[1 + idx]))
 
-    def forward(self, x, mask) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    def forward(self, x, mask, generator: Optional[torch.Generator] = None
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         for idx in range(self.arch[0]):
             x, mask = getattr(self, f"embd_{idx}")(x, mask)
             if self.with_ln:
@@ -246,10 +277,10 @@ class ConvTransformerBackbone(nn.Module):
             pe = torch.from_numpy(get_sinusoid_encoding(self.max_len, self.n_embd)).to(x.device)
             x = x + pe[None, :T] / (self.n_embd ** 0.5) * mask[..., None]
         for idx in range(self.arch[1]):
-            x, mask = getattr(self, f"stem_{idx}")(x, mask)
+            x, mask = getattr(self, f"stem_{idx}")(x, mask, generator)
         feats, masks = [x], [mask]
         for idx in range(self.arch[2]):
-            x, mask = getattr(self, f"branch_{idx}")(x, mask)
+            x, mask = getattr(self, f"branch_{idx}")(x, mask, generator)
             feats.append(x)
             masks.append(mask)
         return feats, masks

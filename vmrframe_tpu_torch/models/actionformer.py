@@ -1,16 +1,17 @@
 """ActionFormer, the single-stage anchor-free localizer wrapped for VMR
-(counterpart of ``vmrframe_tpu/models/actionformer.py``), eval half: the
-forward, the single-gt label assignment and loss (with the EMA loss
-normaliser carried in ``extras``), and the fast top-1 span inference.  The
-model has no text branch: the query is carried and unused.  The full
-ranked-list protocol (``actionformer_infer_full``, soft-NMS) and training
-wait for later slices.
+(counterpart of ``vmrframe_tpu/models/actionformer.py``): the forward in
+eval and train mode (``module.train()``: stochastic depth with uniforms
+from the ``generator`` argument, the banded kernels by ``pallas_min_len``),
+the single-gt label assignment and loss (with the EMA loss normaliser
+carried in ``extras``), and the fast top-1 span inference.  The model has
+no text branch: the query is carried and unused.  The full ranked-list
+protocol (``actionformer_infer_full``, soft-NMS) waits for a later slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -43,7 +44,8 @@ class ActionFormer(nn.Module):
             path_pdrop=tc.droppath, use_abs_pe=af.use_abs_pe,
             use_rel_pe=bool(af.get("use_rel_pe", False)),
             pallas_min_len=int(af.get("pallas_min_len", 512)),
-            pallas_min_len_eval=None if eval_len is None else int(eval_len))
+            pallas_min_len_eval=None if eval_len is None else int(eval_len),
+            proj_pdrop=float(tc.get("dropout", 0.0)))
         self.neck = FPNIdentity(self.num_levels, af.embd_dim, with_ln=af.fpn_with_ln)
         prior_bias = -math.log((1 - tc.cls_prior_prob) / tc.cls_prior_prob)
         self.cls_head = ConvHead(af.embd_dim, af.head_dim, af.num_classes, af.head_num_layers,
@@ -53,8 +55,9 @@ class ActionFormer(nn.Module):
         for lvl in range(self.num_levels):
             setattr(self, f"scale_{lvl}", Scale())
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        feats, masks = self.backbone(batch["feats"], batch["masks"])
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        feats, masks = self.backbone(batch["feats"], batch["masks"], generator)
         feats, masks = self.neck(feats, masks)
         cls_logits = self.cls_head(feats, masks)
         offsets = [torch.relu(getattr(self, f"scale_{lvl}")(o))
@@ -204,4 +207,5 @@ register_model(
     infer_fn=actionformer_infer,
     stateful=True,
     init_extras=actionformer_init_extras,
+    optimizer_impl="tree",
 )(ActionFormer)

@@ -13,7 +13,7 @@ for the training slice.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -37,7 +37,13 @@ class SeqPAN(nn.Module):
         self.label_embs = nn.Parameter(torch.empty(m.dim, 4))
         self.predictor = SeqPANPredictor(m.dim, m.vlen, num_heads=4)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The deterministic forward; ``generator`` is the zoo's common
+        argument for train mode, which SeqPAN does not have yet."""
+        if self.training:
+            raise NotImplementedError("SeqPAN's train mode (dropout, gumbel noise) is not "
+                                      "ported yet: call .eval()")
         vmask = batch["vmasks"]
         _, _, fuse_feat = encode_and_fuse(self, batch)
         match_score = torch.softmax(self.match_conv1d(fuse_feat) / MATCH_TAU, dim=-1)

@@ -6,8 +6,11 @@ LayerNorm scales, per-sample weights) stay f32.  ``biased`` adds an f32
 bias in f32 and casts the result back, so f32 vectors never promote the
 activations that the next matmul reads.
 
-The JAX trainer casts its f32 params on every step; a serving process has
-no f32 master copy to keep, so the port casts a module once, in place.
+The JAX trainer casts its f32 params on every step, and so does the port's
+(``cast_params``: the f32 masters stay, and the forward reads cast copies
+through ``torch.func.functional_call``, so the gradients land on the masters
+in f32); a serving process has no f32 master copy to keep, so the port casts
+its module once, in place (``cast_module_``).
 
 On ActionFormer's tree the rule puts conv kernels (rank 3), dense kernels
 and ``AffineDropPath``'s (1, 1, D) scale in bf16, and keeps
@@ -39,6 +42,12 @@ def cast_module_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
         for name, b in sub.named_buffers(recurse=False):
             setattr(sub, name, _cast(b, dtype))
     return module
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The module's parameters by name, rank >= 2 floating ones cast to
+    ``dtype`` (differentiably); for ``torch.func.functional_call``."""
+    return {name: _cast(p, dtype) for name, p in module.named_parameters()}
 
 
 def cast_batch(batch: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:

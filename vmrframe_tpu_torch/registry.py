@@ -1,6 +1,6 @@
 """Model registry (counterpart of ``vmrframe_tpu/registry.py``), trimmed to
-what serving needs: the module class, its batcher, its loss and its span
-inference."""
+what serving and training need: the module class, its batcher, its loss
+(stateful or not) and its span inference."""
 
 from __future__ import annotations
 
@@ -21,6 +21,9 @@ class ModelEntry:
     # loss_fn(outputs, batch, cfg, extras) -> (loss, new_extras)
     stateful: bool = False
     init_extras: Optional[Callable] = None  # (cfg) -> dict of tensors
+    # the JAX package's measured choice between its two AdamW formulations;
+    # a record only here: the port has one AdamW (train/optim.py)
+    optimizer_impl: Optional[str] = None
 
 
 def register_model(name: str, **kwargs):

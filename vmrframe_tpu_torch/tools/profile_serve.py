@@ -1,7 +1,18 @@
-"""Where the time of one served batch goes, on the card.
+"""Where the time of one served batch, or of one train step, goes, on the card.
 
     python -m vmrframe_tpu_torch.tools.profile_serve [--batch-size 128] [--steps 10]
     python -m vmrframe_tpu_torch.tools.profile_serve --config configs/tacos_actionformer_long.yaml
+    python -m vmrframe_tpu_torch.tools.profile_serve --train \
+        --config configs/tacos_actionformer_long.yaml
+
+With ``--train`` (a model with a train mode, such as ActionFormer; the
+config's batch and compute type unless ``--batch-size`` says otherwise):
+host assembly of one train batch (the train batcher: its first assembly,
+which reads and resizes the videos, and the median of later ones, which
+find each video's grid cached), the copy to the card, the train step
+(forward, loss, backward, clipping, AdamW, spans, IoU) on the host's clock,
+and the card's busy time and device operations per train step from
+``torch.profiler``.  Otherwise:
 
 Builds the serving path (bf16, seeded random weights, synthetic data:
 ``tools/serve.py::build_service``) at SeqPAN's Charades width, or for the
@@ -114,18 +125,67 @@ def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20,
         service.close()
 
 
+def profile_train(config: str, batch_size: Optional[int] = None, steps: int = 10,
+                  reps: int = 20) -> dict:
+    from vmrframe_tpu_torch.config import Derived
+    from vmrframe_tpu_torch.device import strict_f32
+    from vmrframe_tpu_torch.registry import get_model_entry
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_serve measures the card: no CUDA device is available")
+    strict_f32()  # as the CLI trains
+    cfg = load_config(config)
+    if batch_size:
+        cfg = cfg.updated({"train.batch_size": batch_size})
+    B = int(cfg.train.batch_size)
+    dataset, store = make_synthetic_data(cfg, seed=0)
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    batcher = get_model_entry(cfg.model.name).batcher_cls(dataset["train_set"], store, cfg,
+                                                          derived, "train")
+    derived.num_train_steps = derived.steps_per_epoch = len(batcher)
+    trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
+    indices = list(range(B))
+    first_ms, _ = _median_ms(lambda: batcher.make_batch(indices), 1)  # reads and resizes
+    assemble_ms, batch = _median_ms(lambda: batcher.make_batch(indices), reps)  # cached grids
+    h2d_ms, dbatch = _median_ms(lambda: trainer.to_device(batch), reps)
+    step = lambda: float(trainer.train_step(dbatch)["loss"])  # noqa: E731
+    step()  # warm-up: cuDNN's and the allocator's first calls
+    step_ms, _ = _median_ms(step, reps)
+    report = {
+        "card": torch.cuda.get_device_name(0), "torch": torch.__version__,
+        "model": str(cfg.model.name), "config": config, "mode": "train", "batch_size": B,
+        "dtype": str(cfg.train.get("compute_dtype", "float32")),
+        "host_assemble_first_ms": first_ms, "host_assemble_ms": assemble_ms,
+        "h2d_ms": h2d_ms, "train_step_ms": step_ms,
+        "samples_per_s": B / (step_ms / 1e3),
+        **_device_profile(step, steps),
+    }
+    busy = report["device_busy_ms_per_step"]
+    report["device_busy_share_of_train_step"] = busy / step_ms if busy else None
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default=None,
                     help="YAML config to serve (default: SeqPAN at Charades width)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a train step of --config instead of a served batch")
     ap.add_argument("--batch-size", type=int, default=None,
                     help="requests per batch (default: 128, or 8 with --config)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    batch_size = args.batch_size or (8 if args.config else 128)
-    report = profile_serve(batch_size, args.steps, args.reps, args.config)
+    if args.train:
+        if not args.config:
+            ap.error("--train needs --config")
+        report = profile_train(args.config, args.batch_size, args.steps, args.reps)
+    else:
+        batch_size = args.batch_size or (8 if args.config else 128)
+        report = profile_serve(batch_size, args.steps, args.reps, args.config)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

@@ -1,1 +1,2 @@
-"""Evaluation engine (training waits for a later slice)."""
+"""Training and evaluation engines: ``trainer.py`` (``Trainer``, ``fit``),
+``optim.py``, ``checkpoints.py`` and the serving ``evaluator.py``."""

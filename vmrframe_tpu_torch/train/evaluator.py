@@ -14,12 +14,12 @@ optimizer here.
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
-from vmrframe_tpu_torch.device import resolve_device
+from vmrframe_tpu_torch.device import batch_to, resolve_device
 from vmrframe_tpu_torch.metrics import AverageMeter, iou_device
 from vmrframe_tpu_torch.ops.precision import cast_batch, cast_module_
 from vmrframe_tpu_torch.registry import get_model_entry
@@ -48,8 +48,7 @@ class Evaluator:
         self.model.load_state_dict(state, strict=True)
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items() if k != "num_valid"}
+        return batch_to(batch, self.device)
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -70,25 +69,32 @@ class Evaluator:
 
     def run_eval_epoch(self, batches: Iterable, lossmeter: Optional[AverageMeter] = None,
                        collect_props: bool = False):
-        """(ious, lossmeter, compute_seconds[, props]) over host batches; the
-        padded tail of a partial batch is dropped by ``num_valid``."""
-        ious: list = []
-        props_all: list = []
-        lossmeter = lossmeter or AverageMeter()
-        compute_seconds = 0.0
-        for batch in batches:
-            n_valid = int(batch["num_valid"]) if "num_valid" in batch else None
-            device_batch = self.to_device(batch)
-            t0 = time.perf_counter()
-            metrics = self.eval_step(device_batch)
-            loss = float(metrics["loss"])
-            batch_ious = metrics["ious"].cpu().numpy()
-            compute_seconds += time.perf_counter() - t0
-            ious.extend(batch_ious[:n_valid].tolist())
-            if collect_props:
-                props_all.append(metrics["props"].cpu().numpy()[:n_valid])
-            lossmeter.update(loss)
+        """(ious, lossmeter, compute_seconds[, props]) over host batches."""
+        return run_epoch(self.eval_step, self.to_device, batches, lossmeter, collect_props)
+
+
+def run_epoch(step_fn: Callable, to_device: Callable, batches: Iterable,
+              lossmeter: Optional[AverageMeter] = None, collect_props: bool = False):
+    """(ious, lossmeter, compute_seconds[, props]) of ``step_fn`` over host
+    batches; the padded tail of a partial batch is dropped by ``num_valid``.
+    compute_seconds runs from the step's first launch to its IoUs on the host."""
+    ious: list = []
+    props_all: list = []
+    lossmeter = lossmeter or AverageMeter()
+    compute_seconds = 0.0
+    for batch in batches:
+        n_valid = int(batch["num_valid"]) if "num_valid" in batch else None
+        device_batch = to_device(batch)
+        t0 = time.perf_counter()
+        metrics = step_fn(device_batch)
+        loss = float(metrics["loss"])
+        batch_ious = metrics["ious"].cpu().numpy()
+        compute_seconds += time.perf_counter() - t0
+        ious.extend(batch_ious[:n_valid].tolist())
         if collect_props:
-            props = np.concatenate(props_all) if props_all else np.zeros((0, 2))
-            return ious, lossmeter, compute_seconds, props
-        return ious, lossmeter, compute_seconds
+            props_all.append(metrics["props"].cpu().numpy()[:n_valid])
+        lossmeter.update(loss)
+    if collect_props:
+        props = np.concatenate(props_all) if props_all else np.zeros((0, 2))
+        return ious, lossmeter, compute_seconds, props
+    return ious, lossmeter, compute_seconds

@@ -94,11 +94,14 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
-    """Load a ``torch.save``d state_dict, or an ``.npz`` of the JAX tree."""
+    """Load a ``torch.save``d state_dict, the ``params`` of a trainer's
+    checkpoint (``train/checkpoints.py``), or an ``.npz`` of the JAX tree."""
     if path.endswith(".npz"):
         state = load_npz(path)
     else:
         state = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(state.get("params"), dict):
+            state = state["params"]
     model.load_state_dict(state, strict=True)
     return model
 
