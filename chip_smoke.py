@@ -12,13 +12,18 @@ Phases, in order; any failure exits non-zero:
    and bf16, with random lengths and wholly masked rows and samples: the
    attention kernels at the shapes SeqPAN's Charades forward gives them
    (B=128, 4 heads of 32, L=64 video and 30 text positions, D=128); the
+   whole-stack kernel (#4) at those shapes, at an odd batch (3) and on a
+   short ragged pair (13 video, 5 text positions), every leaf of its weight
+   stacks random; the
    banded kernel at the shapes ActionFormer's long config gives it (B=8, 4
    heads of 128, window 19, T = 2304, 1152, 576), a ragged T=1000 and T=300
    (padded length equal to its key window), on head-split views of one
    (B, T, 3C) projection.
 4. time: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``), in bf16, timed
-   with CUDA events; beside each, the least time the card could take.
+   with CUDA events; beside each, the least time the card could take.  The
+   whole-stack kernel (#4) in bf16 and f32, and beside it the module path's
+   time for the same stack (4 ``DualAttentionBlock`` calls through kernel #2).
 5. serve: SeqPAN at the full width of its Charades config, seeded random
    weights, bf16, behind the port's ``MomentRetrievalService``; a few
    hundred concurrent ``predict`` calls; the kernels' launch counts must be
@@ -47,6 +52,19 @@ Phases, in order; any failure exits non-zero:
    lifted: the loss and every parameter gradient on the card with the
    kernels against the CPU with the plain versions, each gradient beyond
    the distance of the card's band-mask route (no banded kernel) to the CPU.
+
+11. serve-stack: phase 5 with ``model.fused_dual_stack`` set: exactly 1
+   whole-stack launch (#4), 0 dual, 2 CQ and 2 masked per forward; its rate
+   and latencies are printed beside the flag-off phase's.
+12. verify-stack: phase 6 with the flag set (whole forward, f32, the stack
+   kernel on the card against its plain version on the CPU).
+13. serve-router: SeqPAN and BackBone (flag set) and BaseFast at full
+   Charades width, bf16, behind one ``ModelRouter`` over real HTTP: a burst
+   on each route with that route's launch counts (1/0/2/2, 1/0/2/2, 0/0/2/2
+   of stack/dual/CQ/masked per forward), a mixed burst routed by the body's
+   ``"model"`` field, then ``POST /reload`` of SeqPAN from a checkpoint
+   written in a temporary directory, after which its answers are those of
+   the new weights.
 
 The check phase also holds the backward kernels (#6, #7) against their
 plain versions at the training shapes (B 2, 4 heads of 128, window 19,
@@ -98,6 +116,15 @@ N_AF_REQUESTS, AF_CONCURRENCY = 256, 32
 B_TRAIN = 2  # the long config's training batch
 N_TIMED_STEPS, N_WARMUP_STEPS, N_BF16_STEPS = 20, 2, 3
 BWD_KERNELS = ("banded_attention_dq", "banded_attention_dkv")
+STACK = "dual_attention_stack"
+BOTH_DTYPES = BWD_KERNELS + (STACK,)  # timed in f32 and bf16
+STACK_CHECK_SHAPES = ((B, LV, LT), (3, LV, LT), (2, 13, 5))  # Charades, an odd B, a ragged pair
+STACK_CAST = (0, 1, 4, 8)  # of a stack case, what the policy casts: v, t and the two W
+# calls queued per timed repetition of the stack's plain version and module
+# path: each is hundreds of small launches, and more than the host can queue
+# during the sleep kernel would time the host, not the card
+N_QUEUED_SMALL_OPS = 1
+N_ROUTE_REQUESTS, ROUTE_CONCURRENCY, N_MIXED_REQUESTS = 128, 64, 192
 REPLACES = {
     "fused_masked_attention": "vmrframe_tpu/kernels/attention.py:65",
     "fused_dual_attention": "vmrframe_tpu/kernels/attention.py:116",
@@ -105,14 +132,17 @@ REPLACES = {
     "banded_attention": "vmrframe_tpu/kernels/window_attention.py:41",
     "banded_attention_dq": "vmrframe_tpu/kernels/window_attention.py:63",
     "banded_attention_dkv": "vmrframe_tpu/kernels/window_attention.py:89",
+    STACK: "vmrframe_tpu/kernels/dual_stack.py:153",
 }
 SOURCES = {
     "attention": "vmrframe_tpu_torch/kernels/csrc/attention.cu",
     "window_attention": "vmrframe_tpu_torch/kernels/csrc/window_attention.cu",
+    "dual_stack": "vmrframe_tpu_torch/kernels/csrc/dual_stack.cu",
 }
 SOURCE_OF = {"fused_masked_attention": "attention", "fused_dual_attention": "attention",
              "fused_cq_attention": "attention", "banded_attention": "window_attention",
-             "banded_attention_dq": "window_attention", "banded_attention_dkv": "window_attention"}
+             "banded_attention_dq": "window_attention", "banded_attention_dkv": "window_attention",
+             STACK: "dual_stack"}
 
 
 class SmokeFailure(RuntimeError):
@@ -159,6 +189,60 @@ def kernel_cases(g: torch.Generator):
     }
 
 
+def stack_blocks(seed: int):
+    """Two ``DualAttentionBlock``s on the card in f32, seeded, with every
+    leaf random (the initialisers leave LN at 1/0 and the BiLinear extra
+    bias at 0, which would hide them)."""
+    from vmrframe_tpu_torch.layers.attention import DualAttentionBlock
+    from vmrframe_tpu_torch.weights import init_weights
+
+    g = torch.Generator().manual_seed(seed)
+    blocks = []
+    for i in range(2):
+        block = init_weights(DualAttentionBlock(D, H), seed + i).eval()
+        with torch.no_grad():
+            for name, p in block.named_parameters():
+                if "layer_norm" in name or name.endswith("bias_value"):
+                    p.add_(0.1 * torch.randn(p.shape, generator=g))
+        blocks.append(block.cuda())
+    return blocks
+
+
+def stack_cases(g: torch.Generator, blocks, shapes):
+    """(v, t, vmask, tmask, W1, b1, ln1, xb1, W2, b2, ln2, xb2) per shape;
+    random lengths, sample 0 wholly masked."""
+    with torch.no_grad():
+        stacks = [p[key] for block in blocks for p in (block.stacks(),)
+                  for key in ("W", "b", "ln", "xb")]
+    cases = []
+    for Bc, Lv, Lt in shapes:
+        masks = []
+        for L in (Lv, Lt):
+            lens = torch.randint(1, L + 1, (Bc,), generator=g, device="cuda")
+            lens[0] = 0
+            masks.append((torch.arange(L, device="cuda")[None] < lens[:, None]).float())
+        cases.append((torch.randn(Bc, Lv, D, generator=g, device="cuda"),
+                      torch.randn(Bc, Lt, D, generator=g, device="cuda"), *masks, *stacks))
+    return cases
+
+
+def stack_call(fn):
+    """``fn`` of the stack module on one case's flat arguments."""
+    def call(v, t, vm, tm, *stacks):
+        p1, p2 = (dict(zip(("W", "b", "ln", "xb"), stacks[i:i + 4])) for i in (0, 4))
+        return fn(v, t, vm, tm, p1, p2, H)
+    return call
+
+
+def cast_args(name: str, args, dtype: torch.dtype):
+    """One case's arguments in ``dtype``; of a stack case only what the bf16
+    policy casts (activations and rank >= 2 weights; masks cast too, as the
+    batch's are, would change nothing: the wrapper reads them as f32)."""
+    if name == STACK:
+        return tuple(a.to(dtype) if i in STACK_CAST else a for i, a in enumerate(args))
+    return tuple(a.to(dtype) for a in args)
+
+
 def split_heads(qkv: torch.Tensor):
     """q, k, v as the model passes them: head-split views of one (B, T, 3C)
     projection, (B, H, T, hd) each."""
@@ -192,9 +276,10 @@ def banded_bwd_cases(g: torch.Generator, lengths):
     return cases
 
 
-def functions(K, W) -> dict:
+def functions(K, W, S) -> dict:
     """name -> (kernel wrapper, plain version), each taking one case's args."""
     return {
+        STACK: (stack_call(S.dual_attention_stack), stack_call(S.dual_attention_stack_plain)),
         "fused_masked_attention": (K.fused_masked_attention, K.masked_attention_plain),
         "fused_dual_attention": (K.fused_dual_attention, K.dual_attention_plain),
         "fused_cq_attention": (K.fused_cq_attention, K.cq_attention_plain),
@@ -225,6 +310,19 @@ def work(name: str, args) -> tuple:
     """(bytes, operations) the function needs: each input read once, each
     output written once; the operations are its matrix products."""
     size = args[0].element_size()
+    if name == STACK:
+        # bytes: v, t in and out, the masks (f32), one pass over both layers'
+        # stacks (W in the compute type, b, ln, xb in f32).  Operations: per
+        # call with F from-rows and T to-rows, 12 F D^2 + 2 T D^2 multiply-adds
+        # of projections (the BiLinear counted folded: one product over
+        # fn + gc) and 2 F (F + T) D of attention (scores and p v of both
+        # branches, each head its own hd lanes), over the four calls.
+        Bc, Lv, _ = args[0].shape
+        Lt = args[1].shape[1]
+        nbytes = 2 * Bc * (Lv + Lt) * D * size + 4 * Bc * (Lv + Lt) \
+            + 2 * (14 * D * D * size + 4 * (14 + 6 + 2) * D)
+        call = lambda F_, T_: 12 * F_ * D * D + 2 * T_ * D * D + 2 * F_ * (F_ + T_) * D  # noqa: E731
+        return nbytes, 2 * 2 * Bc * (call(Lv, Lt) + call(Lt, Lv))
     if name.startswith("banded_attention"):
         # tensors read and written besides the mask (forward: q, k, v, out;
         # dq: q, k, v, g, dq; dk/dv: q, k, v, g, dk, dv); the band's products
@@ -330,12 +428,14 @@ def library_call(name: str, args):
 def phase_build() -> dict:
     from vmrframe_tpu_torch.kernels import attention as K
     from vmrframe_tpu_torch.kernels import build
+    from vmrframe_tpu_torch.kernels import dual_stack as S
     from vmrframe_tpu_torch.kernels import window_attention as W
 
     t0 = time.perf_counter()
     build.build_all(list(SOURCES))
     K.load_kernels()
     W.load_kernels()
+    S.load_kernels()
     seconds = time.perf_counter() - t0
     log(f"[build] {', '.join(SOURCES.values())} built (in parallel) and loaded in {seconds:.1f} s")
     for name in SOURCES:
@@ -354,7 +454,7 @@ def phase_check(fns, cases) -> dict:
         for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             err, tol = 0.0, 0.0
             for args in shapes:
-                args = tuple(a.to(dtype) for a in args)
+                args = cast_args(name, args, dtype)
                 got = as_tuple(wrapper(*args))
                 want = as_tuple(plain(*args))
                 torch.cuda.synchronize()
@@ -407,19 +507,20 @@ def phase_time(fns, cases, weights, card: str) -> dict:
     """Per call; a kernel's ms are its launch-weighted mean over the shapes
     one forward (or train step) gives it (``weights``: launches per forward).
     The forward kernels in bf16; the backward kernels in f32 (the long
-    config's type) and bf16."""
+    config's type) and bf16; the whole-stack kernel in both."""
     results = {}
     for name, shapes in cases.items():
         wrapper, plain = fns[name]
-        for key in (("f32", "bf16") if name in BWD_KERNELS else ("bf16",)):
+        for key in (("f32", "bf16") if name in BOTH_DTYPES else ("bf16",)):
             log(f"[time] {name} {key}, per call, on {card}")
             rows = []
             for args, weight in zip(shapes, weights[name]):
-                args = tuple(a.to(DTYPE_KEYS[key]) for a in args)
+                args = cast_args(name, args, DTYPE_KEYS[key])
                 row = {
                     "shape": [list(a.shape) for a in args[:2]], "launches_per_forward": weight,
                     "ms": device_ms(lambda: wrapper(*args)),
-                    "plain_ms": device_ms(lambda: plain(*args)),
+                    "plain_ms": device_ms(lambda: plain(*args),
+                                          n=N_QUEUED_SMALL_OPS if name == STACK else 20),
                     "library_ms": library_ms(name, args),
                 }
                 row["bound_ms"], row["bound_by"] = bound_ms(name, args)
@@ -441,6 +542,35 @@ def phase_time(fns, cases, weights, card: str) -> dict:
                 "bound_by": rows[0]["bound_by"], "shapes": rows,
             }
     return results
+
+
+def time_module_path(blocks, case, results, card: str) -> None:
+    """The module path's time for the same stack on the same inputs: 4
+    ``DualAttentionBlock`` calls, each through kernel #2 (``fused_dual_attention``),
+    the projections in cuBLAS.  The other route to the same result, not a
+    library call: written beside the stack kernel's numbers."""
+    import copy
+
+    from vmrframe_tpu_torch.ops.precision import cast_module_
+
+    v, t, vm, tm = case[:4]
+    for key, dtype in DTYPE_KEYS.items():
+        mods = [cast_module_(copy.deepcopy(b), dtype) for b in blocks]
+        x, y = v.to(dtype), t.to(dtype)
+
+        @torch.no_grad()
+        def run():
+            a, b = x, y
+            for m in mods:
+                a, b = m(a, b, vm, tm), m(b, a, tm, vm)
+            return a, b
+
+        ms = device_ms(run, n=N_QUEUED_SMALL_OPS)
+        results[STACK][key]["module_path_ms"] = ms["median"]
+        results[STACK][key]["module_path_ms_spread"] = ms
+        log(f"[time] {STACK} {key}: the module path for the same stack (4 DualAttentionBlock "
+            f"calls through fused_dual_attention) {ms['median']:.4f} ms, against the one-launch "
+            f"kernel's {results[STACK][key]['ms']:.4f} ms, on {card}")
 
 
 def charades_vocab(dataset, num_words: int, seed: int) -> None:
@@ -504,12 +634,23 @@ def check_launches(phase: str, stats: dict, want: dict) -> None:
         ", ".join(f"{k} {v / forwards:g}" for k, v in launches.items()))
 
 
-def phase_serve(kernels, card: str):
+SERVE_LAUNCHES = {  # per forward, by route of the dual-attention stack
+    False: {STACK: 0, "fused_dual_attention": 4, "fused_cq_attention": 2,
+            "fused_masked_attention": 2},
+    True: {STACK: 1, "fused_dual_attention": 0, "fused_cq_attention": 2,
+           "fused_masked_attention": 2},
+}
+
+
+def phase_serve(kernels, card: str, fused: bool = False):
+    """SeqPAN at Charades width behind the service; ``fused`` sets
+    ``model.fused_dual_stack`` (phase serve-stack)."""
     from vmrframe_tpu_torch.config import Derived
     from vmrframe_tpu_torch.testing import make_synthetic_data
     from vmrframe_tpu_torch.tools.serve import MomentRetrievalService, make_cfg
 
-    cfg = make_cfg()  # SeqPAN at Charades width, batch 128, bf16
+    phase = "serve-stack" if fused else "serve"
+    cfg = make_cfg(fused_dual_stack=fused)  # SeqPAN at Charades width, batch 128, bf16
     dataset, store = make_synthetic_data(cfg, seed=0, n_train=B, n_test=2 * B)
     charades_vocab(dataset, NUM_WORDS, seed=0)
     derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
@@ -523,24 +664,33 @@ def phase_serve(kernels, card: str):
     finally:
         service.close()
     stats = {
-        "card": card, "model": "SeqPAN", "batch_size": service.batch_size, "dtype": "bfloat16",
-        "vlen": LV, "tlen": LT, "vdim": int(cfg.model.vdim), "dim": D, "heads": H,
+        "card": card, "model": "SeqPAN", "fused_dual_stack": fused,
+        "batch_size": service.batch_size, "dtype": "bfloat16", "vlen": LV, "tlen": LT, "vdim": int(cfg.model.vdim), "dim": D, "heads": H,
         "num_words": dataset["n_words"], "boot_s": boot_s, **load,
         "peak_device_mem_bytes": torch.cuda.max_memory_allocated(),
     }
-    log(f"[serve] {json.dumps(stats)}")
-    check_launches("serve", stats, {"fused_dual_attention": 4, "fused_cq_attention": 2,
-                                    "fused_masked_attention": 2})
+    log(f"[{phase}] {json.dumps(stats)}")
+    check_launches(phase, stats, SERVE_LAUNCHES[fused])
     return stats, dataset, store, derived, cfg
 
 
-def phase_verify(cfg, derived, dataset, store) -> dict:
-    """One f32 batch: kernels on the card against the plain versions on the CPU."""
+def phase_verify(cfg, derived, dataset, store, phase: str = "verify") -> dict:
+    """One f32 batch: kernels on the card against the plain versions on the
+    CPU.  With ``model.fused_dual_stack`` set in ``cfg`` (verify-stack) the
+    card must have launched the whole-stack kernel once and kernel #2 never."""
     from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.kernels import attention as K
+    from vmrframe_tpu_torch.kernels import dual_stack as S
 
     batch = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B)))
-    return verify_forward("verify", cfg, derived, dataset["word_vector"], batch,
-                          {"slogits": (B, LV), "elogits": (B, LV)})
+    zero_counts(K.KERNELS + S.KERNELS)
+    out = verify_forward(phase, cfg, derived, dataset["word_vector"], batch,
+                         {"slogits": (B, LV), "elogits": (B, LV)})
+    want = SERVE_LAUNCHES[bool(cfg.model.get("fused_dual_stack", False))]
+    got = {fn.__name__: fn.launches for fn in K.KERNELS + S.KERNELS}
+    if got != want:
+        raise SmokeFailure(f"{phase}: launches {got} in one forward on the card, want {want}")
+    return out
 
 
 def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict) -> dict:
@@ -566,6 +716,173 @@ def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict) -
     if not ok:
         raise SmokeFailure(f"{phase}: kernel path and plain path disagree")
     return {"max_abs_err": errs, "tol": TOL_MODEL_F32}
+
+
+def compare_serving(off: dict, on: dict) -> None:
+    for label, st in (("flag off (4 block calls)", off), ("flag on (1 stack launch)", on)):
+        log(f"[serve-stack] {label}: {st['qps']:.1f} requests/s, p50 {st['p50_ms']:.1f} ms, "
+            f"p99 {st['p99_ms']:.1f} ms, {st['forwards']} forwards, on {st['card']}")
+
+
+def http_post(url: str, body) -> tuple:
+    """(status, JSON) of a POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode("utf8"),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_drive(phase: str, url: str, router, records, n_requests: int, concurrency: int,
+               route_of, by_path: bool, kernels) -> dict:
+    """``n_requests`` concurrent POSTs over real HTTP; request i goes to model
+    ``route_of(i)``, named in the path or in the body.  Launch counts are set
+    to 0 just before and read just after; forwards are counted per service."""
+    lat, lock = [], threading.Lock()
+
+    def one(i):
+        rec, name = records[i % len(records)], route_of(i)
+        body = {"vid": rec["vid"], "sentence": rec["sentence"], "duration": rec["duration"]}
+        target = f"{url}/predict/{name}" if by_path else f"{url}/predict"
+        t = time.perf_counter()
+        code, out = http_post(target, body if by_path else {**body, "model": name})
+        dt = time.perf_counter() - t
+        frac = out.get("pred_frac", ())
+        if code != 200 or out.get("model") != name or len(frac) != 2 \
+                or not all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in frac):
+            raise SmokeFailure(f"{phase}: {target} answered {code} {out}")
+        with lock:
+            lat.append(dt)
+
+    before = {n: s.metrics() for n, s in router.services.items()}
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=concurrency) as ex:
+        list(ex.map(one, range(n_requests)))
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    after = {n: s.metrics() for n, s in router.services.items()}
+    if any(after[n]["requests_error"] for n in after):
+        raise SmokeFailure(f"{phase}: {after}")
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    return {"requests": n_requests, "concurrency": concurrency, "wall_s": wall,
+            "qps": n_requests / wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "forwards": {n: after[n]["batches"] - before[n]["batches"] for n in after},
+            "served": {n: after[n]["requests_ok"] - before[n]["requests_ok"] for n in after},
+            "launches": launches}
+
+
+ROUTES = {  # route -> (model, fused_dual_stack, launches per forward)
+    "seqpan": ("SeqPAN", True, SERVE_LAUNCHES[True]),
+    "backbone": ("BackBone", True, SERVE_LAUNCHES[True]),
+    "basefast": ("BaseFast", False, {**SERVE_LAUNCHES[False], "fused_dual_attention": 0}),
+}
+
+
+def check_route_launches(phase: str, stats: dict) -> None:
+    """The launch counts must be the sum over routes of forwards times that
+    route's launches per forward."""
+    want = {name: sum(stats["forwards"][r] * ROUTES[r][2][name] for r in ROUTES)
+            for name in SERVE_LAUNCHES[True]}
+    got = {name: stats["launches"][name] for name in want}
+    log(f"[{phase}] forwards {json.dumps(stats['forwards'])}, launches {json.dumps(got)}, "
+        f"want {json.dumps(want)}; {stats['qps']:.1f} requests/s, p50 {stats['p50_ms']:.1f} ms, "
+        f"p99 {stats['p99_ms']:.1f} ms")
+    if got != want or sum(stats["forwards"].values()) < 1:
+        raise SmokeFailure(f"{phase}: launches {got}, want {want}")
+
+
+def phase_serve_router(kernels, card: str) -> dict:
+    """SeqPAN, BackBone (both with the fused stack) and BaseFast at full
+    Charades width behind one ``ModelRouter`` over HTTP, then a ``/reload``."""
+    from vmrframe_tpu_torch.tools.serve import (ModelRouter, build_service, make_cfg,
+                                                make_http_server)
+
+    services, dataset = {}, None
+    t0 = time.perf_counter()
+    for route, (model, fused, _) in ROUTES.items():
+        cfg = make_cfg(model=model, fused_dual_stack=fused)
+        services[route], dataset = build_service(cfg, n_synthetic=2 * B, device="cuda")
+    boot_s = time.perf_counter() - t0
+    router = ModelRouter(services)
+    server = make_http_server(router, 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    records = dataset["test_set"]
+    stats = {"card": card, "routes": {r: ROUTES[r][0] for r in ROUTES}, "boot_s": boot_s,
+             "batch_size": B, "dtype": "bfloat16", "bursts": {}}
+    try:
+        for route in ROUTES:  # one route at a time: its launch counts alone
+            burst = http_drive("serve-router", url, router, records, N_ROUTE_REQUESTS,
+                               ROUTE_CONCURRENCY, lambda i, r=route: r, True, kernels)
+            if burst["served"] != {r: (N_ROUTE_REQUESTS if r == route else 0) for r in ROUTES}:
+                raise SmokeFailure(f"serve-router: /predict/{route} served {burst['served']}")
+            check_route_launches(f"serve-router /predict/{route}", burst)
+            stats["bursts"][route] = burst
+        names = list(ROUTES)
+        mixed = http_drive("serve-router", url, router, records, N_MIXED_REQUESTS,
+                           ROUTE_CONCURRENCY, lambda i: names[i % 3], False, kernels)
+        if mixed["served"] != {r: N_MIXED_REQUESTS // 3 for r in ROUTES}:
+            raise SmokeFailure(f"serve-router: the mixed burst served {mixed['served']}")
+        check_route_launches("serve-router mixed", mixed)
+        stats["bursts"]["mixed"] = mixed
+        stats["reload"] = check_reload(url, router, dataset)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        router.close()
+    return stats
+
+
+def check_reload(url: str, router, dataset, n_records: int = 8) -> dict:
+    """``POST /reload`` of SeqPAN from a checkpoint written in a temporary
+    directory (the same tree from another seed): its answers to
+    ``n_records`` requests become those of the new weights, the other
+    routes' stay."""
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+
+    service = router.get("seqpan")
+    records = dataset["test_set"][:n_records]
+    body = lambda r: {"vid": r["vid"], "sentence": r["sentence"],  # noqa: E731
+                      "duration": r["duration"]}
+    ask = lambda: {route: [http_post(f"{url}/predict/{route}", body(r))[1]["pred_frac"]  # noqa: E731
+                           for r in records] for route in ROUTES}
+    before = ask()
+    other = Evaluator(service.cfg, service.derived, dataset["word_vector"], device="cuda", seed=7)
+    want = []
+    for r in records:  # one request per batch, as the service will assemble them
+        batch = other.to_device(service._assemble(
+            [service._make_record(r["vid"], r["sentence"], r["duration"])]))
+        want.append(other.eval_step(batch)["props"][0].tolist())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "seqpan_seed7.pt")
+        torch.save({k: v.float().cpu() for k, v in other.model.state_dict().items()}, path)
+        code, out = http_post(f"{url}/reload", {"model": "seqpan", "checkpoint": path})
+        if (code, out) != (200, {"ok": True, "model": "seqpan"}):
+            raise SmokeFailure(f"serve-router: /reload answered {code} {out}")
+        code, out = http_post(f"{url}/reload", {"model": "seqpan",
+                                               "checkpoint": os.path.join(tmp, "none.pt")})
+        if code != 400:
+            raise SmokeFailure(f"serve-router: /reload of a missing file answered {code} {out}")
+    after = ask()
+    diff = lambda xs, ys: max(abs(a - b) for x, y in zip(xs, ys) for a, b in zip(x, y))  # noqa: E731
+    err, moved = diff(after["seqpan"], want), diff(after["seqpan"], before["seqpan"])
+    others_same = all(after[r] == before[r] for r in ROUTES if r != "seqpan")
+    log(f"[serve-router] /reload of seqpan over {len(records)} requests: answers moved by up to "
+        f"{moved:.4f}; against the new weights alone max abs diff {err:.2e}; the other routes "
+        f"unchanged: {others_same}")
+    if err > 1e-6 or moved == 0.0 or not others_same:
+        raise SmokeFailure("serve-router: after /reload the answers are not the new weights'")
+    return {"before": before["seqpan"], "after": after["seqpan"], "new_weights_alone": want,
+            "max_abs_diff": err, "moved": moved}
 
 
 def phase_serve_af(kernels, card: str):
@@ -817,6 +1134,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
         return 1
     from vmrframe_tpu_torch.kernels import attention as K
+    from vmrframe_tpu_torch.kernels import dual_stack as S
     from vmrframe_tpu_torch.kernels import window_attention as W
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -825,11 +1143,14 @@ def main() -> int:
     log(card)
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
-    kernels = K.KERNELS + W.KERNELS
-    fns = functions(K, W)
+    kernels = K.KERNELS + S.KERNELS + W.KERNELS
+    fns = functions(K, W, S)
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = kernel_cases(g)
-    check_cases = {**cases, "banded_attention": banded_cases(g, AF_CHECK_T)}
+    blocks = stack_blocks(seed=0)
+    cases[STACK] = stack_cases(g, blocks, STACK_CHECK_SHAPES[:1])
+    check_cases = {**cases, "banded_attention": banded_cases(g, AF_CHECK_T),
+                   STACK: cases[STACK] + stack_cases(g, blocks, STACK_CHECK_SHAPES[1:])}
     time_cases = {**cases, "banded_attention": banded_cases(g, tuple(AF_LAUNCHES))}
     bwd_check, bwd_time = banded_bwd_cases(g, AF_CHECK_T), banded_bwd_cases(g, tuple(AF_LAUNCHES))
     for name in BWD_KERNELS:  # the two backward kernels share their cases
@@ -849,6 +1170,7 @@ def main() -> int:
     record["build"] = phase("build", phase_build)
     record["check"] = phase("check", phase_check, fns, check_cases)
     record["time"] = phase("time", phase_time, fns, time_cases, weights, card)
+    time_module_path(blocks, cases[STACK][0], record["time"], card)
     record["serve"], dataset, store, derived, cfg = phase("serve", phase_serve, kernels, card)
     record["verify"] = phase("verify", phase_verify, cfg, derived, dataset, store)
     record["serve_af"], service, af_data, af_cfg = phase("serve-AF", phase_serve_af, kernels, card)
@@ -857,11 +1179,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["train_af"] = phase("train-AF", phase_train_af, W, card)
     record["verify_train_af"] = phase("verify-train-AF", phase_verify_train_af, W)
+    record["serve_stack"], _, _, _, cfg_stack = phase("serve-stack", phase_serve, kernels, card,
+                                                      True)
+    compare_serving(record["serve"], record["serve_stack"])
+    record["verify_stack"] = phase("verify-stack", phase_verify, cfg_stack, derived, dataset,
+                                   store, "verify-stack")
+    record["serve_router"] = phase("serve-router", phase_serve_router, kernels, card)
     record["seconds"] = seconds
     # the main path each kernel's launches are read from, and the type of the
     # numbers in its line: the serve phases run bf16, training the YAML's f32
     main_path = {fn.__name__: "serve" for fn in K.KERNELS}
-    main_path["banded_attention"] = "serve_af"
+    main_path["banded_attention"], main_path[STACK] = "serve_af", "serve_stack"
     line_dtype = {fn.__name__: "bf16" for fn in kernels}
     for name in BWD_KERNELS:
         main_path[name], line_dtype[name] = "train_af", "f32"
@@ -883,6 +1211,10 @@ def main() -> int:
             "max_abs_err_bf16": c["bf16"]["max_abs_err"],
             "card": card,
         })
+        if "module_path_ms" in t:  # the other route to the same result, not a library call
+            out[-1]["module_path_ms"] = t["module_path_ms"]
+            out[-1]["ms_f32"] = record["time"][name]["f32"]["ms"]
+            out[-1]["bound_ms_f32"] = record["time"][name]["f32"]["bound_ms"]
     record["kernels"] = out
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

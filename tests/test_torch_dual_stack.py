@@ -1,0 +1,184 @@
+"""The port's whole-stack dual-attention function (kernel #4's plain version)
+and its weight stacks against the JAX package.
+
+- ``dual_attention_stack_plain`` against the Pallas kernel
+  ``dual_attention_stack(..., interpret=True)`` on the same numpy inputs and
+  carried-over weights: f32 at 1e-5 on EVERY returned row, padding rows and
+  wholly padded samples included (a row without validity has its gate at
+  exactly 0, so it is ``dense_2(LN2(b_d1 + x)) + b_d1 + x`` on both sides);
+- bf16 weights and activations at 2**-6 of the largest output (a few bf16
+  ulps: both sides round at the same points, sums differ in order);
+- a sample whose to-side has no valid key: there the TPU kernel spreads a
+  valid from-row's softmax over the 2 Lt columns of its stacked pair, the
+  port over the sample's own Lt rows, as the JAX MODULE path does; so that
+  sample is held against the module path (1e-4, the modules' bar) and the
+  other samples against the kernel;
+- the stacks of the port's ``DualAttentionBlock`` equal
+  ``DualAttentionBlockParams.apply`` on the carried-over weights, exactly;
+- ``MultiHeadAttentionBlock`` against the flax module at 1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vmrframe_tpu.kernels.dual_stack import dual_attention_stack as j_stack
+from vmrframe_tpu.layers import attention as jl
+from vmrframe_tpu_torch.kernels import dual_stack as S
+from vmrframe_tpu_torch.layers.attention import DualAttentionBlock, MultiHeadAttentionBlock
+from vmrframe_tpu_torch.weights import load_jax_params
+
+D, H = 128, 4
+ATOL = 1e-5
+
+
+def _jax_block_params(seed):
+    """One DualAttentionBlock's flax params with every leaf random (the
+    initialisers leave biases and LN at 0/1, which would hide them)."""
+    v, t = jnp.zeros((1, 8, D)), jnp.zeros((1, 8, D))
+    params = jl.DualAttentionBlock(D, H, 0.0).init(
+        jax.random.PRNGKey(seed), v, t, jnp.ones((1, 8)), jnp.ones((1, 8)), True)["params"]
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        leaf = np.asarray(leaf)
+        if name == "kernel":
+            return leaf
+        noise = rng.standard_normal(leaf.shape).astype(np.float32) * 0.1
+        return noise + (1.0 if name == "scale" else 0.0)
+
+    return jax.tree_util.tree_map_with_path(fill, params)
+
+
+@pytest.fixture(scope="module")
+def blocks():
+    """(flax params, port module, JAX stacks, port stacks) for two blocks."""
+    out = []
+    for seed in (0, 1):
+        params = _jax_block_params(seed)
+        module = load_jax_params(DualAttentionBlock(D, H), params, {}).eval()
+        jstacks = jl.DualAttentionBlockParams(D, H, 0.0).apply({"params": params})
+        with torch.no_grad():
+            out.append((params, module, jstacks, module.stacks()))
+    return out
+
+
+def _inputs(seed, B, Lv, Lt, empty_to_side=False):
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((B, Lv, D)).astype(np.float32)
+    t = rng.standard_normal((B, Lt, D)).astype(np.float32)
+    vlens = rng.integers(Lv // 2, Lv + 1, B)
+    tlens = rng.integers(2, Lt + 1, B)
+    if B > 2:
+        vlens[-1] = tlens[-1] = 0  # a wholly padded sample, as the service pads a batch
+    if empty_to_side:
+        tlens[0] = 0  # valid video rows facing a text side with no valid key
+    vm = (np.arange(Lv)[None] < vlens[:, None]).astype(np.float32)
+    tm = (np.arange(Lt)[None] < tlens[:, None]).astype(np.float32)
+    return v, t, vm, tm
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+
+
+def test_stacks_equal_the_jax_collector(blocks):
+    for _, _, jstacks, stacks in blocks:
+        assert set(stacks) == set(jstacks) == {"W", "b", "ln", "xb"}
+        for key in jstacks:
+            assert tuple(stacks[key].shape) == jstacks[key].shape
+            np.testing.assert_array_equal(stacks[key].numpy(), np.asarray(jstacks[key]))
+
+
+@pytest.mark.parametrize("B,Lv,Lt", [(4, 64, 25), (3, 64, 25), (2, 40, 12), (2, 64, 30)])
+def test_plain_matches_pallas_interpret_on_every_row(blocks, B, Lv, Lt):
+    v, t, vm, tm = _inputs(B, B, Lv, Lt)
+    (_, _, j1, p1), (_, _, j2, p2) = blocks
+    want_v, want_t = j_stack(*(jnp.asarray(a) for a in (v, t, vm, tm)), j1, j2, H,
+                             interpret=True)
+    before = S.dual_attention_stack.launches
+    with torch.no_grad():
+        got_v, got_t = S.dual_attention_stack(_t(v), _t(t), _t(vm), _t(tm), p1, p2, H)
+    assert S.dual_attention_stack.launches == before  # CPU tensors: the plain version
+    assert got_v.shape == (B, Lv, D) and got_t.shape == (B, Lt, D)
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), atol=ATOL)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=ATOL)
+
+
+def test_plain_matches_pallas_interpret_in_bf16(blocks):
+    B, Lv, Lt = 2, 64, 30
+    v, t, vm, tm = _inputs(7, B, Lv, Lt)
+    (_, _, j1, p1), (_, _, j2, p2) = blocks
+    cast = lambda p, to: {k: to(x, k == "W") for k, x in p.items()}  # noqa: E731
+    jb = lambda x, w: jnp.asarray(x, jnp.bfloat16) if w else jnp.asarray(x)  # noqa: E731
+    tb = lambda x, w: x.to(torch.bfloat16) if w else x  # noqa: E731
+    want = j_stack(jnp.asarray(v, jnp.bfloat16), jnp.asarray(t, jnp.bfloat16), jnp.asarray(vm),
+                   jnp.asarray(tm), cast(j1, jb), cast(j2, jb), H, interpret=True)
+    with torch.no_grad():
+        got = S.dual_attention_stack_plain(_t(v, torch.bfloat16), _t(t, torch.bfloat16), _t(vm),
+                                           _t(tm), cast(p1, tb), cast(p2, tb), H)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w.astype(jnp.float32))
+        tol = 2.0 ** -6 * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g.float().numpy(), w, atol=tol)
+
+
+def test_empty_to_side_follows_the_module_path(blocks):
+    B, Lv, Lt = 4, 64, 30
+    v, t, vm, tm = _inputs(11, B, Lv, Lt, empty_to_side=True)
+    assert tm[0].sum() == 0 and vm[0].sum() > 0
+    (q1, m1, j1, p1), (q2, m2, j2, p2) = blocks
+    with torch.no_grad():
+        got_v, got_t = S.dual_attention_stack_plain(_t(v), _t(t), _t(vm), _t(tm), p1, p2, H)
+        # the port's own module path, and the JAX module path
+        mv, mt = _t(v), _t(t)
+        for m in (m1, m2):
+            mv, mt = m(mv, mt, _t(vm), _t(tm)), m(mt, mv, _t(tm), _t(vm))
+    jv, jt = jnp.asarray(v), jnp.asarray(t)
+    for params in (q1, q2):
+        apply = lambda x, y, xm, ym: jl.DualAttentionBlock(D, H, 0.0).apply(  # noqa: E731
+            {"params": params}, x, y, jnp.asarray(xm), jnp.asarray(ym), True)
+        jv, jt = apply(jv, jt, vm, tm), apply(jt, jv, tm, vm)
+    for got, own, want in ((got_v, mv, jv), (got_t, mt, jt)):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+        np.testing.assert_allclose(got.numpy(), own.numpy(), atol=1e-4)
+    # the other samples agree with the TPU kernel; sample 0 shares its pair
+    # with sample 1 there, so only sample 0 itself differs
+    want_v, want_t = j_stack(*(jnp.asarray(a) for a in (v, t, vm, tm)), j1, j2, H,
+                             interpret=True)
+    np.testing.assert_allclose(got_v[1:].numpy(), np.asarray(want_v)[1:], atol=ATOL)
+    np.testing.assert_allclose(got_t[1:].numpy(), np.asarray(want_t)[1:], atol=ATOL)
+    assert np.abs(got_v[0].numpy() - np.asarray(want_v)[0]).max() > 1e-3
+
+
+def test_wrapper_checks_shapes_on_any_device(blocks):
+    (_, _, _, p1), (_, _, _, p2) = blocks
+    v, t, vm, tm = (_t(a) for a in _inputs(3, 2, 16, 8))
+    with pytest.raises(ValueError, match="disagree"):
+        S.dual_attention_stack(v, t, vm[:, :5], tm, p1, p2, H)
+    with pytest.raises(ValueError, match="heads"):
+        S.dual_attention_stack(v, t, vm, tm, p1, p2, 3)
+    with pytest.raises(ValueError, match="stack W"):
+        S.dual_attention_stack(v, t, vm, tm, {**p1, "W": p1["W"][:13]}, p2, H)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_multi_head_attention_block(masked):
+    rng = np.random.default_rng(5)
+    B, L, dim = 3, 10, 16
+    x = rng.standard_normal((B, L, dim)).astype(np.float32)
+    lens = np.array([L, 4, 0])
+    mask = (np.arange(L)[None] < lens[:, None]).astype(np.float32) if masked else None
+    flax_m = jl.MultiHeadAttentionBlock(dim, 4, 0.0)
+    args = (jnp.asarray(x),) + ((jnp.asarray(mask),) if masked else ())
+    variables = flax_m.init(jax.random.PRNGKey(0), *args)
+    torch_m = load_jax_params(MultiHeadAttentionBlock(dim, 4), variables["params"], {}).eval()
+    want = flax_m.apply(variables, *args)
+    with torch.no_grad():
+        got = torch_m(_t(x), _t(mask) if masked else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from vmrframe_tpu_torch.kernels import attention as K
+from vmrframe_tpu_torch.kernels import dual_stack as S
 from vmrframe_tpu_torch.kernels import window_attention as W
 
 pytestmark = pytest.mark.gpu
@@ -333,3 +334,102 @@ def test_actionformer_forward_on_the_kernel_matches_plain_on_cpu(cuda):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=0, atol=1e-4)
     torch.testing.assert_close(got_step["loss"].cpu(), want_step["loss"], rtol=1e-5, atol=0)
     torch.testing.assert_close(got_step["props"].cpu(), want_step["props"], rtol=0, atol=1e-4)
+
+
+def _stack_inputs(g, B, Lv, Lt, dtype, device, D=128, H=4):
+    """Two blocks with every leaf random, features, and masks of random
+    lengths with sample 0 wholly masked."""
+    from vmrframe_tpu_torch.layers.attention import DualAttentionBlock
+    from vmrframe_tpu_torch.ops.precision import cast_module_
+    from vmrframe_tpu_torch.weights import init_weights
+
+    stacks = []
+    for seed in (0, 1):
+        block = init_weights(DualAttentionBlock(D, H), seed).eval()
+        with torch.no_grad():
+            for name, p in block.named_parameters():
+                if "layer_norm" in name or name.endswith("bias_value"):
+                    p.add_(0.1 * torch.randn(p.shape, generator=g))
+            stacks.append(cast_module_(block.to(device), dtype).stacks())
+    v = torch.randn(B, Lv, D, generator=g).to(device, dtype)
+    t = torch.randn(B, Lt, D, generator=g).to(device, dtype)
+    return v, t, _mask(g, B, Lv, device), _mask(g, B, Lt, device), *stacks, H
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Lv,Lt", [(5, 64, 30), (3, 30, 64), (2, 13, 5), (1, 1, 1)])
+def test_dual_stack_kernel(cuda, dtype, B, Lv, Lt):
+    """#4 against its plain version on every row: random lengths, a wholly
+    masked sample, an odd batch, a short ragged pair, one position."""
+    g = torch.Generator().manual_seed(6)
+    args = _stack_inputs(g, B, Lv, Lt, dtype, cuda)
+    before = S.dual_attention_stack.launches
+    got = S.dual_attention_stack(*args)
+    torch.cuda.synchronize()
+    assert S.dual_attention_stack.launches == before + 1
+    assert all(o.is_contiguous() for o in got)
+    _close(got, S.dual_attention_stack_plain(*args), dtype)
+
+
+def test_dual_stack_kernel_with_an_empty_to_side_and_8_heads(cuda):
+    """A valid video row facing a text side with no valid key averages that
+    sample's own text rows, as the plain version does; 8 heads of 16."""
+    g = torch.Generator().manual_seed(7)
+    v, t, vm, tm, p1, p2, _ = _stack_inputs(g, 4, 64, 30, torch.float32, cuda, H=8)
+    vm[1], tm[1] = 1.0, 0.0
+    got = S.dual_attention_stack(v, t, vm, tm, p1, p2, 8)
+    torch.cuda.synchronize()
+    _close(got, S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, 8), torch.float32)
+
+
+def test_dual_stack_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    g = torch.Generator().manual_seed(8)
+    v, t, vm, tm, p1, p2, H = _stack_inputs(g, 2, 16, 8, torch.float32, cuda)
+    before = S.dual_attention_stack.launches
+    with pytest.raises(ValueError, match="the kernel takes"):  # Lv beyond 64
+        long_v = torch.randn(2, 65, 128, device=cuda)
+        S.dual_attention_stack(long_v, t, torch.ones(2, 65, device=cuda), tm, p1, p2, H)
+    with pytest.raises(ValueError, match="the kernel takes"):  # head dim 2
+        S.dual_attention_stack(v, t, vm, tm, p1, p2, 64)
+    with pytest.raises(ValueError, match="the kernel takes"):  # D = 256
+        wide = {k: torch.zeros(*(256 if d == 128 else d for d in x.shape), device=cuda)
+                for k, x in p1.items()}
+        S.dual_attention_stack(torch.zeros(2, 16, 256, device=cuda),
+                               torch.zeros(2, 8, 256, device=cuda), vm, tm, wide, wide, H)
+    with pytest.raises(TypeError):
+        half = {k: x.half() for k, x in p1.items()}
+        S.dual_attention_stack(v.half(), t.half(), vm, tm, half, half, H)
+    with pytest.raises(ValueError, match="share"):
+        S.dual_attention_stack(v, t, vm, tm, {**p1, "W": p1["W"].bfloat16()}, p2, H)
+    assert S.dual_attention_stack.launches == before
+
+
+def test_family_forward_with_the_fused_stack_matches_plain_on_cpu(cuda):
+    """SeqPAN and BackBone at dim 128 with ``model.fused_dual_stack`` set: 1
+    stack launch and no dual-attention launch per forward on the card; the
+    plain version on the CPU; with the flag off, 4 dual launches."""
+    from vmrframe_tpu_torch.config import Derived
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+    from vmrframe_tpu_torch.tools.serve import make_cfg
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+
+    counted = (S.dual_attention_stack, K.fused_dual_attention)
+    for model in ("SeqPAN", "BackBone"):
+        cfg = make_cfg(vlen=32, tlen=12, vdim=64, dim=128, batch_size=8, compute_dtype="float32",
+                       model=model, fused_dual_stack=True)
+        ds, store = make_synthetic_data(cfg, seed=0, n_train=8, n_test=8)
+        der = Derived(num_words=ds["n_words"], num_chars=ds["n_chars"])
+        batch = Batcher(ds["test_set"], store, cfg, der).make_batch(list(range(6)))
+        outs = []
+        for run_cfg, device, want in ((cfg, cuda, [1, 0]), (cfg, "cpu", [0, 0]),
+                                      (cfg.updated({"model.fused_dual_stack": False}), cuda,
+                                       [0, 4])):
+            before = [fn.launches for fn in counted]
+            ev = Evaluator(run_cfg, der, ds["word_vector"], device=device, seed=0)
+            outs.append(ev.forward(ev.to_device(batch)))
+            assert [fn.launches - b for fn, b in zip(counted, before)] == want
+        for other in outs[1:]:
+            for key in ("slogits", "elogits"):
+                torch.testing.assert_close(outs[0][key].cpu(), other[key].cpu(), rtol=0,
+                                           atol=1e-3)

@@ -95,7 +95,7 @@ def test_http_round_trip(served):
         with urllib.request.urlopen(f"{url}/healthz", timeout=10) as resp:
             assert json.loads(resp.read())["ok"] is True
         with urllib.request.urlopen(f"{url}/metrics", timeout=10) as resp:
-            assert json.loads(resp.read())["requests_ok"] >= 4
+            assert json.loads(resp.read())["default"]["requests_ok"] >= 4  # one entry per model
         with pytest.raises(urllib.error.HTTPError) as bad:
             post({"vid": "no-such-video", "sentence": "a person"})
         assert bad.value.code == 400
@@ -179,3 +179,143 @@ def test_a_batch_reads_each_video_once_and_the_next_batch_reads_it_again(served)
         assert store.reads == 2  # no cache outlives its batch
     finally:
         service.store = store.store
+
+
+# ---------------------------------------------------------------- the router
+
+
+@pytest.fixture(scope="module")
+def routed():
+    """SeqPAN, BackBone and BaseFast behind one ``ModelRouter`` over real
+    HTTP, at a tiny width on the CPU."""
+    from vmrframe_tpu_torch.tools.serve import ModelRouter
+
+    services, dataset = {}, None
+    for name, model in (("seqpan", "SeqPAN"), ("backbone", "BackBone"), ("basefast", "BaseFast")):
+        cfg = make_cfg(vlen=16, tlen=8, vdim=32, dim=16, batch_size=4, compute_dtype="float32",
+                       model=model)
+        services[name], dataset = build_service(cfg, n_synthetic=16, device="cpu", flush_ms=1.0)
+    router = ModelRouter(services)
+    server = make_http_server(router, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield router, dataset, f"http://127.0.0.1:{server.server_address[1]}"
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10)
+    router.close()
+    assert not any(s._worker.is_alive() for s in services.values())
+
+
+def _call(url, body=None):
+    """(status, JSON) of a GET, or of a POST when ``body`` is given."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_router_routes_by_path_then_body_then_default(routed):
+    router, dataset, url = routed
+    rec = dataset["test_set"][0]
+    req = {"vid": rec["vid"], "sentence": rec["sentence"]}
+    direct = {n: s.predict(rec["vid"], rec["sentence"])["pred_frac"]
+              for n, s in router.services.items()}
+    assert direct["seqpan"] != direct["backbone"] != direct["basefast"]
+    code, out = _call(f"{url}/predict", req)
+    assert (code, out["model"], out["pred_frac"]) == (200, "seqpan", direct["seqpan"])
+    for name in router.services:
+        code, out = _call(f"{url}/predict/{name}", req)
+        assert (code, out["model"], out["pred_frac"]) == (200, name, direct[name])
+        code, out = _call(f"{url}/predict", {**req, "model": name})
+        assert (code, out["model"], out["pred_frac"]) == (200, name, direct[name])
+    code, out = _call(f"{url}/predict/backbone", {**req, "model": "basefast"})  # the path wins
+    assert (code, out["model"]) == (200, "backbone")
+    code, many = _call(f"{url}/predict", [{**req, "model": "basefast"}, req])
+    assert code == 200 and [m["model"] for m in many] == ["basefast", "seqpan"]
+    for bad in (f"{url}/predict/nope", f"{url}/predict"):
+        code, out = _call(bad, {**req, "model": "nope"})
+        assert code == 400 and "unknown model" in out["error"]
+
+
+def test_router_lists_models_health_and_metrics(routed):
+    router, dataset, url = routed
+    rec = dataset["test_set"][1]
+    _call(f"{url}/predict/basefast", {"vid": rec["vid"], "sentence": rec["sentence"]})
+    assert _call(f"{url}/models") == (200, {"models": ["backbone", "basefast", "seqpan"],
+                                            "default": "seqpan"})
+    code, health = _call(f"{url}/healthz")
+    assert code == 200 and health["ok"] is True
+    assert health["models"]["backbone"] == {"batch_size": 4, "model": "BackBone"}
+    code, every = _call(f"{url}/metrics")
+    assert code == 200 and set(every) == set(router.services)
+    code, one = _call(f"{url}/metrics/basefast")
+    assert code == 200 and one["requests_ok"] >= 1 and one["device"] == "cpu"
+    assert _call(f"{url}/metrics/nope")[0] == 400
+    assert _call(f"{url}/nothing")[0] == 404
+
+
+def test_reload_swaps_weights_and_refuses_what_does_not_fit(routed, tmp_path):
+    from vmrframe_tpu_torch.weights import init_weights
+
+    router, dataset, url = routed
+    rec = dataset["test_set"][2]
+    req = {"vid": rec["vid"], "sentence": rec["sentence"]}
+    service = router.get("backbone")
+    before = _call(f"{url}/predict/backbone", req)[1]["pred_frac"]
+    untouched = _call(f"{url}/predict/seqpan", req)[1]["pred_frac"]
+
+    # other weights for BackBone: the same tree from another seed
+    entry = service.evaluator.entry
+    other = init_weights(entry.model_cls(service.cfg, service.derived,
+                                         dataset["word_vector"]), seed=7).eval()
+    path = tmp_path / "backbone.pt"
+    torch.save(other.state_dict(), path)
+    batch = service.evaluator.to_device(service._assemble(
+        [service._make_record(rec["vid"], rec["sentence"], float(service.store.lengths()[rec["vid"]]))]))
+    with torch.no_grad():
+        want = entry.infer_fn(other(batch), batch, service.cfg)[0].tolist()
+
+    assert _call(f"{url}/reload", {"model": "backbone", "checkpoint": str(path)}) == \
+        (200, {"ok": True, "model": "backbone"})
+    after = _call(f"{url}/predict/backbone", req)[1]["pred_frac"]
+    assert after != before
+    np.testing.assert_allclose(after, want, atol=1e-6)
+    assert _call(f"{url}/predict/seqpan", req)[1]["pred_frac"] == untouched
+
+    code, out = _call(f"{url}/reload", {"model": "backbone",
+                                        "checkpoint": str(tmp_path / "missing.pt")})
+    assert code == 400 and "FileNotFoundError" in out["error"]
+    assert _call(f"{url}/reload", {"model": "nope", "checkpoint": str(path)})[0] == 400
+    assert _call(f"{url}/reload", {"model": "backbone"})[0] == 400  # no checkpoint named
+
+    # a checkpoint of another tree (BaseFast's), and one of another width: 500,
+    # and nothing of them is loaded
+    wrong = tmp_path / "basefast.pt"
+    torch.save(router.get("basefast").evaluator.model.state_dict(), wrong)
+    code, out = _call(f"{url}/reload", {"model": "backbone", "checkpoint": str(wrong)})
+    assert code == 500 and "does not fit" in out["error"]
+    wider = {k: (torch.zeros(v.shape[0] + 1, *v.shape[1:]) if k == "predictor.start_dense.bias"
+                 else torch.zeros_like(v)) for k, v in other.state_dict().items()}
+    torch.save(wider, wrong)
+    code, out = _call(f"{url}/reload", {"model": "backbone", "checkpoint": str(wrong)})
+    assert code == 500 and "predictor.start_dense.bias" in out["error"]
+    assert _call(f"{url}/predict/backbone", req)[1]["pred_frac"] == after
+
+
+@pytest.mark.parametrize("name,model,fused", [("seqpan_fused", "SeqPAN", True),
+                                              ("backbone_fused", "BackBone", True),
+                                              ("basefast", "BaseFast", False)])
+def test_charades_width_config_files_state_what_make_cfg_builds(name, model, fused):
+    from pathlib import Path
+
+    from vmrframe_tpu_torch.config import load_config
+
+    path = Path(__file__).resolve().parent.parent / "configs" / f"charades_{name}.yaml"
+    want = make_cfg(model=model, fused_dual_stack=fused).to_dict()
+    got = load_config(str(path)).to_dict()
+    got["model"].setdefault("fused_dual_stack", False)
+    assert got == want

@@ -5,6 +5,7 @@ from vmrframe_tpu_torch.layers.attention import (  # noqa: F401
     CQConcatenate,
     DualAttentionBlock,
     DualMultiAttention,
+    MultiHeadAttentionBlock,
     WeightedPool,
 )
 from vmrframe_tpu_torch.layers.basic import (  # noqa: F401

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vmrframe_tpu_torch.kernels.attention import fused_cq_attention, fused_dual_attention
+from vmrframe_tpu_torch.kernels.attention import (fused_cq_attention, fused_dual_attention,
+                                                  fused_masked_attention)
 from vmrframe_tpu_torch.layers.basic import Conv1D, LayerNorm, fused_linear
 from vmrframe_tpu_torch.ops.masking import attention_mask_2d, mask_logits
 
@@ -103,6 +104,57 @@ class DualAttentionBlock(nn.Module):
             self.layer_norm_1(from_tensor), self.layer_norm_t(to_tensor), from_mask, to_mask)
         residual = self.dense_1(outputs) + from_tensor
         return self.dense_2(self.layer_norm_2(residual)) + residual
+
+    def stacks(self):
+        """The block's own parameters as the stacks the whole-stack kernel
+        reads (``kernels/dual_stack.py``; counterpart of the JAX package's
+        ``DualAttentionBlockParams``): ``W (14, D, D)``, ``b (14, D)``,
+        ``ln (6, D)``, ``xb (2, D)``, in the JAX order: query, f_key,
+        f_value, t_key, t_value, s_dense, x_dense, s_gate, x_gate,
+        guided_dense, bilinear_1, bilinear_2, dense_1, dense_2; LN1, LNt, LN2
+        scale then bias; the two BiLinear extra biases.  Each matrix of ``W``
+        is (in, out), flax's kernel layout: the transpose of torch's
+        ``Conv1D.weight`` (out, in).  Under the bf16 policy ``W`` is bf16 and
+        the rest f32."""
+        dma = self.dual_multihead_attention
+        dense = [getattr(dma, name) for name in (
+            "query", "f_key", "f_value", "t_key", "t_value", "s_dense", "x_dense", "s_gate",
+            "x_gate", "guided_dense")]
+        dense += [dma.bilinear_1.dense_1, dma.bilinear_2.dense_1, self.dense_1, self.dense_2]
+        norms = (self.layer_norm_1, self.layer_norm_t, self.layer_norm_2)
+        return {"W": torch.stack([m.weight.T for m in dense]),
+                "b": torch.stack([m.bias for m in dense]),
+                "ln": torch.stack([t for n in norms for t in (n.weight, n.bias)]),
+                "xb": torch.stack([dma.bilinear_1.bias_value, dma.bilinear_2.bias_value])}
+
+
+class MultiHeadAttentionBlock(nn.Module):
+    """Pre-LN multi-head self-attention with a dense tail: LN -> q, k, v ->
+    masked attention (kernel ``fused_masked_attention``) + residual -> LN ->
+    dense + residual.  Deterministic only: dropout waits for the training
+    slice."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.layer_norm1 = LayerNorm(dim)
+        self.query = Conv1D(dim, dim)
+        self.key = Conv1D(dim, dim)
+        self.value = Conv1D(dim, dim)
+        self.layer_norm2 = LayerNorm(dim)
+        self.out_layer = Conv1D(dim, dim)
+
+    def forward(self, x, mask=None):
+        H = self.num_heads
+        q, k, v = fused_linear(self.layer_norm1(x), [(m.weight, m.bias) for m in
+                                                     (self.query, self.key, self.value)])
+        B, L, _ = x.shape
+        keys = x.new_ones(B, L) if mask is None else mask
+        # the mask is on keys only: every query row attends
+        out = fused_masked_attention(split_heads(q, H), split_heads(k, H), split_heads(v, H),
+                                     keys[:, None, :].expand(B, L, L))
+        residual = merge_heads(out) + x
+        return self.out_layer(self.layer_norm2(residual)) + residual
 
 
 class CQAttention(nn.Module):

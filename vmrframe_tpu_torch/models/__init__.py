@@ -1,3 +1,4 @@
-"""Model zoo; importing it registers each model (SeqPAN, ActionFormer)."""
+"""Model zoo; importing it registers each model (SeqPAN, BackBone, BaseFast,
+ActionFormer)."""
 
-from vmrframe_tpu_torch.models import actionformer, seqpan  # noqa: F401
+from vmrframe_tpu_torch.models import actionformer, backbone, basefast, seqpan  # noqa: F401

@@ -1,10 +1,17 @@
-"""The SeqPAN skeleton's encoder and fusion (counterpart of
-``vmrframe_tpu/models/common.py::encode_and_fuse``, module path only).
+"""The SeqPAN family's shared skeleton (counterpart of
+``vmrframe_tpu/models/common.py``): text and video embedding, feature
+encoders, optional dual attention, CQAttention fusion.
 
 ``add_encoder_modules`` registers the sub-modules on the calling model, so
 the model keeps the flat, reference-like parameter names of the flax tree;
-``encode_and_fuse`` runs them.  One ``vfeat_encoder`` serves both
-modalities, and each dual-attention block runs in both directions.
+``encode_and_fuse`` runs them.  SeqPAN and BaseFast share one
+``vfeat_encoder`` between the modalities, BackBone has a ``tfeat_encoder``
+of its own; BaseFast has no dual-attention blocks.
+
+The dual-attention stack has two routes over one parameter tree: the module
+path (four ``DualAttentionBlock`` calls, each through the
+``fused_dual_attention`` kernel) and, with ``model.fused_dual_stack`` set,
+the whole stack as one launch of ``kernels/dual_stack.py``.
 """
 
 from __future__ import annotations
@@ -14,18 +21,40 @@ from typing import Dict
 import torch
 from torch import nn
 
+from vmrframe_tpu_torch.kernels.dual_stack import dual_attention_stack
 from vmrframe_tpu_torch.layers.attention import CQAttention, CQConcatenate, DualAttentionBlock
 from vmrframe_tpu_torch.layers.basic import Embedding, FeatureEncoder, VisualProjection
 
 
-def add_encoder_modules(module: nn.Module, cfg, derived, word_vectors) -> None:
+def use_fused_stack(m, deterministic: bool) -> bool:
+    """The gate of the whole-stack kernel, with the JAX package's conditions:
+    eval mode, ``model.fused_dual_stack`` set (off by default), D a multiple
+    of 128 and heads dividing D.  Any truthy flag selects the fused route
+    (the JAX package's ``"interpret"`` has no meaning here): on CPU tensors
+    the wrapper then runs the plain version, on CUDA tensors it launches the
+    kernel or raises on a shape the kernel does not take."""
+    if not deterministic or not bool(m.get("fused_dual_stack", False)):
+        return False
+    D, H = int(m.dim), int(m.num_heads)
+    return D % 128 == 0 and H > 0 and D % H == 0
+
+
+def add_encoder_modules(module: nn.Module, cfg, derived, word_vectors, *,
+                        shared_encoder: bool = True, encoder_layers: int = 4,
+                        use_dual_attention: bool = True) -> None:
     m = cfg.model
+    module.model_cfg = m
     module.text_encoder = Embedding(m.dim, m.word_dim, m.char_dim, derived.num_chars,
                                     word_vectors)
     module.video_affine = VisualProjection(m.vdim, m.dim)
-    module.vfeat_encoder = FeatureEncoder(m.dim, max_pos_len=m.vlen, kernel_size=7, num_layers=4)
-    module.dual_attention_block_1 = DualAttentionBlock(m.dim, m.num_heads)
-    module.dual_attention_block_2 = DualAttentionBlock(m.dim, m.num_heads)
+    encoder = lambda: FeatureEncoder(m.dim, max_pos_len=m.vlen, kernel_size=7,  # noqa: E731
+                                     num_layers=encoder_layers)
+    module.vfeat_encoder = encoder()
+    if not shared_encoder:
+        module.tfeat_encoder = encoder()
+    if use_dual_attention:
+        module.dual_attention_block_1 = DualAttentionBlock(m.dim, m.num_heads)
+        module.dual_attention_block_2 = DualAttentionBlock(m.dim, m.num_heads)
     module.q2v_attn = CQAttention(m.dim)
     module.v2q_attn = CQAttention(m.dim)
     module.cq_cat = CQConcatenate(m.dim)
@@ -37,9 +66,16 @@ def encode_and_fuse(module: nn.Module, batch: Dict[str, torch.Tensor]):
     tfeat = module.text_encoder(batch["words_ids"], batch["char_ids"])
     vfeat = module.video_affine(batch["vfeats"])
     vfeat = module.vfeat_encoder(vfeat)
-    tfeat = module.vfeat_encoder(tfeat)
-    for block in (module.dual_attention_block_1, module.dual_attention_block_2):
-        vfeat, tfeat = (block(vfeat, tfeat, vmask, tmask), block(tfeat, vfeat, tmask, vmask))
+    tfeat = getattr(module, "tfeat_encoder", module.vfeat_encoder)(tfeat)
+    if hasattr(module, "dual_attention_block_1"):
+        blocks = (module.dual_attention_block_1, module.dual_attention_block_2)
+        if use_fused_stack(module.model_cfg, not module.training):
+            vfeat, tfeat = dual_attention_stack(vfeat, tfeat, vmask, tmask, blocks[0].stacks(),
+                                                blocks[1].stacks(), int(module.model_cfg.num_heads))
+        else:
+            for block in blocks:
+                vfeat, tfeat = (block(vfeat, tfeat, vmask, tmask),
+                                block(tfeat, vfeat, tmask, vmask))
     t2v_feat = module.q2v_attn(vfeat, tfeat, vmask, tmask)
     v2t_feat = module.v2q_attn(tfeat, vfeat, tmask, vmask)
     return vfeat, tfeat, module.cq_cat(t2v_feat, v2t_feat, tmask)

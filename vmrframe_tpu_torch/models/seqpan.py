@@ -28,28 +28,45 @@ from vmrframe_tpu_torch.registry import register_model
 MATCH_TAU = 0.3
 
 
+def add_match_head(module: nn.Module, dim: int) -> None:
+    """Registers the match head's parameters on the calling model."""
+    module.match_conv1d = Conv1D(dim, 4)
+    module.label_embs = nn.Parameter(torch.empty(dim, 4))
+
+
+def match_head(module: nn.Module, fuse_feat, vmask, tau: float = MATCH_TAU):
+    """Conv1D(dim -> 4) -> softmax(/tau) -> soft label-embedding injection,
+    deterministic (no gumbel noise).  Returns (fuse_feat', match_score,
+    match_probs, label_embs); SeqPAN and BaseFast share it."""
+    match_score = torch.softmax(module.match_conv1d(fuse_feat) / tau, dim=-1)
+    match_probs = torch.log(match_score.clamp_min(1e-30))
+    soft_label_embs = match_score @ module.label_embs.T  # (B, L, dim)
+    fuse_feat = (fuse_feat + soft_label_embs) * vmask[:, :, None]
+    return fuse_feat, match_score, match_probs, module.label_embs
+
+
+def raise_in_train_mode(module: nn.Module) -> None:
+    if module.training:
+        raise NotImplementedError(f"{type(module).__name__}'s train mode (dropout, gumbel "
+                                  "noise) is not ported yet: call .eval()")
+
+
 class SeqPAN(nn.Module):
     def __init__(self, cfg, derived, word_vectors):
         super().__init__()
         m = cfg.model
         add_encoder_modules(self, cfg, derived, word_vectors)
-        self.match_conv1d = Conv1D(m.dim, 4)
-        self.label_embs = nn.Parameter(torch.empty(m.dim, 4))
+        add_match_head(self, m.dim)
         self.predictor = SeqPANPredictor(m.dim, m.vlen, num_heads=4)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """The deterministic forward; ``generator`` is the zoo's common
         argument for train mode, which SeqPAN does not have yet."""
-        if self.training:
-            raise NotImplementedError("SeqPAN's train mode (dropout, gumbel noise) is not "
-                                      "ported yet: call .eval()")
+        raise_in_train_mode(self)
         vmask = batch["vmasks"]
         _, _, fuse_feat = encode_and_fuse(self, batch)
-        match_score = torch.softmax(self.match_conv1d(fuse_feat) / MATCH_TAU, dim=-1)
-        match_probs = torch.log(match_score.clamp_min(1e-30))
-        soft_label_embs = match_score @ self.label_embs.T  # (B, L, dim)
-        fuse_feat = (fuse_feat + soft_label_embs) * vmask[:, :, None]
+        fuse_feat, match_score, match_probs, label_embs = match_head(self, fuse_feat, vmask)
         slogits, elogits = self.predictor(fuse_feat, vmask)
         return {
             "slogits": slogits,
@@ -57,7 +74,7 @@ class SeqPAN(nn.Module):
             "vmask": vmask,
             "match_score": match_score,
             "match_probs": match_probs,
-            "label_embs": self.label_embs,
+            "label_embs": label_embs,
         }
 
 

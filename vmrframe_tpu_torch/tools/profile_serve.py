@@ -2,6 +2,8 @@
 
     python -m vmrframe_tpu_torch.tools.profile_serve [--batch-size 128] [--steps 10]
     python -m vmrframe_tpu_torch.tools.profile_serve --config configs/tacos_actionformer_long.yaml
+    python -m vmrframe_tpu_torch.tools.profile_serve --batch-size 128 \
+        --config configs/charades_seqpan_fused.yaml
     python -m vmrframe_tpu_torch.tools.profile_serve --train \
         --config configs/tacos_actionformer_long.yaml
 
@@ -17,8 +19,9 @@ and the card's busy time and device operations per train step from
 Builds the serving path (bf16, seeded random weights, synthetic data:
 ``tools/serve.py::build_service``) at SeqPAN's Charades width, or for the
 model and widths of ``--config`` (batch 8 unless ``--batch-size`` says
-otherwise), and times, for one batch of ``batch-size`` requests, each stage
-a micro-batch passes through:
+otherwise; ``configs/charades_seqpan_fused.yaml`` is SeqPAN at the same width
+with the dual-attention stack as one kernel launch), and times, for one
+batch of ``batch-size`` requests, each stage a micro-batch passes through:
 
 - host: request records (tokenize, vocabulary lookup), batch assembly (the
   model's batcher: features, resampling, labels, padding), of which the
@@ -28,7 +31,7 @@ a micro-batch passes through:
   spans on the host, which waits for the card;
 - on the card (``torch.profiler``): busy time per step, the count of device
   operations (kernels and copies) per step, and the kernels that take the
-  most time.
+  most time; and each hand-written kernel's launches in one step.
 
 Host times are medians over ``--reps`` runs, from the host's clock.  Prints
 one JSON object; ``--out`` also writes it to a file.
@@ -108,9 +111,16 @@ def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20,
         h2d_ms, dbatch = _median_ms(lambda: ev.to_device(batch), reps)
         step = lambda: ev.eval_step(dbatch)["props"].cpu()  # noqa: E731
         step_ms, _ = _median_ms(step, reps)
+        from vmrframe_tpu_torch.kernels import attention, dual_stack, window_attention
+
+        kernels = attention.KERNELS + dual_stack.KERNELS + window_attention.KERNELS
+        counts = [fn.launches for fn in kernels]
+        step()
         report = {
             "card": torch.cuda.get_device_name(0), "torch": torch.__version__,
             "model": str(cfg.model.name), "config": config or "tools/serve.py::make_cfg",
+            "fused_dual_stack": bool(cfg.model.get("fused_dual_stack", False)),
+            "launches_per_step": {fn.__name__: fn.launches - c for fn, c in zip(kernels, counts)},
             "batch_size": batch_size, "dtype": "bfloat16",
             "host_records_ms": record_ms, "host_assemble_ms": assemble_ms,
             "host_store_reads_ms": reads_ms,

@@ -4,24 +4,38 @@
   [start, end] seconds: concurrent requests queue up and run together when
   ``batch_size`` have gathered or ``flush_ms`` has passed, one static-shape
   batch per forward (``train/evaluator.py``), on ``cuda`` by default;
+- ``ModelRouter`` puts several named services behind one port: each keeps
+  its own model and micro-batch queue, all share the one card;
 - a localhost HTTP JSON API (stdlib ``ThreadingHTTPServer``):
-  POST /predict {"vid": ..., "sentence": ...} or a list of them,
-  GET /healthz, GET /metrics;
+  POST /predict {"vid": ..., "sentence": ...} or a list of them (the default
+  model), POST /predict/<name> or a ``"model"`` field in the body (the path
+  wins), GET /healthz, GET /models, GET /metrics (every model) and
+  /metrics/<name>, POST /reload {"checkpoint": ..., "model": ...}: new
+  weights swapped in between micro-batches (400 for a missing file or an
+  unknown model, 500 for a checkpoint that does not fit: the old weights
+  go on serving);
 - ``--selftest`` boots the service on synthetic data, fires concurrent
   requests through real HTTP and prints latency percentiles and throughput.
 
 The config is built in code (``make_cfg``: SeqPAN at Charades width) unless
 ``--config`` names a YAML file: ``configs/tacos_actionformer_long.yaml``
 serves ActionFormer on 2304-frame grids (the query text is carried and
-unused: the model has no text branch).  The batch comes from the model's
-registered batcher.  ``--checkpoint`` takes a ``torch.save``d state_dict or
-an ``.npz`` of the JAX package's variables.
+unused: the model has no text branch).  ``--model NAME=CONFIG[:CKPT]``
+(repeatable) adds named models beside it.  ``model.fused_dual_stack: true``
+in a SeqPAN or BackBone config runs the dual-attention stack as one kernel
+launch (``kernels/dual_stack.py``; off by default).  The batch comes from
+the model's registered batcher.  A checkpoint is a ``torch.save``d
+state_dict or an ``.npz`` of the JAX package's variables.
 
 Usage:
   python -m vmrframe_tpu_torch.tools.serve --selftest [--device cuda]
   python -m vmrframe_tpu_torch.tools.serve --synthetic --port 8901
   python -m vmrframe_tpu_torch.tools.serve --selftest --batch-size 8 \
       --config configs/tacos_actionformer_long.yaml
+  python -m vmrframe_tpu_torch.tools.serve --synthetic \
+      --model seqpan=configs/charades_seqpan_fused.yaml \
+      --model backbone=configs/charades_backbone_fused.yaml \
+      --model basefast=configs/charades_basefast.yaml
 """
 
 from __future__ import annotations
@@ -39,15 +53,17 @@ from vmrframe_tpu_torch.config import Config, Derived, load_config
 
 
 def make_cfg(vlen: int = 64, tlen: int = 30, vdim: int = 1024, dim: int = 128,
-             batch_size: int = 128, compute_dtype: str = "bfloat16") -> Config:
-    """SeqPAN at the width of its Charades-STA config."""
+             batch_size: int = 128, compute_dtype: str = "bfloat16", model: str = "SeqPAN",
+             fused_dual_stack: bool = False) -> Config:
+    """A SeqPAN-family model at the width of SeqPAN's Charades-STA config."""
     return Config({
         "task": "charades",
         "train": {"batch_size": batch_size, "compute_dtype": compute_dtype},
         "dataprocess": {"video_augmentation": {"unchanged": None},
                         "sample_type": "truncation", "label_threshold": 0.01},
-        "model": {"name": "SeqPAN", "vlen": vlen, "tlen": tlen, "vdim": vdim, "dim": dim,
-                  "num_heads": 4, "word_dim": 300, "char_dim": 100, "droprate": 0.2},
+        "model": {"name": model, "vlen": vlen, "tlen": tlen, "vdim": vdim, "dim": dim,
+                  "num_heads": 4, "word_dim": 300, "char_dim": 100, "droprate": 0.2,
+                  "fused_dual_stack": fused_dual_stack},
     })
 
 
@@ -73,6 +89,7 @@ class MomentRetrievalService:
             from vmrframe_tpu_torch.weights import load_checkpoint
 
             load_checkpoint(self.evaluator.model, checkpoint)
+        self._model_lock = threading.Lock()  # a forward, or a swap of the weights
         self._stats_lock = threading.Lock()
         self._latencies: List[float] = []  # ring buffer, last 4096
         self._n_ok = 0
@@ -115,8 +132,9 @@ class MomentRetrievalService:
 
     def _run(self, batch) -> np.ndarray:
         ev = self.evaluator
-        metrics = ev.eval_step(ev.to_device(batch))
-        props = metrics["props"].cpu().numpy()  # (B, 2) predicted fractions
+        with self._model_lock:
+            metrics = ev.eval_step(ev.to_device(batch))
+            props = metrics["props"].cpu().numpy()  # (B, 2) predicted fractions
         with self._stats_lock:
             self._n_batches += 1
         return props
@@ -195,17 +213,78 @@ class MomentRetrievalService:
                 "device": str(self.evaluator.device),
                 "p50_ms": pct(0.50), "p90_ms": pct(0.90), "p99_ms": pct(0.99)}
 
+    def reload_checkpoint(self, checkpoint: str) -> None:
+        """Hot-swap the weights.  The checkpoint is read, checked against the
+        model's names and shapes and staged on the model's device and types
+        first; then the staged copy is swapped in between two micro-batches:
+        a batch in flight finishes on the old weights, the next one runs the
+        new.  A checkpoint that does not fit raises before anything changed."""
+        from vmrframe_tpu_torch.weights import read_checkpoint
+
+        state = read_checkpoint(checkpoint)
+        model = self.evaluator.model
+        current = model.state_dict()
+        faults = [f"missing {k}" for k in current if k not in state]
+        faults += [f"unexpected {k}" for k in state if k not in current]
+        faults += [f"{k}: {tuple(state[k].shape)} for {tuple(v.shape)}"
+                   for k, v in current.items() if k in state and state[k].shape != v.shape]
+        if faults:
+            raise RuntimeError(f"{checkpoint} does not fit {self.cfg.model.name}: "
+                               + "; ".join(faults[:8]))
+        staged = {k: state[k].to(device=v.device, dtype=v.dtype) for k, v in current.items()}
+        with self._model_lock:
+            model.load_state_dict(staged, strict=True)
+
     def close(self):
         self._stop.set()
         self._worker.join(timeout=5)
 
 
+# ---------- multi-model routing ----------
+
+
+class ModelRouter:
+    """Routes requests to one of several named ``MomentRetrievalService``s.
+    Each owns its model and its micro-batch queue, so one model's traffic
+    does not wait in another's queue; all run on the one card.
+
+    Route selection, in precedence order: the URL path (``/predict/<name>``),
+    a ``"model"`` field in the request body, the default (the first
+    registered model)."""
+
+    def __init__(self, services: Dict[str, MomentRetrievalService]):
+        if not services:
+            raise ValueError("ModelRouter needs at least one service")
+        self.services = dict(services)
+        self.default = next(iter(services))
+
+    def get(self, name: Optional[str]) -> MomentRetrievalService:
+        name = name or self.default
+        if name not in self.services:
+            raise KeyError(f"unknown model: {name!r} (have: {sorted(self.services)})")
+        return self.services[name]
+
+    def predict(self, vid: str, sentence: str, duration: Optional[float] = None,
+                model: Optional[str] = None, timeout: float = 60.0) -> Dict:
+        out = self.get(model).predict(vid, sentence, duration, timeout)
+        out["model"] = model or self.default
+        return out
+
+    def close(self):
+        for s in self.services.values():
+            s.close()
+
+
 # ---------- HTTP front end ----------
 
 
-def make_http_server(service: MomentRetrievalService, port: int):
-    """Bind 127.0.0.1:``port`` (0 picks a free port: read ``server_address``)."""
+def make_http_server(service, port: int):
+    """``service`` is a ``MomentRetrievalService`` (served as ``default``) or
+    a ``ModelRouter``.  Binds 127.0.0.1:``port`` (0 picks a free port: read
+    ``server_address``)."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    router = service if isinstance(service, ModelRouter) else ModelRouter({"default": service})
 
     class Server(ThreadingHTTPServer):
         daemon_threads = True
@@ -222,24 +301,48 @@ def make_http_server(service: MomentRetrievalService, port: int):
             self.end_headers()
             self.wfile.write(body)
 
+        def _body(self):
+            return json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+
         def do_GET(self):
             if self.path == "/healthz":
-                self._send(200, {"ok": True, "batch_size": service.batch_size,
-                                 "model": str(service.cfg.model.name)})
-            elif self.path == "/metrics":
-                self._send(200, service.metrics())
+                self._send(200, {"ok": True, "models": {
+                    n: {"batch_size": s.batch_size, "model": str(s.cfg.model.name)}
+                    for n, s in router.services.items()}})
+            elif self.path == "/models":
+                self._send(200, {"models": sorted(router.services), "default": router.default})
+            elif self.path.startswith("/metrics"):
+                name = self.path[len("/metrics"):].strip("/") or None
+                try:
+                    if name:
+                        self._send(200, router.get(name).metrics())
+                    else:
+                        self._send(200, {n: s.metrics() for n, s in router.services.items()})
+                except KeyError as e:
+                    self._send(400, {"error": str(e)})
             else:
                 self._send(404, {"error": "not found"})
 
         def do_POST(self):
-            if self.path != "/predict":
+            if self.path.startswith("/reload"):
+                try:
+                    req = self._body()
+                    router.get(req.get("model")).reload_checkpoint(req["checkpoint"])
+                    self._send(200, {"ok": True, "model": req.get("model") or router.default})
+                except (KeyError, ValueError, FileNotFoundError) as e:
+                    self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                except Exception as e:  # a corrupt file, a tree of another shape
+                    self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            if not self.path.startswith("/predict"):
                 self._send(404, {"error": "not found"})
                 return
+            path_model = self.path[len("/predict"):].strip("/") or None
             try:
-                length = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(length))
+                req = self._body()
                 reqs = req if isinstance(req, list) else [req]
-                out = [service.predict(r["vid"], r["sentence"], r.get("duration")) for r in reqs]
+                out = [router.predict(r["vid"], r["sentence"], r.get("duration"),
+                                      model=path_model or r.get("model")) for r in reqs]
                 self._send(200, out if isinstance(req, list) else out[0])
             except (KeyError, TimeoutError, RuntimeError, ValueError) as e:
                 self._send(400, {"error": str(e)})
@@ -270,13 +373,14 @@ def build_service(cfg: Optional[Config] = None, checkpoint: Optional[str] = None
     ), dataset
 
 
-def selftest(service: MomentRetrievalService, dataset, port: int = 0,
+def selftest(service, dataset, port: int = 0,
              n_requests: int = 256, concurrency: int = 32) -> dict:
-    """Serve over HTTP, fire concurrent real-HTTP requests, report latency
-    percentiles and throughput."""
+    """Serve over HTTP (a service, or a router's default model), fire
+    concurrent real-HTTP requests, report latency percentiles and throughput."""
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
 
+    served = service.get(None) if isinstance(service, ModelRouter) else service
     server = make_http_server(service, port)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -313,8 +417,8 @@ def selftest(service: MomentRetrievalService, dataset, port: int = 0,
     stats = {
         "requests": n_requests,
         "concurrency": concurrency,
-        "batch_size": service.batch_size,
-        "device": str(service.evaluator.device),
+        "batch_size": served.batch_size,
+        "device": str(served.evaluator.device),
         "qps": n_requests / wall,
         "p50_ms": float(lat_ms[int(0.50 * len(lat_ms))]),
         "p90_ms": float(lat_ms[int(0.90 * len(lat_ms))]),
@@ -327,9 +431,14 @@ def selftest(service: MomentRetrievalService, dataset, port: int = 0,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=None,
-                    help="YAML/JSON config (default: SeqPAN at Charades width, built in code)")
+                    help="YAML/JSON config, served as 'default' (without --config and "
+                         "--model: SeqPAN at Charades width, built in code)")
     ap.add_argument("--checkpoint", default=None,
                     help="torch.save'd state_dict, or .npz of the JAX variables")
+    ap.add_argument("--model", action="append", default=None, metavar="NAME=CONFIG[:CKPT]",
+                    help="serve several models behind one port (repeatable); route with "
+                         "POST /predict/<NAME> or a 'model' body field.  Additive with "
+                         "--config, which registers as 'default'.")
     ap.add_argument("--port", type=int, default=8901)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--flush-ms", type=float, default=5.0)
@@ -342,17 +451,33 @@ def main():
     if not (args.synthetic or args.selftest):
         ap.error("only --synthetic data can be served until data/datasets.py is ported")
 
-    cfg = load_config(args.config) if args.config else make_cfg()
-    cfg = cfg.updated({"train.compute_dtype": args.dtype})
-    service, dataset = build_service(cfg, args.checkpoint, args.batch_size, args.flush_ms,
-                                     device=args.device)
+    def build(cfg, checkpoint):
+        cfg = cfg.updated({"train.compute_dtype": args.dtype})
+        return build_service(cfg, checkpoint, args.batch_size, args.flush_ms,
+                             device=args.device)
+
+    services: Dict[str, MomentRetrievalService] = {}
+    dataset = None
+    if args.config or not args.model:
+        cfg = load_config(args.config) if args.config else make_cfg()
+        services["default"], dataset = build(cfg, args.checkpoint)
+    for spec in args.model or []:
+        name, _, rest = spec.partition("=")
+        if not rest:
+            ap.error(f"--model needs NAME=CONFIG[:CKPT], got {spec!r}")
+        cfg_path, _, ckpt = rest.partition(":")
+        services[name], ds = build(load_config(cfg_path), ckpt or None)
+        dataset = dataset or ds
+    router = ModelRouter(services)
+    service = next(iter(services.values()))
     try:
         if args.selftest:
-            selftest(service, dataset, args.port)
+            selftest(router, dataset, args.port)
             return
-        server = make_http_server(service, args.port)
-        print(f"serving on http://127.0.0.1:{args.port}  (batch {service.batch_size}, "
-              f"flush {service.flush_ms} ms, {service.evaluator.device})")
+        server = make_http_server(router, args.port)
+        print(f"serving {sorted(services)} on http://127.0.0.1:{args.port}  "
+              f"(batch {service.batch_size}, flush {service.flush_ms} ms, "
+              f"{service.evaluator.device})")
         try:
             server.serve_forever()
         except KeyboardInterrupt:
@@ -360,7 +485,7 @@ def main():
         finally:
             server.server_close()
     finally:
-        service.close()
+        router.close()
 
 
 if __name__ == "__main__":

@@ -15,6 +15,10 @@ The port's parameter names follow the flax tree, so a leaf maps by rule:
   (D, 1), ``w4mlu`` (1, 1, D), ``label_embs`` (dim, 4),
   ``weighted_pool/weight`` (dim, 1), embeddings, ``unk_vec``, and the GloVe
   constant ``text_encoder/word_emb/glove_vec`` (a buffer).
+
+The rules cover the whole SeqPAN family: BackBone's tree adds a
+``tfeat_encoder`` and drops the match head, BaseFast's drops the two
+dual-attention blocks and has 2 encoder layers.
 """
 
 from __future__ import annotations
@@ -93,16 +97,21 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
     return from_jax_params(trees["params"], trees["constants"])
 
 
-def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
-    """Load a ``torch.save``d state_dict, the ``params`` of a trainer's
-    checkpoint (``train/checkpoints.py``), or an ``.npz`` of the JAX tree."""
+def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of a ``torch.save``d state_dict, of the ``params`` of a
+    trainer's checkpoint (``train/checkpoints.py``), or of an ``.npz`` of the
+    JAX tree.  A missing file raises ``FileNotFoundError``."""
     if path.endswith(".npz"):
-        state = load_npz(path)
-    else:
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(state.get("params"), dict):
-            state = state["params"]
-    model.load_state_dict(state, strict=True)
+        return load_npz(path)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state.get("params"), dict):
+        state = state["params"]
+    return state
+
+
+def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
+    """``read_checkpoint`` loaded strictly into ``model``."""
+    model.load_state_dict(read_checkpoint(path), strict=True)
     return model
 
 
