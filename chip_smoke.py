@@ -18,10 +18,12 @@ Phases, in order; any failure exits non-zero:
    banded kernel at the shapes ActionFormer's long config gives it (B=8, 4
    heads of 128, window 19, T = 2304, 1152, 576), a ragged T=1000 and T=300
    (padded length equal to its key window), on head-split views of one
-   (B, T, 3C) projection.
+   (B, T, 3C) projection.  #1-#3 also at the shapes SeqPAN at TACoS width
+   gives them (vlen 256 against tlen 30, both ways round).
 4. time: each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call (``library_ms``), in bf16, timed
-   with CUDA events; beside each, the least time the card could take.  The
+   computes the same function, that call (``library_ms``), in bf16 (#1-#3
+   in f32 too), timed with CUDA events; beside each, the least time the card
+   could take.  #1-#3 at TACoS width as extra rows, outside the means.  The
    whole-stack kernel (#4) in bf16 and f32, and beside it the module path's
    time for the same stack (4 ``DualAttentionBlock`` calls through kernel #2).
 5. serve: SeqPAN at the full width of its Charades config, seeded random
@@ -30,6 +32,9 @@ Phases, in order; any failure exits non-zero:
    4 dual, 2 CQ and 2 masked per forward.
 6. verify: one f32 batch through the kernels on the card and through the
    plain versions on the CPU; the logits must agree.
+6b. verify-long: verify at TACoS width (vlen 256, the other widths as
+   Charades): #3 at 256 by 30 and 30 by 256, #1/#2 over 256 keys; exactly
+   2 masked, 4 dual and 2 CQ launches.
 7. serve-AF: ActionFormer with ``configs/tacos_actionformer_long.yaml`` as
    it is (2304-frame grids of 1024 dims, width 512, 7 transformer blocks),
    bf16, seeded random weights, synthetic features, service batch 8; 256
@@ -99,6 +104,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; f32 CUDA cores
 B, H, HD, LV, LT, D = 128, 4, 32, 64, 30, 128
+LV_LONG = 256  # SeqPAN's vlen at TACoS width (the reference's longest SeqPAN grid)
 TOL_F32 = 1e-4  # f32 sums taken in another order, expf against torch.exp
 BF16_ULPS = 2.0 ** -6  # bf16 check: 2-4 ulps of the output's largest magnitude
 TOL_MODEL_F32 = 1e-3  # whole f32 forward, card against CPU: ~40 layers of reordered f32 sums
@@ -117,7 +123,8 @@ B_TRAIN = 2  # the long config's training batch
 N_TIMED_STEPS, N_WARMUP_STEPS, N_BF16_STEPS = 20, 2, 3
 BWD_KERNELS = ("banded_attention_dq", "banded_attention_dkv")
 STACK = "dual_attention_stack"
-BOTH_DTYPES = BWD_KERNELS + (STACK,)  # timed in f32 and bf16
+ATTENTION = ("fused_masked_attention", "fused_dual_attention", "fused_cq_attention")
+BOTH_DTYPES = BWD_KERNELS + (STACK,) + ATTENTION  # timed in f32 and bf16
 STACK_CHECK_SHAPES = ((B, LV, LT), (3, LV, LT), (2, 13, 5))  # Charades, an odd B, a ragged pair
 STACK_CAST = (0, 1, 4, 8)  # of a stack case, what the policy casts: v, t and the two W
 # calls queued per timed repetition of the stack's plain version and module
@@ -186,6 +193,27 @@ def kernel_cases(g: torch.Generator):
         ],
         "fused_cq_attention": [(rows(LV), rows(LT), w4C, w4Q, w4mlu, vm, tm),
                                (rows(LT), rows(LV), w4C, w4Q, w4mlu, tm, vm)],
+    }
+
+
+def long_kernel_cases(g: torch.Generator):
+    """The shapes SeqPAN at TACoS width (vlen 256, tlen 30) gives #1-#3."""
+    vm, tm = lengths_mask(g, LV_LONG), lengths_mask(g, LT)
+    outer = lambda a, b: a[:, :, None] * b[:, None, :]  # noqa: E731
+    heads = lambda L: torch.randn(B, H, L, HD, generator=g, device="cuda")  # noqa: E731
+    rows = lambda L: torch.randn(B, L, D, generator=g, device="cuda")  # noqa: E731
+    bound = math.sqrt(6.0 / (D + 1))
+    vec = lambda *s: (torch.rand(*s, generator=g, device="cuda") * 2 - 1) * bound  # noqa: E731
+    w4C, w4Q, w4mlu = vec(D, 1), vec(D, 1), vec(1, 1, D)
+    L = LV_LONG
+    return {
+        "fused_masked_attention": [(heads(L), heads(L), heads(L), outer(vm, vm))],
+        "fused_dual_attention": [
+            (heads(L), heads(L), heads(L), heads(LT), heads(LT), outer(vm, vm), outer(vm, tm)),
+            (heads(LT), heads(LT), heads(LT), heads(L), heads(L), outer(tm, tm), outer(tm, vm)),
+        ],
+        "fused_cq_attention": [(rows(L), rows(LT), w4C, w4Q, w4mlu, vm, tm),
+                               (rows(LT), rows(L), w4C, w4Q, w4mlu, tm, vm)],
     }
 
 
@@ -503,33 +531,41 @@ def check_autograd_function(cases) -> dict:
 DTYPE_KEYS = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def phase_time(fns, cases, weights, card: str) -> dict:
+def time_row(name: str, wrapper, plain, args, key: str, weight: int) -> dict:
+    """One shape's kernel, plain and library times, and its bound."""
+    args = cast_args(name, args, DTYPE_KEYS[key])
+    row = {
+        "shape": [list(a.shape) for a in args[:2]], "launches_per_forward": weight,
+        "ms": device_ms(lambda: wrapper(*args)),
+        "plain_ms": device_ms(lambda: plain(*args),
+                              n=N_QUEUED_SMALL_OPS if name == STACK else 20),
+        "library_ms": library_ms(name, args),
+    }
+    row["bound_ms"], row["bound_by"] = bound_ms(name, args)
+    lib_txt = f"{row['library_ms']['median']:.4f}" if row["library_ms"] else \
+        "none (no single PyTorch call computes it)"
+    log(f"[time] {name:24s} {key:4s} {row['shape']}  kernel "
+        f"{row['ms']['median']:.4f} ms  plain {row['plain_ms']['median']:.4f}  "
+        f"library {lib_txt}  bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    return row
+
+
+def phase_time(fns, cases, weights, card: str, long_cases: dict) -> dict:
     """Per call; a kernel's ms are its launch-weighted mean over the shapes
     one forward (or train step) gives it (``weights``: launches per forward).
-    The forward kernels in bf16; the backward kernels in f32 (the long
-    config's type) and bf16; the whole-stack kernel in both."""
+    The forward kernels in bf16 (#1-#3 in f32 too); the backward kernels in
+    f32 (the long config's type) and bf16; the whole-stack kernel in both.
+    ``long_cases`` (#1-#3 at TACoS width) are extra rows, outside the
+    means, so that the means stay comparable with earlier runs."""
     results = {}
     for name, shapes in cases.items():
         wrapper, plain = fns[name]
         for key in (("f32", "bf16") if name in BOTH_DTYPES else ("bf16",)):
             log(f"[time] {name} {key}, per call, on {card}")
-            rows = []
-            for args, weight in zip(shapes, weights[name]):
-                args = cast_args(name, args, DTYPE_KEYS[key])
-                row = {
-                    "shape": [list(a.shape) for a in args[:2]], "launches_per_forward": weight,
-                    "ms": device_ms(lambda: wrapper(*args)),
-                    "plain_ms": device_ms(lambda: plain(*args),
-                                          n=N_QUEUED_SMALL_OPS if name == STACK else 20),
-                    "library_ms": library_ms(name, args),
-                }
-                row["bound_ms"], row["bound_by"] = bound_ms(name, args)
-                rows.append(row)
-                lib_txt = f"{row['library_ms']['median']:.4f}" if row["library_ms"] else \
-                    "none (no single PyTorch call computes it)"
-                log(f"[time] {name:24s} {key:4s} {row['shape']}  kernel "
-                    f"{row['ms']['median']:.4f} ms  plain {row['plain_ms']['median']:.4f}  "
-                    f"library {lib_txt}  bound {row['bound_ms']:.4f} ({row['bound_by']})")
+            rows = [time_row(name, wrapper, plain, args, key, weight)
+                    for args, weight in zip(shapes, weights[name])]
+            long_rows = [time_row(name, wrapper, plain, args, key, 0)
+                         for args in long_cases.get(name, ())]
             total = sum(r["launches_per_forward"] for r in rows)
             mean = lambda f: sum(  # noqa: E731
                 r["launches_per_forward"] * f(r) for r in rows) / total
@@ -539,7 +575,7 @@ def phase_time(fns, cases, weights, card: str) -> dict:
                 "library_ms": mean(lambda r: r["library_ms"]["median"]) if rows[0]["library_ms"]
                 else None,
                 "bound_ms": mean(lambda r: r["bound_ms"]),
-                "bound_by": rows[0]["bound_by"], "shapes": rows,
+                "bound_by": rows[0]["bound_by"], "shapes": rows, "long_shapes": long_rows,
             }
     return results
 
@@ -684,13 +720,29 @@ def phase_verify(cfg, derived, dataset, store, phase: str = "verify") -> dict:
 
     batch = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B)))
     zero_counts(K.KERNELS + S.KERNELS)
+    vlen = int(cfg.model.vlen)
     out = verify_forward(phase, cfg, derived, dataset["word_vector"], batch,
-                         {"slogits": (B, LV), "elogits": (B, LV)})
+                         {"slogits": (B, vlen), "elogits": (B, vlen)})
     want = SERVE_LAUNCHES[bool(cfg.model.get("fused_dual_stack", False))]
     got = {fn.__name__: fn.launches for fn in K.KERNELS + S.KERNELS}
     if got != want:
         raise SmokeFailure(f"{phase}: launches {got} in one forward on the card, want {want}")
     return out
+
+
+def phase_verify_long() -> dict:
+    """verify at TACoS width: SeqPAN with vlen 256 (tlen 30, dim 128, 4
+    heads and the other widths as Charades), one f32 batch, the kernels on
+    the card against the plain versions on the CPU.  #3 runs 256 by 30 and
+    30 by 256 (the grid that needs its scratch), #1/#2 over 256 keys."""
+    from vmrframe_tpu_torch.config import Derived
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+    from vmrframe_tpu_torch.tools.serve import make_cfg
+
+    cfg = make_cfg(vlen=LV_LONG)
+    dataset, store = make_synthetic_data(cfg, seed=0, n_train=B, n_test=B)
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    return phase_verify(cfg, derived, dataset, store, "verify-long")
 
 
 def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict) -> dict:
@@ -1147,9 +1199,11 @@ def main() -> int:
     fns = functions(K, W, S)
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = kernel_cases(g)
+    long_cases = long_kernel_cases(g)
     blocks = stack_blocks(seed=0)
     cases[STACK] = stack_cases(g, blocks, STACK_CHECK_SHAPES[:1])
-    check_cases = {**cases, "banded_attention": banded_cases(g, AF_CHECK_T),
+    check_cases = {**cases, **{name: cases[name] + long_cases[name] for name in ATTENTION},
+                   "banded_attention": banded_cases(g, AF_CHECK_T),
                    STACK: cases[STACK] + stack_cases(g, blocks, STACK_CHECK_SHAPES[1:])}
     time_cases = {**cases, "banded_attention": banded_cases(g, tuple(AF_LAUNCHES))}
     bwd_check, bwd_time = banded_bwd_cases(g, AF_CHECK_T), banded_bwd_cases(g, tuple(AF_LAUNCHES))
@@ -1169,10 +1223,14 @@ def main() -> int:
 
     record["build"] = phase("build", phase_build)
     record["check"] = phase("check", phase_check, fns, check_cases)
-    record["time"] = phase("time", phase_time, fns, time_cases, weights, card)
+    record["time"] = phase("time", phase_time, fns, time_cases, weights, card, long_cases)
+    for name in ATTENTION:  # free the long grids: the serve phases' peak memory stays comparable
+        check_cases[name] = cases[name]
+    del long_cases
     time_module_path(blocks, cases[STACK][0], record["time"], card)
     record["serve"], dataset, store, derived, cfg = phase("serve", phase_serve, kernels, card)
     record["verify"] = phase("verify", phase_verify, cfg, derived, dataset, store)
+    record["verify_long"] = phase("verify-long", phase_verify_long)
     record["serve_af"], service, af_data, af_cfg = phase("serve-AF", phase_serve_af, kernels, card)
     record["verify_af"] = phase("verify-AF", phase_verify_af, service, af_data, af_cfg)
     del service  # its model leaves the card before training measures its peak memory
@@ -1213,6 +1271,7 @@ def main() -> int:
         })
         if "module_path_ms" in t:  # the other route to the same result, not a library call
             out[-1]["module_path_ms"] = t["module_path_ms"]
+        if key == "bf16" and "f32" in record["time"][name]:
             out[-1]["ms_f32"] = record["time"][name]["f32"]["ms"]
             out[-1]["bound_ms_f32"] = record["time"][name]["f32"]["bound_ms"]
     record["kernels"] = out

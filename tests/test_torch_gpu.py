@@ -87,7 +87,12 @@ def test_dual_attention_kernel_on_strided_views(cuda, dtype, L, M):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("Lc,Lq,D", [(64, 30, 128), (30, 64, 128), (11, 7, 24)])
+@pytest.mark.parametrize("Lc,Lq,D", [
+    (64, 30, 128), (30, 64, 128), (11, 7, 24),
+    # SeqPAN's grids at TACoS (vlen 256) and ANet (vlen 100) width, both ways
+    # round (CQAttention runs video-to-text and back), and the longest #3 takes
+    (30, 256, 128), (256, 30, 128), (100, 30, 128), (30, 100, 128), (30, 1024, 128),
+    (1024, 30, 128)])
 def test_cq_attention_kernel(cuda, dtype, Lc, Lq, D):
     g = torch.Generator().manual_seed(2)
     B = 4
@@ -104,6 +109,42 @@ def test_cq_attention_kernel(cuda, dtype, Lc, Lq, D):
     _close(got, K.cq_attention_plain(c, q, *w, c_mask, q_mask), dtype)
 
 
+def _long_attention_inputs(g, B, H, L, M, hd, dtype, device):
+    """q, self k/v and cross k/v as head-split views of one projection
+    each; masks with ragged lengths, a wholly masked sample (0) and wholly
+    masked query rows (sample 1's rows past its length)."""
+    split = lambda x: x.unflatten(-1, (H, hd)).transpose(1, 2)  # noqa: E731
+    q, fk, fv = (split(t) for t in torch.randn(B, L, 3 * H * hd, generator=g)
+                 .to(device, dtype).split(H * hd, dim=-1))
+    tk, tv = (split(t) for t in torch.randn(B, M, 2 * H * hd, generator=g)
+              .to(device, dtype).split(H * hd, dim=-1))
+    fm, tm = _mask(g, B, L, device), _mask(g, B, M, device)
+    fm[1, L // 2:] = 0.0
+    return q, fk, fv, tk, tv, fm[:, :, None] * fm[:, None, :], fm[:, :, None] * tm[:, None, :]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 24, 32, 64, 128])
+def test_attention_kernels_at_long_grids(cuda, dtype, hd):
+    """#1 and #2 at L = 256 against 30 (SeqPAN at TACoS width), every head
+    dim the kernels take, on strided views: self (256 keys, several key
+    chunks), cross (30 keys) and #1 with 256 queries over 30 keys and 30
+    over 256."""
+    g = torch.Generator().manual_seed(9)
+    q, fk, fv, tk, tv, s_mask, x_mask = _long_attention_inputs(g, 3, 2, 256, 30, hd, dtype,
+                                                               cuda)
+    before = (K.fused_masked_attention.launches, K.fused_dual_attention.launches)
+    got = K.fused_dual_attention(q, fk, fv, tk, tv, s_mask, x_mask)
+    torch.cuda.synchronize()
+    _close(got, K.dual_attention_plain(q, fk, fv, tk, tv, s_mask, x_mask), dtype)
+    _close(K.fused_masked_attention(q, tk, tv, x_mask),
+           K.masked_attention_plain(q, tk, tv, x_mask), dtype)
+    _close(K.fused_masked_attention(tk, q, fv, x_mask.transpose(1, 2)),
+           K.masked_attention_plain(tk, q, fv, x_mask.transpose(1, 2)), dtype)
+    assert (K.fused_masked_attention.launches, K.fused_dual_attention.launches) == \
+        (before[0] + 2, before[1] + 1)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.randn(2, 2, 5, 8, device=cuda, dtype=torch.float16)
     mask = torch.ones(2, 5, 5, device=cuda)
@@ -114,6 +155,20 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         K.fused_masked_attention(x, x, x.cpu(), mask)
     with pytest.raises(ValueError):
         K.fused_masked_attention(x, x, x, mask[:, :4])
+    before = [fn.launches for fn in K.KERNELS]
+    with pytest.raises(ValueError, match="head dim"):  # bf16 head dims end at 128
+        y = torch.randn(1, 1, 8, 144, device=cuda, dtype=torch.bfloat16)
+        K.fused_masked_attention(y, y, y, torch.ones(1, 8, 8, device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):  # K and V of two 512-key branches
+        y = torch.randn(1, 1, 512, 128, device=cuda, dtype=torch.bfloat16)
+        m = torch.ones(1, 512, 512, device=cuda)
+        K.fused_dual_attention(y, y, y, y, y, m, m)
+    with pytest.raises(ValueError, match="1024"):  # CQ grids end at 1024 positions
+        c, q = torch.randn(1, 1025, 128, device=cuda), torch.randn(1, 30, 128, device=cuda)
+        w = torch.zeros(128, 1, device=cuda)
+        K.fused_cq_attention(c, q, w, w, w.view(1, 1, 128), torch.ones(1, 1025, device=cuda),
+                             torch.ones(1, 30, device=cuda))
+    assert [fn.launches for fn in K.KERNELS] == before
 
 
 def test_seqpan_forward_on_kernels_matches_plain_on_cpu(cuda):

@@ -1,0 +1,186 @@
+"""The port at SeqPAN's longer grids (TACoS: vlen 256; ANet: vlen 100)
+against the JAX package, on the CPU.
+
+- the plain versions of #1-#3 against the Pallas kernels in interpret mode
+  at L = 256 (1e-5), CQ attention both ways round (30 by 256 and 256 by 30,
+  D = 128), as SeqPAN's two CQAttention calls give it;
+- the port's SeqPAN forward at vlen 256 (dim 32, 2 heads: narrow, long)
+  against the JAX forward on carried-over weights (1e-4, spans equal);
+- the launch plans of the CUDA wrappers: #3's fits one block's shared
+  memory for every grid of 1 to 1024 positions a side, and the bf16
+  attention kernel's staging is sized and checked as the kernel needs.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vmrframe_tpu.config import Derived as JDerived
+from vmrframe_tpu.config import load_config as jload_config
+from vmrframe_tpu.data.batcher import Batcher as JBatcher
+from vmrframe_tpu.kernels.attention import (fused_cq_attention, fused_dual_attention,
+                                            fused_masked_attention)
+from vmrframe_tpu.registry import get_model_entry as jget_model_entry
+from vmrframe_tpu.testing import make_synthetic_data as jmake_synthetic_data
+from vmrframe_tpu_torch.config import Derived, load_config
+from vmrframe_tpu_torch.kernels import attention as K
+from vmrframe_tpu_torch.registry import get_model_entry
+from vmrframe_tpu_torch.weights import load_jax_params
+
+CFG = os.path.join(os.path.dirname(__file__), "configs", "charades_seqpan.yaml")
+KERNEL_ATOL, MODEL_ATOL = 1e-5, 1e-4
+TACOS = {"model.vlen": 256, "model.dim": 32, "model.num_heads": 2, "train.batch_size": 2}
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _lengths_mask(rng, B, L):
+    """(B, L) {0,1} of random valid lengths; sample 0 wholly padded."""
+    lens = rng.integers(1, L + 1, B)
+    lens[0] = 0
+    return (np.arange(L)[None] < lens[:, None]).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+@pytest.mark.parametrize("Lc,Lq", [(30, 256), (256, 30)])
+def test_cq_attention_plain_matches_pallas_on_long_grids(Lc, Lq):
+    rng = np.random.default_rng(10)
+    B, D = 2, 128
+    bound = np.sqrt(6.0 / (D + 1))
+    w = [((rng.random(s) * 2 - 1) * bound).astype(np.float32) for s in ((D, 1), (D, 1), (1, 1, D))]
+    c_mask, q_mask = _lengths_mask(rng, B, Lc), _lengths_mask(rng, B, Lq)
+    args = (_normal(rng, B, Lc, D), _normal(rng, B, Lq, D), *w, c_mask, q_mask)
+    want = fused_cq_attention(*(jnp.asarray(a) for a in args), interpret=True)
+    got = K.cq_attention_plain(*(_t(a) for a in args))
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), atol=KERNEL_ATOL)
+
+
+def _attention_inputs(rng, B=2, H=2, L=256, M=30, hd=32):
+    fm, tm = _lengths_mask(rng, B, L), _lengths_mask(rng, B, M)
+    fm[1, L // 2:] = 0.0  # wholly masked query rows in sample 1
+    q, fk, fv = (_normal(rng, B, H, L, hd) for _ in range(3))
+    tk, tv = _normal(rng, B, H, M, hd), _normal(rng, B, H, M, hd)
+    return q, fk, fv, tk, tv, fm[:, :, None] * fm[:, None, :], fm[:, :, None] * tm[:, None, :]
+
+
+def test_masked_attention_plain_matches_pallas_at_256():
+    q, fk, fv, _, _, s_mask, _ = _attention_inputs(np.random.default_rng(11))
+    want = fused_masked_attention(*(jnp.asarray(a) for a in (q, fk, fv, s_mask)), interpret=True)
+    got = K.masked_attention_plain(*(_t(a) for a in (q, fk, fv, s_mask)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_ATOL)
+
+
+def test_dual_attention_plain_matches_pallas_at_256():
+    args = _attention_inputs(np.random.default_rng(12))
+    want = fused_dual_attention(*(jnp.asarray(a) for a in args), interpret=True)
+    got = K.dual_attention_plain(*(_t(a) for a in args))
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), atol=KERNEL_ATOL)
+
+
+def test_seqpan_forward_at_tacos_length_matches_jax():
+    """vlen 256 against tlen 16: CQ attention runs 256 by 16 and 16 by 256,
+    the dual blocks self-attend over 256 positions.  The JAX model is
+    applied op by op (no ``jit``)."""
+    jcfg = jload_config(CFG).updated(TACOS)
+    ds, store = jmake_synthetic_data(jcfg, seed=0, n_train=2, n_test=2)
+    jder = JDerived(num_words=ds["n_words"], num_chars=ds["n_chars"], num_train_steps=2,
+                    steps_per_epoch=1)
+    batch = next(JBatcher(ds["test_set"], store, jcfg, jder, "test").epoch(seed=0, shuffle=False))
+    batch = {k: v for k, v in batch.items() if k != "num_valid"}
+    assert batch["vfeats"].shape[1] == 256
+    entry = jget_model_entry("SeqPAN")
+    jmodel = entry.model_cls(jcfg, jder, ds["word_vector"])
+    rng = jax.random.PRNGKey(0)
+    variables = jmodel.init({"params": rng, "dropout": rng, "gumbel": rng}, batch, True)
+    want = jmodel.apply(variables, batch, True)
+    want_props = entry.infer_fn(want, batch, jcfg)
+
+    cfg = load_config(CFG).updated(TACOS)
+    port = get_model_entry("SeqPAN")
+    model = port.model_cls(cfg, Derived(num_words=ds["n_words"], num_chars=ds["n_chars"]),
+                           ds["word_vector"]).eval()
+    load_jax_params(model, variables["params"], variables["constants"])
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    with torch.no_grad():
+        got = model(tb)
+        got_props = port.infer_fn(got, tb, cfg)
+    for key in ("slogits", "elogits", "match_score"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=MODEL_ATOL,
+                                   err_msg=key)
+    np.testing.assert_array_equal(got_props.numpy(), np.asarray(want_props))
+
+
+@pytest.mark.parametrize("D", [128, 24])
+@pytest.mark.parametrize("Lc", [1, 2, 16, 30, 64, 100, 127, 255, 256, 257, 511, 1000, 1024])
+def test_cq_plan_fits_a_block_for_every_grid(Lc, D):
+    """For every Lq from 1 to 1024: the plan fits 232,448 bytes, shares
+    what fits in the kernel's order (scores first), and sends the rest to
+    the scratch; chunks hold at most 8192 outputs."""
+    for Lq in range(1, K.CQ_MAX_LEN + 1):
+        plan = K.cq_plan(Lc, Lq, D)
+        assert plan["shared_bytes"] <= K.SHARED_BYTES
+        assert 1 <= plan["rows"] <= 64 and plan["rows"] * D <= K.CQ_CHUNK_FLOATS
+        scores, stc = 2 * Lc * Lq, Lq * D
+        base = 2 * plan["rows"] * (D + 1) + Lc + Lq + D
+        shared = scores * plan["scores_shared"] + stc * plan["stc_shared"]
+        assert plan["shared_bytes"] == 4 * (base + shared)
+        assert plan["scratch_floats"] == scores + stc - shared
+        if 4 * (base + scores) <= K.SHARED_BYTES:
+            assert plan["scores_shared"] == 1
+
+
+def test_cq_plan_at_the_serving_grids():
+    """Charades (64 by 30) keeps everything in shared memory, as before;
+    TACoS (30 by 256) keeps the scores there and sends S_t^T c to the
+    scratch; 1024 by 30 needs the scratch for the scores."""
+    assert K.cq_plan(64, 30, 128)["scratch_floats"] == 0
+    tacos = K.cq_plan(30, 256, 128)
+    assert (tacos["scores_shared"], tacos["stc_shared"]) == (1, 0)
+    assert tacos["scratch_floats"] == 256 * 128
+    assert K.cq_plan(1024, 30, 128)["scores_shared"] == 0
+
+
+@pytest.mark.parametrize("Lc,Lq,D", [(1025, 30, 128), (30, 1025, 128), (0, 30, 128),
+                                     (30, 30, 8193)])
+def test_cq_plan_raises_beyond_what_the_kernel_takes(Lc, Lq, D):
+    with pytest.raises(ValueError, match="1024"):
+        K.cq_plan(Lc, Lq, D)
+
+
+@pytest.mark.parametrize("Lq,Lks,hd", [(64, (64, 30), 32), (30, (30, 64), 32),
+                                       (256, (256, 30), 32), (30, (30, 256), 128),
+                                       (256, (256, 30), 128), (512, (512,), 64)])
+def test_attention_staging_fits_at_the_grids_the_tests_use(Lq, Lks, hd):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert K.attention_shared_bytes(dtype, Lq, Lks, hd) <= K.SHARED_BYTES
+        K._check_attention(dtype, Lq, Lks, hd, "test")
+
+
+def test_attention_limits_name_what_the_kernel_takes():
+    # Charades: 4 warps, each a 16-row Q tile (32 + 8 columns) and a (16, 64 + 8) mask
+    # tile; K and V of 64 and 32 (30 padded) keys
+    assert K.attention_shared_bytes(torch.bfloat16, 64, (64, 30), 32) == \
+        2 * (4 * 16 * (40 + 72) + 40 * (2 * 64 + 2 * 32))
+    # f32: a 32-key chunk of K (33 columns) and V, 4 Q rows, 16 rows' max and sum
+    assert K.attention_shared_bytes(torch.float32, 64, (64, 30), 32) == \
+        4 * (32 * 65 + 4 * 32 + 2 * 16)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        K._check_attention(torch.bfloat16, 8, (8,), 144, "test")
+    K._check_attention(torch.float32, 8, (8,), 144, "test")  # f32 takes head dims to 256
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        K._check_attention(torch.float32, 8, (8,), 264, "test")
+    with pytest.raises(ValueError, match="shared memory"):
+        K._check_attention(torch.bfloat16, 512, (512, 512), 128, "test")
+    with pytest.raises(ValueError, match="at least 1"):
+        K._check_attention(torch.float32, 8, (0,), 32, "test")

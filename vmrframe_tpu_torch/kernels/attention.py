@@ -9,6 +9,9 @@ beside its plain PyTorch version.
   ``fused_cq_attention`` (``_cq_kernel``) there.
 
 The sources are ``csrc/attention.cu`` (bounds and design are noted there).
+The kernels' limits are checked here before a launch: ``cq_plan`` lays out
+#3 for any grid of up to ``CQ_MAX_LEN`` positions a side, and
+``attention_shared_bytes`` sizes the attention kernels' shared memory.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises, and counts the launch in ``<wrapper>.launches``.
 The public layout is the JAX one, (B, H, L, hd): the attention kernels take
@@ -33,9 +36,17 @@ _VIEW = [_P, _L, _L, _L]
 _ARGTYPES = {
     "vmr_masked_attention": [_I] + _VIEW * 3 + [_P] + _VIEW + [_I] * 5 + [_F, _P],
     "vmr_dual_attention": [_I] + _VIEW * 5 + [_P, _P] + _VIEW * 2 + [_I] * 5 + [_F, _P],
-    "vmr_cq_attention": [_I] + [_P] * 9 + [_I] * 4 + [_P],
+    "vmr_cq_attention": [_I] + [_P] * 10 + [_I] * 7 + [_L, _L, _P],
 }
 _lib = None
+SHARED_BYTES = 232_448  # what one block may hold in shared memory on an H100
+MMA_MAX_HEAD_DIM = 128  # bf16 attention: Q fragments and outputs of 16 rows in registers
+F32_MAX_HEAD_DIM = 256  # f32 attention: 8 outputs a lane
+# mirror attention.cu: kMaxWarps, the 8-column row pad, kChunk + 8 (a warp's mask tile row)
+MMA_MAX_WARPS, MMA_ROW_PAD, MMA_MASK_ROW = 8, 8, 72
+F32_CHUNK, F32_WARPS, F32_ROWS = 32, 4, 16  # mirror kF32Chunk, kF32Warps, kF32Rows
+CQ_MAX_LEN = 1024  # the longest context or query grid #3 takes
+CQ_CHUNK_FLOATS = 8192  # R * D: a chunk's outputs, 32 per thread of 256
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -128,6 +139,57 @@ def cq_attention_plain(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
     return c2q.to(dtype), (s_ @ stc).to(dtype)
 
 
+# ------------------------------------------------------------- launch plans
+
+
+def attention_shared_bytes(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int) -> int:
+    """Shared memory of the attention kernels.  bf16: K and V of every
+    branch (rows padded to 16 keys, columns to 16 plus 8) and, per warp, a
+    16-row Q tile and its (16, 64) mask tile.  f32: one 32-key chunk of K
+    (rows padded by 1) and V, a Q row per warp, and the max and sum of the
+    block's 16 rows."""
+    if dtype == torch.float32:
+        return 4 * (F32_CHUNK * (2 * hd + 1) + F32_WARPS * hd + 2 * F32_ROWS)
+    stride = -(-hd // 16) * 16 + MMA_ROW_PAD
+    warps = min(MMA_MAX_WARPS, -(-Lq // 16))
+    return 2 * (16 * warps * (stride + MMA_MASK_ROW)
+                + stride * sum(2 * (-(-Lk // 16) * 16) for Lk in Lks))
+
+
+def _check_attention(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int, what: str):
+    if min(Lq, *Lks) < 1:
+        raise ValueError(f"{what}: every length must be at least 1, got Lq {Lq}, Lk {list(Lks)}")
+    limit = MMA_MAX_HEAD_DIM if dtype == torch.bfloat16 else F32_MAX_HEAD_DIM
+    if hd > limit:
+        raise ValueError(f"{what}: the {dtype} kernel takes head dims up to {limit}, got {hd}")
+    need = attention_shared_bytes(dtype, Lq, Lks, hd)
+    if need > SHARED_BYTES:
+        raise ValueError(f"{what}: Lq {Lq} and Lk {list(Lks)} at head dim {hd} need {need} "
+                         f"bytes of shared memory, more than the {SHARED_BYTES} a block has")
+
+
+def cq_plan(Lc: int, Lq: int, D: int) -> dict:
+    """How ``vmr_cq_attention`` lays out one batch element: ``rows`` of c
+    or q per chunk through shared memory; the score tiles S and S_t
+    (2 Lc Lq floats), then S_t^T c (Lq D floats) in shared memory while
+    they fit, else in a scratch of ``scratch_floats`` per element;
+    ``shared_bytes`` in all.  Raises beyond what the kernel takes."""
+    if not (1 <= Lc <= CQ_MAX_LEN and 1 <= Lq <= CQ_MAX_LEN) or not 1 <= D <= CQ_CHUNK_FLOATS:
+        raise ValueError(f"fused_cq_attention: the kernel takes Lc and Lq from 1 to "
+                         f"{CQ_MAX_LEN} and D up to {CQ_CHUNK_FLOATS}, got Lc {Lc}, Lq {Lq}, "
+                         f"D {D}")
+    rows = min(64, CQ_CHUNK_FLOATS // D)
+    floats = 2 * rows * (D + 1) + Lc + Lq + D
+    plan = {"rows": rows, "scores_shared": 0, "stc_shared": 0, "scratch_floats": 0}
+    for key, size in (("scores_shared", 2 * Lc * Lq), ("stc_shared", Lq * D)):
+        if 4 * (floats + size) <= SHARED_BYTES:
+            plan[key], floats = 1, floats + size
+        else:
+            plan["scratch_floats"] += size
+    plan["shared_bytes"] = 4 * floats
+    return plan
+
+
 # ------------------------------------------------------------------ wrappers
 
 
@@ -143,6 +205,7 @@ def fused_masked_attention(q, k, v, mask):
     Lk = k.shape[2]
     if k.shape != (B, H, Lk, hd) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    _check_attention(dtype, Lq, (Lk,), hd, "fused_masked_attention")
     mask = _as(mask, q, (B, Lq, Lk))
     out = _head_major_out(q, Lq)
     err = load_kernels().vmr_masked_attention(
@@ -168,6 +231,7 @@ def fused_dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
             or t_v.shape != t_k.shape:
         raise ValueError("fused_dual_attention: q/f_k/f_v must be (B, H, L, hd) and "
                          "t_k/t_v (B, H, M, hd)")
+    _check_attention(dtype, L, (L, M), hd, "fused_dual_attention")
     s_mask = _as(s_mask, q, (B, L, L))
     x_mask = _as(x_mask, q, (B, L, M))
     s_out, x_out = _head_major_out(q, L), _head_major_out(q, L)
@@ -191,15 +255,19 @@ def fused_cq_attention(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
     Lq = query.shape[1]
     if query.shape != (B, Lq, D):
         raise ValueError(f"context {tuple(context.shape)} and query {tuple(query.shape)} disagree")
+    plan = cq_plan(Lc, Lq, D)
     context, query = context.contiguous(), query.contiguous()
     w4C, w4Q = _as(w4C, context, (D, 1)), _as(w4Q, context, (D, 1))
     w4mlu = _as(w4mlu, context, (1, 1, D))
     c_mask, q_mask = _as(c_mask, context, (B, Lc)), _as(q_mask, context, (B, Lq))
     c2q, q2c = torch.empty_like(context), torch.empty_like(context)
+    scratch = torch.empty(B * plan["scratch_floats"], dtype=torch.float32, device=context.device)
     err = load_kernels().vmr_cq_attention(
         _DTYPE_CODE[dtype], context.data_ptr(), query.data_ptr(), w4C.data_ptr(),
         w4Q.data_ptr(), w4mlu.data_ptr(), c_mask.data_ptr(), q_mask.data_ptr(),
-        c2q.data_ptr(), q2c.data_ptr(), B, Lc, Lq, D, _stream(context))
+        c2q.data_ptr(), q2c.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
+        B, Lc, Lq, D, plan["rows"], plan["scores_shared"], plan["stc_shared"],
+        plan["scratch_floats"], plan["shared_bytes"], _stream(context))
     _raise_on(err, "vmr_cq_attention")
     fused_cq_attention.launches += 1
     return c2q, q2c
