@@ -18,12 +18,15 @@ Phases, in order; any failure exits non-zero:
    banded kernel at the shapes ActionFormer's long config gives it (B=8, 4
    heads of 128, window 19, T = 2304, 1152, 576), a ragged T=1000 and T=300
    (padded length equal to its key window), on head-split views of one
-   (B, T, 3C) projection.  #1-#3 also at the shapes SeqPAN at TACoS width
-   gives them (vlen 256 against tlen 30, both ways round).
+   (B, T, 3C) projection, and at T=1000 with 4 heads of 24 and of 96 (head
+   dims off the 32/64/128 grid: #5 takes them as they are, #6/#7 through
+   their wrappers' zero padding).  #1-#3 also at the shapes SeqPAN at TACoS
+   width gives them (vlen 256 against tlen 30, both ways round).
 4. time: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``), in bf16 (#1-#3
    in f32 too), timed with CUDA events; beside each, the least time the card
-   could take.  #1-#3 at TACoS width as extra rows, outside the means.  The
+   could take.  #1-#3 at TACoS width as extra rows, outside the means; the
+   banded forward (#5) in f32 at the training batch (2) as its f32 time.  The
    whole-stack kernel (#4) in bf16 and f32, and beside it the module path's
    time for the same stack (4 ``DualAttentionBlock`` calls through kernel #2).
 5. serve: SeqPAN at the full width of its Charades config, seeded random
@@ -118,6 +121,7 @@ AF_CONFIG = "configs/tacos_actionformer_long.yaml"
 B_AF, H_AF, HD_AF, WINDOW = 8, 4, 128, 19
 AF_LAUNCHES = {2304: 2, 1152: 1, 576: 1}  # banded launches per forward at each length
 AF_CHECK_T = tuple(AF_LAUNCHES) + (1000, 300)  # + a ragged length, and T_pad == K_WIN
+AF_CHECK_HD = (24, 96)  # head dims off the 32/64/128 grid, checked at T=1000
 N_AF_REQUESTS, AF_CONCURRENCY = 256, 32
 B_TRAIN = 2  # the long config's training batch
 N_TIMED_STEPS, N_WARMUP_STEPS, N_BF16_STEPS = 20, 2, 3
@@ -271,25 +275,29 @@ def cast_args(name: str, args, dtype: torch.dtype):
     return tuple(a.to(dtype) for a in args)
 
 
+def head_dim(qkv: torch.Tensor) -> int:
+    return qkv.shape[-1] // (3 * H_AF)
+
+
 def split_heads(qkv: torch.Tensor):
     """q, k, v as the model passes them: head-split views of one (B, T, 3C)
     projection, (B, H, T, hd) each."""
-    return [t.unflatten(-1, (H_AF, HD_AF)).transpose(1, 2)
-            for t in qkv.split(H_AF * HD_AF, dim=-1)]
+    hd = head_dim(qkv)
+    return [t.unflatten(-1, (H_AF, hd)).transpose(1, 2) for t in qkv.split(H_AF * hd, dim=-1)]
 
 
-def banded_cases(g: torch.Generator, lengths):
+def banded_cases(g: torch.Generator, lengths, batch: int = B_AF, hd: int = HD_AF):
     """(qkv, kv_mask) per length; sample 0 is wholly masked."""
     cases = []
     for T in lengths:
-        lens = torch.randint(T // 2, T + 1, (B_AF,), generator=g, device="cuda")
+        lens = torch.randint(T // 2, T + 1, (batch,), generator=g, device="cuda")
         lens[0] = 0
         mask = (torch.arange(T, device="cuda")[None] < lens[:, None]).float()
-        cases.append((torch.randn(B_AF, T, 3 * H_AF * HD_AF, generator=g, device="cuda"), mask))
+        cases.append((torch.randn(batch, T, 3 * H_AF * hd, generator=g, device="cuda"), mask))
     return cases
 
 
-def banded_bwd_cases(g: torch.Generator, lengths):
+def banded_bwd_cases(g: torch.Generator, lengths, hd: int = HD_AF):
     """(qkv, kv_mask, cotangent) per length at the training batch: sample 0
     wholly masked, sample 1 of a random length with a hole wider than the
     band; the cotangent random on every row, in (B, T, H, hd) memory as
@@ -299,8 +307,8 @@ def banded_bwd_cases(g: torch.Generator, lengths):
         mask = torch.zeros(B_TRAIN, T, device="cuda")
         mask[1, :int(torch.randint(T // 2, T + 1, (1,), generator=g, device="cuda"))] = 1.0
         mask[1, T // 4:T // 4 + 3 * WINDOW] = 0.0
-        qkv = torch.randn(B_TRAIN, T, 3 * H_AF * HD_AF, generator=g, device="cuda")
-        cases.append((qkv, mask, torch.randn(B_TRAIN, T, H_AF, HD_AF, generator=g, device="cuda")))
+        qkv = torch.randn(B_TRAIN, T, 3 * H_AF * hd, generator=g, device="cuda")
+        cases.append((qkv, mask, torch.randn(B_TRAIN, T, H_AF, hd, generator=g, device="cuda")))
     return cases
 
 
@@ -359,9 +367,9 @@ def work(name: str, args) -> tuple:
         tensors, products = {"banded_attention": (4, 2), "banded_attention_dq": (5, 3),
                              "banded_attention_dkv": (6, 4)}[name]
         Bm, T = args[1].shape
-        band = 2 * (WINDOW // 2) + 1
-        return (tensors * Bm * H_AF * T * HD_AF + Bm * T) * size, \
-            products * 2 * Bm * H_AF * T * band * HD_AF
+        band, hd = 2 * (WINDOW // 2) + 1, head_dim(args[0])
+        return (tensors * Bm * H_AF * T * hd + Bm * T) * size, \
+            products * 2 * Bm * H_AF * T * band * hd
     if name == "fused_cq_attention":
         c, q = args[0], args[1]
         Lc, Lq = c.shape[1], q.shape[1]
@@ -550,13 +558,27 @@ def time_row(name: str, wrapper, plain, args, key: str, weight: int) -> dict:
     return row
 
 
-def phase_time(fns, cases, weights, card: str, long_cases: dict) -> dict:
+def weighted(rows) -> dict:
+    """The launch-weighted means of a kernel's per-shape rows."""
+    total = sum(r["launches_per_forward"] for r in rows)
+    mean = lambda f: sum(r["launches_per_forward"] * f(r) for r in rows) / total  # noqa: E731
+    return {"ms": mean(lambda r: r["ms"]["median"]),
+            "plain_ms": mean(lambda r: r["plain_ms"]["median"]),
+            "library_ms": mean(lambda r: r["library_ms"]["median"]) if rows[0]["library_ms"]
+            else None,
+            "bound_ms": mean(lambda r: r["bound_ms"]),
+            "bound_by": rows[0]["bound_by"], "shapes": rows}
+
+
+def phase_time(fns, cases, weights, card: str, long_cases: dict, f32_cases: dict) -> dict:
     """Per call; a kernel's ms are its launch-weighted mean over the shapes
     one forward (or train step) gives it (``weights``: launches per forward).
     The forward kernels in bf16 (#1-#3 in f32 too); the backward kernels in
     f32 (the long config's type) and bf16; the whole-stack kernel in both.
     ``long_cases`` (#1-#3 at TACoS width) are extra rows, outside the
-    means, so that the means stay comparable with earlier runs."""
+    means, so that the means stay comparable with earlier runs.
+    ``f32_cases`` give a kernel timed in bf16 its f32 time at other shapes
+    (the banded forward at the training batch)."""
     results = {}
     for name, shapes in cases.items():
         wrapper, plain = fns[name]
@@ -566,17 +588,12 @@ def phase_time(fns, cases, weights, card: str, long_cases: dict) -> dict:
                     for args, weight in zip(shapes, weights[name])]
             long_rows = [time_row(name, wrapper, plain, args, key, 0)
                          for args in long_cases.get(name, ())]
-            total = sum(r["launches_per_forward"] for r in rows)
-            mean = lambda f: sum(  # noqa: E731
-                r["launches_per_forward"] * f(r) for r in rows) / total
-            results.setdefault(name, {})[key] = {
-                "ms": mean(lambda r: r["ms"]["median"]),
-                "plain_ms": mean(lambda r: r["plain_ms"]["median"]),
-                "library_ms": mean(lambda r: r["library_ms"]["median"]) if rows[0]["library_ms"]
-                else None,
-                "bound_ms": mean(lambda r: r["bound_ms"]),
-                "bound_by": rows[0]["bound_by"], "shapes": rows, "long_shapes": long_rows,
-            }
+            results.setdefault(name, {})[key] = {**weighted(rows), "long_shapes": long_rows}
+    for name, shapes in f32_cases.items():
+        wrapper, plain = fns[name]
+        log(f"[time] {name} f32 at the training batch, per call, on {card}")
+        results[name]["f32"] = weighted([time_row(name, wrapper, plain, args, "f32", weight)
+                                         for args, weight in zip(shapes, weights[name])])
     return results
 
 
@@ -1202,11 +1219,16 @@ def main() -> int:
     long_cases = long_kernel_cases(g)
     blocks = stack_blocks(seed=0)
     cases[STACK] = stack_cases(g, blocks, STACK_CHECK_SHAPES[:1])
+    odd_hd = lambda make: [c for hd in AF_CHECK_HD for c in make(hd)]  # noqa: E731
     check_cases = {**cases, **{name: cases[name] + long_cases[name] for name in ATTENTION},
-                   "banded_attention": banded_cases(g, AF_CHECK_T),
+                   "banded_attention": banded_cases(g, AF_CHECK_T)
+                   + odd_hd(lambda hd: banded_cases(g, (1000,), hd=hd)),
                    STACK: cases[STACK] + stack_cases(g, blocks, STACK_CHECK_SHAPES[1:])}
     time_cases = {**cases, "banded_attention": banded_cases(g, tuple(AF_LAUNCHES))}
-    bwd_check, bwd_time = banded_bwd_cases(g, AF_CHECK_T), banded_bwd_cases(g, tuple(AF_LAUNCHES))
+    f32_cases = {"banded_attention": banded_cases(g, tuple(AF_LAUNCHES), batch=B_TRAIN)}
+    bwd_check = banded_bwd_cases(g, AF_CHECK_T) + odd_hd(
+        lambda hd: banded_bwd_cases(g, (1000,), hd))
+    bwd_time = banded_bwd_cases(g, tuple(AF_LAUNCHES))
     for name in BWD_KERNELS:  # the two backward kernels share their cases
         check_cases[name], time_cases[name] = bwd_check, bwd_time
     weights = {name: [1] * len(shapes) for name, shapes in cases.items()}
@@ -1223,10 +1245,15 @@ def main() -> int:
 
     record["build"] = phase("build", phase_build)
     record["check"] = phase("check", phase_check, fns, check_cases)
-    record["time"] = phase("time", phase_time, fns, time_cases, weights, card, long_cases)
-    for name in ATTENTION:  # free the long grids: the serve phases' peak memory stays comparable
+    record["time"] = phase("time", phase_time, fns, time_cases, weights, card, long_cases,
+                           f32_cases)
+    # free the long grids, the odd head dims and the f32 rows: the serve
+    # phases' peak memory stays comparable
+    for name in ATTENTION:
         check_cases[name] = cases[name]
-    del long_cases
+    for name in ("banded_attention",) + BWD_KERNELS:
+        check_cases[name] = check_cases[name][:len(AF_CHECK_T)]
+    del long_cases, f32_cases, bwd_check
     time_module_path(blocks, cases[STACK][0], record["time"], card)
     record["serve"], dataset, store, derived, cfg = phase("serve", phase_serve, kernels, card)
     record["verify"] = phase("verify", phase_verify, cfg, derived, dataset, store)
@@ -1274,6 +1301,7 @@ def main() -> int:
         if key == "bf16" and "f32" in record["time"][name]:
             out[-1]["ms_f32"] = record["time"][name]["f32"]["ms"]
             out[-1]["bound_ms_f32"] = record["time"][name]["f32"]["bound_ms"]
+            out[-1]["library_ms_f32"] = record["time"][name]["f32"]["library_ms"]
     record["kernels"] = out
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

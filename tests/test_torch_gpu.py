@@ -194,8 +194,11 @@ def test_seqpan_forward_on_kernels_matches_plain_on_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("T,window,hd", [(300, 19, 128), (1000, 19, 128), (513, 9, 64),
-                                         (640, 37, 32), (700, 300, 64)])
+@pytest.mark.parametrize("T,window,hd", [
+    (300, 19, 128), (1000, 19, 128), (513, 9, 64), (640, 37, 32), (700, 300, 64),
+    # head dims off the 32/64/128 grid; window 300 takes two walks, and at
+    # hd 64 and 128 its key union is staged in parts (two, three)
+    (1000, 19, 96), (513, 19, 24), (640, 37, 16), (700, 300, 24), (700, 300, 128)])
 def test_banded_attention_kernel_on_strided_views(cuda, dtype, T, window, hd):
     """Head-split views of one (B, T, 3C) projection, ragged lengths, a
     wholly masked sample; every row is compared, padding rows included."""
@@ -219,8 +222,9 @@ def test_banded_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     mask = torch.ones(2, 384, device=cuda)
     with pytest.raises(TypeError):
         W.banded_attention(x.half(), x.half(), x.half(), mask, 19)
-    with pytest.raises(ValueError, match="head dims"):
-        W.banded_attention(x[..., :16], x[..., :16], x[..., :16], mask, 19)
+    with pytest.raises(ValueError, match="head dims"):  # every kernel ends at 128
+        y = torch.randn(2, 2, 384, 160, device=cuda)
+        W.banded_attention(y, y, y, mask, 19)
     with pytest.raises(ValueError, match="too small"):
         W.banded_attention(x[:, :, :200], x[:, :, :200], x[:, :, :200], mask[:, :200], 19)
     with pytest.raises(ValueError, match="unit stride"):
@@ -244,8 +248,10 @@ def _banded_bwd_inputs(g, B, H, T, hd, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("T,window,hd", [(300, 19, 128), (1000, 19, 128), (576, 19, 64),
-                                         (640, 37, 32), (700, 300, 64)])
+@pytest.mark.parametrize("T,window,hd", [
+    (300, 19, 128), (1000, 19, 128), (576, 19, 64), (640, 37, 32), (700, 300, 64),
+    # head dims the wrappers run zero-padded to the next of 32/64/128
+    (1000, 19, 96), (576, 19, 24), (640, 37, 16)])
 def test_banded_backward_kernels_on_strided_views(cuda, dtype, T, window, hd):
     """#6 and #7 against their plain versions with a random cotangent on
     every row, padding rows included."""
@@ -292,8 +298,8 @@ def test_banded_backward_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             fn(x.half(), x.half(), x.half(), mask, x.half(), 19)
         with pytest.raises(ValueError, match="share"):
             fn(x, x, x, mask, x.bfloat16(), 19)
-        with pytest.raises(ValueError, match="head dims"):
-            y = x[..., :16]
+        with pytest.raises(ValueError, match="head dims"):  # every kernel ends at 128
+            y = torch.randn(2, 2, 384, 160, device=cuda)
             fn(y, y, y, mask, y, 19)
         with pytest.raises(ValueError, match="too small"):
             y = x[:, :, :200]

@@ -2,8 +2,9 @@
 
 One ``nvcc`` per source, for ``sm_90a``, into ``kernels/_build/`` (listed in
 ``.gitignore``); ``build_all`` starts the compilers of several sources
-together.  The library's name carries a hash of the source and the flags, so
-an edited source builds anew and an unchanged one is reused.  The libraries
+together.  The library's name carries a hash of the source, the ``csrc``
+headers it includes and the flags, so an edited source or header builds anew
+and an unchanged one is reused.  The libraries
 have a plain C interface and are loaded with ``ctypes``; nothing includes
 PyTorch's headers, so a build takes seconds.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()  # one build at a time: builds in a process share a temp name
 
 
@@ -38,8 +41,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to; the name hashes source and flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where ``csrc/<name>.cu`` builds to; the name hashes the source, each
+    ``csrc`` header it includes (``#include "x.cuh"``) and the flags."""
+    source = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(source)
+    for header in _INCLUDE.findall(source.decode()):
+        digest.update((CSRC / header).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

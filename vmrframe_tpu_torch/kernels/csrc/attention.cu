@@ -25,7 +25,8 @@
 // fragments by ldmatrix.trans).  That is where the TPU kernel and the plain
 // version round, so the numbers are theirs, not an online softmax's.  With
 // one chunk (Lk <= 64) the scores of the first walk are kept.  #2 runs the
-// same tile over two branches with the Q fragments loaded once.
+// same tile over two branches with the Q fragments loaded once.  The
+// fragment helpers are in mma_bf16.cuh, shared with window_attention.cu.
 //
 // #1/#2, f32: attention_f32 stays full f32 on the CUDA cores (TF32 would
 // keep ~3 digits): the same two walks over keys staged 32 at a time in
@@ -55,6 +56,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"  // bf16, quad reductions, cp.async, ldmatrix, mma_bf16, stage
+
 namespace {
 
 constexpr float kMask = -1e30f;
@@ -66,8 +69,6 @@ constexpr int kChunk = 64;      // attention_mma: keys per score chunk (8 mma n-
 constexpr int kMaskRS = kChunk + 8;  // attention_mma: row stride of a warp's mask tile
 constexpr int kCqThreads = 256;
 constexpr int kCqAcc = 32;      // cq_kernel: outputs per thread per row chunk (R * D <= 8192)
-
-using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -92,17 +93,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// max and sum over the 4 lanes of a quad: the lanes that share an mma row
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // A (B, H, L, hd) tensor addressed through its strides (the last one is 1),
 // so (B, L, H, hd) projections are read in place, without a transpose copy.
 struct View {
@@ -119,71 +109,6 @@ struct Branch {
 template <typename T>
 __device__ __forceinline__ const T* at(const View& v, int b, int h) {
   return static_cast<const T*>(v.p) + b * v.sb + h * v.sh;
-}
-
-// ------------------------------------------------------------- mma helpers
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Copies rows [0, rows) x cols [0, hd) of a strided bf16 matrix into a
-// (rows_pad, HDP) tile of row stride RS elements, zero beyond; threads
-// tid, tid + nthr, ... each take 16-byte pieces.  cp.async where source
-// rows are 16-byte aligned, element loads otherwise.  The caller waits.
-template <int HDP, int RS>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long sl, int rows,
-                                      int rows_pad, int hd, int tid, int nthr) {
-  const bool aligned = hd % 8 == 0 && sl % 8 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-  constexpr int kPieces = HDP / 8;
-  for (int idx = tid; idx < rows_pad * kPieces; idx += nthr) {
-    const int r = idx / kPieces, c = (idx % kPieces) * 8;
-    bf16* d = dst + r * RS + c;
-    if (r < rows && c < hd && aligned) {
-      cp_async16(d, src + r * sl + c);
-    } else {
-      __align__(16) bf16 tmp[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        tmp[e] = (r < rows && c + e < hd) ? src[r * sl + c + e] : __float2bfloat16(0.f);
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(tmp);
-    }
-  }
 }
 
 // The scores of one 64-key chunk for a warp's 16-row tile, in the mma's C
