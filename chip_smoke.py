@@ -19,8 +19,7 @@ Phases, in order; any failure exits non-zero:
    heads of 128, window 19, T = 2304, 1152, 576), a ragged T=1000 and T=300
    (padded length equal to its key window), on head-split views of one
    (B, T, 3C) projection, and at T=1000 with 4 heads of 24 and of 96 (head
-   dims off the 32/64/128 grid: #5 takes them as they are, #6/#7 through
-   their wrappers' zero padding).  #1-#3 also at the shapes SeqPAN at TACoS
+   dims off the 32/64/128 grid, which #5-#7 take as they are).  #1-#3 also at the shapes SeqPAN at TACoS
    width gives them (vlen 256 against tlen 30, both ways round).
 4. time: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``), in bf16 (#1-#3

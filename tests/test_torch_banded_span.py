@@ -3,11 +3,7 @@
 - (a) the plain forward and backwards of the banded attention against the
   JAX ``banded_attention`` and its ``jax.vjp`` (the Pallas kernels in
   interpret mode) at head dims 24 and 96, f32 at atol 1e-5;
-- (b) ``with_kernel_head_dim``, the padding the backward wrappers put
-  around the kernels at head dims other than 32, 64 and 128, driven with the
-  plain versions: padded and sliced, the forward, dq, dk and dv equal the
-  unpadded ones at 1e-6 (the zero columns change only the order of sums);
-- (c) ``warp_key_span``, the keys the CUDA forward reads for each 16 query
+- (b) ``warp_key_span``, the keys the CUDA forward reads for each 16 query
   rows (``csrc/window_attention.cu`` computes the same): for every T from
   130 to 1000 and windows 9, 19, 37 and 300 it holds the band of its rows
   and lies inside their tile's K_WIN slice; and the schedule emulated in
@@ -63,42 +59,7 @@ def test_plain_forward_and_backwards_match_pallas_interpret(T, window, hd):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, err_msg=name)
 
 
-# ------------------------------------------------- (b) the head-dim padding
-
-
-@pytest.mark.parametrize("hd", [24, 96])
-def test_padded_head_dim_equals_unpadded(hd):
-    T, window = 700, 19
-    q, k, v, g, mask = (torch.from_numpy(a) for a in _inputs(hd, 2, 2, T, hd, window))
-    fwd = lambda q_, k_, v_, scale: (  # noqa: E731
-        W.banded_attention_plain(q_, k_, v_, mask, window, scale=scale),)
-    dq = lambda q_, k_, v_, g_, scale: (  # noqa: E731
-        W.banded_attention_dq_plain(q_, k_, v_, mask, g_, window, scale=scale),)
-    dkv = lambda q_, k_, v_, g_, scale: W.banded_attention_dkv_plain(  # noqa: E731
-        q_, k_, v_, mask, g_, window, scale=scale)
-    got = (W.with_kernel_head_dim(fwd, q, k, v) + W.with_kernel_head_dim(dq, q, k, v, g)
-           + W.with_kernel_head_dim(dkv, q, k, v, g))
-    want = (W.banded_attention_plain(q, k, v, mask, window),
-            W.banded_attention_dq_plain(q, k, v, mask, g, window)) + \
-        W.banded_attention_dkv_plain(q, k, v, mask, g, window)
-    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
-        assert a.shape == b.shape == (2, 2, T, hd), name
-        assert a.transpose(1, 2).is_contiguous(), name  # (B, T, H, hd) memory
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=name)
-
-
-def test_head_dim_padding_passes_kernel_head_dims_through_and_raises_above_128():
-    x = torch.randn(1, 1, 384, 64)
-    seen = []
-    outs = W.with_kernel_head_dim(lambda a, scale: seen.append((a, scale)) or (a,), x)
-    assert outs[0] is x and seen[0][0] is x and seen[0][1] == 1.0 / 8.0  # as it is, zero-copy
-    W.with_kernel_head_dim(lambda a, scale: seen.append((a.shape[-1], scale)) or (a,), x[..., :20])
-    assert seen[1] == (32, 1.0 / math.sqrt(20))  # padded to 32, scaled by the real head dim
-    with pytest.raises(ValueError, match="up to 128"):
-        W.with_kernel_head_dim(lambda a, scale: (a,), torch.randn(1, 1, 384, 160))
-
-
-# ---------------------------------------------- (c) the forward's key spans
+# ---------------------------------------------- (b) the forward's key spans
 
 
 def test_warp_key_span_holds_the_band_inside_the_slice():

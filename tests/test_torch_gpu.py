@@ -250,11 +250,15 @@ def _banded_bwd_inputs(g, B, H, T, hd, dtype, device):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("T,window,hd", [
     (300, 19, 128), (1000, 19, 128), (576, 19, 64), (640, 37, 32), (700, 300, 64),
-    # head dims the wrappers run zero-padded to the next of 32/64/128
-    (1000, 19, 96), (576, 19, 24), (640, 37, 16)])
+    # T_pad == K_WIN == K2, the statistics slice as long as the sequence
+    (384, 9, 128),
+    # head dims the kernels zero-fill up to the next multiple of 16 (bf16) or 32 (f32)
+    (1000, 19, 96), (576, 19, 24), (640, 37, 16), (1000, 19, 1), (640, 19, 8)])
 def test_banded_backward_kernels_on_strided_views(cuda, dtype, T, window, hd):
     """#6 and #7 against their plain versions with a random cotangent on
-    every row, padding rows included."""
+    every row, padding rows included: sample 0 wholly masked (every row of
+    its tiles takes the padding-row passes), the last one with a hole wider
+    than the band."""
     g = torch.Generator().manual_seed(4)
     q, k, v, mask, cot = _banded_bwd_inputs(g, 3, 4, T, hd, dtype, cuda)
     before = (W.banded_attention_dq.launches, W.banded_attention_dkv.launches)

@@ -38,17 +38,15 @@ launches the kernel or raises, and counts the launch in ``<wrapper>.launches``
 (``banded_attention.launches`` counts the forward kernel).  Inputs are
 (B, H, T, hd) in the JAX layout, any strides with a unit last stride; every
 output is (B, H, T, hd) over (B, T, H, hd) memory, ready for the head merge
-(and, for the gradients, for the head-split projections' backward).  Head
-dims 1 to 128: the forward kernel takes each of them; the backward kernels
-take 32, 64 and 128, and their wrappers run any other head dim up to 128 at
-the next of those, zero-padded (``with_kernel_head_dim``).
+(and, for the gradients, for the head-split projections' backward).  Every
+kernel takes each head dim from 1 to 128, zero-filling the columns it stages
+up to the next multiple of 16 (bf16) or 32 (f32).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
 
 import torch
 
@@ -58,7 +56,6 @@ from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 
 TILE = 128
 MAX_HEAD_DIM = 128  # every kernel, both types
-KERNEL_HEAD_DIMS = (32, 64, 128)  # the backward kernels (#6, #7)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _VIEW = [_P, _L, _L, _L]
 _TAIL = [_I] * 5 + [_F, _P]  # B, H, T, hd, window, scale, stream
@@ -102,11 +99,15 @@ def slice_start(q0: int, T: int, window: int) -> int:
 
 
 def warp_key_span(T: int, window: int, row0: int):
-    """[lo, hi): the keys that the forward kernel reads for the 16 query rows
-    from ``row0`` (a multiple of 16): their band [row0 - half, row0 + 15 +
-    half] rounded out to 16-key tiles, clipped to the K_WIN slice of their
-    128-row tile.  ``csrc/window_attention.cu::warp_key_span`` computes the
-    same; a block stages the union of its 8 warps' spans."""
+    """[lo, hi): the keys that the forward and dq kernels read for the 16
+    query rows from ``row0`` (a multiple of 16): their band [row0 - half,
+    row0 + 15 + half] rounded out to 16-key tiles, clipped to the K_WIN slice
+    of their 128-row tile.  The band is symmetric, so read with ``row0`` the
+    first of 16 keys it is also their query span, the rows that the dk/dv
+    kernel reads for them: the rows whose band reaches one of the keys,
+    rounded out the same way and clipped to the key tile's K_WIN query
+    window, which starts where the slice of the same 128-row tile does.
+    ``csrc/window_attention.cu::warp_key_span`` computes the same."""
     start = slice_start(row0 // TILE * TILE, T, window)
     reach = (window // 2 + 15) // 16 * 16
     return max(start, row0 - reach), min(start + key_window(window), row0 + 16 + reach)
@@ -142,12 +143,12 @@ def _masked_scores(qf, kf, qidx, kidx, mf, half: int, scale: float):
     return s.masked_fill(~ok[:, None], MASK_VALUE)
 
 
-def banded_attention_plain(q, k, v, kv_mask, window: int, scale: Optional[float] = None):
+def banded_attention_plain(q, k, v, kv_mask, window: int):
     """The TPU kernel's forward in plain PyTorch, tile by tile over each
     tile's K_WIN slice, so padding rows come out as the kernel gives them.
 
-    q/k/v: (B, H, T, hd); kv_mask: (B, T) {0,1}; scale: of the scores, 1/sqrt(hd)
-    if None.  Returns (B, H, T, hd) in q's type.
+    q/k/v: (B, H, T, hd); kv_mask: (B, T) {0,1}.  Returns (B, H, T, hd) in
+    q's type.
     """
     B, H, T, hd = q.shape
     _check_len(T, window)
@@ -159,23 +160,21 @@ def banded_attention_plain(q, k, v, kv_mask, window: int, scale: Optional[float]
     ar = lambda m: torch.arange(m, device=q.device)  # noqa: E731
     kidx = _slice_starts(n, k_win, T_pad, q.device)[:, None] + ar(k_win)  # (n, K_WIN)
     qidx = ar(n)[:, None] * TILE + ar(TILE)  # (n, TILE)
-    scale = 1.0 / math.sqrt(hd) if scale is None else scale
-    s = _masked_scores(qf, kf, qidx, kidx, mf, half, scale)
+    s = _masked_scores(qf, kf, qidx, kidx, mf, half, 1.0 / math.sqrt(hd))
     p = torch.softmax(s, dim=-1).to(v.dtype).float()
     out = torch.einsum("bhnqk,bhnkd->bhnqd", p, vf[:, :, kidx].float())
     return out.reshape(B, H, T_pad, hd)[:, :, :T].to(q.dtype)
 
 
-def banded_attention_dq_plain(q, k, v, kv_mask, g, window: int,
-                              scale: Optional[float] = None):
+def banded_attention_dq_plain(q, k, v, kv_mask, g, window: int):
     """``_dq_kernel`` in plain PyTorch: per 128-row query tile, the softmax
     over its K_WIN slice, ``ds = p (dp - sum(dp p)) scale`` rounded to k's
-    type, ``dq = ds k``.  g: the output's cotangent, (B, H, T, hd); scale:
-    1/sqrt(hd) if None.  Returns dq (B, H, T, hd) in q's type."""
+    type, ``dq = ds k``.  g: the output's cotangent, (B, H, T, hd).  Returns
+    dq (B, H, T, hd) in q's type."""
     B, H, T, hd = q.shape
     _check_len(T, window)
     half, k_win, T_pad = window // 2, key_window(window), padded_len(T)
-    n, scale = T_pad // TILE, 1.0 / math.sqrt(hd) if scale is None else scale
+    n, scale = T_pad // TILE, 1.0 / math.sqrt(hd)
     qf, kf, vf, gf = _padded(T, q, k, v, g)
     mf = torch.nn.functional.pad(kv_mask.float(), (0, T_pad - T))
     ar = lambda m: torch.arange(m, device=q.device)  # noqa: E731
@@ -188,17 +187,15 @@ def banded_attention_dq_plain(q, k, v, kv_mask, g, window: int,
     return dq.reshape(B, H, T_pad, hd)[:, :, :T].to(q.dtype)
 
 
-def banded_attention_dkv_plain(q, k, v, kv_mask, g, window: int,
-                               scale: Optional[float] = None):
+def banded_attention_dkv_plain(q, k, v, kv_mask, g, window: int):
     """``_dkv_kernel`` in plain PyTorch: per 128-key tile, the K_WIN query
     rows that can reach it, each row's statistics over the tile's K2 key
     slice, ``dv = p^T g`` (p rounded to g's type) and ``dk = ds^T q`` (ds
-    rounded to q's type; scale: 1/sqrt(hd) if None).  Returns (dk, dv),
-    (B, H, T, hd) in q's type."""
+    rounded to q's type).  Returns (dk, dv), (B, H, T, hd) in q's type."""
     B, H, T, hd = q.shape
     _check_len(T, window)
     half, k_win, T_pad = window // 2, key_window(window), padded_len(T)
-    n, scale = T_pad // TILE, 1.0 / math.sqrt(hd) if scale is None else scale
+    n, scale = T_pad // TILE, 1.0 / math.sqrt(hd)
     k2 = min(2 * k_win - TILE, T_pad)
     qf, kf, vf, gf = _padded(T, q, k, v, g)
     mf = torch.nn.functional.pad(kv_mask.float(), (0, T_pad - T))
@@ -254,55 +251,18 @@ def _forward(q, k, v, kv_mask, window: int):
     return out
 
 
-def with_kernel_head_dim(fn, *tensors):
-    """``fn(*tensors, scale=1/sqrt(hd))`` at a head dim that the backward
-    kernels take.  At 32, 64 and 128 ``fn`` gets the tensors as they are;
-    below 128 otherwise each (B, H, T, hd) tensor is zero-padded along hd to
-    the next of ``KERNEL_HEAD_DIMS``, and each of ``fn``'s outputs is sliced
-    back to hd, in (B, T, H, hd) memory.  That is exact: the zero columns add
-    nothing to any score, so every real column sees the same p, dp and ds,
-    and the padding columns' gradients are dropped.  ``fn`` returns a tuple."""
-    hd = tensors[0].shape[-1]
-    scale = 1.0 / math.sqrt(hd)
-    if hd in KERNEL_HEAD_DIMS:
-        return fn(*tensors, scale=scale)
-    if hd > KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {hd}: the kernels take head dims up to {KERNEL_HEAD_DIMS[-1]}")
-    wide = next(d for d in KERNEL_HEAD_DIMS if d > hd)
-    outs = fn(*(torch.nn.functional.pad(t, (0, wide - hd)) for t in tensors), scale=scale)
-    return tuple(o[..., :hd].transpose(1, 2).contiguous().transpose(1, 2) for o in outs)
-
-
-def _launch_dq(q, k, v, mask, g, window: int, scale: float):
-    B, H, T, hd = q.shape
-    dq = _head_major_out(q, T)
-    err = load_kernels().vmr_banded_attention_dq(
-        _DTYPE_CODE[q.dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(g),
-        *_view(dq), B, H, T, hd, window, scale, _stream(q))
-    _raise_on(err, "vmr_banded_attention_dq")
-    banded_attention_dq.launches += 1
-    return (dq,)
-
-
-def _launch_dkv(q, k, v, mask, g, window: int, scale: float):
-    B, H, T, hd = q.shape
-    dk, dv = _head_major_out(q, T), _head_major_out(q, T)
-    err = load_kernels().vmr_banded_attention_dkv(
-        _DTYPE_CODE[q.dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(g),
-        *_view(dk), *_view(dv), B, H, T, hd, window, scale, _stream(q))
-    _raise_on(err, "vmr_banded_attention_dkv")
-    banded_attention_dkv.launches += 1
-    return dk, dv
-
-
 def banded_attention_dq(q, k, v, kv_mask, g, window: int):
     """dq of the banded attention, (B, H, T, hd); g is the output's cotangent."""
     if q.device.type == "cpu":
         return banded_attention_dq_plain(q, k, v, kv_mask, g, window)
-    _, B, _, T, _ = _check_args((q, k, v, g), "banded_attention_dq", window)
+    dtype, B, H, T, hd = _check_args((q, k, v, g), "banded_attention_dq", window)
     mask = _as(kv_mask, q, (B, T))
-    (dq,) = with_kernel_head_dim(
-        lambda q_, k_, v_, g_, scale: _launch_dq(q_, k_, v_, mask, g_, window, scale), q, k, v, g)
+    dq = _head_major_out(q, T)
+    err = load_kernels().vmr_banded_attention_dq(
+        _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(g),
+        *_view(dq), B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
+    _raise_on(err, "vmr_banded_attention_dq")
+    banded_attention_dq.launches += 1
     return dq
 
 
@@ -310,10 +270,15 @@ def banded_attention_dkv(q, k, v, kv_mask, g, window: int):
     """(dk, dv) of the banded attention, each (B, H, T, hd)."""
     if q.device.type == "cpu":
         return banded_attention_dkv_plain(q, k, v, kv_mask, g, window)
-    _, B, _, T, _ = _check_args((q, k, v, g), "banded_attention_dkv", window)
+    dtype, B, H, T, hd = _check_args((q, k, v, g), "banded_attention_dkv", window)
     mask = _as(kv_mask, q, (B, T))
-    return with_kernel_head_dim(
-        lambda q_, k_, v_, g_, scale: _launch_dkv(q_, k_, v_, mask, g_, window, scale), q, k, v, g)
+    dk, dv = _head_major_out(q, T), _head_major_out(q, T)
+    err = load_kernels().vmr_banded_attention_dkv(
+        _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(g),
+        *_view(dk), *_view(dv), B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
+    _raise_on(err, "vmr_banded_attention_dkv")
+    banded_attention_dkv.launches += 1
+    return dk, dv
 
 
 class BandedAttention(torch.autograd.Function):

@@ -1,6 +1,7 @@
-"""Times kernel #5, the banded attention forward, on the card.
+"""Times the banded attention kernels on the card: #5 (the forward), or with
+``--backward`` #6 (dq) and #7 (dk/dv).
 
-    python -m vmrframe_tpu_torch.tools.bench_banded [--label NAME] [--out record.json]
+    python -m vmrframe_tpu_torch.tools.bench_banded [--backward] [--label NAME] [--out record.json]
 
 At the shapes ActionFormer's long config (``configs/tacos_actionformer_long.yaml``)
 gives it: 4 heads of 128, window 19, T = 2304 (2 launches per forward), 1152
@@ -13,10 +14,20 @@ each: SDPA with the band-and-key boolean mask in the same type (one PyTorch
 call computing the same function on every row with a valid key; timed
 only).
 
+``--backward``: #6 and #7 at the training shapes (batch 2, the same three
+lengths, 4 launches each per train step), f32 and bf16, with the cotangent
+random on every row, in (B, T, H, hd) memory as autograd hands it back;
+``bwd``: sample 0 wholly masked and sample 1 of a random length with a hole
+wider than the band (the cases ``chip_smoke.py`` times), ``bwd_unmasked``:
+every key valid.  Beside them: SDPA's backward with the same boolean band
+mask (dq, dk and dv together; forward plus backward less forward).
+
 Per-call device time from CUDA events around 20 calls queued behind a sleep
 kernel, median of 5 runs; each type's time is the launch-weighted mean over
 the three lengths.  Run from a checkout's root, it times that checkout's
-kernel, so two trees can be compared on one card, one after the other.  Prints
+kernels, so two trees can be compared on one card, one after the other; for
+a tree whose copy of this tool lacks a mode, run this file by its path from
+that tree's root with ``PYTHONPATH=.``.  Prints
 the card's name and power limit, then one JSON object.
 """
 
@@ -65,8 +76,49 @@ def case(g: torch.Generator, B: int, T: int, dtype: torch.dtype, masked: bool):
     return q, k, v, mask
 
 
+def band_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The band-and-key boolean mask, (B, 1, T, T)."""
+    i = torch.arange(mask.shape[1], device=mask.device)
+    return ((((i[:, None] - i[None, :]).abs() <= WINDOW // 2)[None]
+             & (mask[:, None, :] > 0))[:, None])
+
+
+def bwd_case(g: torch.Generator, T: int, dtype: torch.dtype, masked: bool):
+    """q, k, v (B, H, T, hd) views of one projection at the training batch,
+    a (B, T) mask and a cotangent (B, H, T, hd) over (B, T, H, hd) memory."""
+    B = BATCH[torch.float32]
+    mask = torch.ones(B, T, device="cuda")
+    if masked:
+        mask[0] = 0.0
+        mask[1, int(torch.randint(T // 2, T + 1, (1,), generator=g, device="cuda")):] = 0.0
+        mask[1, T // 4:T // 4 + 3 * WINDOW] = 0.0
+    qkv = torch.randn(B, T, 3 * HEADS * HEAD_DIM, generator=g, device="cuda").to(dtype)
+    q, k, v = (t.unflatten(-1, (HEADS, HEAD_DIM)).transpose(1, 2)
+               for t in qkv.split(HEADS * HEAD_DIM, dim=-1))
+    cot = torch.randn(B, T, HEADS, HEAD_DIM, generator=g, device="cuda").to(dtype)
+    return q, k, v, mask.to(dtype), cot.transpose(1, 2)
+
+
+def backward_rows(W, g: torch.Generator, dtype: torch.dtype, masked: bool) -> list:
+    rows = []
+    for T, launches in LAUNCHES.items():
+        q, k, v, mask, cot = bwd_case(g, T, dtype, masked)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        allowed = band_mask(mask)
+        fwd = lambda: F.scaled_dot_product_attention(*leaves, attn_mask=allowed)  # noqa: E731
+        rows.append({
+            "T": T, "batch": q.shape[0], "launches_per_step": launches,
+            "dq_ms": device_ms(lambda: W.banded_attention_dq(q, k, v, mask, cot, WINDOW)),
+            "dkv_ms": device_ms(lambda: W.banded_attention_dkv(q, k, v, mask, cot, WINDOW)),
+            "sdpa_bwd_ms": device_ms(lambda: torch.autograd.grad(fwd(), leaves, cot))
+            - device_ms(fwd),
+        })
+    return rows
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backward", action="store_true", help="time #6 and #7 instead of #5")
     ap.add_argument("--label", default="", help="a name for this tree in the record")
     ap.add_argument("--out", default=None, help="also write the record to this JSON file")
     args = ap.parse_args(argv)
@@ -79,25 +131,30 @@ def main(argv=None) -> dict:
     print(card, flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     record = {"label": args.label, "card": card}
-    for dtype, key, masked in ((torch.bfloat16, "bf16", True), (torch.float32, "f32", True),
-                               (torch.bfloat16, "bf16_unmasked", False)):
-        rows, total = [], sum(LAUNCHES.values())
+    total = sum(LAUNCHES.values())
+    mean = lambda rows, col, n: sum(r[col] * r[n] for r in rows) / total  # noqa: E731
+    if args.backward:
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for masked, key in ((True, "bwd"), (False, "bwd_unmasked")):
+                rows = backward_rows(W, g, dtype, masked)
+                record[f"{key}_{name}"] = {
+                    col: mean(rows, col, "launches_per_step")
+                    for col in ("dq_ms", "dkv_ms", "sdpa_bwd_ms")} | {"shapes": rows}
+    for dtype, key, masked in (() if args.backward else (
+            (torch.bfloat16, "bf16", True), (torch.float32, "f32", True),
+            (torch.bfloat16, "bf16_unmasked", False))):
+        rows = []
         for T, launches in LAUNCHES.items():
             q, k, v, mask = case(g, BATCH[dtype], T, dtype, masked)
-            i = torch.arange(T, device="cuda")
-            allowed = (((i[:, None] - i[None, :]).abs() <= WINDOW // 2)[None]
-                       & (mask[:, None, :] > 0))[:, None]
+            allowed = band_mask(mask)
             rows.append({
                 "T": T, "batch": BATCH[dtype], "launches_per_forward": launches,
                 "ms": device_ms(lambda: W.banded_attention(q, k, v, mask, WINDOW)),
                 "sdpa_ms": device_ms(
                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)),
             })
-        record[key] = {
-            "ms": sum(r["ms"] * r["launches_per_forward"] for r in rows) / total,
-            "sdpa_ms": sum(r["sdpa_ms"] * r["launches_per_forward"] for r in rows) / total,
-            "shapes": rows,
-        }
+        record[key] = {col: mean(rows, col, "launches_per_forward") for col in ("ms", "sdpa_ms")}
+        record[key]["shapes"] = rows
     print(json.dumps(record), flush=True)
     if args.out:
         with open(args.out, "w") as f:
