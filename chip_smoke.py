@@ -12,9 +12,11 @@ Phases, in order; any failure exits non-zero:
    and bf16, with random lengths and wholly masked rows and samples: the
    attention kernels at the shapes SeqPAN's Charades forward gives them
    (B=128, 4 heads of 32, L=64 video and 30 text positions, D=128); the
-   whole-stack kernel (#4) at those shapes, at an odd batch (3) and on a
-   short ragged pair (13 video, 5 text positions), every leaf of its weight
-   stacks random; the
+   whole-stack kernel (#4) at those shapes, at an odd batch (3), on a
+   short ragged pair (13 video, 5 text positions), at ANet and TACoS video
+   lengths (100 and 256 against 30 text positions, batch 128) and on a
+   ragged pair past its 64-row tiles (3, 129 video, 65 text), every leaf of
+   its weight stacks random; the
    banded kernel at the shapes ActionFormer's long config gives it (B=8, 4
    heads of 128, window 19, T = 2304, 1152, 576), a ragged T=1000 and T=300
    (padded length equal to its key window), on head-split views of one
@@ -24,7 +26,7 @@ Phases, in order; any failure exits non-zero:
 4. time: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``), in bf16 (#1-#3
    in f32 too), timed with CUDA events; beside each, the least time the card
-   could take.  #1-#3 at TACoS width as extra rows, outside the means; the
+   could take.  #1-#4 at TACoS width as extra rows, outside the means; the
    banded forward (#5) in f32 at the training batch (2) as its f32 time.  The
    whole-stack kernel (#4) in bf16 and f32, and beside it the module path's
    time for the same stack (4 ``DualAttentionBlock`` calls through kernel #2).
@@ -65,6 +67,8 @@ Phases, in order; any failure exits non-zero:
    and latencies are printed beside the flag-off phase's.
 12. verify-stack: phase 6 with the flag set (whole forward, f32, the stack
    kernel on the card against its plain version on the CPU).
+12b. verify-stack-long: phase 6b with the flag set: SeqPAN at TACoS width
+   (vlen 256), f32, card against CPU; exactly 1 launch of #4 and 0 of #2.
 13. serve-router: SeqPAN and BackBone (flag set) and BaseFast at full
    Charades width, bf16, behind one ``ModelRouter`` over real HTTP: a burst
    on each route with that route's launch counts (1/0/2/2, 1/0/2/2, 0/0/2/2
@@ -107,6 +111,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; f32 CUDA cores
 B, H, HD, LV, LT, D = 128, 4, 32, 64, 30, 128
 LV_LONG = 256  # SeqPAN's vlen at TACoS width (the reference's longest SeqPAN grid)
+LV_ANET = 100  # SeqPAN's vlen at ANet width
 TOL_F32 = 1e-4  # f32 sums taken in another order, expf against torch.exp
 BF16_ULPS = 2.0 ** -6  # bf16 check: 2-4 ulps of the output's largest magnitude
 TOL_MODEL_F32 = 1e-3  # whole f32 forward, card against CPU: ~40 layers of reordered f32 sums
@@ -128,7 +133,9 @@ BWD_KERNELS = ("banded_attention_dq", "banded_attention_dkv")
 STACK = "dual_attention_stack"
 ATTENTION = ("fused_masked_attention", "fused_dual_attention", "fused_cq_attention")
 BOTH_DTYPES = BWD_KERNELS + (STACK,) + ATTENTION  # timed in f32 and bf16
-STACK_CHECK_SHAPES = ((B, LV, LT), (3, LV, LT), (2, 13, 5))  # Charades, an odd B, a ragged pair
+# Charades, an odd B, a ragged pair; ANet length; a ragged pair past the
+# kernel's 64-row tiles (TACoS length: long_cases)
+STACK_CHECK_SHAPES = ((B, LV, LT), (3, LV, LT), (2, 13, 5), (B, LV_ANET, LT), (3, 129, 65))
 STACK_CAST = (0, 1, 4, 8)  # of a stack case, what the policy casts: v, t and the two W
 # calls queued per timed repetition of the stack's plain version and module
 # path: each is hundreds of small launches, and more than the host can queue
@@ -346,18 +353,9 @@ def work(name: str, args) -> tuple:
     output written once; the operations are its matrix products."""
     size = args[0].element_size()
     if name == STACK:
-        # bytes: v, t in and out, the masks (f32), one pass over both layers'
-        # stacks (W in the compute type, b, ln, xb in f32).  Operations: per
-        # call with F from-rows and T to-rows, 12 F D^2 + 2 T D^2 multiply-adds
-        # of projections (the BiLinear counted folded: one product over
-        # fn + gc) and 2 F (F + T) D of attention (scores and p v of both
-        # branches, each head its own hd lanes), over the four calls.
-        Bc, Lv, _ = args[0].shape
-        Lt = args[1].shape[1]
-        nbytes = 2 * Bc * (Lv + Lt) * D * size + 4 * Bc * (Lv + Lt) \
-            + 2 * (14 * D * D * size + 4 * (14 + 6 + 2) * D)
-        call = lambda F_, T_: 12 * F_ * D * D + 2 * T_ * D * D + 2 * F_ * (F_ + T_) * D  # noqa: E731
-        return nbytes, 2 * 2 * Bc * (call(Lv, Lt) + call(Lt, Lv))
+        from vmrframe_tpu_torch.tools.bench_stack import stack_work
+
+        return stack_work(args[0].shape[0], args[0].shape[1], args[1].shape[1], size)
     if name.startswith("banded_attention"):
         # tensors read and written besides the mask (forward: q, k, v, out;
         # dq: q, k, v, g, dq; dk/dv: q, k, v, g, dk, dv); the band's products
@@ -574,7 +572,7 @@ def phase_time(fns, cases, weights, card: str, long_cases: dict, f32_cases: dict
     one forward (or train step) gives it (``weights``: launches per forward).
     The forward kernels in bf16 (#1-#3 in f32 too); the backward kernels in
     f32 (the long config's type) and bf16; the whole-stack kernel in both.
-    ``long_cases`` (#1-#3 at TACoS width) are extra rows, outside the
+    ``long_cases`` (#1-#4 at TACoS width) are extra rows, outside the
     means, so that the means stay comparable with earlier runs.
     ``f32_cases`` give a kernel timed in bf16 its f32 time at other shapes
     (the banded forward at the training batch)."""
@@ -741,24 +739,28 @@ def phase_verify(cfg, derived, dataset, store, phase: str = "verify") -> dict:
                          {"slogits": (B, vlen), "elogits": (B, vlen)})
     want = SERVE_LAUNCHES[bool(cfg.model.get("fused_dual_stack", False))]
     got = {fn.__name__: fn.launches for fn in K.KERNELS + S.KERNELS}
+    log(f"[{phase}] launches in one forward on the card: {json.dumps(got)}")
     if got != want:
         raise SmokeFailure(f"{phase}: launches {got} in one forward on the card, want {want}")
-    return out
+    return {**out, "launches": got}
 
 
-def phase_verify_long() -> dict:
+def phase_verify_long(fused: bool = False) -> dict:
     """verify at TACoS width: SeqPAN with vlen 256 (tlen 30, dim 128, 4
     heads and the other widths as Charades), one f32 batch, the kernels on
     the card against the plain versions on the CPU.  #3 runs 256 by 30 and
-    30 by 256 (the grid that needs its scratch), #1/#2 over 256 keys."""
+    30 by 256 (the grid that needs its scratch), #1/#2 over 256 keys; with
+    ``fused`` (verify-stack-long) the whole stack runs as one launch of #4
+    over 256 video and 30 text rows, and #2 never."""
     from vmrframe_tpu_torch.config import Derived
     from vmrframe_tpu_torch.testing import make_synthetic_data
     from vmrframe_tpu_torch.tools.serve import make_cfg
 
-    cfg = make_cfg(vlen=LV_LONG)
+    cfg = make_cfg(vlen=LV_LONG, fused_dual_stack=fused)
     dataset, store = make_synthetic_data(cfg, seed=0, n_train=B, n_test=B)
     derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
-    return phase_verify(cfg, derived, dataset, store, "verify-long")
+    return phase_verify(cfg, derived, dataset, store,
+                        "verify-stack-long" if fused else "verify-long")
 
 
 def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict) -> dict:
@@ -1218,11 +1220,13 @@ def main() -> int:
     long_cases = long_kernel_cases(g)
     blocks = stack_blocks(seed=0)
     cases[STACK] = stack_cases(g, blocks, STACK_CHECK_SHAPES[:1])
+    long_cases[STACK] = stack_cases(g, blocks, ((B, LV_LONG, LT),))
     odd_hd = lambda make: [c for hd in AF_CHECK_HD for c in make(hd)]  # noqa: E731
     check_cases = {**cases, **{name: cases[name] + long_cases[name] for name in ATTENTION},
                    "banded_attention": banded_cases(g, AF_CHECK_T)
                    + odd_hd(lambda hd: banded_cases(g, (1000,), hd=hd)),
-                   STACK: cases[STACK] + stack_cases(g, blocks, STACK_CHECK_SHAPES[1:])}
+                   STACK: cases[STACK] + stack_cases(g, blocks, STACK_CHECK_SHAPES[1:])
+                   + long_cases[STACK]}
     time_cases = {**cases, "banded_attention": banded_cases(g, tuple(AF_LAUNCHES))}
     f32_cases = {"banded_attention": banded_cases(g, tuple(AF_LAUNCHES), batch=B_TRAIN)}
     bwd_check = banded_bwd_cases(g, AF_CHECK_T) + odd_hd(
@@ -1248,7 +1252,7 @@ def main() -> int:
                            f32_cases)
     # free the long grids, the odd head dims and the f32 rows: the serve
     # phases' peak memory stays comparable
-    for name in ATTENTION:
+    for name in ATTENTION + (STACK,):
         check_cases[name] = cases[name]
     for name in ("banded_attention",) + BWD_KERNELS:
         check_cases[name] = check_cases[name][:len(AF_CHECK_T)]
@@ -1268,6 +1272,7 @@ def main() -> int:
     compare_serving(record["serve"], record["serve_stack"])
     record["verify_stack"] = phase("verify-stack", phase_verify, cfg_stack, derived, dataset,
                                    store, "verify-stack")
+    record["verify_stack_long"] = phase("verify-stack-long", phase_verify_long, True)
     record["serve_router"] = phase("serve-router", phase_serve_router, kernels, card)
     record["seconds"] = seconds
     # the main path each kernel's launches are read from, and the type of the

@@ -6,8 +6,12 @@ and its weight stacks against the JAX package.
   carried-over weights: f32 at 1e-5 on EVERY returned row, padding rows and
   wholly padded samples included (a row without validity has its gate at
   exactly 0, so it is ``dense_2(LN2(b_d1 + x)) + b_d1 + x`` on both sides);
+- the same at SeqPAN's ANet and TACoS lengths (100 and 256 video
+  positions, and 256 on the text side), which the kernel walks in row
+  tiles and key chunks;
 - bf16 weights and activations at 2**-6 of the largest output (a few bf16
-  ulps: both sides round at the same points, sums differ in order);
+  ulps: both sides round at the same points, sums differ in order), at the
+  Charades and the TACoS length;
 - a sample whose to-side has no valid key: there the TPU kernel spreads a
   valid from-row's softmax over the 2 Lt columns of its stacked pair, the
   port over the sample's own Lt rows, as the JAX MODULE path does; so that
@@ -93,7 +97,8 @@ def test_stacks_equal_the_jax_collector(blocks):
             np.testing.assert_array_equal(stacks[key].numpy(), np.asarray(jstacks[key]))
 
 
-@pytest.mark.parametrize("B,Lv,Lt", [(4, 64, 25), (3, 64, 25), (2, 40, 12), (2, 64, 30)])
+@pytest.mark.parametrize("B,Lv,Lt", [(4, 64, 25), (3, 64, 25), (2, 40, 12), (2, 64, 30),
+                                     (2, 100, 30), (2, 256, 30), (2, 30, 256)])
 def test_plain_matches_pallas_interpret_on_every_row(blocks, B, Lv, Lt):
     v, t, vm, tm = _inputs(B, B, Lv, Lt)
     (_, _, j1, p1), (_, _, j2, p2) = blocks
@@ -108,9 +113,8 @@ def test_plain_matches_pallas_interpret_on_every_row(blocks, B, Lv, Lt):
     np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), atol=ATOL)
 
 
-def test_plain_matches_pallas_interpret_in_bf16(blocks):
-    B, Lv, Lt = 2, 64, 30
-    v, t, vm, tm = _inputs(7, B, Lv, Lt)
+def _check_bf16(blocks, B, Lv, Lt, seed):
+    v, t, vm, tm = _inputs(seed, B, Lv, Lt)
     (_, _, j1, p1), (_, _, j2, p2) = blocks
     cast = lambda p, to: {k: to(x, k == "W") for k, x in p.items()}  # noqa: E731
     jb = lambda x, w: jnp.asarray(x, jnp.bfloat16) if w else jnp.asarray(x)  # noqa: E731
@@ -125,6 +129,15 @@ def test_plain_matches_pallas_interpret_in_bf16(blocks):
         w = np.asarray(w.astype(jnp.float32))
         tol = 2.0 ** -6 * max(1.0, float(np.abs(w).max()))
         np.testing.assert_allclose(g.float().numpy(), w, atol=tol)
+
+
+def test_plain_matches_pallas_interpret_in_bf16(blocks):
+    _check_bf16(blocks, 2, 64, 30, seed=7)
+
+
+def test_plain_matches_pallas_interpret_in_bf16_at_tacos_length(blocks):
+    """SeqPAN's TACoS video length (256) against 30 text positions."""
+    _check_bf16(blocks, 2, 256, 30, seed=8)
 
 
 def test_empty_to_side_follows_the_module_path(blocks):

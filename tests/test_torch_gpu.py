@@ -422,10 +422,13 @@ def _stack_inputs(g, B, Lv, Lt, dtype, device, D=128, H=4):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,Lv,Lt", [(5, 64, 30), (3, 30, 64), (2, 13, 5), (1, 1, 1)])
+@pytest.mark.parametrize("B,Lv,Lt", [(5, 64, 30), (3, 30, 64), (2, 13, 5), (1, 1, 1),
+                                     (3, 256, 30), (3, 30, 256), (2, 100, 100), (2, 65, 129)])
 def test_dual_stack_kernel(cuda, dtype, B, Lv, Lt):
     """#4 against its plain version on every row: random lengths, a wholly
-    masked sample, an odd batch, a short ragged pair, one position."""
+    masked sample, an odd batch, a short ragged pair, one position; SeqPAN's
+    TACoS (256) and ANet (100) lengths on either side, and lengths one past
+    a 64-row tile (65) and past two tiles and a 32-key chunk (129)."""
     g = torch.Generator().manual_seed(6)
     args = _stack_inputs(g, B, Lv, Lt, dtype, cuda)
     before = S.dual_attention_stack.launches
@@ -451,9 +454,6 @@ def test_dual_stack_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     g = torch.Generator().manual_seed(8)
     v, t, vm, tm, p1, p2, H = _stack_inputs(g, 2, 16, 8, torch.float32, cuda)
     before = S.dual_attention_stack.launches
-    with pytest.raises(ValueError, match="the kernel takes"):  # Lv beyond 64
-        long_v = torch.randn(2, 65, 128, device=cuda)
-        S.dual_attention_stack(long_v, t, torch.ones(2, 65, device=cuda), tm, p1, p2, H)
     with pytest.raises(ValueError, match="the kernel takes"):  # head dim 2
         S.dual_attention_stack(v, t, vm, tm, p1, p2, 64)
     with pytest.raises(ValueError, match="the kernel takes"):  # D = 256

@@ -1,7 +1,7 @@
 // bf16 tensor-core fragment helpers for Hopper (sm_90a), shared by the
-// attention bodies that compute scores and P.V with mma.sync m16n8k16:
-// attention.cu (attention_mma, kernels #1/#2) and window_attention.cu
-// (banded_mma, kernel #5).  Each source is its own library, so every
+// bodies that run mma.sync m16n8k16: attention.cu (attention_mma, kernels
+// #1/#2), window_attention.cu (banded_mma, dq_mma, dkv_mma, kernels #5-#7)
+// and dual_stack.cu (gemm_mma, kernel #4's projections).  Each source is its own library, so every
 // function here is inline.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t; the
@@ -39,6 +39,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

@@ -32,9 +32,9 @@ service's padding samples have no valid from-row either, so they are the
 same on every route.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises (the kernel takes D = 128, heads dividing D
-with a head dim that is a multiple of 4, and 1 <= Lv, Lt <= 64), and counts
-the launch in ``dual_attention_stack.launches``.
+launches the kernel or raises (the kernel takes D = 128 and heads dividing D
+with a head dim that is a multiple of 4, at any lengths Lv, Lt >= 1), and
+counts the launch in ``dual_attention_stack.launches``.
 """
 
 from __future__ import annotations
@@ -53,10 +53,10 @@ W_Q, W_FK, W_FV, W_TK, W_TV = 0, 1, 2, 3, 4
 W_SD, W_XD, W_SG, W_XG, W_GD = 5, 6, 7, 8, 9
 W_BL1, W_BL2, W_D1, W_D2 = 10, 11, 12, 13
 LN1_S, LN1_B, LNT_S, LNT_B, LN2_S, LN2_B = 0, 1, 2, 3, 4, 5
-KERNEL_D, KERNEL_MAX_L = 128, 64  # what csrc/dual_stack.cu takes
+KERNEL_D = 128  # what csrc/dual_stack.cu takes
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I] + [_P] * 11 + [_I] * 4 + [_P]
+_ARGTYPES = [_I] + [_P] * 12 + [_I] * 4 + [_P]
 _lib = None
 
 
@@ -181,10 +181,10 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
         if t.device != device or t.dtype != dtype:
             raise ValueError(f"{what}: features and weights must share {device} and {dtype}")
     hd = D // num_heads
-    if D != KERNEL_D or hd % 4 or not (1 <= Lv <= KERNEL_MAX_L and 1 <= Lt <= KERNEL_MAX_L):
+    if D != KERNEL_D or hd % 4 or Lv < 1 or Lt < 1:
         raise ValueError(f"{what}: the kernel takes D = {KERNEL_D}, a head dim that is a "
-                         f"multiple of 4 and 1 <= Lv, Lt <= {KERNEL_MAX_L}; got D = {D}, "
-                         f"{num_heads} heads, Lv = {Lv}, Lt = {Lt}")
+                         f"multiple of 4 and Lv, Lt >= 1; got D = {D}, {num_heads} heads, "
+                         f"Lv = {Lv}, Lt = {Lt}")
     f32 = lambda key: torch.stack([p1[key], p2[key]]).to(device, torch.float32).contiguous()  # noqa: E731
     W = torch.stack([p1["W"], p2["W"]]).contiguous()
     b, ln, xb = f32("b"), f32("ln"), f32("xb")
@@ -192,12 +192,15 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
     vm = vmask.to(device, torch.float32).contiguous()
     tm = tmask.to(device, torch.float32).contiguous()
     v_out, t_out = torch.empty_like(v), torch.empty_like(t)
-    # the first layer's results, f32, written and read back by the same block
+    # written and read back by the same block (L2-resident): the first
+    # layer's results in f32, and a call's keys and values in the compute type
     scratch = torch.empty(B, Lv + Lt, D, dtype=torch.float32, device=device)
+    kv_scratch = torch.empty(B, 2 * (Lv + Lt), D, dtype=dtype, device=device)
     err = load_kernels().vmr_dual_stack(
         _DTYPE_CODE[dtype], v.data_ptr(), t.data_ptr(), vm.data_ptr(), tm.data_ptr(),
         W.data_ptr(), b.data_ptr(), ln.data_ptr(), xb.data_ptr(), v_out.data_ptr(),
-        t_out.data_ptr(), scratch.data_ptr(), B, Lv, Lt, num_heads, _stream(v))
+        t_out.data_ptr(), scratch.data_ptr(), kv_scratch.data_ptr(), B, Lv, Lt, num_heads,
+        _stream(v))
     _raise_on(err, "vmr_dual_stack")
     dual_attention_stack.launches += 1
     return v_out, t_out
