@@ -22,11 +22,13 @@ Phases, in order; any failure exits non-zero:
    (padded length equal to its key window), on head-split views of one
    (B, T, 3C) projection, and at T=1000 with 4 heads of 24 and of 96 (head
    dims off the 32/64/128 grid, which #5-#7 take as they are).  #1-#3 also at the shapes SeqPAN at TACoS
-   width gives them (vlen 256 against tlen 30, both ways round).
+   width gives them (vlen 256 against tlen 30, both ways round), and #3 at
+   ANet width (vlen 100 against 30, both ways round).
 4. time: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``), in bf16 (#1-#3
    in f32 too), timed with CUDA events; beside each, the least time the card
-   could take.  #1-#4 at TACoS width as extra rows, outside the means; the
+   could take.  #1-#4 at TACoS width and #3 at ANet width as extra rows,
+   outside the means; the
    banded forward (#5) in f32 at the training batch (2) as its f32 time.  The
    whole-stack kernel (#4) in bf16 and f32, and beside it the module path's
    time for the same stack (4 ``DualAttentionBlock`` calls through kernel #2).
@@ -207,7 +209,8 @@ def kernel_cases(g: torch.Generator):
 
 
 def long_kernel_cases(g: torch.Generator):
-    """The shapes SeqPAN at TACoS width (vlen 256, tlen 30) gives #1-#3."""
+    """The shapes SeqPAN at TACoS width (vlen 256, tlen 30) gives #1-#3,
+    then those at ANet width (vlen 100) gives #3."""
     vm, tm = lengths_mask(g, LV_LONG), lengths_mask(g, LT)
     outer = lambda a, b: a[:, :, None] * b[:, None, :]  # noqa: E731
     heads = lambda L: torch.randn(B, H, L, HD, generator=g, device="cuda")  # noqa: E731
@@ -215,7 +218,8 @@ def long_kernel_cases(g: torch.Generator):
     bound = math.sqrt(6.0 / (D + 1))
     vec = lambda *s: (torch.rand(*s, generator=g, device="cuda") * 2 - 1) * bound  # noqa: E731
     w4C, w4Q, w4mlu = vec(D, 1), vec(D, 1), vec(1, 1, D)
-    L = LV_LONG
+    L, A = LV_LONG, LV_ANET
+    va = lengths_mask(g, A)
     return {
         "fused_masked_attention": [(heads(L), heads(L), heads(L), outer(vm, vm))],
         "fused_dual_attention": [
@@ -223,7 +227,9 @@ def long_kernel_cases(g: torch.Generator):
             (heads(LT), heads(LT), heads(LT), heads(L), heads(L), outer(tm, tm), outer(tm, vm)),
         ],
         "fused_cq_attention": [(rows(L), rows(LT), w4C, w4Q, w4mlu, vm, tm),
-                               (rows(LT), rows(L), w4C, w4Q, w4mlu, tm, vm)],
+                               (rows(LT), rows(L), w4C, w4Q, w4mlu, tm, vm),
+                               (rows(A), rows(LT), w4C, w4Q, w4mlu, va, tm),
+                               (rows(LT), rows(A), w4C, w4Q, w4mlu, tm, va)],
     }
 
 
@@ -368,11 +374,10 @@ def work(name: str, args) -> tuple:
         return (tensors * Bm * H_AF * T * hd + Bm * T) * size, \
             products * 2 * Bm * H_AF * T * band * hd
     if name == "fused_cq_attention":
-        c, q = args[0], args[1]
-        Lc, Lq = c.shape[1], q.shape[1]
-        elems = B * Lc * D + B * Lq * D + 3 * D + B * (Lc + Lq) + 2 * B * Lc * D
-        ops = B * (8 * Lc * Lq * D + 2 * (Lc + Lq) * D + Lc * D)
-        return elems * size, ops
+        from vmrframe_tpu_torch.tools.bench_cq import cq_work
+
+        (Bc, Lc, Dc), Lq = args[0].shape, args[1].shape[1]
+        return cq_work(Bc, Lc, Lq, Dc, size)
     L = args[0].shape[2]
     # Lk of each branch: (q, k, v, mask) or (q, f_k, f_v, t_k, t_v, s_mask, x_mask)
     keys = [args[1].shape[2]] if name == "fused_masked_attention" else \
@@ -572,8 +577,9 @@ def phase_time(fns, cases, weights, card: str, long_cases: dict, f32_cases: dict
     one forward (or train step) gives it (``weights``: launches per forward).
     The forward kernels in bf16 (#1-#3 in f32 too); the backward kernels in
     f32 (the long config's type) and bf16; the whole-stack kernel in both.
-    ``long_cases`` (#1-#4 at TACoS width) are extra rows, outside the
-    means, so that the means stay comparable with earlier runs.
+    ``long_cases`` (#1-#4 at TACoS width, #3 at ANet width) are extra
+    rows, outside the means, so that the means stay comparable with earlier
+    runs.
     ``f32_cases`` give a kernel timed in bf16 its f32 time at other shapes
     (the banded forward at the training batch)."""
     results = {}

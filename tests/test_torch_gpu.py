@@ -87,15 +87,18 @@ def test_dual_attention_kernel_on_strided_views(cuda, dtype, L, M):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("Lc,Lq,D", [
-    (64, 30, 128), (30, 64, 128), (11, 7, 24),
+@pytest.mark.parametrize("B,Lc,Lq,D", [
+    (4, 64, 30, 128), (4, 30, 64, 128), (4, 11, 7, 24),
     # SeqPAN's grids at TACoS (vlen 256) and ANet (vlen 100) width, both ways
     # round (CQAttention runs video-to-text and back), and the longest #3 takes
-    (30, 256, 128), (256, 30, 128), (100, 30, 128), (30, 100, 128), (30, 1024, 128),
-    (1024, 30, 128)])
-def test_cq_attention_kernel(cuda, dtype, Lc, Lq, D):
+    (4, 30, 256, 128), (4, 256, 30, 128), (4, 100, 30, 128), (4, 30, 100, 128),
+    (4, 30, 1024, 128), (4, 1024, 30, 128),
+    # one position a side; past a 16-row tile on either side (the scores in
+    # the scratch); the longest grid both ways; the serving batch
+    (4, 1, 1, 1), (4, 65, 257, 128), (4, 257, 65, 128), (4, 1024, 1024, 128),
+    (128, 64, 30, 128)])
+def test_cq_attention_kernel(cuda, dtype, B, Lc, Lq, D):
     g = torch.Generator().manual_seed(2)
-    B = 4
     c = torch.randn(B, Lc, D, generator=g).to(cuda, dtype)
     q = torch.randn(B, Lq, D, generator=g).to(cuda, dtype)
     w = [(torch.rand(*s, generator=g) * 0.4 - 0.2).to(cuda, dtype)

@@ -7,7 +7,8 @@ against the JAX package, on the CPU.
 - the port's SeqPAN forward at vlen 256 (dim 32, 2 heads: narrow, long)
   against the JAX forward on carried-over weights (1e-4, spans equal);
 - the launch plans of the CUDA wrappers: #3's fits one block's shared
-  memory for every grid of 1 to 1024 positions a side, and the bf16
+  memory for every grid of 1 to 1024 positions a side in both types, with
+  no scratch at SeqPAN's grids, and the bf16
   attention kernel's staging is sized and checked as the kernel needs.
 """
 
@@ -124,38 +125,48 @@ def test_seqpan_forward_at_tacos_length_matches_jax():
 @pytest.mark.parametrize("D", [128, 24])
 @pytest.mark.parametrize("Lc", [1, 2, 16, 30, 64, 100, 127, 255, 256, 257, 511, 1000, 1024])
 def test_cq_plan_fits_a_block_for_every_grid(Lc, D):
-    """For every Lq from 1 to 1024: the plan fits 232,448 bytes, shares
-    what fits in the kernel's order (scores first), and sends the rest to
-    the scratch; chunks hold at most 8192 outputs."""
-    for Lq in range(1, K.CQ_MAX_LEN + 1):
-        plan = K.cq_plan(Lc, Lq, D)
-        assert plan["shared_bytes"] <= K.SHARED_BYTES
-        assert 1 <= plan["rows"] <= 64 and plan["rows"] * D <= K.CQ_CHUNK_FLOATS
-        scores, stc = 2 * Lc * Lq, Lq * D
-        base = 2 * plan["rows"] * (D + 1) + Lc + Lq + D
-        shared = scores * plan["scores_shared"] + stc * plan["stc_shared"]
-        assert plan["shared_bytes"] == 4 * (base + shared)
-        assert plan["scratch_floats"] == scores + stc - shared
-        if 4 * (base + scores) <= K.SHARED_BYTES:
-            assert plan["scores_shared"] == 1
+    """For every Lq from 1 to 1024, in both types: the plan fits 232,448
+    bytes and is the layout the kernel computes; its chunks are whole
+    granules, the output chunk within the staged one; the scores are shared
+    whenever they fit with the narrowest chunks, else all of them go to the
+    scratch."""
+    for dtype in (torch.bfloat16, torch.float32):
+        size, gran = torch.finfo(dtype).bits // 8, K.CQ_COLS[dtype]
+        for Lq in range(1, K.CQ_MAX_LEN + 1):
+            plan = K.cq_plan(Lc, Lq, D, dtype)
+            stage, out, shared = plan["stage_cols"], plan["out_cols"], plan["scores_shared"]
+            assert plan["shared_bytes"] <= K.SHARED_BYTES
+            assert plan["shared_bytes"] == K.cq_shared_bytes(Lc, Lq, stage, out, size, shared)
+            assert stage % gran == 0 and out % gran == 0
+            assert gran <= out <= stage <= -(-D // gran) * gran
+            lcp, lqp = -(-Lc // 16) * 16, -(-Lq // 16) * 16
+            scores = 2 * lcp * (lqp + K.CQ_SCORE_PAD)
+            assert plan["scratch_floats"] == (0 if shared else scores)
+            narrowest = K.cq_shared_bytes(Lc, Lq, gran, gran, size, True)
+            assert shared == (narrowest <= K.SHARED_BYTES)
 
 
 def test_cq_plan_at_the_serving_grids():
-    """Charades (64 by 30) keeps everything in shared memory, as before;
-    TACoS (30 by 256) keeps the scores there and sends S_t^T c to the
-    scratch; 1024 by 30 needs the scratch for the scores."""
-    assert K.cq_plan(64, 30, 128)["scratch_floats"] == 0
-    tacos = K.cq_plan(30, 256, 128)
-    assert (tacos["scores_shared"], tacos["stc_shared"]) == (1, 0)
-    assert tacos["scratch_floats"] == 256 * 128
+    """SeqPAN's grids at Charades, ANet and TACoS width, both ways round,
+    keep everything in shared memory in both types: nothing goes to a
+    scratch.  In bf16 c and q are staged once (all of D); at 30 by 256 the
+    outputs go in two chunks of 64 columns.  1024 by 30 needs the scratch."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for Lc, Lq in ((64, 30), (30, 64), (100, 30), (30, 100), (256, 30), (30, 256)):
+            plan = K.cq_plan(Lc, Lq, 128, dtype)
+            assert plan["scores_shared"] == 1 and plan["scratch_floats"] == 0, (Lc, Lq, dtype)
+            if dtype == torch.bfloat16:
+                assert plan["stage_cols"] == 128
+    assert K.cq_plan(30, 256, 128)["out_cols"] == 64
     assert K.cq_plan(1024, 30, 128)["scores_shared"] == 0
 
 
 @pytest.mark.parametrize("Lc,Lq,D", [(1025, 30, 128), (30, 1025, 128), (0, 30, 128),
                                      (30, 30, 8193)])
 def test_cq_plan_raises_beyond_what_the_kernel_takes(Lc, Lq, D):
-    with pytest.raises(ValueError, match="1024"):
-        K.cq_plan(Lc, Lq, D)
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="1024"):
+            K.cq_plan(Lc, Lq, D, dtype)
 
 
 @pytest.mark.parametrize("Lq,Lks,hd", [(64, (64, 30), 32), (30, (30, 64), 32),

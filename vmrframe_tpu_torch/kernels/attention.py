@@ -10,7 +10,8 @@ beside its plain PyTorch version.
 
 The sources are ``csrc/attention.cu`` (bounds and design are noted there).
 The kernels' limits are checked here before a launch: ``cq_plan`` lays out
-#3 for any grid of up to ``CQ_MAX_LEN`` positions a side, and
+#3 for any grid of up to ``CQ_MAX_LEN`` positions a side and D up to
+``CQ_MAX_D``, and
 ``attention_shared_bytes`` sizes the attention kernels' shared memory.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises, and counts the launch in ``<wrapper>.launches``.
@@ -36,7 +37,8 @@ _VIEW = [_P, _L, _L, _L]
 _ARGTYPES = {
     "vmr_masked_attention": [_I] + _VIEW * 3 + [_P] + _VIEW + [_I] * 5 + [_F, _P],
     "vmr_dual_attention": [_I] + _VIEW * 5 + [_P, _P] + _VIEW * 2 + [_I] * 5 + [_F, _P],
-    "vmr_cq_attention": [_I] + [_P] * 10 + [_I] * 7 + [_L, _L, _P],
+    "vmr_cq_attention": [_I] + [_P] * 10 + [_I] * 7 + [_L, _P],
+    "vmr_cq_attention_clocked": [_I] + [_P] * 10 + [_I] * 7 + [_L, _P, _P],
 }
 _lib = None
 SHARED_BYTES = 232_448  # what one block may hold in shared memory on an H100
@@ -46,7 +48,12 @@ F32_MAX_HEAD_DIM = 256  # f32 attention: 8 outputs a lane
 MMA_MAX_WARPS, MMA_ROW_PAD, MMA_MASK_ROW = 8, 8, 72
 F32_CHUNK, F32_WARPS, F32_ROWS = 32, 4, 16  # mirror kF32Chunk, kF32Warps, kF32Rows
 CQ_MAX_LEN = 1024  # the longest context or query grid #3 takes
-CQ_CHUNK_FLOATS = 8192  # R * D: a chunk's outputs, 32 per thread of 256
+CQ_MAX_D = 8192  # the widest D #3 takes
+# mirror attention.cu: kCqScorePad; kCqMmaCols (bf16) and kCqF32Cols (f32),
+# the granules of #3's column chunks; 16 bytes of padding on each staged row
+CQ_SCORE_PAD, CQ_COLS, CQ_ROW_PAD_BYTES = 4, {torch.bfloat16: 16, torch.float32: 8}, 16
+# mirror attention.cu's CqPhase: the phases vmr_cq_attention_clocked times
+CQ_PHASES = ("stage", "rank1", "scores", "stats", "softmax", "restage", "stc", "out")
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -168,26 +175,61 @@ def _check_attention(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int, w
                          f"bytes of shared memory, more than the {SHARED_BYTES} a block has")
 
 
-def cq_plan(Lc: int, Lq: int, D: int) -> dict:
-    """How ``vmr_cq_attention`` lays out one batch element: ``rows`` of c
-    or q per chunk through shared memory; the score tiles S and S_t
-    (2 Lc Lq floats), then S_t^T c (Lq D floats) in shared memory while
-    they fit, else in a scratch of ``scratch_floats`` per element;
-    ``shared_bytes`` in all.  Raises beyond what the kernel takes."""
-    if not (1 <= Lc <= CQ_MAX_LEN and 1 <= Lq <= CQ_MAX_LEN) or not 1 <= D <= CQ_CHUNK_FLOATS:
+def cq_shared_bytes(Lc: int, Lq: int, stage_cols: int, out_cols: int, size: int,
+                    scores_shared: bool) -> int:
+    """Shared memory of ``vmr_cq_attention`` for one batch element, in the
+    kernel's order: S and S_t (f32, Lc by Lq, rows padded to 16 and Lq to 16
+    plus ``CQ_SCORE_PAD``) when shared; 3 f32 per row of c and of q; w4mlu,
+    w4C and w4Q over the staged columns (f32); c and q over ``stage_cols``
+    columns in the input type (``size`` bytes); S_t^T c over ``out_cols``
+    columns (bf16 as hi and lo, f32 as itself: 4 bytes either way), each row
+    padded by ``CQ_ROW_PAD_BYTES``."""
+    lcp, lqp = -(-Lc // 16) * 16, -(-Lq // 16) * 16
+    pad = CQ_ROW_PAD_BYTES // size
+    floats = (2 * lcp * (lqp + CQ_SCORE_PAD) if scores_shared else 0) + 3 * (lcp + lqp) \
+        + 3 * stage_cols
+    return 4 * floats + size * (lcp + lqp) * (stage_cols + pad) + 4 * lqp * (out_cols + pad)
+
+
+def _even_chunks(n: int, most: int, gran: int) -> int:
+    """The width of each of the fewest even chunks of ``n`` columns that are
+    at most ``most`` wide, rounded up to ``gran`` (``most`` is a multiple of
+    ``gran``, so the width is at most ``most``)."""
+    width = -(-n // -(-n // most))
+    return -(-width // gran) * gran
+
+
+def cq_plan(Lc: int, Lq: int, D: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How ``vmr_cq_attention`` lays out one batch element in one block's
+    shared memory: the scores S and S_t there (``scores_shared``) whenever
+    they fit with the narrowest chunks, else in a scratch of
+    ``scratch_floats`` per element; then the widest even chunks of columns
+    that fit, all multiples of ``CQ_COLS[dtype]``: first one width for both
+    (so that neither is starved), then ``stage_cols`` (columns of c and q
+    staged at a time) as wide as that leaves room for, then ``out_cols``
+    (columns of S_t^T c and of the outputs at a time, within a staged
+    chunk); ``shared_bytes`` in all.  Raises beyond what the kernel takes."""
+    if not (1 <= Lc <= CQ_MAX_LEN and 1 <= Lq <= CQ_MAX_LEN) or not 1 <= D <= CQ_MAX_D:
         raise ValueError(f"fused_cq_attention: the kernel takes Lc and Lq from 1 to "
-                         f"{CQ_MAX_LEN} and D up to {CQ_CHUNK_FLOATS}, got Lc {Lc}, Lq {Lq}, "
-                         f"D {D}")
-    rows = min(64, CQ_CHUNK_FLOATS // D)
-    floats = 2 * rows * (D + 1) + Lc + Lq + D
-    plan = {"rows": rows, "scores_shared": 0, "stc_shared": 0, "scratch_floats": 0}
-    for key, size in (("scores_shared", 2 * Lc * Lq), ("stc_shared", Lq * D)):
-        if 4 * (floats + size) <= SHARED_BYTES:
-            plan[key], floats = 1, floats + size
-        else:
-            plan["scratch_floats"] += size
-    plan["shared_bytes"] = 4 * floats
-    return plan
+                         f"{CQ_MAX_LEN} and D up to {CQ_MAX_D}, got Lc {Lc}, Lq {Lq}, D {D}")
+    size, gran = torch.finfo(dtype).bits // 8, CQ_COLS[dtype]
+    lcp, lqp = -(-Lc // 16) * 16, -(-Lq // 16) * 16
+    widest = -(-D // gran) * gran
+    fit = lambda room, per: room // per // gran * gran  # noqa: E731
+    for shared in (1, 0):
+        fixed = cq_shared_bytes(Lc, Lq, 0, 0, size, shared)
+        per_stage = cq_shared_bytes(Lc, Lq, 1, 0, size, shared) - fixed
+        per_out = 4 * lqp
+        room = SHARED_BYTES - fixed
+        if room < (per_stage + per_out) * gran:
+            continue
+        both = _even_chunks(widest, fit(room, per_stage + per_out), gran)
+        stage = _even_chunks(widest, fit(room - per_out * both, per_stage), gran)
+        out = _even_chunks(stage, fit(room - per_stage * stage, per_out), gran)
+        return {"stage_cols": stage, "out_cols": out, "scores_shared": shared,
+                "scratch_floats": 0 if shared else 2 * lcp * (lqp + CQ_SCORE_PAD),
+                "shared_bytes": cq_shared_bytes(Lc, Lq, stage, out, size, shared)}
+    raise ValueError(f"fused_cq_attention: Lc {Lc}, Lq {Lq} do not fit one block")
 
 
 # ------------------------------------------------------------------ wrappers
@@ -244,33 +286,53 @@ def fused_dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
     return s_out, x_out
 
 
-def fused_cq_attention(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
-    """(c2q, q2c), both (B, Lc, D): the two attention outputs CQAttention
-    concatenates.  context (B, Lc, D), query (B, Lq, D), w4C/w4Q (D, 1),
-    w4mlu (1, 1, D), c_mask (B, Lc), q_mask (B, Lq)."""
-    if context.device.type == "cpu":
-        return cq_attention_plain(context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
+def _cq_launch(entry, context, query, w4C, w4Q, w4mlu, c_mask, q_mask, *extra):
+    """Checks and plans one launch of ``entry`` (``vmr_cq_attention``, or
+    ``vmr_cq_attention_clocked`` with the clocks' pointer in ``extra``) on
+    CUDA tensors; (c2q, q2c)."""
     dtype = _check_cuda((context, query), "fused_cq_attention")
     B, Lc, D = context.shape
     Lq = query.shape[1]
     if query.shape != (B, Lq, D):
         raise ValueError(f"context {tuple(context.shape)} and query {tuple(query.shape)} disagree")
-    plan = cq_plan(Lc, Lq, D)
+    plan = cq_plan(Lc, Lq, D, dtype)
     context, query = context.contiguous(), query.contiguous()
     w4C, w4Q = _as(w4C, context, (D, 1)), _as(w4Q, context, (D, 1))
     w4mlu = _as(w4mlu, context, (1, 1, D))
     c_mask, q_mask = _as(c_mask, context, (B, Lc)), _as(q_mask, context, (B, Lq))
     c2q, q2c = torch.empty_like(context), torch.empty_like(context)
     scratch = torch.empty(B * plan["scratch_floats"], dtype=torch.float32, device=context.device)
-    err = load_kernels().vmr_cq_attention(
+    err = entry(
         _DTYPE_CODE[dtype], context.data_ptr(), query.data_ptr(), w4C.data_ptr(),
         w4Q.data_ptr(), w4mlu.data_ptr(), c_mask.data_ptr(), q_mask.data_ptr(),
         c2q.data_ptr(), q2c.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
-        B, Lc, Lq, D, plan["rows"], plan["scores_shared"], plan["stc_shared"],
-        plan["scratch_floats"], plan["shared_bytes"], _stream(context))
+        B, Lc, Lq, D, plan["stage_cols"], plan["out_cols"], plan["scores_shared"],
+        plan["shared_bytes"], _stream(context), *extra)
     _raise_on(err, "vmr_cq_attention")
-    fused_cq_attention.launches += 1
     return c2q, q2c
+
+
+def fused_cq_attention(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
+    """(c2q, q2c), both (B, Lc, D): the two attention outputs CQAttention
+    concatenates.  context (B, Lc, D), query (B, Lq, D), w4C/w4Q (D, 1),
+    w4mlu (1, 1, D), c_mask (B, Lc), q_mask (B, Lq)."""
+    if context.device.type == "cpu":
+        return cq_attention_plain(context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
+    out = _cq_launch(load_kernels().vmr_cq_attention, context, query, w4C, w4Q, w4mlu, c_mask,
+                     q_mask)
+    fused_cq_attention.launches += 1
+    return out
+
+
+def cq_phase_clocks(context, query, w4C, w4Q, w4mlu, c_mask, q_mask) -> torch.Tensor:
+    """A measurement, off the main path (not counted as a launch): one launch
+    of #3's kernel that also returns each block's SM clocks per phase,
+    (B, len(CQ_PHASES)) int64."""
+    clocks = torch.zeros(context.shape[0], len(CQ_PHASES), dtype=torch.int64,
+                         device=context.device)
+    _cq_launch(load_kernels().vmr_cq_attention_clocked, context, query, w4C, w4Q, w4mlu, c_mask,
+               q_mask, clocks.data_ptr())
+    return clocks
 
 
 KERNELS = (fused_masked_attention, fused_dual_attention, fused_cq_attention)

@@ -32,20 +32,44 @@
 // keep ~3 digits): the same two walks over keys staged 32 at a time in
 // shared memory, a warp per query row and a lane per key; head dims to 256.
 //
-// #3: cq_kernel, one block per batch element (the column softmax runs over
-// all Lc rows).  Shared memory no longer grows with the long side times D:
-// c and q pass through it in chunks of R rows (R * D <= 8192 floats), and
-// the score tiles S, S_t and the (Lq, D) product S_t^T c live in shared
-// memory while they fit, else in a device scratch that the wrapper
-// allocates (L2-resident).  The plan (R, bytes, what goes to scratch) is
-// worked out in Python (kernels/attention.py::cq_plan) and passed in.
+// #3: cq_kernel, one block of 16 warps per batch element, as the TPU
+// kernel's grid (B,): the column softmax needs every row of c and the row
+// softmax every row of q.  At SeqPAN's grids (Lc, Lq of 30..256, D = 128) a
+// sample moves ~24-200 KB and does ~1-10 MFLOP, so bytes bound it; what
+// sets the real time is the chain of dependent steps between barriers
+// (tools/bench_cq.py --phases times each phase).  c and q are staged once,
+// in their own type, with 16-byte cp.async copies (rows padded to 16 with
+// zeros, 16 more bytes a row so that ldmatrix rows fall on distinct banks);
+// the f32 scores S (Lc, Lq) and S_t beside them stay in shared memory.  The
+// phases: c . w4C and q . w4Q (a thread a row); the scores; the row and
+// column statistics (a lane takes up to 16 values of a line in sequence,
+// few shuffle levels); S_ (f32, in place) and S_t (rounded to T), 4 columns
+// a thread; then, DO output columns at a time, S_t^T c into shared memory
+// and c2q, q2c straight to their outputs, each quad's bf16 pieces
+// exchanged by shuffles into 16-byte stores.  Every output column needs
+// only the same columns of c and q, so a long query side narrows DO (the
+// (Lq, DO) slice of S_t^T c is what must fit), and a D too wide for c and q
+// stages DS columns at a time (the scores summed over the chunks, which are
+// staged again for the outputs).  Only grids whose scores do not fit (both
+// sides past 144, or one past ~540 against 30) keep S and S_t in a device
+// scratch (L2-resident).  The plan (DS, DO, where S goes, bytes) is
+// kernels/attention.py::cq_plan's.
+//   bf16: all four products on mma.sync m16n8k16 with f32 accumulators.
+// The scores take c * w4mlu (exact in f32) as hi + lo bf16 A fragments
+// (two mmas, each product exact); c2q takes bf16(S_) (the hi part);
+// S_t^T c takes S_t (bf16 values) and c by ldmatrix.trans, and is kept as
+// hi + lo bf16; q2c = S_ (S_t^T c) as hi.hi + lo.hi + hi.lo (the dropped
+// lo.lo is ~2^-16 of each term).
+//   f32: the same phases on the CUDA cores in full f32 (TF32 would keep ~3
+// digits), each product in 4 x 4 register tiles over float4 loads.
 //
 // Numerics follow the TPU kernels: f32 scores and softmax, additive -1e30
 // masking (a wholly masked row comes out as the uniform average over all
 // keys; padding keys beyond Lk are -inf and take no part), probabilities
 // rounded to the input type before the value product, output in the input
 // type.  CQ keeps the S_ (S_t^T c) association of q2c, S_t rounded to T
-// before S_t^T c, S_ rounded to T for c2q and f32 for q2c.  T is float or
+// before S_t^T c, S_ rounded to T for c2q and f32 for q2c; its
+// probabilities are exp(x - max) times 1 / sum.  T is float or
 // __nv_bfloat16; masks are {0,1} in T.
 //
 // Interface: plain C, loaded with ctypes.  Every entry returns
@@ -67,8 +91,10 @@ constexpr int kF32Rows = 16;    // attention_f32: query rows per block (4 a warp
 constexpr int kMaxWarps = 8;    // attention_mma: query tiles of 16 rows in flight per block
 constexpr int kChunk = 64;      // attention_mma: keys per score chunk (8 mma n-tiles)
 constexpr int kMaskRS = kChunk + 8;  // attention_mma: row stride of a warp's mask tile
-constexpr int kCqThreads = 256;
-constexpr int kCqAcc = 32;      // cq_kernel: outputs per thread per row chunk (R * D <= 8192)
+constexpr int kCqThreads = 512;  // cq_kernel: 16 warps, one block per batch element
+constexpr int kCqScorePad = 4;   // cq_kernel: score rows are Lq rounded up to 16, plus 4 floats
+constexpr int kCqMmaCols = 16;   // cq_kernel, bf16: chunks of D in 16s (the mma's k; n in pairs)
+constexpr int kCqF32Cols = 8;    // cq_kernel, f32: chunks of D in 8s (rows 16 bytes odd apart)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -363,181 +389,686 @@ __global__ void __launch_bounds__(kF32Warps * 32)
   }
 }
 
-// vmr_cq_attention: QANet context-query attention, one block per batch
-// element.  c and q pass through shared memory in chunks of R rows; the
-// score tiles and S_t^T c sit at the pointers the launch hands in (shared
-// memory or this block's slice of the scratch).
-struct CqPlan {
-  int R;                // rows per chunk of c or q
-  int scores_shared;    // S, S_t in shared memory (else scratch)
-  int stc_shared;       // S_t^T c in shared memory (else scratch)
-  long long scratch_floats;  // per batch element
-};
+// vmr_cq_attention: QANet context-query attention, one block of kCqThreads
+// per batch element.  The layout of its shared memory (the plan of
+// kernels/attention.py::cq_plan), from the front, with Lcp and Lqp the
+// lengths rounded up to 16, LS = Lqp + kCqScorePad, PAD = 16 bytes of T:
+//   S, Pc  (Lcp, LS) f32 each: the scores, then the row softmax S_ in
+//          place, and the column softmax S_t rounded to T (in this block's
+//          slice of a device scratch when they do not fit)
+//   per row of c: s0 (then the row max), the c_mask term, 1 / the row sum;
+//   per row of q: s1 (then the column max), the q_mask term, 1 / the column sum
+//   w4mlu, w4C, w4Q over the staged columns (f32)
+//   c, q   (Lcp, DS + PAD), (Lqp, DS + PAD) in T: DS columns of each
+//   o      (Lqp, DO + PAD): S_t^T c over DO columns (bf16: hi, then lo)
 
+// Rows [0, rows) x cols [0, cols) of a row-major T matrix (row stride sl)
+// into a (rows_pad, cols_pad) tile of row stride ds, zero beyond, in 16-byte
+// pieces: cp.async where the source allows, element loads otherwise.  The
+// caller waits.
 template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0, int rows, int D,
-                                          const float* w) {
-  const int ds = D + 1;  // padded rows: threads read dst[j][d] for consecutive j
-  for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
-    const int r = idx / D, d = idx % D;
-    const float x = to_f(src[(long long)(r0 + r) * D + d]);
-    dst[r * ds + d] = w ? x * w[d] : x;
+__device__ __forceinline__ void stage_rows(T* dst, int ds, const T* src, long long sl, int rows,
+                                           int rows_pad, int cols, int cols_pad) {
+  constexpr int E = 16 / sizeof(T);
+  const bool aligned =
+      cols % E == 0 && sl % E == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  const int pieces = cols_pad / E;
+  for (int idx = threadIdx.x; idx < rows_pad * pieces; idx += kCqThreads) {
+    const int r = idx / pieces, c0 = (idx % pieces) * E;
+    T* d = dst + r * ds + c0;
+    if (aligned && r < rows && c0 < cols) {
+      cp_async16(d, src + r * sl + c0);
+    } else {
+      __align__(16) T tmp[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        tmp[e] = (r < rows && c0 + e < cols) ? src[r * sl + c0 + e] : from_f<T>(0.f);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(tmp);
+    }
   }
 }
 
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
+// (a, b) as two packed bf16 pairs, hi = bf16(x) and lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  const float2 h = unpack_bf16(hi);
+  lo = pack_bf16(a - h.x, b - h.y);
+}
+
+// max and sum over aligned groups of n lanes (n a power of 2 up to 32)
+__device__ __forceinline__ float group_max(float v, int n) {
+  for (int o = n >> 1; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float group_sum(float v, int n) {
+  for (int o = n >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// M packed bf16 pairs at columns [d, d + 2M) of an output row: one vector
+// store where the row allows, element stores at its edge.
+template <int M>
+__device__ __forceinline__ void store_pairs(bf16* row, int d, int D, const uint32_t (&v)[M]) {
+  if (d + 2 * M <= D && D % (2 * M) == 0) {
+    if constexpr (M == 4)
+      *reinterpret_cast<uint4*>(row + d) = make_uint4(v[0], v[1], v[2], v[3]);
+    else
+      *reinterpret_cast<uint2*>(row + d) = make_uint2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float2 f = unpack_bf16(v[m]);
+      if (d + 2 * m < D) row[d + 2 * m] = __float2bfloat16(f.x);
+      if (d + 2 * m + 1 < D) row[d + 2 * m + 1] = __float2bfloat16(f.y);
+    }
+  }
+}
+
+// One row of an output tile of 2 NP tiles of 8 columns from column d0, in
+// the mma's C layout packed to bf16 pairs: lane t of a quad holds columns
+// 8n + 2t, 8n + 2t + 1 of tile n.  Exchanges within the quad (xor 1 over
+// tile pairs, then xor 2 over pairs of pairs) leave lane t all 8 columns of
+// one tile of each 4 (NP = 1: 4 columns of one of the 2), so that a quad
+// stores 64 (32) contiguous bytes instead of 8 pieces of 4.
+template <int NP>
+__device__ __forceinline__ void store_row(bf16* row, int d0, int D, const uint32_t (&v)[2 * NP],
+                                          bool valid) {
+  const int t = threadIdx.x & 3;
+  const bool odd = t & 1, up = t & 2;
+#pragma unroll
+  for (int q = 0; q < 2 * NP; q += 4) {
+    // xor 1: keep the tiles of this lane's parity, take the partner's piece
+    uint32_t lo[2], hi[2];
+#pragma unroll
+    for (int h = 0; h < 2 && q + 2 * h < 2 * NP; ++h) {
+      const uint32_t keep = odd ? v[q + 2 * h + 1] : v[q + 2 * h];
+      const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? v[q + 2 * h] : v[q + 2 * h + 1], 1);
+      lo[h] = odd ? got : keep;
+      hi[h] = odd ? keep : got;
+    }
+    if constexpr (NP == 1) {  // lane t: columns 2 (t & 2) .. + 3 of tile t & 1
+      const uint32_t w[2] = {lo[0], hi[0]};
+      if (valid) store_pairs<2>(row, d0 + 8 * (t & 1) + 2 * (t & 2), D, w);
+    } else {  // xor 2: keep tile t of the four, take the partner's two pieces
+      const uint32_t k0 = up ? lo[1] : lo[0], k1 = up ? hi[1] : hi[0];
+      const uint32_t g0 = __shfl_xor_sync(0xffffffffu, up ? lo[0] : lo[1], 2);
+      const uint32_t g1 = __shfl_xor_sync(0xffffffffu, up ? hi[0] : hi[1], 2);
+      const uint32_t w[4] = {up ? g0 : k0, up ? g1 : k1, up ? k0 : g0, up ? k1 : g1};
+      if (valid) store_pairs<4>(row, d0 + 8 * (q + t), D, w);
+    }
+  }
+}
+
+__device__ __forceinline__ void store4(float* row, int d, int D, const float (&v)[4]) {
+  if (d + 3 < D && D % 4 == 0) {
+    *reinterpret_cast<float4*>(row + d) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d + e < D) row[d + e] = v[e];
+  }
+}
+
+// acc[m][n] += sum_k a[m].k b[n].k: four rows of each, k along the float4
+__device__ __forceinline__ void dot4x4(float (&acc)[4][4], const float4 (&a)[4],
+                                       const float4 (&b)[4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      acc[m][n] = fmaf(a[m].x, b[n].x, acc[m][n]);
+      acc[m][n] = fmaf(a[m].y, b[n].y, acc[m][n]);
+      acc[m][n] = fmaf(a[m].z, b[n].z, acc[m][n]);
+      acc[m][n] = fmaf(a[m].w, b[n].w, acc[m][n]);
+    }
+}
+
+// acc[m][n] += sum_k a[m].k b[k].n: a's rows along k, b's rows along n
+__device__ __forceinline__ void mul4x4(float (&acc)[4][4], const float4 (&a)[4],
+                                       const float4 (&b)[4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float am[4] = {a[m].x, a[m].y, a[m].z, a[m].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      acc[m][0] = fmaf(am[k], b[k].x, acc[m][0]);
+      acc[m][1] = fmaf(am[k], b[k].y, acc[m][1]);
+      acc[m][2] = fmaf(am[k], b[k].z, acc[m][2]);
+      acc[m][3] = fmaf(am[k], b[k].w, acc[m][3]);
+    }
+  }
+}
+
+// One chunk of columns [d0, d0 + dw) of c and q into shared memory, dwp
+// (dw rounded up to the chunk granule) wide.
 template <typename T>
+__device__ __forceinline__ void stage_chunk(T* c_s, T* q_s, int CS, const T* c, const T* q, int D,
+                                            int d0, int dw, int dwp, int Lc, int Lq, int Lcp,
+                                            int Lqp) {
+  stage_rows(c_s, CS, c + d0, D, Lc, Lcp, dw, dwp);
+  stage_rows(q_s, CS, q + d0, D, Lq, Lqp, dw, dwp);
+}
+
+// The rank-1 terms over one staged chunk, s0 += c . w4C and s1 += q . w4Q:
+// a thread a row, 16 bytes of it at a time into E independent sums (the
+// staged rows and the weights are 0 past dw, up to dwp; a quarter warp's
+// 16-byte reads fall on distinct banks, rows being an odd number of 16
+// bytes apart).
+template <typename T>
+__device__ __forceinline__ void cq_rank1(const T* c_s, const T* q_s, int CS, const float* wc,
+                                         const float* wq, float* s0, float* s1, int Lc, int Lq,
+                                         int dwp) {
+  constexpr int E = 16 / sizeof(T);
+  for (int r = threadIdx.x; r < Lc + Lq; r += kCqThreads) {
+    const bool is_c = r < Lc;
+    const T* row = is_c ? c_s + r * CS : q_s + (r - Lc) * CS;
+    const float* w = is_c ? wc : wq;
+    float acc[E] = {};
+    for (int d = 0; d < dwp; d += E) {
+      const uint4 piece = *reinterpret_cast<const uint4*>(row + d);
+      const T* v = reinterpret_cast<const T*>(&piece);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] += to_f(v[e]) * w[d + e];
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) sum += acc[e];
+    (is_c ? s0[r] : s1[r - Lc]) += sum;
+  }
+}
+
+// S (+)= (c * w4mlu) q^T over one staged chunk, bf16, on the tensor cores.
+// c * w4mlu is exact in f32 (a product of two bf16) and goes in as hi + lo
+// bf16 A fragments, so every product is exact, summed in f32.  A warp per
+// 16 rows of c by 16 rows of q; the last chunk adds the rank-1 terms.
+__device__ __forceinline__ void cq_scores(const bf16* c_s, const bf16* q_s, int CS,
+                                          const float* w_s, float* S, int LS, const float* s0,
+                                          const float* s1, int Lcp, int Lqp, int dwp, bool first,
+                                          bool last) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r = lane & 7;
+  const int nt = Lqp / 16;
+  for (int u = threadIdx.x >> 5; u < (Lcp / 16) * nt; u += kCqThreads / 32) {
+    const int i0 = (u / nt) * 16, j0 = (u % nt) * 16;
+    const bf16* arow = c_s + (i0 + r + ((mi & 1) << 3)) * CS + ((mi >> 1) << 3);
+    const bf16* brow = q_s + (j0 + r + ((mi >> 1) << 3)) * CS + ((mi & 1) << 3);
+    float s[2][4] = {};
+    for (int k0 = 0; k0 < dwp; k0 += 16) {
+      uint32_t a[4], bq[4], hi[4], lo[4];
+      ldmatrix_x4(a, arow + k0);
+      ldmatrix_x4(bq, brow + k0);
+      const float2 wa = *reinterpret_cast<const float2*>(w_s + k0 + 2 * t);
+      const float2 wb = *reinterpret_cast<const float2*>(w_s + k0 + 2 * t + 8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // a[0], a[1]: columns 2t, 2t + 1; a[2], a[3]: 8 more
+        const float2 x = unpack_bf16(a[e]), w = e < 2 ? wa : wb;
+        split_bf16(x.x * w.x, x.y * w.y, hi[e], lo[e]);
+      }
+      mma_bf16(s[0], hi, bq[0], bq[1]);
+      mma_bf16(s[1], hi, bq[2], bq[3]);
+      mma_bf16(s[0], lo, bq[0], bq[1]);
+      mma_bf16(s[1], lo, bq[2], bq[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + g + (e & 2) * 4, j = j0 + 8 * n + 2 * t + (e & 1);
+        float v = s[n][e];
+        if (!first) v += S[i * LS + j];
+        if (last) v = v + s0[i] + s1[j];
+        S[i * LS + j] = v;
+      }
+  }
+}
+
+// The same in f32 on the CUDA cores: 4 x 4 register tiles, rows
+// ib + k Lcp/4 of c by rows jb + k Lqp/4 of q (neighbouring threads read
+// neighbouring rows of q), four columns a step.
+__device__ __forceinline__ void cq_scores(const float* c_s, const float* q_s, int CS,
+                                          const float* w_s, float* S, int LS, const float* s0,
+                                          const float* s1, int Lcp, int Lqp, int dwp, bool first,
+                                          bool last) {
+  const int rm = Lcp / 4, rn = Lqp / 4;
+  for (int idx = threadIdx.x; idx < rm * rn; idx += kCqThreads) {
+    const int ib = idx / rn, jb = idx % rn;
+    float acc[4][4] = {};
+    for (int d = 0; d < dwp; d += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(w_s + d);
+      float4 a[4], b[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        a[k] = *reinterpret_cast<const float4*>(c_s + (ib + k * rm) * CS + d);
+        a[k] = make_float4(a[k].x * w.x, a[k].y * w.y, a[k].z * w.z, a[k].w * w.w);
+        b[k] = *reinterpret_cast<const float4*>(q_s + (jb + k * rn) * CS + d);
+      }
+      dot4x4(acc, a, b);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = ib + m * rm, j = jb + n * rn;
+        float v = acc[m][n];
+        if (!first) v += S[i * LS + j];
+        if (last) v = v + s0[i] + s1[j];
+        S[i * LS + j] = v;
+      }
+  }
+}
+
+// Row and column statistics of the softmaxes (max, and 1 / sum of exp)
+// under the -1e30 mask terms; tile padding (rows >= Lc, columns >= Lq)
+// takes no part.  A group of lanes a line, the fewest (a power of 2) that
+// leave a lane at most 16 of its values, taken in sequence; row groups from
+// the first warp up, column groups (neighbouring lanes on neighbouring
+// columns) from the last warp down, so that the two overlap.
+__device__ __forceinline__ void cq_stats(const float* S, int LS, int Lc, int Lq, const float* cmt,
+                                         const float* qmt, float* rmax, float* rinv, float* cmax,
+                                         float* cinv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = kCqThreads / 32;
+  int gw = 1, cw = 1;
+  while (gw < 32 && 16 * gw < Lq) gw <<= 1;
+  while (cw < 32 && 16 * cw < Lc) cw <<= 1;
+  const int rpw = 32 / gw, sub = lane / gw, gl = lane % gw;
+  for (int i0 = warp * rpw; i0 < Lc; i0 += nwarp * rpw) {
+    const int i = i0 + sub;
+    const float* row = S + i * LS;
+    float mx = -CUDART_INF_F, sum = 0.f;
+    if (i < Lc) {
+#pragma unroll 4
+      for (int j = gl; j < Lq; j += gw) mx = fmaxf(mx, row[j] + qmt[j]);
+    }
+    mx = group_max(mx, gw);
+    if (i < Lc) {
+#pragma unroll 4
+      for (int j = gl; j < Lq; j += gw) sum += __expf(row[j] + qmt[j] - mx);
+    }
+    sum = group_sum(sum, gw);
+    if (i < Lc && gl == 0) {
+      rmax[i] = mx;
+      rinv[i] = 1.f / sum;
+    }
+  }
+  const int cpw = 32 / cw, jj = lane % cpw, rl = lane / cpw;
+  for (int j0 = (nwarp - 1 - warp) * cpw; j0 < Lq; j0 += nwarp * cpw) {
+    const int j = j0 + jj;
+    float mx = -CUDART_INF_F, sum = 0.f;
+    if (j < Lq) {
+#pragma unroll 4
+      for (int i = rl; i < Lc; i += cw) mx = fmaxf(mx, S[i * LS + j] + cmt[i]);
+    }
+    for (int o = cpw; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (j < Lq) {
+#pragma unroll 4
+      for (int i = rl; i < Lc; i += cw) sum += __expf(S[i * LS + j] + cmt[i] - mx);
+    }
+    for (int o = cpw; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (j < Lq && rl == 0) {
+      cmax[j] = mx;
+      cinv[j] = 1.f / sum;
+    }
+  }
+}
+
+// S becomes S_ (f32) in place and Pc S_t rounded to T, 4 columns a thread;
+// both 0 on the tile padding, so that it adds nothing to the products.
+template <typename T>
+__device__ __forceinline__ void cq_softmax(float* S, float* Pc, int LS, int Lc, int Lq, int Lcp,
+                                           int Lqp, const float* cmt, const float* qmt,
+                                           const float* rmax, const float* rinv,
+                                           const float* cmax, const float* cinv) {
+  const int n4 = Lqp / 4;
+  for (int idx = threadIdx.x; idx < Lcp * n4; idx += kCqThreads) {
+    const int i = idx / n4, j0 = 4 * (idx % n4);
+    const float4 x4 = *reinterpret_cast<const float4*>(S + i * LS + j0);
+    const float4 qm4 = *reinterpret_cast<const float4*>(qmt + j0);
+    const float4 cm4 = *reinterpret_cast<const float4*>(cmax + j0);
+    const float4 ci4 = *reinterpret_cast<const float4*>(cinv + j0);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w}, qm[4] = {qm4.x, qm4.y, qm4.z, qm4.w};
+    const float cm[4] = {cm4.x, cm4.y, cm4.z, cm4.w}, ci[4] = {ci4.x, ci4.y, ci4.z, ci4.w};
+    float pr[4] = {}, pc[4] = {};
+    if (i < Lc) {
+      const float ct = cmt[i], rm = rmax[i], ri = rinv[i];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j0 + e < Lq) {
+          pr[e] = __expf(x[e] + qm[e] - rm) * ri;
+          pc[e] = round_to<T>(__expf(x[e] + ct - cm[e]) * ci[e]);
+        }
+    }
+    *reinterpret_cast<float4*>(S + i * LS + j0) = make_float4(pr[0], pr[1], pr[2], pr[3]);
+    *reinterpret_cast<float4*>(Pc + i * LS + j0) = make_float4(pc[0], pc[1], pc[2], pc[3]);
+  }
+}
+
+// The widest unit of 16 np columns (np 2 or 1) that divides W and still
+// gives every warp one, over `tiles` row tiles of 16.
+__device__ __forceinline__ int unit_pairs(int tiles, int W) {
+  int np = 2;
+  while (np > 1 && (W % (16 * np) || tiles * (W / (16 * np)) < kCqThreads / 32)) np >>= 1;
+  return np;
+}
+
+// S_t^T c for query rows [j0, j0 + 16) by columns [n0, n0 + 16 NP) of the
+// staged c (bf16, on the tensor cores): the A fragments are S_t^T read from
+// Pc (bf16 values already), the B fragments c by ldmatrix.trans.  Stored as
+// hi and lo bf16, so that q2c's product keeps f32 accuracy.
+template <int NP>
+__device__ __forceinline__ void stc_tile(const float* Pc, int LS, const bf16* c_s, int CS,
+                                         bf16* o_s, bf16* lo_s, int OS, int Lcp, int j0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r = lane & 7;
+  float acc[2 * NP][4] = {};
+  for (int i0 = 0; i0 < Lcp; i0 += 16) {
+    const float* p = Pc + (i0 + 2 * t) * LS + j0 + g;  // A (m = query row, k = context row)
+    uint32_t a[4];
+    a[0] = pack_bf16(p[0], p[LS]);
+    a[1] = pack_bf16(p[8], p[LS + 8]);
+    a[2] = pack_bf16(p[8 * LS], p[9 * LS]);
+    a[3] = pack_bf16(p[8 * LS + 8], p[9 * LS + 8]);
+    const bf16* brow = c_s + (i0 + r + ((mi & 1) << 3)) * CS + n0 + ((mi >> 1) << 3);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, brow + 16 * np);
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2 * NP; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = (j0 + g + 8 * h) * OS + n0 + 8 * n + 2 * t;
+      uint32_t hi, lo;
+      split_bf16(acc[n][2 * h], acc[n][2 * h + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(o_s + off) = hi;
+      *reinterpret_cast<uint32_t*>(lo_s + off) = lo;
+    }
+}
+
+// c2q = bf16(S_) q and q2c = S_ (S_t^T c) for context rows [i0, i0 + 16)
+// by columns [n0, n0 + 16 NP) of the sub-chunk (col0 + n0 of the output):
+// S_ as hi + lo bf16 A fragments (hi is bf16(S_), c2q's operand, rounded
+// where the plain version rounds); q2c as hi.hi + lo.hi + hi.lo.
+template <int NP>
+__device__ __forceinline__ void out_tile(const float* Pr, int LS, const bf16* q_s, int CS,
+                                         const bf16* o_s, const bf16* lo_s, int OS, int Lqp,
+                                         int Lc, int D, int i0, int n0, int col0, bf16* c2q,
+                                         bf16* q2c) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r = lane & 7;
+  float x[2 * NP][4] = {}, z[2 * NP][4] = {};
+  for (int j0 = 0; j0 < Lqp; j0 += 16) {
+    const float* p = Pr + (i0 + g) * LS + j0 + 2 * t;
+    uint32_t ah[4], al[4];
+    const float2 v0 = *reinterpret_cast<const float2*>(p);
+    const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * LS);
+    const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+    const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * LS + 8);
+    split_bf16(v0.x, v0.y, ah[0], al[0]);
+    split_bf16(v1.x, v1.y, ah[1], al[1]);
+    split_bf16(v2.x, v2.y, ah[2], al[2]);
+    split_bf16(v3.x, v3.y, ah[3], al[3]);
+    const int br = j0 + r + ((mi & 1) << 3), bc = n0 + ((mi >> 1) << 3);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, q_s + br * CS + bc + 16 * np);
+      mma_bf16(x[2 * np], ah, b[0], b[1]);
+      mma_bf16(x[2 * np + 1], ah, b[2], b[3]);
+      ldmatrix_x4_trans(b, o_s + br * OS + bc + 16 * np);
+      mma_bf16(z[2 * np], ah, b[0], b[1]);
+      mma_bf16(z[2 * np + 1], ah, b[2], b[3]);
+      mma_bf16(z[2 * np], al, b[0], b[1]);
+      mma_bf16(z[2 * np + 1], al, b[2], b[3]);
+      ldmatrix_x4_trans(b, lo_s + br * OS + bc + 16 * np);
+      mma_bf16(z[2 * np], ah, b[0], b[1]);
+      mma_bf16(z[2 * np + 1], ah, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = i0 + g + 8 * h;
+    uint32_t px[2 * NP], pz[2 * NP];
+#pragma unroll
+    for (int n = 0; n < 2 * NP; ++n) {
+      px[n] = pack_bf16(x[n][2 * h], x[n][2 * h + 1]);
+      pz[n] = pack_bf16(z[n][2 * h], z[n][2 * h + 1]);
+    }
+    store_row<NP>(c2q + (long long)i * D, col0 + n0, D, px, i < Lc);
+    store_row<NP>(q2c + (long long)i * D, col0 + n0, D, pz, i < Lc);
+  }
+}
+
+// S_t^T c over W columns of the staged chunk (c_s points at the first),
+// bf16: a warp per unit of 16 query rows by 16 np columns.
+__device__ __forceinline__ void cq_stc(const float* Pc, int LS, const bf16* c_s, int CS, bf16* o_s,
+                                       int OS, int Lc, int Lcp, int Lqp, int W) {
+  const int tiles = Lqp / 16, np = unit_pairs(tiles, W), nu = W / (16 * np);
+  bf16* lo_s = o_s + Lqp * OS;
+  for (int u = threadIdx.x >> 5; u < tiles * nu; u += kCqThreads / 32) {
+    const int j0 = (u / nu) * 16, n0 = (u % nu) * 16 * np;
+    if (np == 2) stc_tile<2>(Pc, LS, c_s, CS, o_s, lo_s, OS, Lcp, j0, n0);
+    else stc_tile<1>(Pc, LS, c_s, CS, o_s, lo_s, OS, Lcp, j0, n0);
+  }
+}
+
+// The same in f32 on the CUDA cores: 4 x 4 register tiles of 4 query rows
+// by 4 columns, neighbouring threads on neighbouring columns.
+__device__ __forceinline__ void cq_stc(const float* Pc, int LS, const float* c_s, int CS,
+                                       float* o_s, int OS, int Lc, int Lcp, int Lqp, int W) {
+  const int tn = W / 4;
+  for (int idx = threadIdx.x; idx < (Lqp / 4) * tn; idx += kCqThreads) {
+    const int jb = 4 * (idx / tn), db = 4 * (idx % tn);
+    float acc[4][4] = {};
+    for (int i = 0; i < Lc; ++i) {
+      const float4 p = *reinterpret_cast<const float4*>(Pc + i * LS + jb);
+      const float4 cv = *reinterpret_cast<const float4*>(c_s + i * CS + db);
+      const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        acc[m][0] = fmaf(pv[m], cv.x, acc[m][0]);
+        acc[m][1] = fmaf(pv[m], cv.y, acc[m][1]);
+        acc[m][2] = fmaf(pv[m], cv.z, acc[m][2]);
+        acc[m][3] = fmaf(pv[m], cv.w, acc[m][3]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      *reinterpret_cast<float4*>(o_s + (jb + m) * OS + db) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  }
+}
+
+// c2q and q2c over W columns of the staged chunk, written at output column
+// col0; bf16: a warp per unit of 16 context rows by 16 np columns.
+__device__ __forceinline__ void cq_out(const float* Pr, int LS, const bf16* q_s, int CS,
+                                       const bf16* o_s, int OS, int Lc, int Lcp, int Lq, int Lqp,
+                                       int D, int W, int col0, bf16* c2q, bf16* q2c) {
+  const int tiles = Lcp / 16, np = unit_pairs(tiles, W), nu = W / (16 * np);
+  const bf16* lo_s = o_s + Lqp * OS;
+  for (int u = threadIdx.x >> 5; u < tiles * nu; u += kCqThreads / 32) {
+    const int i0 = (u / nu) * 16, n0 = (u % nu) * 16 * np;
+    if (np == 2)
+      out_tile<2>(Pr, LS, q_s, CS, o_s, lo_s, OS, Lqp, Lc, D, i0, n0, col0, c2q, q2c);
+    else
+      out_tile<1>(Pr, LS, q_s, CS, o_s, lo_s, OS, Lqp, Lc, D, i0, n0, col0, c2q, q2c);
+  }
+}
+
+// f32: 4 x 4 register tiles of 4 context rows by 4 columns; c2q and q2c
+// share the S_ loads (in f32, bf16(S_) is S_ itself).
+__device__ __forceinline__ void cq_out(const float* Pr, int LS, const float* q_s, int CS,
+                                       const float* o_s, int OS, int Lc, int Lcp, int Lq, int Lqp,
+                                       int D, int W, int col0, float* c2q, float* q2c) {
+  const int tn = W / 4, Lq4 = (Lq + 3) & ~3;
+  for (int idx = threadIdx.x; idx < (Lcp / 4) * tn; idx += kCqThreads) {
+    const int ib = 4 * (idx / tn), db = 4 * (idx % tn);
+    float x[4][4] = {}, z[4][4] = {};
+    for (int j = 0; j < Lq4; j += 4) {
+      float4 a[4], bq[4], bo[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        a[k] = *reinterpret_cast<const float4*>(Pr + (ib + k) * LS + j);
+        bq[k] = *reinterpret_cast<const float4*>(q_s + (j + k) * CS + db);
+        bo[k] = *reinterpret_cast<const float4*>(o_s + (j + k) * OS + db);
+      }
+      mul4x4(x, a, bq);
+      mul4x4(z, a, bo);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (ib + m < Lc) {
+        store4(c2q + (long long)(ib + m) * D, col0 + db, D, x[m]);
+        store4(q2c + (long long)(ib + m) * D, col0 + db, D, z[m]);
+      }
+  }
+}
+
+// Instrumentation, compiled only into the instances of the entry
+// vmr_cq_attention_clocked (tools/bench_cq.py --phases): every thread keeps
+// the SM clocks since its last mark in phase p's register, each mark right
+// after the barrier that ends its phase (rank1 of an early chunk has none);
+// thread 0 writes its block's row at the end.
+enum CqPhase { kStage, kRank1, kScores, kStats, kSoftmax, kRestage, kStc, kOut, kCqPhases };
+
+template <bool CLK> struct CqMarks {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void write(long long*) {}
+};
+
+template <> struct CqMarks<true> {
+  long long t, acc[kCqPhases];
+  __device__ __forceinline__ void start() {
+    t = clock64();
+#pragma unroll
+    for (int p = 0; p < kCqPhases; ++p) acc[p] = 0;
+  }
+  __device__ __forceinline__ void mark(int p) {
+    const long long now = clock64();
+    acc[p] += now - t;
+    t = now;
+  }
+  __device__ __forceinline__ void write(long long* clocks) {
+    if (threadIdx.x == 0)
+#pragma unroll
+      for (int p = 0; p < kCqPhases; ++p) clocks[blockIdx.x * kCqPhases + p] = acc[p];
+  }
+};
+
+// SH: S and Pc in shared memory (else in the scratch).  DS: columns of c
+// and q staged at a time; DO: columns of S_t^T c and of the outputs at a
+// time (kernels/attention.py::cq_plan).  CLK: the instrumented instance,
+// which writes (B, kCqPhases) clocks.
+template <typename T, bool SH, bool CLK>
 __global__ void __launch_bounds__(kCqThreads)
     cq_kernel(const T* c, const T* q, const T* w4c, const T* w4q, const T* w4m, const T* cmask,
-              const T* qmask, T* c2q, T* q2c, float* scratch, int Lc, int Lq, int D,
-              CqPlan plan) {
-  extern __shared__ float smem[];
+              const T* qmask, T* c2q, T* q2c, float* scratch, int Lc, int Lq, int D, int DS,
+              int DO, long long* clocks) {
+  extern __shared__ __align__(16) unsigned char cq_smem[];
+  constexpr int PAD = 16 / sizeof(T), G = sizeof(T) == 2 ? kCqMmaCols : kCqF32Cols;
   const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
-  const int R = plan.R, ds = D + 1;
-  float* c_s = smem;            // (R, D+1): a chunk of c (times w4mlu for the scores)
-  float* q_s = c_s + R * ds;    // (R, D+1): a chunk of q
-  float* s0 = q_s + R * ds;     // (Lc,) c . w4C
-  float* s1 = s0 + Lc;          // (Lq,) q . w4Q
-  float* w_s = s1 + Lq;         // (D,) w4mlu
-  float* free_s = w_s + D;
-  float* scr = scratch ? scratch + (long long)b * plan.scratch_floats : nullptr;
-  float* S;                     // (Lc, Lq) scores, then the row softmax S_
-  if (plan.scores_shared) {
-    S = free_s;
-    free_s += 2 * Lc * Lq;
-  } else {
-    S = scr;
-    scr += 2LL * Lc * Lq;
-  }
-  float* St = S + Lc * Lq;      // (Lc, Lq) column softmax S_t, rounded to T
-  float* stc = plan.stc_shared ? free_s : scr;  // (Lq, D) S_t^T c, f32
+  const int Lcp = (Lc + 15) & ~15, Lqp = (Lq + 15) & ~15, LS = Lqp + kCqScorePad;
+  const int CS = DS + PAD, OS = DO + PAD, nch = (D + DS - 1) / DS;
+  float* f_s = reinterpret_cast<float*>(cq_smem);
+  float* S = SH ? f_s : scratch + (long long)b * 2 * Lcp * LS;
+  float* Pc = S + Lcp * LS;
+  float* s0 = f_s + (SH ? 2 * Lcp * LS : 0);  // then the row max
+  float* cmt = s0 + Lcp;
+  float* rinv = cmt + Lcp;
+  float* s1 = rinv + Lcp;  // then the column max
+  float* qmt = s1 + Lqp;
+  float* cinv = qmt + Lqp;
+  float* w_s = cinv + Lqp;  // w4mlu, w4C, w4Q over the staged columns
+  T* c_s = reinterpret_cast<T*>(w_s + 3 * DS);
+  T* q_s = c_s + Lcp * CS;
+  T* o_s = q_s + Lqp * CS;
 
   c += (long long)b * Lc * D;
   q += (long long)b * Lq * D;
-  cmask += (long long)b * Lc;
-  qmask += (long long)b * Lq;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) w_s[d] = to_f(w4m[d]);
-
-  // rank-1 terms: one warp per row of c, then of q, read from device memory
-  for (int r = warp; r < Lc + Lq; r += nwarp) {
-    const bool is_c = r < Lc;
-    const T* row = is_c ? c + (long long)r * D : q + (long long)(r - Lc) * D;
-    const T* w = is_c ? w4c : w4q;
-    float acc = 0.f;
-    for (int d = lane; d < D; d += 32) acc += to_f(row[d]) * to_f(w[d]);
-    acc = warp_sum(acc);
-    if (lane == 0) (is_c ? s0[r] : s1[r - Lc]) = acc;
-  }
-  __syncthreads();
-
-  // trilinear score: (c * w4mlu) . q + c . w4C + q . w4Q, chunk by chunk
-  const int nq = (Lq + R - 1) / R;
-  for (int i0 = 0; i0 < Lc; i0 += R) {
-    const int ri = min(R, Lc - i0);
-    load_rows(c_s, c, i0, ri, D, w_s);
-    for (int j0 = 0; j0 < Lq; j0 += R) {
-      const int rj = min(R, Lq - j0);
-      if (nq > 1 || i0 == 0) load_rows(q_s, q, j0, rj, D, static_cast<const float*>(nullptr));
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < ri * rj; idx += blockDim.x) {
-        const int i = idx / rj, j = idx % rj;
-        const float* ci = c_s + i * ds;
-        const float* qj = q_s + j * ds;
-        float acc = 0.f;
-        for (int d = 0; d < D; ++d) acc += ci[d] * qj[d];
-        S[(i0 + i) * Lq + j0 + j] = acc + s0[i0 + i] + s1[j0 + j];
-      }
-      __syncthreads();
-    }
-  }
-
-  // column softmax over the context rows (c_mask), one warp per column
-  for (int j = warp; j < Lq; j += nwarp) {
-    float mx = kMask;
-    for (int i = lane; i < Lc; i += 32) {
-      const float v = S[i * Lq + j] + (1.f - to_f(cmask[i])) * kMask;
-      St[i * Lq + j] = v;
-      mx = fmaxf(mx, v);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int i = lane; i < Lc; i += 32) {
-      const float e = expf(St[i * Lq + j] - mx);
-      St[i * Lq + j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int i = lane; i < Lc; i += 32) St[i * Lq + j] = round_to<T>(St[i * Lq + j] / sum);
-  }
-  __syncthreads();
-
-  // row softmax over the query columns (q_mask), in place, one warp per row
-  for (int i = warp; i < Lc; i += nwarp) {
-    float* row = S + i * Lq;
-    float mx = kMask;
-    for (int j = lane; j < Lq; j += 32) {
-      row[j] += (1.f - to_f(qmask[j])) * kMask;
-      mx = fmaxf(mx, row[j]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < Lq; j += 32) {
-      row[j] = expf(row[j] - mx);
-      sum += row[j];
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < Lq; j += 32) row[j] /= sum;
-  }
-
-  // S_t^T c: (Lq, D), f32, over the chunks of c
-  for (int i0 = 0; i0 < Lc; i0 += R) {
-    const int ri = min(R, Lc - i0);
-    __syncthreads();  // c_s is free (and, first time, S and S_t are final)
-    load_rows(c_s, c, i0, ri, D, static_cast<const float*>(nullptr));
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < Lq * D; idx += blockDim.x) {
-      const int j = idx / D, d = idx % D;
-      float acc = i0 == 0 ? 0.f : stc[idx];
-      for (int i = 0; i < ri; ++i) acc += St[(i0 + i) * Lq + j] * c_s[i * ds + d];
-      stc[idx] = acc;
-    }
-  }
-
-  // c2q = S_ q (S_ rounded to T) and q2c = S_ (S_t^T c) (S_ in f32): the
-  // outputs of R rows at a time in registers, over the chunks of q
   c2q += (long long)b * Lc * D;
   q2c += (long long)b * Lc * D;
-  for (int i0 = 0; i0 < Lc; i0 += R) {
-    const int ri = min(R, Lc - i0);
-    float a[kCqAcc], z[kCqAcc];
-#pragma unroll
-    for (int k = 0; k < kCqAcc; ++k) a[k] = z[k] = 0.f;
-    for (int j0 = 0; j0 < Lq; j0 += R) {
-      const int rj = min(R, Lq - j0);
-      __syncthreads();  // q_s is free; S_t^T c is final
-      if (nq > 1 || i0 == 0) load_rows(q_s, q, j0, rj, D, static_cast<const float*>(nullptr));
+  cmask += (long long)b * Lc;
+  qmask += (long long)b * Lq;
+  CqMarks<CLK> marks;
+  marks.start();
+
+  // pass 1: the scores, over the chunks of DS columns
+  for (int k = 0; k < nch; ++k) {
+    const int d0 = k * DS, dw = min(DS, D - d0), dwp = (dw + G - 1) / G * G;
+    if (k > 0) {
+      __syncthreads();  // the last chunk's readers are done
+      marks.mark(kScores);
+    }
+    stage_chunk(c_s, q_s, CS, c, q, D, d0, dw, dwp, Lc, Lq, Lcp, Lqp);
+    if (k == 0) {  // while the first chunk is in flight
+      for (int i = threadIdx.x; i < Lcp; i += kCqThreads) {
+        s0[i] = 0.f;
+        cmt[i] = i < Lc ? (1.f - to_f(cmask[i])) * kMask : 0.f;
+      }
+      for (int j = threadIdx.x; j < Lqp; j += kCqThreads) {
+        s1[j] = 0.f;
+        qmt[j] = j < Lq ? (1.f - to_f(qmask[j])) * kMask : 0.f;
+      }
+    }
+    for (int d = threadIdx.x; d < dwp; d += kCqThreads) {
+      const bool in = d < dw;
+      w_s[d] = in ? to_f(w4m[d0 + d]) : 0.f;
+      w_s[DS + d] = in ? to_f(w4c[d0 + d]) : 0.f;
+      w_s[2 * DS + d] = in ? to_f(w4q[d0 + d]) : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    marks.mark(kStage);
+    cq_rank1(c_s, q_s, CS, w_s + DS, w_s + 2 * DS, s0, s1, Lc, Lq, dwp);
+    if (k == nch - 1) __syncthreads();  // s0, s1 are final before the scores add them
+    marks.mark(kRank1);
+    cq_scores(c_s, q_s, CS, w_s, S, LS, s0, s1, Lcp, Lqp, dwp, k == 0, k == nch - 1);
+  }
+  __syncthreads();
+  marks.mark(kScores);
+  cq_stats(S, LS, Lc, Lq, cmt, qmt, s0, rinv, s1, cinv);
+  __syncthreads();
+  marks.mark(kStats);
+  cq_softmax<T>(S, Pc, LS, Lc, Lq, Lcp, Lqp, cmt, qmt, s0, rinv, s1, cinv);
+
+  // pass 2: per chunk (the last one first: it is still staged), S_t^T c and
+  // then c2q and q2c, DO columns at a time
+  for (int k = nch - 1; k >= 0; --k) {
+    const int d0 = k * DS, dw = min(DS, D - d0), dwp = (dw + G - 1) / G * G;
+    if (k != nch - 1) {
+      __syncthreads();  // the last chunk's readers are done
+      marks.mark(kOut);
+      stage_chunk(c_s, q_s, CS, c, q, D, d0, dw, dwp, Lc, Lq, Lcp, Lqp);
+      cp_async_wait_all();
+    }
+    for (int e0 = 0; e0 < dwp; e0 += DO) {
+      const int W = min(DO, dwp - e0);
+      __syncthreads();  // S_, S_t and the staged chunk are final; o_s is free
+      if (e0 > 0)
+        marks.mark(kOut);
+      else if (k == nch - 1)
+        marks.mark(kSoftmax);
+      else
+        marks.mark(kRestage);
+      cq_stc(Pc, LS, c_s + e0, CS, o_s, OS, Lc, Lcp, Lqp, W);
       __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kCqAcc; ++k) {
-        const int idx = threadIdx.x + k * kCqThreads;
-        if (idx < ri * D) {
-          const int i = idx / D, d = idx % D;
-          const float* row = S + (i0 + i) * Lq + j0;
-          for (int j = 0; j < rj; ++j) {
-            a[k] += round_to<T>(row[j]) * q_s[j * ds + d];
-            z[k] += row[j] * stc[(j0 + j) * D + d];
-          }
-        }
-      }
+      marks.mark(kStc);
+      cq_out(S, LS, q_s + e0, CS, o_s, OS, Lc, Lcp, Lq, Lqp, D, W, d0 + e0, c2q, q2c);
     }
-#pragma unroll
-    for (int k = 0; k < kCqAcc; ++k) {
-      const int idx = threadIdx.x + k * kCqThreads;
-      if (idx < ri * D) {
-        c2q[(long long)i0 * D + idx] = from_f<T>(a[k]);
-        q2c[(long long)i0 * D + idx] = from_f<T>(z[k]);
-      }
-    }
+  }
+  if constexpr (CLK) {
+    __syncthreads();
+    marks.mark(kOut);
+    marks.write(clocks);
   }
 }
 
@@ -602,18 +1133,36 @@ int launch_attention(int dtype, View q, Branch b0, Branch b1, int nbranch, int B
   }
 }
 
-template <typename T>
+template <typename T, bool SH, bool CLK>
 int launch_cq(const void* c, const void* q, const void* w4c, const void* w4q, const void* w4m,
               const void* cmask, const void* qmask, void* c2q, void* q2c, float* scratch, int B,
-              int Lc, int Lq, int D, CqPlan plan, size_t bytes, cudaStream_t stream) {
-  cudaError_t err = allow_smem(cq_kernel<T>, bytes);
+              int Lc, int Lq, int D, int DS, int DO, size_t bytes, cudaStream_t stream,
+              long long* clocks) {
+  cudaError_t err = allow_smem(cq_kernel<T, SH, CLK>, bytes);
   if (err != cudaSuccess) return (int)err;
-  cq_kernel<T><<<B, kCqThreads, bytes, stream>>>(
+  cq_kernel<T, SH, CLK><<<B, kCqThreads, bytes, stream>>>(
       static_cast<const T*>(c), static_cast<const T*>(q), static_cast<const T*>(w4c),
       static_cast<const T*>(w4q), static_cast<const T*>(w4m), static_cast<const T*>(cmask),
       static_cast<const T*>(qmask), static_cast<T*>(c2q), static_cast<T*>(q2c), scratch, Lc, Lq,
-      D, plan);
+      D, DS, DO, clocks);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cq_plan(const void* c, const void* q, const void* w4c, const void* w4q,
+                   const void* w4m, const void* cmask, const void* qmask, void* c2q, void* q2c,
+                   void* scratch, int B, int Lc, int Lq, int D, int DS, int DO, int shared,
+                   long long shared_bytes, void* stream, void* clocks) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* scr = static_cast<float*>(scratch);
+  long long* clk = static_cast<long long*>(clocks);
+  const size_t bytes = (size_t)shared_bytes;
+#define VMR_CQ_LAUNCH(SH, CLK) \
+  launch_cq<T, SH, CLK>(c, q, w4c, w4q, w4m, cmask, qmask, c2q, q2c, scr, B, Lc, Lq, D, DS, DO, \
+                        bytes, s, clk)
+  if (clk != nullptr) return shared ? VMR_CQ_LAUNCH(true, true) : VMR_CQ_LAUNCH(false, true);
+  return shared ? VMR_CQ_LAUNCH(true, false) : VMR_CQ_LAUNCH(false, false);
+#undef VMR_CQ_LAUNCH
 }
 
 }  // namespace
@@ -653,21 +1202,28 @@ extern "C" int vmr_dual_attention(int dtype, const void* q, long long q_sb, long
                           static_cast<cudaStream_t>(stream));
 }
 
-// rows, scores_shared, stc_shared, scratch_floats and shared_bytes are the
-// plan of kernels/attention.py::cq_plan; scratch holds B * scratch_floats
-// floats, or is null when nothing goes there.
+// stage_cols, out_cols, scores_shared and shared_bytes are the plan of
+// kernels/attention.py::cq_plan; scratch holds B * 2 * Lcp * (Lqp + 4)
+// floats when the scores are not shared, else it is null.
 extern "C" int vmr_cq_attention(int dtype, const void* c, const void* q, const void* w4c,
                                 const void* w4q, const void* w4m, const void* c_mask,
                                 const void* q_mask, void* c2q, void* q2c, void* scratch, int B,
-                                int Lc, int Lq, int D, int rows, int scores_shared,
-                                int stc_shared, long long scratch_floats,
-                                long long shared_bytes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const CqPlan plan{rows, scores_shared, stc_shared, scratch_floats};
-  float* scr = static_cast<float*>(scratch);
-  const size_t bytes = (size_t)shared_bytes;
-  return dtype == 1 ? launch_cq<bf16>(c, q, w4c, w4q, w4m, c_mask, q_mask, c2q, q2c, scr, B, Lc,
-                                      Lq, D, plan, bytes, s)
-                    : launch_cq<float>(c, q, w4c, w4q, w4m, c_mask, q_mask, c2q, q2c, scr, B,
-                                       Lc, Lq, D, plan, bytes, s);
+                                int Lc, int Lq, int D, int stage_cols, int out_cols,
+                                int scores_shared, long long shared_bytes, void* stream) {
+  const auto launch = dtype == 1 ? launch_cq_plan<bf16> : launch_cq_plan<float>;
+  return launch(c, q, w4c, w4q, w4m, c_mask, q_mask, c2q, q2c, scratch, B, Lc, Lq, D, stage_cols,
+                out_cols, scores_shared, shared_bytes, stream, nullptr);
+}
+
+// The same, writing each block's SM clocks per phase (CqPhase) to clocks, a
+// (B, 8) int64 array: a measurement of tools/bench_cq.py --phases.
+extern "C" int vmr_cq_attention_clocked(int dtype, const void* c, const void* q, const void* w4c,
+                                        const void* w4q, const void* w4m, const void* c_mask,
+                                        const void* q_mask, void* c2q, void* q2c, void* scratch,
+                                        int B, int Lc, int Lq, int D, int stage_cols,
+                                        int out_cols, int scores_shared, long long shared_bytes,
+                                        void* stream, void* clocks) {
+  const auto launch = dtype == 1 ? launch_cq_plan<bf16> : launch_cq_plan<float>;
+  return launch(c, q, w4c, w4q, w4m, c_mask, q_mask, c2q, q2c, scratch, B, Lc, Lq, D, stage_cols,
+                out_cols, scores_shared, shared_bytes, stream, clocks);
 }

@@ -1,6 +1,6 @@
 // bf16 tensor-core fragment helpers for Hopper (sm_90a), shared by the
 // bodies that run mma.sync m16n8k16: attention.cu (attention_mma, kernels
-// #1/#2), window_attention.cu (banded_mma, dq_mma, dkv_mma, kernels #5-#7)
+// #1/#2; cq_kernel, #3), window_attention.cu (banded_mma, dq_mma, dkv_mma, kernels #5-#7)
 // and dual_stack.cu (gemm_mma, kernel #4's projections).  Each source is its own library, so every
 // function here is inline.
 //
