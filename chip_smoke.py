@@ -78,6 +78,22 @@ Phases, in order; any failure exits non-zero:
    ``"model"`` field, then ``POST /reload`` of SeqPAN from a checkpoint
    written in a temporary directory, after which its answers are those of
    the new weights.
+14. train-SeqPAN: SeqPAN training on ``configs/charades_seqpan_fused.yaml``
+   as it is (batch 128, bf16, droprate 0.2, the stack's flag on) through the
+   CLI's ``main`` (``--synthetic --epochs 1``) in a temporary working
+   directory, then ``--eval`` of the best checkpoint, whose mIoU must equal
+   the best that ``fit`` logged: no launch of #1-#4 in a train step (the
+   JAX package drops the attention probabilities, which no kernel does),
+   1/0/2/2 of stack/dual/CQ/masked per eval forward.  Then >= 20 timed
+   train steps through ``Trainer`` at droprate 0.2 and at droprate 0, where
+   each step launches exactly 2/4/2 of #1/#2/#3 (their recomputed backward
+   launches none) and 0 of #4 (host clock per step, samples/s, peak device
+   bytes), and 3 steps each of BackBone and BaseFast on their configs.
+15. verify-train-SeqPAN: one f32 batch at full width, droprate 0, one
+   gumbel noise for both sides, the label embeddings drawn off their
+   orthogonal init (where the orthogonality penalty has no gradient): the
+   loss and every parameter gradient with #1-#3 on the card (2/4/2
+   launches) against the plain versions on the CPU.
 
 The check phase also holds the backward kernels (#6, #7) against their
 plain versions at the training shapes (B 2, 4 heads of 128, window 19,
@@ -1010,9 +1026,9 @@ def train_launches(steps: int, evals: int = 0) -> dict:
 
 def read_launches(phase: str, kernels, want: dict) -> dict:
     got = {fn.__name__: fn.launches for fn in kernels if fn.__name__ in want}
-    log(f"[{phase}] banded launches {json.dumps(got)}, want {json.dumps(want)}")
+    log(f"[{phase}] launches {json.dumps(got)}, want {json.dumps(want)}")
     if got != want:
-        raise SmokeFailure(f"{phase}: banded launches {got}, want {want}")
+        raise SmokeFailure(f"{phase}: launches {got}, want {want}")
     return got
 
 
@@ -1202,6 +1218,190 @@ def f64_reference(cfg, derived, batch) -> dict:
     return dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
 
 
+# ------------------------------------------------- SeqPAN-family training
+
+
+SEQPAN_CONFIG = "configs/charades_seqpan_fused.yaml"
+FAMILY_CONFIGS = {"BackBone": "configs/charades_backbone_fused.yaml",
+                  "BaseFast": "configs/charades_basefast.yaml"}
+# kernel launches of one SeqPAN forward (and its train step, whose backward
+# launches none) on the train route at droprate 0, with the stack's flag set
+SEQPAN_TRAIN_LAUNCHES = {STACK: 0, "fused_dual_attention": 4, "fused_cq_attention": 2,
+                         "fused_masked_attention": 2}
+N_SEQPAN_BATCHES, N_FAMILY_STEPS = 4, 3
+
+
+def want_launches(per_forward: dict, n: int) -> dict:
+    return {name: per * n for name, per in per_forward.items()}
+
+
+def family_world(config: str, updates: dict, n_batches: int):
+    """A SeqPAN-family config (with ``updates``), its synthetic dataset of
+    ``n_batches`` train batches, derived record and train batcher."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+
+    cfg = load_config(config).updated(updates)
+    dataset, store = make_synthetic_data(cfg, seed=0, n_train=n_batches * B, n_test=B)
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    batcher = Batcher(dataset["train_set"], store, cfg, derived, "train")
+    derived.num_train_steps = derived.steps_per_epoch = len(batcher)
+    return cfg, derived, dataset, batcher
+
+
+def family_steps(K, S, config: str, updates: dict, n: int, card: str, want: dict,
+                 label: str) -> dict:
+    """``n`` train steps through ``Trainer`` on ``N_SEQPAN_BATCHES`` batches
+    already on the card, in turn; the host clock of each ends in a
+    synchronise; the launch counts must be ``want`` per step.  The first
+    ``N_WARMUP_STEPS`` of a long run are not in the median."""
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    cfg, derived, dataset, batcher = family_world(config, updates, N_SEQPAN_BATCHES)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # by the earlier phases, not by this training
+    trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
+    batches = [trainer.to_device(b) for b in batcher.epoch(seed=0)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(K.KERNELS + S.KERNELS)
+    times, losses = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batches[i % len(batches)])["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(f"train-SeqPAN {label}", K.KERNELS + S.KERNELS,
+                             want_launches(want, n))
+    if not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"train-SeqPAN {label}: losses {losses}")
+    timed = times[N_WARMUP_STEPS:] if n > N_WARMUP_STEPS + 1 else times
+    median = statistics.median(timed)
+    out = {"card": card, "model": str(cfg.model.name), "config": config,
+           "dtype": str(cfg.train.compute_dtype), "droprate": float(cfg.model.droprate),
+           "batch_size": B, "steps": n, "losses": losses, "step_ms_median": median,
+           "step_ms_min": min(timed), "step_ms_max": max(timed),
+           "samples_per_s": B / (median / 1e3), "launches": launches,
+           "launches_per_step": {k: v / n for k, v in launches.items()},
+           "peak_device_mem_bytes": torch.cuda.max_memory_allocated(),
+           "held_before_bytes": held}
+    out["peak_training_bytes"] = out["peak_device_mem_bytes"] - held
+    log(f"[train-SeqPAN] {label}: {n} steps, median {median:.3f} ms/step (host clock, "
+        f"{min(timed):.3f}-{max(timed):.3f}), {out['samples_per_s']:.1f} samples/s, peak "
+        f"{out['peak_training_bytes']} bytes beyond the {held} the earlier phases hold, "
+        f"on {card}")
+    return out
+
+
+def phase_train_seqpan(K, S, card: str) -> dict:
+    """The CLI's train-then-eval on the SeqPAN config as it is (batch 128,
+    bf16, droprate 0.2, the stack's flag on), then timed train steps at
+    droprate 0.2 and 0, then a few steps of BackBone and BaseFast."""
+    from vmrframe_tpu_torch.cli import main as cli_main
+
+    config = os.path.abspath(SEQPAN_CONFIG)
+    stats = {"card": card, "config": SEQPAN_CONFIG}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # ckpt/ and the log land here
+        try:
+            zero_counts(K.KERNELS + S.KERNELS)
+            fit = cli_main(["--config", config, "--synthetic", "--epochs", "1", "--device", "cuda"])
+            steps, evals = fit["steps"], fit["eval_batches"]
+            # the train steps (droprate 0.2) launch none; each eval forward 1/0/2/2
+            read_launches("train-SeqPAN fit", K.KERNELS + S.KERNELS,
+                          want_launches(SERVE_LAUNCHES[True], evals))
+            stats.update(steps=steps, eval_forwards=evals, best_miou=fit["best_miou"],
+                         train_loss=fit["history"][0]["train_loss"])
+            if not math.isfinite(stats["train_loss"]):
+                raise SmokeFailure(f"train-SeqPAN: the epoch's mean loss is {stats['train_loss']}")
+            zero_counts(K.KERNELS + S.KERNELS)
+            ev = cli_main(["--config", config, "--synthetic", "--eval", "--checkpoint",
+                           fit["best_path"], "--device", "cuda"])
+            read_launches("train-SeqPAN eval", K.KERNELS + S.KERNELS,
+                          want_launches(SERVE_LAUNCHES[True], ev["eval_batches"]))
+            stats["eval_miou"] = ev["miou"]
+            log(f"[train-SeqPAN] best mIoU logged by fit {fit['best_miou']!r}, "
+                f"--eval of its checkpoint {ev['miou']!r}")
+            if ev["miou"] != fit["best_miou"]:
+                raise SmokeFailure("train-SeqPAN: --eval of the best checkpoint gives another mIoU")
+        finally:
+            os.chdir(cwd)
+    n = N_WARMUP_STEPS + N_TIMED_STEPS
+    none = want_launches(SEQPAN_TRAIN_LAUNCHES, 0)
+    stats["droprate_0.2"] = family_steps(K, S, SEQPAN_CONFIG, {}, n, card, none, "droprate 0.2")
+    stats["droprate_0"] = family_steps(K, S, SEQPAN_CONFIG, {"model.droprate": 0.0}, n, card,
+                                       SEQPAN_TRAIN_LAUNCHES, "droprate 0")
+    for name, config in FAMILY_CONFIGS.items():
+        stats[name] = family_steps(K, S, config, {}, N_FAMILY_STEPS, card, none, name)
+    log(f"[train-SeqPAN] {json.dumps(stats)}")
+    return stats
+
+
+def phase_verify_train_seqpan(K, S) -> dict:
+    """One f32 batch at full width, droprate 0, one gumbel noise for both
+    (drawn on the CPU): the loss and every parameter gradient of SeqPAN's
+    train mode, kernels #1-#3 on the card (their recomputed backward) against
+    the plain versions on the CPU.  The label embeddings are drawn off their
+    orthogonal init (``testing.lift_label_embs``), where the orthogonality
+    penalty has no gradient."""
+    from vmrframe_tpu_torch.models import seqpan
+    from vmrframe_tpu_torch.testing import lift_label_embs
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    cfg, derived, dataset, batcher = family_world(
+        SEQPAN_CONFIG, {"train.compute_dtype": "float32", "model.droprate": 0.0}, 1)
+    batch = batcher.make_batch(list(range(B)))
+    noise = torch.empty(B, int(cfg.model.vlen), 4).exponential_(
+        generator=torch.Generator().manual_seed(0)).log().neg()  # Gumbel(0, 1)
+    draw = seqpan.gumbel_noise
+    seqpan.gumbel_noise = lambda logits, generator: noise.to(logits.device, logits.dtype)
+    outs = {}
+    try:
+        for device in ("cuda", "cpu"):
+            zero_counts(K.KERNELS + S.KERNELS)
+            trainer = Trainer(cfg, derived, dataset["word_vector"], device=device)
+            lift_label_embs(trainer.model, seed=0)
+            trainer.model.train()
+            loss, grads, _, _ = trainer.loss_and_grads(
+                trainer.to_device(batch), torch.Generator(device=device).manual_seed(0))
+            outs[device] = (float(loss.detach()),
+                            {k: None if v is None else v.detach().cpu() for k, v in grads.items()})
+            want = SEQPAN_TRAIN_LAUNCHES if device == "cuda" else want_launches(
+                SEQPAN_TRAIN_LAUNCHES, 0)
+            read_launches(f"verify-train-SeqPAN {device}", K.KERNELS + S.KERNELS, want)
+    finally:
+        seqpan.gumbel_noise = draw
+    (loss_k, g_k), (loss_p, g_p) = outs["cuda"], outs["cpu"]
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    largest = max(v.abs().max().item() for v in g_p.values() if v is not None)
+    worst, worst_name, shift = float("-inf"), None, 0.0
+    for name, want in g_p.items():
+        got = g_k[name]
+        if got is None or not torch.isfinite(got).all():
+            raise SmokeFailure(f"verify-train-SeqPAN: {name}'s gradient on the card is {got}")
+        if want is not None and want.abs().max() > 0 and got.abs().max() == 0:
+            raise SmokeFailure(f"verify-train-SeqPAN: {name}'s gradient is zero on the card only")
+        want = torch.zeros_like(got) if want is None else want
+        if name.endswith(seqpan.SHIFT_INVARIANT):  # zero up to rounding: held to the largest
+            shift = max(shift, got.abs().max().item() / largest, want.abs().max().item() / largest)
+            continue
+        rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    ok = max(loss_err, worst, shift) <= TOL_TRAIN_F32
+    log(f"[verify-train-SeqPAN] loss card {loss_k!r} cpu {loss_p!r} (rel {loss_err:.3e}); worst "
+        f"gradient {worst_name} at {worst:.3e} of its max; the shift-invariant biases' (zero "
+        f"up to rounding) at {shift:.3e} of the largest; {len(g_p)} gradients; tol "
+        f"{TOL_TRAIN_F32}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("verify-train-SeqPAN: kernel path and plain path disagree")
+    return {"loss_rel_err": loss_err, "worst_grad_rel_err": worst, "worst_grad": worst_name,
+            "shift_invariant_grad_rel": shift, "n_grads": len(g_p), "tol": TOL_TRAIN_F32,
+            "launches": SEQPAN_TRAIN_LAUNCHES}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the full record to this JSON file")
@@ -1280,6 +1480,8 @@ def main() -> int:
                                    store, "verify-stack")
     record["verify_stack_long"] = phase("verify-stack-long", phase_verify_long, True)
     record["serve_router"] = phase("serve-router", phase_serve_router, kernels, card)
+    record["train_seqpan"] = phase("train-SeqPAN", phase_train_seqpan, K, S, card)
+    record["verify_train_seqpan"] = phase("verify-train-SeqPAN", phase_verify_train_seqpan, K, S)
     record["seconds"] = seconds
     # the main path each kernel's launches are read from, and the type of the
     # numbers in its line: the serve phases run bf16, training the YAML's f32
@@ -1306,6 +1508,9 @@ def main() -> int:
             "max_abs_err_bf16": c["bf16"]["max_abs_err"],
             "card": card,
         })
+        if name in ATTENTION:  # a SeqPAN train step at droprate 0
+            out[-1]["launches_per_train_step"] = \
+                record["train_seqpan"]["droprate_0"]["launches_per_step"][name]
         if "module_path_ms" in t:  # the other route to the same result, not a library call
             out[-1]["module_path_ms"] = t["module_path_ms"]
         if key == "bf16" and "f32" in record["time"][name]:

@@ -324,10 +324,17 @@ def test_train_batches_match_jax():
 
     with pytest.raises(KeyError):
         list(BatchPrefetcher(broken()))
-    with pytest.raises(NotImplementedError, match="erosion"):
-        ActionFormerBatcher(w["ds"]["train_set"], w["store"], w["cfg"].updated(
-            {"dataprocess.video_augmentation": {"unchanged": None, "erosion": 0.05}}),
-            w["der"], "train")
+    # erosion: the train batches are the JAX batcher's, drawn from the same stream
+    eroded = {"dataprocess.video_augmentation": {"unchanged": None, "erosion": 0.05}}
+    got = list(ActionFormerBatcher(w["ds"]["train_set"], w["store"], w["cfg"].updated(eroded),
+                                   w["der"], "train").epoch(seed=3))
+    jds, jstore = jmake_synthetic_data(w["jcfg"], seed=0, n_train=20, n_test=8)
+    want = list(JAFBatcher(jds["train_set"], jstore, w["jcfg"].updated(eroded), w["jder"],
+                           "train").epoch(seed=3))
+    assert len(got) == len(want) == 3
+    for g, j in zip(got, want):
+        for key in j:
+            np.testing.assert_array_equal(g[key], j[key], err_msg=key)
 
 
 @pytest.fixture(scope="module")
@@ -487,8 +494,20 @@ def test_cli_trains_and_evaluates_the_tiny_config_on_cpu(tmp_path, monkeypatch):
 
 
 def test_train_mode_raises_on_dropout():
+    """``proj_pdrop`` (the config's ``train_cfg.dropout``) in a train step:
+    the step runs, and the attention projection's dropout keeps a share of
+    its inputs within 4 standard deviations of 230/256 (0.1 at 8 bits)."""
     cfg = load_config(LONG).updated({**TINY, "actionformer.train_cfg.dropout": 0.1})
     w = _worlds(TINY, n_train=8, n_test=8)
     trainer = Trainer(cfg, w["der"], None, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        trainer.train_step(trainer.to_device(next(w["train"].epoch(seed=0))))
+    seen = []
+    drop = trainer.model.backbone.stem_0.attn.proj_drop
+    assert drop.rate == 0.1 and drop.bits == 8
+    drop.register_forward_hook(lambda mod, args, out: seen.append((args[0] != 0, out != 0)))
+    metrics = trainer.train_step(trainer.to_device(next(w["train"].epoch(seed=0))))
+    assert np.isfinite(float(metrics["loss"])) and trainer.step == 1
+    (nonzero, kept), = seen
+    n = int(nonzero.sum())
+    keep = 230 / 256
+    share = int((kept & nonzero).sum()) / n
+    assert abs(share - keep) <= 4 * np.sqrt(keep * (1 - keep) / n)

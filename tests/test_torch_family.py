@@ -131,8 +131,12 @@ def test_carry_over_is_strict_for_the_new_trees(name, has, lacks):
     model.load_state_dict(state, strict=True)
     with pytest.raises(RuntimeError, match="Missing"):
         model.load_state_dict({k: v for k, v in state.items() if k != has}, strict=True)
-    with pytest.raises(NotImplementedError, match="train mode"):
-        model.train()({})
+    # train mode: dropout (the config's 0.1) and, with a match head, gumbel noise
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in w["batch"].items()}
+    out = model.train()(tb, torch.Generator().manual_seed(0))
+    assert all(torch.isfinite(v).all() for v in out.values())
+    with torch.no_grad():
+        assert not torch.equal(out["slogits"], model.eval()(tb)["slogits"])
 
 
 def test_gate_conditions(monkeypatch):

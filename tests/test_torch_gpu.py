@@ -501,3 +501,125 @@ def test_family_forward_with_the_fused_stack_matches_plain_on_cpu(cuda):
             for key in ("slogits", "elogits"):
                 torch.testing.assert_close(outs[0][key].cpu(), other[key].cpu(), rtol=0,
                                            atol=1e-3)
+
+
+# --------------------------------------- the train route's Functions of #1-#3
+
+
+def _function_cases(g, dtype, device):
+    """(Function, reference, inputs, number that take a gradient) of #1-#3
+    at SeqPAN's Charades shapes cut to a few samples, with ragged masks."""
+    B, H, L, M, hd, D = 5, 4, 64, 30, 32, 128
+    vm, tm = _mask(g, B, L, device), _mask(g, B, M, device)
+    s_mask, x_mask = vm[:, :, None] * vm[:, None], vm[:, :, None] * tm[:, None]
+    q, f_k, f_v = (_heads(g, B, H, L, hd, dtype, device) for _ in range(3))
+    t_k, t_v = (_heads(g, B, H, M, hd, dtype, device) for _ in range(2))
+    c, qry = (torch.randn(B, n, D, generator=g).to(device, dtype) for n in (L, M))
+    w4C, w4Q = (torch.randn(D, 1, generator=g).mul(0.1).to(device, dtype) for _ in range(2))
+    w4mlu = torch.randn(1, 1, D, generator=g).mul(0.1).to(device, dtype)
+    return [
+        (K.masked_attention, K.masked_attention_reference, (q, f_k, f_v, s_mask), 3),
+        (K.dual_attention, K.dual_attention_reference, (q, f_k, f_v, t_k, t_v, s_mask, x_mask),
+         5),
+        (K.cq_attention, K.cq_attention_reference, (c, qry, w4C, w4Q, w4mlu, vm, tm), 5),
+    ]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_attention_functions_backward_on_the_card(cuda, dtype):
+    """Each Function launches its kernel once and none in its backward; its
+    gradients are autograd's through its reference formula on the same card."""
+    g = torch.Generator().manual_seed(9)
+    for fn, reference, args, n in _function_cases(g, dtype, cuda):
+        leaves = [a.detach().clone().requires_grad_(i < n) for i, a in enumerate(args)]
+        before = [f.launches for f in K.KERNELS]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        cots = [torch.randn(o.shape, generator=g).to(cuda, dtype) for o in outs]
+        torch.autograd.backward(outs, cots)
+        assert sum(f.launches - b for f, b in zip(K.KERNELS, before)) == 1
+        ref = [a.detach().clone().requires_grad_(i < n) for i, a in enumerate(args)]
+        want = reference(*ref)
+        torch.autograd.backward(want if isinstance(want, tuple) else (want,), cots)
+        for got, exp in zip(leaves[:n], ref[:n]):
+            assert torch.isfinite(got.grad.float()).all()
+            tol = 1e-4 * max(1.0, exp.grad.float().abs().max().item()) \
+                if dtype == torch.float32 else 2.0 ** -6 * max(1.0, exp.grad.float().abs().max())
+            assert (got.grad.float() - exp.grad.float()).abs().max() <= tol
+
+
+def test_wrappers_raise_on_inputs_that_require_grad(cuda):
+    """Outside its Function a raw launch would detach its outputs: with grad
+    mode on and an input that requires grad, each wrapper raises and launches
+    nothing; under no_grad it launches."""
+    g = torch.Generator().manual_seed(10)
+    before = [f.launches for f in K.KERNELS]
+    for fn, _, args, n in _function_cases(g, torch.float32, cuda):
+        wrapper = {K.masked_attention: K.fused_masked_attention,
+                   K.dual_attention: K.fused_dual_attention,
+                   K.cq_attention: K.fused_cq_attention}[fn]
+        needy = [a.detach().clone().requires_grad_(i == 0) for i, a in enumerate(args)]
+        counts = [f.launches for f in K.KERNELS]
+        with pytest.raises(RuntimeError, match="detached"):
+            wrapper(*needy)
+        assert [f.launches for f in K.KERNELS] == counts
+        with torch.no_grad():
+            wrapper(*needy)
+    assert [f.launches - b for f, b in zip(K.KERNELS, before)] == [1, 1, 1]
+
+
+def test_seqpan_train_step_on_the_kernels_matches_plain_on_cpu(cuda):
+    """droprate 0, one gumbel noise: the loss and every gradient of SeqPAN's
+    train mode with #1-#3 on the card (2/4/2 launches, none in backward)
+    against the plain versions on the CPU, each gradient within 1e-3 of its
+    max, the label embeddings off their orthogonal init (where the
+    orthogonality penalty has no gradient); then one bf16 train step at
+    droprate 0.2, which launches none."""
+    from vmrframe_tpu_torch.config import Derived
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.models import seqpan
+    from vmrframe_tpu_torch.testing import lift_label_embs, make_synthetic_data
+    from vmrframe_tpu_torch.tools.serve import make_cfg
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    cfg = make_cfg(vlen=32, tlen=12, vdim=64, dim=32, batch_size=8, compute_dtype="float32")
+    cfg = cfg.updated({"model.droprate": 0.0, "train.lr": 1e-3, "train.warmup_proportion": 0.0,
+                       "train.clip_norm": 1.0})
+    ds, store = make_synthetic_data(cfg, seed=0, n_train=8, n_test=8)
+    der = Derived(num_words=ds["n_words"], num_chars=ds["n_chars"], num_train_steps=1)
+    batch = Batcher(ds["train_set"], store, cfg, der, "train").make_batch(list(range(8)))
+    noise = torch.empty(8, 32, 4).exponential_(generator=torch.Generator().manual_seed(0))
+    noise = noise.log().neg()
+    draw = seqpan.gumbel_noise
+    seqpan.gumbel_noise = lambda logits, generator: noise.to(logits.device, logits.dtype)
+    outs = {}
+    try:
+        for device in (cuda, "cpu"):
+            trainer = Trainer(cfg, der, ds["word_vector"], device=device)
+            lift_label_embs(trainer.model, seed=0)
+            trainer.model.train()
+            before = [f.launches for f in K.KERNELS]
+            loss, grads, _, _ = trainer.loss_and_grads(trainer.to_device(batch))
+            outs[str(device)] = (float(loss.detach()), {k: v.cpu() for k, v in grads.items()})
+            want = [2, 4, 2] if device == cuda else [0, 0, 0]
+            assert [f.launches - b for f, b in zip(K.KERNELS, before)] == want
+    finally:
+        seqpan.gumbel_noise = draw
+    (loss_k, g_k), (loss_p, g_p) = outs["cuda"], outs["cpu"]
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    largest = max(v.abs().max().item() for v in g_p.values())
+    for name, want in g_p.items():
+        got = g_k[name]
+        assert torch.isfinite(got).all(), name
+        if name.endswith(seqpan.SHIFT_INVARIANT):
+            assert got.abs().max() <= 1e-3 * largest, name
+            continue
+        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item(), name
+
+    trainer = Trainer(cfg.updated({"model.droprate": 0.2, "train.compute_dtype": "bfloat16"}),
+                      der, ds["word_vector"], device=cuda)
+    before = [f.launches for f in K.KERNELS]
+    out = trainer.train_step(trainer.to_device(batch))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(K.KERNELS, before)] == [0, 0, 0]
+    assert torch.isfinite(out["loss"]) and trainer.optimizer.state["count"] == 1

@@ -4,9 +4,11 @@ With ``force_upsampling`` every clip is linearly resized (torch
 ``F.interpolate``, ``align_corners=False``) to ``max_seq_len`` and its feature
 stride recomputed; the gt segment goes to feature-grid coordinates; the
 batch carries fps, duration, feat_stride and num_frames so spans decode back
-to seconds on the device.  The only augmentation ported is the identity, in
-test and train mode alike, so a video's grid features depend on the vid
-alone and are cached with the base ``Batcher``'s resampled features.  The
+to seconds on the device.  Under the identity augmentation (a test batcher,
+or a train config of ``unchanged`` only) a video's grid features depend on
+the vid alone and are cached with the base ``Batcher``'s resampled
+features; a train batcher with ``dilation`` or ``erosion`` assembles them
+anew each time, drawing from the epoch's stream as the JAX package does.  The
 JAX package's ``truncate_feats`` is called nowhere there and is not ported.
 """
 
@@ -47,21 +49,24 @@ class ActionFormerBatcher(Batcher):
         """(features on the grid, valid length, feature stride, frames per feature)."""
         T = self.max_seq_len
         key = f"{record['vid']}/grid"
-        if key not in self._resample_cache:
-            vfeat, _ = self._get_vfeat_label(record, rng)
-            t0 = vfeat.shape[0]
-            if self.force_upsampling:
-                stride = ((t0 - 1) * self.feat_stride_cfg + self.num_frames_cfg) / T
-                nframes = stride
-                vfeat = linear_resize(vfeat, T)
-            else:
-                stride, nframes = self.feat_stride_cfg, self.num_frames_cfg
-                if self.downsample_rate > 1:
-                    vfeat = vfeat[:: self.downsample_rate]
-                    stride *= self.downsample_rate
-                vfeat = vfeat[:T]
-            self._resample_cache[key] = (vfeat, vfeat.shape[0], stride, nframes)
-        return self._resample_cache[key]
+        if self.aug_is_identity and key in self._resample_cache:
+            return self._resample_cache[key]
+        vfeat, _ = self._get_vfeat_label(record, rng)
+        t0 = vfeat.shape[0]
+        if self.force_upsampling:
+            stride = ((t0 - 1) * self.feat_stride_cfg + self.num_frames_cfg) / T
+            nframes = stride
+            vfeat = linear_resize(vfeat, T)
+        else:
+            stride, nframes = self.feat_stride_cfg, self.num_frames_cfg
+            if self.downsample_rate > 1:
+                vfeat = vfeat[:: self.downsample_rate]
+                stride *= self.downsample_rate
+            vfeat = vfeat[:T]
+        grid = (vfeat, vfeat.shape[0], stride, nframes)
+        if self.aug_is_identity:
+            self._resample_cache[key] = grid
+        return grid
 
     def make_batch(self, indices: List[int],
                    rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:

@@ -1,8 +1,12 @@
-"""Fixed-grid resampling and the augmentation choice (counterpart of
-``vmrframe_tpu/data/augment.py``'s ``interpolate_average``,
-``sample_vfeat_linear`` and ``video_augmentation``).  Of the augmentations
-only ``unchanged`` is ported: ``dilation`` and ``erosion`` come with SeqPAN
-training."""
+"""Train-time video augmentation and fixed-grid resampling (counterpart of
+``vmrframe_tpu/data/augment.py``).
+
+``video_augmentation`` builds a 0/1 frame label from the fractional span,
+then applies one augmentation drawn from the config's keys: ``unchanged``,
+``dilation`` (negative-segment frames prepended and appended) or
+``erosion`` (a random crop that keeps the span).  They draw from Python's
+``random.Random`` and numpy exactly as the JAX package does, so one seed
+gives identical arrays in both."""
 
 from __future__ import annotations
 
@@ -12,6 +16,54 @@ from typing import Dict, Tuple
 import numpy as np
 
 from vmrframe_tpu_torch.metrics import frac_idx
+
+
+def select_negative_segment(seglen: int, vfeat: np.ndarray, label: np.ndarray,
+                            rng: random.Random) -> np.ndarray:
+    """A random contiguous slice of ``seglen`` out-of-moment frames, the
+    frames tiled while too few (random features when there are none)."""
+    neg = vfeat[label == 0]
+    if neg.shape[0] == 0:
+        neg = np.random.default_rng(rng.randrange(2**32)).random(vfeat.shape, dtype=np.float32)
+    while len(neg) < seglen:
+        neg = np.concatenate([neg, neg])
+    r = rng.randint(0, len(neg) - seglen)
+    return neg[r:r + seglen]
+
+
+def feature_dilation(vfeat: np.ndarray, label: np.ndarray, p: float, rng: random.Random):
+    """Up to ``p * len`` negative frames before and after the video."""
+    vlen = vfeat.shape[0]
+    head_len = int(round(rng.random() * p * vlen))
+    tail_len = int(round(rng.random() * p * vlen))
+    head_vfeat = select_negative_segment(head_len, vfeat, label, rng)
+    tail_vfeat = select_negative_segment(tail_len, vfeat, label, rng)
+    new_vfeat = np.concatenate([head_vfeat, vfeat, tail_vfeat])
+    new_label = np.concatenate([np.zeros(head_len, np.float32), label,
+                                np.zeros(tail_len, np.float32)])
+    return new_vfeat, new_label
+
+
+def feature_erosion(vfeat: np.ndarray, label: np.ndarray, p: float, rng: random.Random):
+    """A crop of up to ``p * len`` frames off each end that keeps every
+    labelled frame: each end draws at most 100 times, and takes no crop if
+    none of its draws keeps the span."""
+    hit = np.where(label >= 0.01)[0]
+    ori_sidx, ori_eidx = int(hit.min()), int(hit.max())
+    vlen = vfeat.shape[0]
+    head_len = 0
+    for _ in range(100):
+        cand = int(round(rng.random() * p * vlen))
+        if 0 <= cand <= ori_sidx:
+            head_len = cand
+            break
+    tail_len = vlen - 1
+    for _ in range(100):
+        cand = vlen - 1 - int(round(rng.random() * p * vlen))
+        if ori_eidx <= cand <= vlen - 1:
+            tail_len = cand
+            break
+    return vfeat[head_len:tail_len + 1], label[head_len:tail_len + 1]
 
 
 def video_augmentation(sfrac: float, efrac: float, vfeat: np.ndarray, aug: Dict[str, float],
@@ -24,9 +76,10 @@ def video_augmentation(sfrac: float, efrac: float, vfeat: np.ndarray, aug: Dict[
     k = rng.choice(list(aug.keys()))
     if k == "unchanged":
         return vfeat, label
-    if k in ("dilation", "erosion"):
-        raise NotImplementedError(f"augmentation {k!r} is not ported yet; it comes with "
-                                  "SeqPAN training")
+    if k == "dilation":
+        return feature_dilation(vfeat, label, aug[k], rng)
+    if k == "erosion":
+        return feature_erosion(vfeat, label, aug[k], rng)
     raise ValueError(f"unknown augmentation {k!r}")
 
 

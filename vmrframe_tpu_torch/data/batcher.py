@@ -4,11 +4,12 @@
 Every batch has the same shapes: (B, vlen, vdim) features, (B, tlen) word
 ids, (B, tlen, char_len) char ids, plus masks and labels.  A partial batch is
 padded and carries a ``sample_mask``.  A ``train`` batcher shuffles each
-epoch with ``random.Random(seed)``, so its order is the JAX package's, and
-applies the config's augmentation; only ``unchanged`` is ported, and a
-``test`` batcher (serving, evaluation) applies none.  Under the identity
-augmentation with ``truncation``/``samelen`` sampling a video's resampled
-features depend on the vid alone and are cached, as in the JAX package.
+epoch with ``random.Random(seed)`` and draws the config's augmentations
+(``unchanged``, ``dilation``, ``erosion``) from the same stream, so its
+batches are the JAX package's; a ``test`` batcher (serving, evaluation)
+applies none.  Under the identity augmentation with ``truncation``/``samelen``
+sampling a video's resampled features depend on the vid alone and are
+cached, as in the JAX package.
 ``BatchPrefetcher`` assembles the next batches on a thread while the device
 runs the current step.
 """
@@ -47,10 +48,7 @@ class Batcher:
         self.aug = {"unchanged": None}
         if loadertype == "train" and aug:
             self.aug = dict(aug.to_dict() if hasattr(aug, "to_dict") else aug)
-            unported = sorted(set(self.aug) - {"unchanged"})
-            if unported:
-                raise NotImplementedError(f"augmentations {unported} are not ported yet; "
-                                          "they come with SeqPAN training")
+        self.aug_is_identity = set(self.aug) == {"unchanged"}
         self._resample_cache: Dict[str, tuple] = {}
 
     def __len__(self) -> int:
@@ -63,9 +61,14 @@ class Batcher:
     def _get_vfeat_label(self, record: dict, rng: random.Random):
         sfrac, efrac = record["se_frac"]
         vid = record["vid"]
-        if self.sample_type not in ("truncation", "samelen"):
-            # 'original': the augmentation's features and label as they are
-            return video_augmentation(sfrac, efrac, self.features[vid], self.aug, rng)
+        if not self.aug_is_identity or self.sample_type not in ("truncation", "samelen"):
+            vfeat, label = video_augmentation(sfrac, efrac, self.features[vid], self.aug, rng)
+            if not label.any():
+                raise ValueError(f"{vid}: no labelled frame after the augmentation")
+            vfeat, label = sample_vfeat_linear(vfeat, label, self.vlen, self.sample_type)
+            if not label.any():
+                raise ValueError(f"{vid}: no labelled frame after resampling")
+            return vfeat, label
         if vid not in self._resample_cache:  # identity augmentation: cacheable per vid
             raw = self.features[vid]
             vfeat, _ = sample_vfeat_linear(raw, np.zeros(raw.shape[0], np.float32),

@@ -15,6 +15,16 @@ The kernels' limits are checked here before a launch: ``cq_plan`` lays out
 ``attention_shared_bytes`` sizes the attention kernels' shared memory.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises, and counts the launch in ``<wrapper>.launches``.
+
+The kernels have no backward.  Training goes through three
+``torch.autograd.Function``s (``masked_attention``, ``dual_attention``,
+``cq_attention``; counterparts of the JAX package's ``fused_*_ad``): the
+forward is the wrapper, the backward the VJP of a reference formula
+(``*_reference``, the XLA recompute of ``_dual_reference`` and
+``_cq_reference`` there), recomputed in the inputs' type.  A wrapper called
+directly on CUDA tensors that require grad, with grad mode on, raises: its
+outputs would come back detached, and the weights before it would silently
+get no gradient.
 The public layout is the JAX one, (B, H, L, hd): the attention kernels take
 any strides with a unit last stride, so head-split views of (B, L, D)
 projections go in without a copy, and their outputs are (B, L, H, hd) in
@@ -107,6 +117,15 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
 
 
+def refuse_detached(tensors: Sequence[torch.Tensor], what: str) -> None:
+    """Raises when grad mode is on and an input requires grad: a raw launch
+    writes fresh outputs that autograd cannot trace back to its inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward, and its outputs would be "
+                           "detached from inputs that require grad; call it through its "
+                           "autograd Function (masked_attention, dual_attention, cq_attention)")
+
+
 def _head_major_out(q: torch.Tensor, L: int) -> torch.Tensor:
     B, H, _, hd = q.shape
     return torch.empty(B, L, H, hd, dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -144,6 +163,35 @@ def cq_attention_plain(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
     c2q = s_.to(dtype).float() @ q
     stc = s_t.to(dtype).float().transpose(1, 2) @ c
     return c2q.to(dtype), (s_ @ stc).to(dtype)
+
+
+# ----------------------------------------------- the backward's formulas
+
+
+def masked_attention_reference(q, k, v, mask):
+    """softmax(q k^T / sqrt(hd) + (1 - mask) * -1e30) v in the inputs' type,
+    the formula the backward of #1 differentiates."""
+    s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    s = s + (1.0 - mask.to(q.dtype)[:, None]) * MASK_VALUE
+    return torch.softmax(s, dim=-1) @ v
+
+
+def dual_attention_reference(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
+    """(self, cross) attention from one query; ``_dual_reference`` of the
+    JAX package."""
+    return (masked_attention_reference(q, f_k, f_v, s_mask),
+            masked_attention_reference(q, t_k, t_v, x_mask))
+
+
+def cq_attention_reference(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
+    """(c2q, q2c) in the inputs' type, as ``_cq_reference`` of the JAX
+    package computes them: q2c = (S_ S_t) c."""
+    c_mask, q_mask = c_mask.to(context.dtype), q_mask.to(context.dtype)
+    score = context @ w4C + (query @ w4Q).transpose(1, 2) \
+        + (context * w4mlu[0]) @ query.transpose(1, 2)
+    s_ = torch.softmax(score + (1.0 - q_mask[:, None, :]) * MASK_VALUE, dim=2)
+    s_t = torch.softmax(score + (1.0 - c_mask[:, :, None]) * MASK_VALUE, dim=1).transpose(1, 2)
+    return s_ @ query, (s_ @ s_t) @ context
 
 
 # ------------------------------------------------------------- launch plans
@@ -242,6 +290,7 @@ def fused_masked_attention(q, k, v, mask):
     """
     if q.device.type == "cpu":
         return masked_attention_plain(q, k, v, mask)
+    refuse_detached((q, k, v), "fused_masked_attention")
     dtype = _check_cuda((q, k, v), "fused_masked_attention")
     B, H, Lq, hd = q.shape
     Lk = k.shape[2]
@@ -266,6 +315,7 @@ def fused_dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
     """
     if q.device.type == "cpu":
         return dual_attention_plain(q, f_k, f_v, t_k, t_v, s_mask, x_mask)
+    refuse_detached((q, f_k, f_v, t_k, t_v), "fused_dual_attention")
     dtype = _check_cuda((q, f_k, f_v, t_k, t_v), "fused_dual_attention")
     B, H, L, hd = q.shape
     M = t_k.shape[2]
@@ -318,6 +368,7 @@ def fused_cq_attention(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
     w4mlu (1, 1, D), c_mask (B, Lc), q_mask (B, Lq)."""
     if context.device.type == "cpu":
         return cq_attention_plain(context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
+    refuse_detached((context, query, w4C, w4Q, w4mlu), "fused_cq_attention")
     out = _cq_launch(load_kernels().vmr_cq_attention, context, query, w4C, w4Q, w4mlu, c_mask,
                      q_mask)
     fused_cq_attention.launches += 1
@@ -333,6 +384,79 @@ def cq_phase_clocks(context, query, w4C, w4Q, w4mlu, c_mask, q_mask) -> torch.Te
     _cq_launch(load_kernels().vmr_cq_attention_clocked, context, query, w4C, w4Q, w4mlu, c_mask,
                q_mask, clocks.data_ptr())
     return clocks
+
+
+# ------------------------------------------------ the train route's Functions
+
+
+RECOMPUTE_SPAN = "vmr_attention_recompute_backward"  # the profiler's name for the backward
+
+
+def _recompute_vjp(ctx, reference, grads):
+    """The gradients of ``reference`` at the saved inputs for the
+    cotangents ``grads``, None for an input that needs none (the masks);
+    a ``RECOMPUTE_SPAN`` range for ``torch.profiler``."""
+    needs = ctx.needs_input_grad
+    with torch.enable_grad(), torch.profiler.record_function(RECOMPUTE_SPAN):
+        xs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        outs = reference(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        got = iter(torch.autograd.grad(outs, [x for x, n in zip(xs, needs) if n], grads))
+    return tuple(next(got) if n else None for n in needs)
+
+
+class MaskedAttentionFunction(torch.autograd.Function):
+    """Kernel #1 forward; backward the VJP of ``masked_attention_reference``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return fused_masked_attention(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _recompute_vjp(ctx, masked_attention_reference, (g,))
+
+
+class DualAttentionFunction(torch.autograd.Function):
+    """Kernel #2 forward; backward the VJP of ``dual_attention_reference``."""
+
+    @staticmethod
+    def forward(ctx, q, f_k, f_v, t_k, t_v, s_mask, x_mask):
+        ctx.save_for_backward(q, f_k, f_v, t_k, t_v, s_mask, x_mask)
+        return fused_dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask)
+
+    @staticmethod
+    def backward(ctx, g_s, g_x):
+        return _recompute_vjp(ctx, dual_attention_reference, (g_s, g_x))
+
+
+class CQAttentionFunction(torch.autograd.Function):
+    """Kernel #3 forward; backward the VJP of ``cq_attention_reference``."""
+
+    @staticmethod
+    def forward(ctx, context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
+        ctx.save_for_backward(context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
+        return fused_cq_attention(context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
+
+    @staticmethod
+    def backward(ctx, g_c2q, g_q2c):
+        return _recompute_vjp(ctx, cq_attention_reference, (g_c2q, g_q2c))
+
+
+def masked_attention(q, k, v, mask):
+    """``fused_masked_attention``, differentiable in q, k and v."""
+    return MaskedAttentionFunction.apply(q, k, v, mask)
+
+
+def dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
+    """``fused_dual_attention``, differentiable in q and the four keys and values."""
+    return DualAttentionFunction.apply(q, f_k, f_v, t_k, t_v, s_mask, x_mask)
+
+
+def cq_attention(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
+    """``fused_cq_attention``, differentiable in everything but the masks."""
+    return CQAttentionFunction.apply(context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
 
 
 KERNELS = (fused_masked_attention, fused_dual_attention, fused_cq_attention)

@@ -6,8 +6,9 @@ other): a conv or dense ``kernel`` is a torch ``weight``, and the scalars of
 ``Scale`` and ``AffineDropPath``, ``scale`` in flax, are ``weight`` here.
 In train mode (``module.train()``) ``AffineDropPath`` applies stochastic
 depth (``drop_path``) with uniforms drawn from the ``torch.Generator`` the
-caller threads through ``forward``; dropout (``proj_pdrop``) is not ported
-and raises in train mode.  Not ported yet: rel-PE,
+caller threads through ``forward``, and so does dropout (``proj_pdrop``,
+after the attention's projection and around the MLP's second dense, the
+JAX package's four sites).  Not ported yet: rel-PE,
 ``ConvBackbone``/``ConvBlock`` and ``FPN1D`` (ROADMAP).
 
 ``MaskedMHCA`` with ``window_size > 0`` runs the banded attention kernels
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vmrframe_tpu_torch.kernels.window_attention import banded_attention, key_window, padded_len
+from vmrframe_tpu_torch.layers.dropout import Dropout
 
 
 class ChannelLayerNorm(nn.Module):
@@ -111,7 +113,7 @@ class MaskedMHCA(nn.Module):
 
     def __init__(self, n_embd: int, n_head: int, n_qx_stride: int = 1, n_kv_stride: int = 1,
                  window_size: int = -1, use_rel_pe: bool = False, pallas_min_len: int = 512,
-                 pallas_min_len_eval: Optional[int] = None):
+                 pallas_min_len_eval: Optional[int] = None, proj_pdrop: float = 0.0):
         super().__init__()
         if use_rel_pe:
             raise NotImplementedError("MaskedMHCA: rel-PE is not ported yet")
@@ -132,6 +134,7 @@ class MaskedMHCA(nn.Module):
         self.key = Dense(n_embd, n_embd)
         self.value = Dense(n_embd, n_embd)
         self.proj = Dense(n_embd, n_embd)
+        self.proj_drop = Dropout(proj_pdrop)
 
     def use_banded_kernel(self, Tq: int, Tk: int) -> bool:
         """The kernel route: a window, T at or above the mode's threshold
@@ -144,7 +147,7 @@ class MaskedMHCA(nn.Module):
             return False
         return padded_len(Tq) >= key_window(self.window_size)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, generator: Optional[torch.Generator] = None):
         B = x.shape[0]
         hd = self.n_embd // self.n_head
         q, qx_mask = self.query_conv(x, mask)
@@ -170,7 +173,7 @@ class MaskedMHCA(nn.Module):
             att = torch.softmax(att, dim=-1)
             out = att @ (vh * kv_mask[:, None, :, None])
         out = self.proj(out.transpose(1, 2).reshape(B, Tq, self.n_embd))
-        return out * qx_mask[..., None], qx_mask
+        return self.proj_drop(out, generator) * qx_mask[..., None], qx_mask
 
 
 def drop_path(x, drop_prob: float, u: torch.Tensor):
@@ -214,29 +217,26 @@ class TransformerBlock(nn.Module):
                  pallas_min_len_eval: Optional[int] = None, proj_pdrop: float = 0.0):
         super().__init__()
         self.n_ds_stride = n_ds_stride
-        self.proj_pdrop = proj_pdrop
         self.ln1 = ChannelLayerNorm(n_embd)
         self.attn = MaskedMHCA(n_embd, n_head, n_ds_stride, n_ds_stride, mha_win_size,
-                               use_rel_pe, pallas_min_len, pallas_min_len_eval)
+                               use_rel_pe, pallas_min_len, pallas_min_len_eval, proj_pdrop)
         self.ln2 = ChannelLayerNorm(n_embd)
         self.mlp_fc1 = Dense(n_embd, 4 * n_embd)
         self.mlp_fc2 = Dense(4 * n_embd, n_embd)
+        self.proj_drop = Dropout(proj_pdrop)
         self.path_pdrop = path_pdrop
         if path_pdrop > 0.0:
             self.drop_path_attn = AffineDropPath(n_embd, path_pdrop)
             self.drop_path_mlp = AffineDropPath(n_embd, path_pdrop)
 
     def forward(self, x, mask, generator: Optional[torch.Generator] = None):
-        if self.training and self.proj_pdrop > 0.0:
-            raise NotImplementedError("TransformerBlock: dropout (proj_pdrop > 0) in train mode "
-                                      "is not ported yet; it comes with SeqPAN training")
-        out, out_mask = self.attn(self.ln1(x), mask)
+        out, out_mask = self.attn(self.ln1(x), mask, generator)
         s = self.n_ds_stride
         skip = _maxpool1d(x, s + 1, s, (s + 1) // 2) if s > 1 else x
         mf = out_mask[..., None]
         out = skip * mf + (self.drop_path_attn(out, generator) if self.path_pdrop > 0.0 else out)
-        h = F.gelu(self.mlp_fc1(self.ln2(out)))
-        h = self.mlp_fc2(h) * mf
+        h = self.proj_drop(F.gelu(self.mlp_fc1(self.ln2(out))), generator)
+        h = self.proj_drop(self.mlp_fc2(h), generator) * mf
         return out + (self.drop_path_mlp(h, generator) if self.path_pdrop > 0.0 else h), out_mask
 
 

@@ -4,17 +4,27 @@ softmax-attention cores in the CUDA kernels of ``kernels/attention.py``.
 
 As in the JAX package, ``BiLinear`` applies its one ``dense_1`` to both
 inputs, and the unused sub-layers of the reference are not created.
+
+Routes, as the JAX package takes them: in eval mode, or at droprate 0, the
+attention cores are the kernels' autograd Functions (the kernel forward, a
+recomputed backward).  In train mode at a droprate above 0 the JAX package
+drops the attention probabilities (``head_attention``), which no kernel
+does, and CQAttention computes its scores from dropped inputs and its
+products from the undropped ones, which #3's one (c, q) pair cannot: there
+the cores are plain torch.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
-from vmrframe_tpu_torch.kernels.attention import (fused_cq_attention, fused_dual_attention,
-                                                  fused_masked_attention)
+from vmrframe_tpu_torch.kernels.attention import cq_attention, dual_attention, masked_attention
 from vmrframe_tpu_torch.layers.basic import Conv1D, LayerNorm, fused_linear
-from vmrframe_tpu_torch.ops.masking import attention_mask_2d, mask_logits
+from vmrframe_tpu_torch.layers.dropout import Dropout
+from vmrframe_tpu_torch.ops.masking import MASK_VALUE, attention_mask_2d, mask_logits
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -27,6 +37,22 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     as the kernels write it."""
     B, H, L, hd = x.shape
     return x.transpose(1, 2).reshape(B, L, H * hd)
+
+
+def head_attention(q, k, v, mask_add, scale: float, num_heads: int, drop: Dropout, generator):
+    """Multi-head attention over (B, L, D) q and (B, M, D) k, v with the
+    probabilities dropped (the JAX package's ``head_attention``): mask_add is
+    an additive (B, L or 1, M) mask shared by the heads."""
+    s = split_heads(q, num_heads) @ split_heads(k, num_heads).transpose(-1, -2) * scale
+    if mask_add is not None:
+        s = s + mask_add[:, None]
+    p = drop(torch.softmax(s, dim=-1), generator)
+    return merge_heads(p @ split_heads(v, num_heads))
+
+
+def kernel_route(module: nn.Module, droprate: float) -> bool:
+    """The kernels' Functions serve eval mode and droprate 0."""
+    return not module.training or droprate == 0.0
 
 
 class BiLinear(nn.Module):
@@ -55,9 +81,10 @@ def _composite(dense: Conv1D, gate: Conv1D):
 class DualMultiAttention(nn.Module):
     """One shared query attends over its own sequence (f_key/f_value) and
     over the other modality (t_key/t_value); the two outputs cross-gate each
-    other, then two BiLinears gate the result against the block input."""
+    other, then two BiLinears gate the result against the block input.  In
+    train mode at a droprate above 0 the probabilities are dropped."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, droprate: float = 0.0):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         for name in ("query", "f_key", "f_value", "t_key", "t_value",
@@ -65,20 +92,30 @@ class DualMultiAttention(nn.Module):
             setattr(self, name, Conv1D(dim, dim))
         self.bilinear_1 = BiLinear(dim)
         self.bilinear_2 = BiLinear(dim)
+        self.dropout = Dropout(droprate)
 
-    def forward(self, from_tensor, to_tensor, from_mask, to_mask):
+    def forward(self, from_tensor, to_tensor, from_mask, to_mask, generator=None):
         H = self.num_heads
         pair = lambda m: (m.weight, m.bias)  # noqa: E731
         q, f_k, f_v = fused_linear(from_tensor, [pair(self.query), pair(self.f_key),
                                                  pair(self.f_value)])
         t_k, t_v = fused_linear(to_tensor, [pair(self.t_key), pair(self.t_value)])
-        s_val, x_val = fused_dual_attention(
-            split_heads(q, H), split_heads(f_k, H), split_heads(f_v, H),
-            split_heads(t_k, H), split_heads(t_v, H),
-            attention_mask_2d(from_mask, from_mask), attention_mask_2d(from_mask, to_mask))
-        s_value, s_score = fused_linear(merge_heads(s_val), [
+        s_mask, x_mask = attention_mask_2d(from_mask, from_mask), attention_mask_2d(from_mask,
+                                                                                    to_mask)
+        if kernel_route(self, self.dropout.rate):
+            s_val, x_val = dual_attention(
+                split_heads(q, H), split_heads(f_k, H), split_heads(f_v, H),
+                split_heads(t_k, H), split_heads(t_v, H), s_mask, x_mask)
+            s_val, x_val = merge_heads(s_val), merge_heads(x_val)
+        else:
+            scale = 1.0 / math.sqrt(self.dim // H)
+            s_val = head_attention(q, f_k, f_v, (1.0 - s_mask) * MASK_VALUE, scale, H,
+                                   self.dropout, generator)
+            x_val = head_attention(q, t_k, t_v, (1.0 - x_mask) * MASK_VALUE, scale, H,
+                                   self.dropout, generator)
+        s_value, s_score = fused_linear(s_val, [
             pair(self.s_dense), _composite(self.s_dense, self.s_gate)])
-        x_value, x_score = fused_linear(merge_heads(x_val), [
+        x_value, x_score = fused_linear(x_val, [
             pair(self.x_dense), _composite(self.x_dense, self.x_gate)])
         outputs = self.guided_dense(s_score * x_value + x_score * s_value)
         # both bilinears read the same (from_tensor + outputs): one matmul
@@ -88,22 +125,26 @@ class DualMultiAttention(nn.Module):
 
 
 class DualAttentionBlock(nn.Module):
-    """LN -> DualMultiAttention -> dense + residual -> FFN + residual."""
+    """LN -> DualMultiAttention -> dense + residual -> FFN + residual, with
+    dropout after the first LN, each dense and the second LN."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, droprate: float = 0.0):
         super().__init__()
         self.layer_norm_1 = LayerNorm(dim)
         self.layer_norm_t = LayerNorm(dim)
-        self.dual_multihead_attention = DualMultiAttention(dim, num_heads)
+        self.dual_multihead_attention = DualMultiAttention(dim, num_heads, droprate)
         self.dense_1 = Conv1D(dim, dim)
         self.layer_norm_2 = LayerNorm(dim)
         self.dense_2 = Conv1D(dim, dim)
+        self.dropout = Dropout(droprate)
 
-    def forward(self, from_tensor, to_tensor, from_mask, to_mask):
+    def forward(self, from_tensor, to_tensor, from_mask, to_mask, generator=None):
+        drop = lambda t: self.dropout(t, generator)  # noqa: E731
         outputs = self.dual_multihead_attention(
-            self.layer_norm_1(from_tensor), self.layer_norm_t(to_tensor), from_mask, to_mask)
-        residual = self.dense_1(outputs) + from_tensor
-        return self.dense_2(self.layer_norm_2(residual)) + residual
+            drop(self.layer_norm_1(from_tensor)), self.layer_norm_t(to_tensor), from_mask,
+            to_mask, generator)
+        residual = drop(self.dense_1(outputs)) + from_tensor
+        return drop(self.dense_2(drop(self.layer_norm_2(residual)))) + residual
 
     def stacks(self):
         """The block's own parameters as the stacks the whole-stack kernel
@@ -131,10 +172,10 @@ class DualAttentionBlock(nn.Module):
 class MultiHeadAttentionBlock(nn.Module):
     """Pre-LN multi-head self-attention with a dense tail: LN -> q, k, v ->
     masked attention (kernel ``fused_masked_attention``) + residual -> LN ->
-    dense + residual.  Deterministic only: dropout waits for the training
-    slice."""
+    dense + residual, with dropout after each LN, on the probabilities, and
+    after the attention and the dense."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, droprate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.layer_norm1 = LayerNorm(dim)
@@ -143,33 +184,53 @@ class MultiHeadAttentionBlock(nn.Module):
         self.value = Conv1D(dim, dim)
         self.layer_norm2 = LayerNorm(dim)
         self.out_layer = Conv1D(dim, dim)
+        self.dropout = Dropout(droprate)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, generator=None):
         H = self.num_heads
-        q, k, v = fused_linear(self.layer_norm1(x), [(m.weight, m.bias) for m in
-                                                     (self.query, self.key, self.value)])
-        B, L, _ = x.shape
+        drop = lambda t: self.dropout(t, generator)  # noqa: E731
+        q, k, v = fused_linear(drop(self.layer_norm1(x)), [(m.weight, m.bias) for m in
+                                                           (self.query, self.key, self.value)])
+        B, L, D = x.shape
         keys = x.new_ones(B, L) if mask is None else mask
-        # the mask is on keys only: every query row attends
-        out = fused_masked_attention(split_heads(q, H), split_heads(k, H), split_heads(v, H),
-                                     keys[:, None, :].expand(B, L, L))
-        residual = merge_heads(out) + x
-        return self.out_layer(self.layer_norm2(residual)) + residual
+        if kernel_route(self, self.dropout.rate):
+            # the mask is on keys only: every query row attends
+            out = merge_heads(masked_attention(split_heads(q, H), split_heads(k, H),
+                                               split_heads(v, H), keys[:, None, :].expand(B, L, L)))
+        else:
+            mask_add = None if mask is None else (1.0 - mask[:, None, :].to(q.dtype)) * MASK_VALUE
+            out = head_attention(q, k, v, mask_add, 1.0 / math.sqrt(D // H), H, self.dropout,
+                                 generator)
+        residual = drop(out) + x
+        return drop(self.out_layer(drop(self.layer_norm2(residual)))) + residual
 
 
 class CQAttention(nn.Module):
-    """QANet context-query attention: [c, c2q, c*c2q, c*q2c] -> Conv1D."""
+    """QANet context-query attention: [c, c2q, c*c2q, c*q2c] -> Conv1D.  In
+    train mode at a droprate above 0 the trilinear scores read dropped copies
+    of the context and the query, while c2q, q2c and the concatenation read
+    the undropped ones, as in the JAX package."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, droprate: float = 0.0):
         super().__init__()
         self.w4C = nn.Parameter(torch.empty(dim, 1))
         self.w4Q = nn.Parameter(torch.empty(dim, 1))
         self.w4mlu = nn.Parameter(torch.empty(1, 1, dim))
         self.cqa_linear = Conv1D(4 * dim, dim)
+        self.dropout = Dropout(droprate)
 
-    def forward(self, context, query, c_mask, q_mask):
-        c2q, q2c = fused_cq_attention(context, query, self.w4C, self.w4Q, self.w4mlu,
-                                      c_mask, q_mask)
+    def forward(self, context, query, c_mask, q_mask, generator=None):
+        if kernel_route(self, self.dropout.rate):
+            c2q, q2c = cq_attention(context, query, self.w4C, self.w4Q, self.w4mlu, c_mask,
+                                    q_mask)
+        else:
+            ctx, qry = self.dropout(context, generator), self.dropout(query, generator)
+            score = ctx @ self.w4C + (qry @ self.w4Q).transpose(1, 2) \
+                + (ctx * self.w4mlu) @ qry.transpose(1, 2)
+            score_ = torch.softmax(mask_logits(score, q_mask[:, None, :]), dim=2)
+            score_t = torch.softmax(mask_logits(score, c_mask[:, :, None]), dim=1).transpose(1, 2)
+            c2q = score_ @ query
+            q2c = (score_ @ score_t) @ context
         return self.cqa_linear(torch.cat([context, c2q, context * c2q, context * q2c], dim=2))
 
 

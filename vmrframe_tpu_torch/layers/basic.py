@@ -2,8 +2,9 @@
 
 Parameter names follow the flax tree (``weights.py`` maps one onto the
 other): a flax ``kernel`` is a torch ``weight`` in torch's layout, a
-LayerNorm ``scale`` is its ``weight``.  Eval only: dropout waits for the
-training slice.  Under the bf16 policy (``ops/precision.py``) rank >= 2
+LayerNorm ``scale`` is its ``weight``.  Dropout sits where the JAX package
+has it (``layers/dropout.py``), drawing from the generator each ``forward``
+takes.  Under the bf16 policy (``ops/precision.py``) rank >= 2
 weights are bf16 and biases f32; ``biased`` keeps the activations bf16.
 """
 
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vmrframe_tpu_torch.layers.dropout import Dropout
 from vmrframe_tpu_torch.ops.precision import biased
 
 
@@ -51,39 +53,41 @@ class LayerNorm(nn.Module):
 
 class WordEmbedding(nn.Module):
     """[zero PAD row, trainable UNK row, frozen GloVe] lookup.  GloVe is a
-    buffer, not a parameter."""
+    buffer, not a parameter.  Dropout on the looked-up vectors."""
 
-    def __init__(self, word_dim: int, word_vectors):
+    def __init__(self, word_dim: int, word_vectors, droprate: float = 0.0):
         super().__init__()
         self.unk_vec = nn.Parameter(torch.empty(1, word_dim))
         self.register_buffer("glove_vec", torch.tensor(np.asarray(word_vectors, np.float32)))
+        self.dropout = Dropout(droprate)
 
-    def forward(self, word_ids):
+    def forward(self, word_ids, generator=None):
         glove = self.glove_vec
         pad = torch.zeros(1, glove.shape[1], dtype=glove.dtype, device=glove.device)
         table = torch.cat([pad, self.unk_vec.to(glove.dtype), glove], dim=0)
-        return F.embedding(word_ids, table)
+        return self.dropout(F.embedding(word_ids, table), generator)
 
 
 class CharacterEmbedding(nn.Module):
     """Char table, then four VALID convs of widths 1-4 over each word's chars,
     each max-pooled over its own valid range, then ReLU.  PAD chars (id 0)
-    embed to zero.  Output width 10+20+30+40 = 100."""
+    embed to zero, then dropout.  Output width 10+20+30+40 = 100."""
 
     def __init__(self, num_chars: int, char_dim: int, kernels=(1, 2, 3, 4),
-                 channels=(10, 20, 30, 40)):
+                 channels=(10, 20, 30, 40), droprate: float = 0.0):
         super().__init__()
         self.kernels = tuple(kernels)
         self.out_dim = sum(channels)
         self.char_table = nn.Parameter(torch.empty(num_chars, char_dim))
         for k, ch in zip(kernels, channels):
             setattr(self, f"conv_k{k}", nn.Conv1d(char_dim, ch, k))
+        self.dropout = Dropout(droprate)
 
-    def forward(self, char_ids):
+    def forward(self, char_ids, generator=None):
         B, W, C = char_ids.shape
         flat = char_ids.reshape(B * W, C)
         emb = F.embedding(flat, self.char_table)
-        emb = emb * (flat != 0).to(emb.dtype)[..., None]
+        emb = self.dropout(emb * (flat != 0).to(emb.dtype)[..., None], generator)
         x = emb.transpose(1, 2)  # (B*W, char_dim, C)
         pooled = []
         for k in self.kernels:
@@ -96,15 +100,17 @@ class CharacterEmbedding(nn.Module):
 class Embedding(nn.Module):
     """word ‖ char -> Conv1D -> LayerNorm."""
 
-    def __init__(self, out_dim: int, word_dim: int, char_dim: int, num_chars: int, word_vectors):
+    def __init__(self, out_dim: int, word_dim: int, char_dim: int, num_chars: int, word_vectors,
+                 droprate: float = 0.0):
         super().__init__()
-        self.word_emb = WordEmbedding(word_dim, word_vectors)
-        self.char_emb = CharacterEmbedding(num_chars, char_dim)
+        self.word_emb = WordEmbedding(word_dim, word_vectors, droprate)
+        self.char_emb = CharacterEmbedding(num_chars, char_dim, droprate=droprate)
         self.query_conv1d = Conv1D(word_dim + self.char_emb.out_dim, out_dim)
         self.q_layer_norm = LayerNorm(out_dim)
 
-    def forward(self, word_ids, char_ids):
-        emb = torch.cat([self.word_emb(word_ids), self.char_emb(char_ids)], dim=2)
+    def forward(self, word_ids, char_ids, generator=None):
+        emb = torch.cat([self.word_emb(word_ids, generator), self.char_emb(char_ids, generator)],
+                        dim=2)
         return self.q_layer_norm(self.query_conv1d(emb))
 
 
@@ -121,15 +127,16 @@ class PositionalEmbedding(nn.Module):
 
 
 class VisualProjection(nn.Module):
-    """Conv1D -> LayerNorm."""
+    """Dropout -> Conv1D -> LayerNorm."""
 
-    def __init__(self, vdim: int, dim: int):
+    def __init__(self, vdim: int, dim: int, droprate: float = 0.0):
         super().__init__()
+        self.dropout = Dropout(droprate)
         self.video_conv1d = Conv1D(vdim, dim)
         self.v_layer_norm = LayerNorm(dim)
 
-    def forward(self, visual_features):
-        return self.v_layer_norm(self.video_conv1d(visual_features))
+    def forward(self, visual_features, generator=None):
+        return self.v_layer_norm(self.video_conv1d(self.dropout(visual_features, generator)))
 
 
 class DepthwiseConv1D(nn.Module):
@@ -148,34 +155,37 @@ class DepthwiseConv1D(nn.Module):
 
 
 class DepthwiseSeparableConvBlock(nn.Module):
-    """N x (LN -> depthwise k=7 -> pointwise -> ReLU -> residual)."""
+    """N x (LN -> depthwise k=7 -> pointwise -> ReLU -> dropout -> residual)."""
 
-    def __init__(self, dim: int, kernel_size: int = 7, num_layers: int = 4):
+    def __init__(self, dim: int, kernel_size: int = 7, num_layers: int = 4,
+                 droprate: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             setattr(self, f"layer_norm_{i}", LayerNorm(dim))
             setattr(self, f"depthwise_{i}", DepthwiseConv1D(dim, kernel_size))
             setattr(self, f"pointwise_{i}", Conv1D(dim, dim))
+        self.dropout = Dropout(droprate)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         output = x
         for i in range(self.num_layers):
             residual = output
             output = getattr(self, f"layer_norm_{i}")(output)
             output = getattr(self, f"depthwise_{i}")(output)
             output = torch.relu(getattr(self, f"pointwise_{i}")(output))
-            output = output + residual
+            output = self.dropout(output, generator) + residual
         return output
 
 
 class FeatureEncoder(nn.Module):
     """Positional embedding + depthwise-separable conv block."""
 
-    def __init__(self, dim: int, max_pos_len: int, kernel_size: int = 7, num_layers: int = 4):
+    def __init__(self, dim: int, max_pos_len: int, kernel_size: int = 7, num_layers: int = 4,
+                 droprate: float = 0.0):
         super().__init__()
         self.pos_embedding = PositionalEmbedding(max_pos_len, dim)
-        self.conv_block = DepthwiseSeparableConvBlock(dim, kernel_size, num_layers)
+        self.conv_block = DepthwiseSeparableConvBlock(dim, kernel_size, num_layers, droprate)
 
-    def forward(self, x):
-        return self.conv_block(x + self.pos_embedding(x))
+    def forward(self, x, generator=None):
+        return self.conv_block(x + self.pos_embedding(x), generator)

@@ -1,7 +1,8 @@
 """ActionFormer, the single-stage anchor-free localizer wrapped for VMR
 (counterpart of ``vmrframe_tpu/models/actionformer.py``): the forward in
-eval and train mode (``module.train()``: stochastic depth with uniforms
-from the ``generator`` argument, the banded kernels by ``pallas_min_len``),
+eval and train mode (``module.train()``: stochastic depth and dropout
+drawing from the ``generator`` argument, the banded kernels by
+``pallas_min_len``),
 the single-gt label assignment and loss (with the EMA loss normaliser
 carried in ``extras``), and the fast top-1 span inference.  The model has
 no text branch: the query is carried and unused.  The full ranked-list
@@ -20,6 +21,7 @@ from torch import nn
 from vmrframe_tpu_torch.data.af_batcher import ActionFormerBatcher
 from vmrframe_tpu_torch.layers.actionformer import (ConvHead, ConvTransformerBackbone,
                                                     FPNIdentity, Scale, generate_points)
+from vmrframe_tpu_torch.layers.dropout import dropout_bits, set_dropout_bits
 from vmrframe_tpu_torch.ops.nms import batched_seg_voting
 from vmrframe_tpu_torch.registry import register_model
 
@@ -54,6 +56,7 @@ class ActionFormer(nn.Module):
                                  af.head_kernel_size, af.head_with_ln)
         for lvl in range(self.num_levels):
             setattr(self, f"scale_{lvl}", Scale())
+        set_dropout_bits(self, dropout_bits(cfg))
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

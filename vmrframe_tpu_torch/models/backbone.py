@@ -1,6 +1,6 @@
 """BackBone: SeqPAN without the sequence-matching head (counterpart of
 ``vmrframe_tpu/models/backbone.py``): a 4-layer text encoder of its own,
-dual attention kept, loc loss only.  Deterministic mode only."""
+dual attention kept, loc loss only."""
 
 from __future__ import annotations
 
@@ -9,10 +9,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from vmrframe_tpu_torch.layers.dropout import dropout_bits, set_dropout_bits
 from vmrframe_tpu_torch.layers.predictor import SeqPANPredictor
 from vmrframe_tpu_torch.losses import lossfun_loc
 from vmrframe_tpu_torch.models.common import add_encoder_modules, encode_and_fuse
-from vmrframe_tpu_torch.models.seqpan import raise_in_train_mode, seqpan_infer
+from vmrframe_tpu_torch.models.seqpan import seqpan_infer
 from vmrframe_tpu_torch.registry import register_model
 
 
@@ -21,14 +22,14 @@ class BackBone(nn.Module):
         super().__init__()
         m = cfg.model
         add_encoder_modules(self, cfg, derived, word_vectors, shared_encoder=False)
-        self.predictor = SeqPANPredictor(m.dim, m.vlen, num_heads=4)
+        self.predictor = SeqPANPredictor(m.dim, m.vlen, num_heads=4, droprate=m.droprate)
+        set_dropout_bits(self, dropout_bits(cfg))
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        raise_in_train_mode(self)
         vmask = batch["vmasks"]
-        _, _, fuse_feat = encode_and_fuse(self, batch)
-        slogits, elogits = self.predictor(fuse_feat, vmask)
+        _, _, fuse_feat = encode_and_fuse(self, batch, generator)
+        slogits, elogits = self.predictor(fuse_feat, vmask, generator)
         return {"slogits": slogits, "elogits": elogits, "vmask": vmask}
 
 

@@ -1,7 +1,7 @@
 """BaseFast: a SeqPAN ablation (counterpart of
 ``vmrframe_tpu/models/basefast.py``): no dual-attention blocks, a shared
 encoder of 2 conv layers instead of 4, and a sigmoid on the logits before
-the loc loss's soft cross-entropy.  Deterministic mode only."""
+the loc loss's soft cross-entropy."""
 
 from __future__ import annotations
 
@@ -10,11 +10,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from vmrframe_tpu_torch.layers.dropout import dropout_bits, set_dropout_bits
 from vmrframe_tpu_torch.layers.predictor import SeqPANPredictor
 from vmrframe_tpu_torch.losses import lossfun_loc, lossfun_match
 from vmrframe_tpu_torch.models.common import add_encoder_modules, encode_and_fuse
-from vmrframe_tpu_torch.models.seqpan import (add_match_head, match_head, raise_in_train_mode,
-                                              seqpan_infer)
+from vmrframe_tpu_torch.models.seqpan import add_match_head, match_head, seqpan_infer
 from vmrframe_tpu_torch.registry import register_model
 
 
@@ -25,15 +25,16 @@ class BaseFast(nn.Module):
         add_encoder_modules(self, cfg, derived, word_vectors, encoder_layers=2,
                             use_dual_attention=False)
         add_match_head(self, m.dim)
-        self.predictor = SeqPANPredictor(m.dim, m.vlen, num_heads=4)
+        self.predictor = SeqPANPredictor(m.dim, m.vlen, num_heads=4, droprate=m.droprate)
+        set_dropout_bits(self, dropout_bits(cfg))
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        raise_in_train_mode(self)
         vmask = batch["vmasks"]
-        _, _, fuse_feat = encode_and_fuse(self, batch)
-        fuse_feat, match_score, match_probs, label_embs = match_head(self, fuse_feat, vmask)
-        slogits, elogits = self.predictor(fuse_feat, vmask)
+        _, _, fuse_feat = encode_and_fuse(self, batch, generator)
+        fuse_feat, match_score, match_probs, label_embs = match_head(self, fuse_feat, vmask,
+                                                                     generator)
+        slogits, elogits = self.predictor(fuse_feat, vmask, generator)
         return {
             "slogits": slogits,
             "elogits": elogits,

@@ -11,12 +11,14 @@ of its own; BaseFast has no dual-attention blocks.
 The dual-attention stack has two routes over one parameter tree: the module
 path (four ``DualAttentionBlock`` calls, each through the
 ``fused_dual_attention`` kernel) and, with ``model.fused_dual_stack`` set,
-the whole stack as one launch of ``kernels/dual_stack.py``.
+the whole stack as one launch of ``kernels/dual_stack.py`` (eval mode
+only, so #4 never runs in a train step).  ``model.droprate`` sets every
+dropout site; the forward's ``generator`` reaches each of them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -44,29 +46,32 @@ def add_encoder_modules(module: nn.Module, cfg, derived, word_vectors, *,
                         use_dual_attention: bool = True) -> None:
     m = cfg.model
     module.model_cfg = m
+    drop = float(m.droprate)
     module.text_encoder = Embedding(m.dim, m.word_dim, m.char_dim, derived.num_chars,
-                                    word_vectors)
-    module.video_affine = VisualProjection(m.vdim, m.dim)
+                                    word_vectors, drop)
+    module.video_affine = VisualProjection(m.vdim, m.dim, drop)
     encoder = lambda: FeatureEncoder(m.dim, max_pos_len=m.vlen, kernel_size=7,  # noqa: E731
-                                     num_layers=encoder_layers)
+                                     num_layers=encoder_layers, droprate=drop)
     module.vfeat_encoder = encoder()
     if not shared_encoder:
         module.tfeat_encoder = encoder()
     if use_dual_attention:
-        module.dual_attention_block_1 = DualAttentionBlock(m.dim, m.num_heads)
-        module.dual_attention_block_2 = DualAttentionBlock(m.dim, m.num_heads)
-    module.q2v_attn = CQAttention(m.dim)
-    module.v2q_attn = CQAttention(m.dim)
+        module.dual_attention_block_1 = DualAttentionBlock(m.dim, m.num_heads, drop)
+        module.dual_attention_block_2 = DualAttentionBlock(m.dim, m.num_heads, drop)
+    module.q2v_attn = CQAttention(m.dim, drop)
+    module.v2q_attn = CQAttention(m.dim, drop)
     module.cq_cat = CQConcatenate(m.dim)
 
 
-def encode_and_fuse(module: nn.Module, batch: Dict[str, torch.Tensor]):
+def encode_and_fuse(module: nn.Module, batch: Dict[str, torch.Tensor],
+                    generator: Optional[torch.Generator] = None):
     """Returns (vfeat, tfeat, fuse_feat) on the video grid."""
+    g = generator
     vmask, tmask = batch["vmasks"], batch["tmasks"]
-    tfeat = module.text_encoder(batch["words_ids"], batch["char_ids"])
-    vfeat = module.video_affine(batch["vfeats"])
-    vfeat = module.vfeat_encoder(vfeat)
-    tfeat = getattr(module, "tfeat_encoder", module.vfeat_encoder)(tfeat)
+    tfeat = module.text_encoder(batch["words_ids"], batch["char_ids"], g)
+    vfeat = module.video_affine(batch["vfeats"], g)
+    vfeat = module.vfeat_encoder(vfeat, g)
+    tfeat = getattr(module, "tfeat_encoder", module.vfeat_encoder)(tfeat, g)
     if hasattr(module, "dual_attention_block_1"):
         blocks = (module.dual_attention_block_1, module.dual_attention_block_2)
         if use_fused_stack(module.model_cfg, not module.training):
@@ -74,8 +79,8 @@ def encode_and_fuse(module: nn.Module, batch: Dict[str, torch.Tensor]):
                                                 blocks[1].stacks(), int(module.model_cfg.num_heads))
         else:
             for block in blocks:
-                vfeat, tfeat = (block(vfeat, tfeat, vmask, tmask),
-                                block(tfeat, vfeat, tmask, vmask))
-    t2v_feat = module.q2v_attn(vfeat, tfeat, vmask, tmask)
-    v2t_feat = module.v2q_attn(tfeat, vfeat, tmask, vmask)
+                vfeat, tfeat = (block(vfeat, tfeat, vmask, tmask, g),
+                                block(tfeat, vfeat, tmask, vmask, g))
+    t2v_feat = module.q2v_attn(vfeat, tfeat, vmask, tmask, g)
+    v2t_feat = module.v2q_attn(tfeat, vfeat, tmask, vmask, g)
     return vfeat, tfeat, module.cq_cat(t2v_feat, v2t_feat, tmask)

@@ -1,7 +1,8 @@
-"""SeqPAN, the flagship model (counterpart of ``vmrframe_tpu/models/seqpan.py``),
-in deterministic mode: the match head takes softmax(logits / 0.3) with no
-gumbel noise, as the JAX package does in eval.  The stochastic branch waits
-for the training slice.
+"""SeqPAN, the flagship model (counterpart of ``vmrframe_tpu/models/seqpan.py``).
+In eval mode the match head takes softmax(logits / 0.3) with no gumbel
+noise, as the JAX package does; in train mode it adds gumbel noise drawn
+from the forward's generator (``gumbel_noise``), and dropout is live at
+``model.droprate`` (``train.dropout_bits`` wide).
 
     text  = Embedding(GloVe ‖ char-CNN)
     video = VisualProjection(vdim -> dim)
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from vmrframe_tpu_torch.layers.basic import Conv1D
+from vmrframe_tpu_torch.layers.dropout import dropout_bits, set_dropout_bits
 from vmrframe_tpu_torch.layers.predictor import SeqPANPredictor
 from vmrframe_tpu_torch.losses import lossfun_loc, lossfun_match
 from vmrframe_tpu_torch.models.common import add_encoder_modules, encode_and_fuse
@@ -26,6 +28,14 @@ from vmrframe_tpu_torch.ops.span import infer_span_1d
 from vmrframe_tpu_torch.registry import register_model
 
 MATCH_TAU = 0.3
+# parameters that shift every logit of a softmax by the same amount, so that
+# their gradients are zero up to rounding: every attention key bias (a
+# softmax over the keys) and, as the loc loss takes a softmax of the start
+# and end logits over the positions (SeqPAN, BackBone), what adds one vector
+# to every position's last features
+SHIFT_INVARIANT = ("key.bias",) + tuple(
+    f"{end}_{layer}.bias" for end in ("start", "end") for layer in ("layer_norm", "hidden",
+                                                                    "dense"))
 
 
 def add_match_head(module: nn.Module, dim: int) -> None:
@@ -34,21 +44,29 @@ def add_match_head(module: nn.Module, dim: int) -> None:
     module.label_embs = nn.Parameter(torch.empty(dim, 4))
 
 
-def match_head(module: nn.Module, fuse_feat, vmask, tau: float = MATCH_TAU):
-    """Conv1D(dim -> 4) -> softmax(/tau) -> soft label-embedding injection,
-    deterministic (no gumbel noise).  Returns (fuse_feat', match_score,
-    match_probs, label_embs); SeqPAN and BaseFast share it."""
-    match_score = torch.softmax(module.match_conv1d(fuse_feat) / tau, dim=-1)
+def gumbel_noise(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """-log(-log U) in the logits' type, U uniform on [tiny, 1), as
+    ``jax.random.gumbel(key, shape, dtype=logits.dtype)`` draws it."""
+    if generator is None:
+        raise ValueError("the match head in train mode needs the step's torch.Generator")
+    tiny = torch.finfo(logits.dtype).tiny
+    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
+    return -torch.log(-torch.log(u.clamp_min(tiny)))
+
+
+def match_head(module: nn.Module, fuse_feat, vmask, generator=None, tau: float = MATCH_TAU):
+    """Conv1D(dim -> 4) -> softmax(/tau) (in train mode with gumbel noise
+    added to the logits first) -> soft label-embedding injection.  Returns
+    (fuse_feat', match_score, match_probs, label_embs); SeqPAN and BaseFast
+    share it."""
+    logits = module.match_conv1d(fuse_feat)
+    if module.training:
+        logits = logits + gumbel_noise(logits, generator)
+    match_score = torch.softmax(logits / tau, dim=-1)
     match_probs = torch.log(match_score.clamp_min(1e-30))
     soft_label_embs = match_score @ module.label_embs.T  # (B, L, dim)
     fuse_feat = (fuse_feat + soft_label_embs) * vmask[:, :, None]
     return fuse_feat, match_score, match_probs, module.label_embs
-
-
-def raise_in_train_mode(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(f"{type(module).__name__}'s train mode (dropout, gumbel "
-                                  "noise) is not ported yet: call .eval()")
 
 
 class SeqPAN(nn.Module):
@@ -57,17 +75,17 @@ class SeqPAN(nn.Module):
         m = cfg.model
         add_encoder_modules(self, cfg, derived, word_vectors)
         add_match_head(self, m.dim)
-        self.predictor = SeqPANPredictor(m.dim, m.vlen, num_heads=4)
+        self.predictor = SeqPANPredictor(m.dim, m.vlen, num_heads=4, droprate=m.droprate)
+        set_dropout_bits(self, dropout_bits(cfg))
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """The deterministic forward; ``generator`` is the zoo's common
-        argument for train mode, which SeqPAN does not have yet."""
-        raise_in_train_mode(self)
+        """``generator`` feeds dropout and the gumbel noise in train mode."""
         vmask = batch["vmasks"]
-        _, _, fuse_feat = encode_and_fuse(self, batch)
-        fuse_feat, match_score, match_probs, label_embs = match_head(self, fuse_feat, vmask)
-        slogits, elogits = self.predictor(fuse_feat, vmask)
+        _, _, fuse_feat = encode_and_fuse(self, batch, generator)
+        fuse_feat, match_score, match_probs, label_embs = match_head(self, fuse_feat, vmask,
+                                                                     generator)
+        slogits, elogits = self.predictor(fuse_feat, vmask, generator)
         return {
             "slogits": slogits,
             "elogits": elogits,

@@ -8,8 +8,9 @@ activations that the next matmul reads.
 
 The JAX trainer casts its f32 params on every step, and so does the port's
 (``cast_params``: the f32 masters stay, and the forward reads cast copies
-through ``torch.func.functional_call``, so the gradients land on the masters
-in f32); a serving process has no f32 master copy to keep, so the port casts
+of them, and of the buffers such as SeqPAN's GloVe table, through
+``torch.func.functional_call``, so the gradients land on the masters in
+f32); a serving process has no f32 master copy to keep, so the port casts
 its module once, in place (``cast_module_``).
 
 On ActionFormer's tree the rule puts conv kernels (rank 3), dense kernels
@@ -45,9 +46,12 @@ def cast_module_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 def cast_params(module: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """The module's parameters by name, rank >= 2 floating ones cast to
-    ``dtype`` (differentiably); for ``torch.func.functional_call``."""
-    return {name: _cast(p, dtype) for name, p in module.named_parameters()}
+    """The module's parameters and buffers by name, rank >= 2 floating ones
+    cast to ``dtype`` (the parameters differentiably), as the JAX trainer
+    casts its params and constants; for ``torch.func.functional_call``."""
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    return {name: _cast(t, dtype) for name, t in tensors.items()}
 
 
 def cast_batch(batch: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:

@@ -87,3 +87,17 @@ def lift_drop_path(model, seed: int = 0):
             if isinstance(mod, AffineDropPath):
                 mod.weight.copy_(torch.rand(mod.weight.shape, generator=g) + 0.5)
     return model
+
+
+def lift_label_embs(model, seed: int = 0):
+    """Draws the match head's ``label_embs`` from N(0, 1) by ``seed``, the
+    same on every device.  At their orthogonal init the loss's orthogonality
+    penalty, the norm of the Gram matrix's off-diagonal, sits at zero, where
+    the norm has no gradient: what comes out is the direction of the
+    rounding noise, which differs between two devices."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        model.label_embs.copy_(torch.randn(model.label_embs.shape, generator=g))
+    return model

@@ -6,15 +6,19 @@
         --config configs/charades_seqpan_fused.yaml
     python -m vmrframe_tpu_torch.tools.profile_serve --train \
         --config configs/tacos_actionformer_long.yaml
+    python -m vmrframe_tpu_torch.tools.profile_serve --train \
+        --config configs/charades_seqpan_fused.yaml [--droprate 0]
 
-With ``--train`` (a model with a train mode, such as ActionFormer; the
-config's batch and compute type unless ``--batch-size`` says otherwise):
-host assembly of one train batch (the train batcher: its first assembly,
-which reads and resizes the videos, and the median of later ones, which
-find each video's grid cached), the copy to the card, the train step
-(forward, loss, backward, clipping, AdamW, spans, IoU) on the host's clock,
-and the card's busy time and device operations per train step from
-``torch.profiler``.  Otherwise:
+With ``--train`` (the config's batch, compute type and droprate unless
+``--batch-size`` or ``--droprate`` says otherwise): host assembly of one
+train batch (the train batcher: its first assembly, which reads and resizes
+the videos, and the median of later ones, which find each video's grid
+cached), the copy to the card, the train step (forward, loss, backward,
+clipping, AdamW, spans, IoU) on the host's clock, and the card's busy time
+and device operations per train step from ``torch.profiler``, with the
+hand-written kernels' time and launches per step and the device time of the
+recomputed backward of #1-#3 (``kernels/attention.py::RECOMPUTE_SPAN``).
+Otherwise:
 
 Builds the serving path (bf16, seeded random weights, synthetic data:
 ``tools/serve.py::build_service``) at SeqPAN's Charades width, or for the
@@ -62,18 +66,35 @@ def _median_ms(fn, reps: int):
     return statistics.median(times), out
 
 
+# device names of the hand-written kernels' bodies (csrc/*.cu)
+HAND_WRITTEN = ("attention_mma", "attention_f32", "cq_kernel", "stack_kernel", "banded_",
+                "dq_mma", "dq_f32", "dkv_mma", "dkv_f32")
+
+
 def _device_profile(step, steps: int) -> dict:
-    """Busy time and device operations (kernels and copies) per step, and
-    the kernels that take the most time, over ``steps`` eval steps."""
+    """Busy time and device operations (kernels and copies) per step, the
+    kernels that take the most time, and the hand-written ones, over
+    ``steps`` steps; and the device time inside ``RECOMPUTE_SPAN`` ranges,
+    both as the kernels the profiler attributes to them and as the span the
+    range covers on the card."""
     from torch.profiler import ProfilerActivity, profile
+
+    from vmrframe_tpu_torch.kernels.attention import RECOMPUTE_SPAN
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
     per_kernel = defaultdict(lambda: [0.0, 0])
+    span_kernels_ms = span_device_ms = 0.0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        on_card = evt.device_type == torch.autograd.DeviceType.CUDA
+        if evt.name == RECOMPUTE_SPAN:  # a range, not a kernel: kept out of the busy time
+            if on_card:
+                span_device_ms += evt.device_time_total / 1e3
+            else:
+                span_kernels_ms += evt.device_time_total / 1e3
+        elif on_card:
             slot = per_kernel[evt.name]
             slot[0] += evt.device_time_total / 1e3  # us -> ms
             slot[1] += 1
@@ -81,11 +102,16 @@ def _device_profile(step, steps: int) -> dict:
         return {"device_busy_ms_per_step": None, "note": "the profiler saw no device time"}
     busy = sum(ms for ms, _ in per_kernel.values()) / steps
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    row = lambda name, ms, n: {"name": name[:90], "ms_per_step": ms / steps,  # noqa: E731
+                               "calls_per_step": n / steps}
     return {
         "device_busy_ms_per_step": busy,
         "device_ops_per_step": sum(n for _, n in per_kernel.values()) / steps,
-        "top_kernels": [{"name": name[:90], "ms_per_step": ms / steps, "calls_per_step": n / steps}
-                        for name, (ms, n) in top],
+        "top_kernels": [row(name, ms, n) for name, (ms, n) in top],
+        "hand_written_kernels": [row(name, ms, n) for name, (ms, n) in per_kernel.items()
+                                 if any(k in name for k in HAND_WRITTEN)],
+        "recompute_backward_kernels_ms_per_step": span_kernels_ms / steps,
+        "recompute_backward_device_span_ms_per_step": span_device_ms / steps,
     }
 
 
@@ -136,8 +162,9 @@ def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20,
 
 
 def profile_train(config: str, batch_size: Optional[int] = None, steps: int = 10,
-                  reps: int = 20) -> dict:
+                  reps: int = 20, droprate: Optional[float] = None) -> dict:
     from vmrframe_tpu_torch.config import Derived
+    from vmrframe_tpu_torch.data.batcher import Batcher
     from vmrframe_tpu_torch.device import strict_f32
     from vmrframe_tpu_torch.registry import get_model_entry
     from vmrframe_tpu_torch.testing import make_synthetic_data
@@ -149,11 +176,13 @@ def profile_train(config: str, batch_size: Optional[int] = None, steps: int = 10
     cfg = load_config(config)
     if batch_size:
         cfg = cfg.updated({"train.batch_size": batch_size})
+    if droprate is not None:
+        cfg = cfg.updated({"model.droprate": droprate})
     B = int(cfg.train.batch_size)
-    dataset, store = make_synthetic_data(cfg, seed=0)
+    dataset, store = make_synthetic_data(cfg, seed=0, n_train=max(64, B))
     derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
-    batcher = get_model_entry(cfg.model.name).batcher_cls(dataset["train_set"], store, cfg,
-                                                          derived, "train")
+    batcher = (get_model_entry(cfg.model.name).batcher_cls or Batcher)(
+        dataset["train_set"], store, cfg, derived, "train")
     derived.num_train_steps = derived.steps_per_epoch = len(batcher)
     trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
     indices = list(range(B))
@@ -163,10 +192,17 @@ def profile_train(config: str, batch_size: Optional[int] = None, steps: int = 10
     step = lambda: float(trainer.train_step(dbatch)["loss"])  # noqa: E731
     step()  # warm-up: cuDNN's and the allocator's first calls
     step_ms, _ = _median_ms(step, reps)
+    from vmrframe_tpu_torch.kernels import attention, dual_stack, window_attention
+
+    kernels = attention.KERNELS + dual_stack.KERNELS + window_attention.KERNELS
+    counts = [fn.launches for fn in kernels]
+    step()
     report = {
         "card": torch.cuda.get_device_name(0), "torch": torch.__version__,
         "model": str(cfg.model.name), "config": config, "mode": "train", "batch_size": B,
         "dtype": str(cfg.train.get("compute_dtype", "float32")),
+        "droprate": cfg.model.get("droprate"),
+        "launches_per_step": {fn.__name__: fn.launches - c for fn, c in zip(kernels, counts)},
         "host_assemble_first_ms": first_ms, "host_assemble_ms": assemble_ms,
         "h2d_ms": h2d_ms, "train_step_ms": step_ms,
         "samples_per_s": B / (step_ms / 1e3),
@@ -185,6 +221,8 @@ def main():
                     help="profile a train step of --config instead of a served batch")
     ap.add_argument("--batch-size", type=int, default=None,
                     help="requests per batch (default: 128, or 8 with --config)")
+    ap.add_argument("--droprate", type=float, default=None,
+                    help="--train: override model.droprate (0 puts #1-#3 on the train route)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None)
@@ -192,7 +230,8 @@ def main():
     if args.train:
         if not args.config:
             ap.error("--train needs --config")
-        report = profile_train(args.config, args.batch_size, args.steps, args.reps)
+        report = profile_train(args.config, args.batch_size, args.steps, args.reps,
+                               args.droprate)
     else:
         batch_size = args.batch_size or (8 if args.config else 128)
         report = profile_serve(batch_size, args.steps, args.reps, args.config)

@@ -8,10 +8,11 @@ step is the train-mode forward, the loss, the backward, clipping and AdamW,
 then span inference and IoU on the step's outputs, as the JAX step does.
 Under ``train.compute_dtype: bfloat16`` the forward reads bf16 copies of
 the rank >= 2 weights and of the batch (``ops/precision.py``), and the
-outputs come back to f32 before the loss.  Stochastic depth draws its
-uniforms from a ``torch.Generator`` seeded from (seed, step), the
-counterpart of ``fold_in(rng, step)``: a resumed run draws what an
-uninterrupted one would.
+outputs come back to f32 before the loss.  Dropout (``train.dropout_bits``
+wide, read by the model when it is built), the gumbel match head and
+stochastic depth draw, in module order, from one ``torch.Generator`` per
+step seeded from (seed, step), the counterpart of ``fold_in(rng, step)``: a
+resumed run draws what an uninterrupted one would.
 
 ``fit`` runs the epochs: each a shuffled train pass seeded ``seed + epoch``
 and a test pass at seed 0, a rolling ``last_`` full checkpoint and a
@@ -40,7 +41,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def step_seed(seed: int, step: int) -> int:
-    """The stochastic-depth stream of one step, from (seed, step)."""
+    """The random stream of one step (dropout, gumbel noise, stochastic
+    depth), from (seed, step)."""
     return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
 
 
