@@ -94,6 +94,27 @@ Phases, in order; any failure exits non-zero:
    orthogonal init (where the orthogonality penalty has no gradient): the
    loss and every parameter gradient with #1-#3 on the card (2/4/2
    launches) against the plain versions on the CPU.
+16. train-files: a Charades-shaped dataset in the reference's file formats
+   (``testing.write_dataset_files``: 400 videos of 1024-d ``.npy`` features,
+   30-250 frames each, 1024 train and 512 test captions over 1000 words, a
+   300-d GloVe file) in a temporary directory; SeqPAN trained on it through
+   the CLI's ``main`` with no ``--synthetic`` (``configs/charades_seqpan_fused.yaml``
+   with its ``paths`` set, 1 epoch), then ``--eval`` of the best checkpoint,
+   whose mIoU must equal the logged best; 1/0/2/2 launches of
+   stack/dual/CQ/masked per eval forward; the ``.pkl`` cache's build and
+   read-back seconds.
+17. serve-files: that checkpoint behind ``build_service`` from the same
+   files with a lazy store, every test record once from 64 threads: 0
+   failed, 1/0/2/2 launches per forward, and the spans equal to the
+   ``--eval`` pass's on at least 99% of the records (bf16 batches made up
+   differently may flip an argmax; the count is printed).
+18. pipeline: ``device_augment_resample`` on the card against the CPU for
+   ``unchanged`` and ``samelen`` (f32, 1e-5), the gt span kept and the
+   shapes static under erosion and dilation; then, at batch 128 on the same
+   files with erosion 0.05 and with ``unchanged``, the host's assembly ms a
+   batch and train steps fed as ``fit`` feeds them (host clock, median of
+   10 after 2, the card's busy share from ``torch.profiler``) under
+   ``num_workers`` 0, 4, 8 and ``device_pipeline``.
 
 The check phase also holds the backward kernels (#6, #7) against their
 plain versions at the training shapes (B 2, 4 heads of 128, window 19,
@@ -658,9 +679,11 @@ def charades_vocab(dataset, num_words: int, seed: int) -> None:
     dataset["n_words"] = len(words)
 
 
-def drive(service, records, n_requests: int, concurrency: int, kernels) -> dict:
+def drive(service, records, n_requests: int, concurrency: int, kernels,
+          answers: list = None) -> dict:
     """``n_requests`` concurrent ``predict`` calls; the kernels' launch counts
-    are set to 0 just before and read just after."""
+    are set to 0 just before and read just after.  ``answers``, if given,
+    receives each request's answer at its index."""
     lat, results = [], []
     lock = threading.Lock()
 
@@ -672,6 +695,8 @@ def drive(service, records, n_requests: int, concurrency: int, kernels) -> dict:
         with lock:
             lat.append(dt)
             results.append(out["pred_frac"])
+            if answers is not None:
+                answers[i] = out
 
     batches0 = service.metrics()["batches"]
     for fn in kernels:
@@ -1402,6 +1427,246 @@ def phase_verify_train_seqpan(K, S) -> dict:
             "launches": SEQPAN_TRAIN_LAUNCHES}
 
 
+# ----------------------------------------------------- the file-backed path
+
+
+# a Charades-shaped dataset in the reference's file formats
+# (testing.write_dataset_files): 1024-d features of 30-250 frames per video
+N_FILE_VIDEOS, N_FILE_TRAIN, N_FILE_TEST, N_FILE_WORDS = 400, 1024, 512, 1000
+FILE_FRAMES = (30, 250)
+N_FILE_REQUESTS, FILE_CONCURRENCY = 512, 64
+SPAN_AGREEMENT = 0.99  # bf16 batches made up differently may flip an argmax
+WORKER_ROUTES = (0, 4, 8)
+PIPELINE_AUGMENTATIONS = {"erosion": {"erosion": 0.05},  # the reference's config/anet/SeqPAN.yaml
+                          "unchanged": {"unchanged": None}}
+N_ASSEMBLED, N_PROFILED_STEPS = 4, 4
+TOL_PIPELINE = 1e-5
+
+
+def phase_train_files(K, S, card: str, root: str):
+    """Writes the dataset files, trains SeqPAN on them through the CLI's
+    ``main`` as a user runs it (no ``--synthetic``; the config is
+    ``configs/charades_seqpan_fused.yaml`` with its ``paths`` set, 1 epoch),
+    then ``--eval`` of the best checkpoint with ``--save-results``."""
+    from vmrframe_tpu_torch.cli import main as cli_main
+    from vmrframe_tpu_torch.config import load_config
+    from vmrframe_tpu_torch.testing import write_dataset_files
+
+    cfg = load_config(SEQPAN_CONFIG).updated({"train.epochs": 1,
+                                              "paths.ckpt_dir": os.path.join(root, "ckpt")})
+    t0 = time.perf_counter()
+    config = write_dataset_files(os.path.join(root, "data"), cfg, n_videos=N_FILE_VIDEOS,
+                                 n_train=N_FILE_TRAIN, n_test=N_FILE_TEST, seed=0,
+                                 n_words=N_FILE_WORDS, min_len=FILE_FRAMES[0],
+                                 max_len=FILE_FRAMES[1])
+    stats = {"card": card, "config": SEQPAN_CONFIG + " with paths set", "files_write_s":
+             time.perf_counter() - t0, "videos": N_FILE_VIDEOS, "frames": FILE_FRAMES}
+    zero_counts(K.KERNELS + S.KERNELS)
+    t0 = time.perf_counter()
+    fit = cli_main(["--config", config, "--device", "cuda"])
+    stats["fit_s"] = time.perf_counter() - t0
+    steps, evals = fit["steps"], fit["eval_batches"]
+    # droprate 0.2: the train steps launch none; each eval forward 1/0/2/2
+    stats["fit_launches"] = read_launches("train-files fit", K.KERNELS + S.KERNELS,
+                                          want_launches(SERVE_LAUNCHES[True], evals))
+    if fit["cache"] != "built" or steps != N_FILE_TRAIN // B or evals != N_FILE_TEST // B:
+        raise SmokeFailure(f"train-files: cache {fit['cache']}, {steps} steps, {evals} evals")
+    if not math.isfinite(fit["history"][0]["train_loss"]):
+        raise SmokeFailure(f"train-files: the epoch's mean loss is {fit['history']}")
+    predictions = os.path.join(root, "eval_predictions.json")
+    zero_counts(K.KERNELS + S.KERNELS)
+    ev = cli_main(["--config", config, "--eval", "--checkpoint", fit["best_path"], "--device",
+                   "cuda", "--save-results", predictions])
+    stats["eval_launches"] = read_launches(
+        "train-files eval", K.KERNELS + S.KERNELS,
+        want_launches(SERVE_LAUNCHES[True], ev["eval_batches"]))
+    stats.update(steps=steps, eval_forwards=evals, best_miou=fit["best_miou"],
+                 eval_miou=ev["miou"], train_loss=fit["history"][0]["train_loss"],
+                 cache_build_s=fit["data_s"], cache_load_s=ev["data_s"],
+                 features_read_s=fit["features_s"], eval_cache=ev["cache"],
+                 launches_per_eval_forward={k: v / ev["eval_batches"]
+                                            for k, v in stats["eval_launches"].items()})
+    log(f"[train-files] best mIoU logged by fit {fit['best_miou']!r}, --eval of its "
+        f"checkpoint {ev['miou']!r}; the dataset cache built in {fit['data_s']:.3f} s, read "
+        f"back in {ev['data_s']:.3f} s; features read in {fit['features_s']:.3f} s")
+    if ev["cache"] != "loaded" or ev["miou"] != fit["best_miou"]:
+        raise SmokeFailure("train-files: --eval of the best checkpoint gives another mIoU, "
+                           "or did not read the cache")
+    log(f"[train-files] {json.dumps(stats)}")
+    return stats, config, fit["best_path"], predictions
+
+
+def phase_serve_files(kernels, card: str, config: str, checkpoint: str, predictions: str):
+    """Serves the trained checkpoint through ``build_service`` from the same
+    files with a lazy store: every test record once, from many threads; each
+    answer's span against the ``--eval`` pass's for the same record."""
+    from vmrframe_tpu_torch.config import load_config
+    from vmrframe_tpu_torch.tools.serve import build_service
+
+    t0 = time.perf_counter()
+    service, dataset = build_service(load_config(config), checkpoint=checkpoint, device="cuda",
+                                     synthetic=False)
+    boot_s = time.perf_counter() - t0
+    records = dataset["test_set"]
+    answers = [None] * N_FILE_REQUESTS
+    try:
+        if not service.store.lazy:
+            raise SmokeFailure("serve-files: the service's store is not lazy")
+        load = drive(service, records, N_FILE_REQUESTS, FILE_CONCURRENCY, kernels, answers)
+    finally:
+        service.close()
+    with open(predictions, encoding="utf8") as f:
+        want = json.load(f)
+    if len(want) != len(records) or N_FILE_REQUESTS != len(records):
+        raise SmokeFailure(f"serve-files: {len(want)} eval predictions, {len(records)} records")
+    differ = [i for i, (got, w) in enumerate(zip(answers, want))
+              if got["pred_time"] != w["pred_time"]]
+    worst = max((abs(a - b) for i in differ
+                 for a, b in zip(answers[i]["pred_time"], want[i]["pred_time"])), default=0.0)
+    stats = {"card": card, "store": "lazy .npy", "batch_size": service.batch_size,
+             "dtype": str(service.cfg.train.compute_dtype), "boot_s": boot_s, **load,
+             "spans_equal_share": 1 - len(differ) / len(records), "spans_differ": len(differ),
+             "spans_differ_worst_s": worst}
+    log(f"[serve-files] {json.dumps(stats)}")
+    check_launches("serve-files", stats, SERVE_LAUNCHES[True])
+    log(f"[serve-files] {load['qps']:.1f} requests/s, p50 {load['p50_ms']:.1f} ms, p99 "
+        f"{load['p99_ms']:.1f} ms, {load['failed']} failed; spans equal to the --eval pass's "
+        f"on {len(records) - len(differ)} of {len(records)} records ({len(differ)} differ, by "
+        f"at most {worst:.3f} s), on {card}")
+    if load["failed"] or stats["spans_equal_share"] < SPAN_AGREEMENT:
+        raise SmokeFailure("serve-files: failed requests, or spans unlike the eval pass's")
+    return stats
+
+
+def check_pipeline_on_the_card(cfg, batcher) -> dict:
+    """``device_augment_resample`` on the card against the CPU where it draws
+    nothing (``unchanged`` under ``truncation``, and ``samelen``), f32 with
+    TF32 off; under erosion and dilation the gt span survives in every sample
+    and the shapes are the static ones."""
+    from vmrframe_tpu_torch.ops.input_pipeline import device_augment_resample
+
+    raw = batcher.make_batch(list(range(B)))
+    if "raw_vfeats" not in raw:
+        raise SmokeFailure("pipeline: the device pipeline's batcher made a host batch")
+    vlen, vdim = int(cfg.model.vlen), int(cfg.model.vdim)
+    args = [torch.as_tensor(raw[k]) for k in ("raw_vfeats", "raw_lens", "se_fracs")]
+    out = {}
+    for name, kw in (("unchanged", {"sample_type": "truncation"}),
+                     ("samelen", {"sample_type": "samelen"})):
+        card = device_augment_resample(*[a.cuda() for a in args], 5, vlen=vlen, **kw)
+        cpu = device_augment_resample(*args, 5, vlen=vlen, **kw)
+        err = {k: (card[k].cpu().float() - cpu[k].float()).abs().max().item() for k in cpu}
+        out[name] = err
+        exact = err["vmasks"] == 0 and err["NER_labels"] == 0
+        log(f"[pipeline] {name}: card against CPU, max abs err {json.dumps(err)}, tol "
+            f"{TOL_PIPELINE}  {'ok' if exact and max(err.values()) <= TOL_PIPELINE else 'FAIL'}")
+        if not exact or max(err.values()) > TOL_PIPELINE:
+            raise SmokeFailure(f"pipeline: {name} on the card differs from the CPU")
+    for mode in ("erosion", "dilation"):
+        got = device_augment_resample(*[a.cuda() for a in args], 7, vlen=vlen, aug_mode=mode,
+                                      erosion_p=0.05)
+        peaks = got["label1ds"].amax(-1)
+        shapes = {k: tuple(v.shape) for k, v in got.items()}
+        ok = (shapes == {"vfeats": (B, vlen, vdim), "vmasks": (B, vlen),
+                         "label1ds": (B, 2, vlen), "NER_labels": (B, vlen)}
+              and bool((peaks == 1).all()) and bool(torch.isfinite(got["vfeats"]).all()))
+        log(f"[pipeline] {mode} on the card: shapes {shapes}, every sample's start and end "
+            f"heatmaps peak at 1: {bool((peaks == 1).all())}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"pipeline: {mode} lost a gt span or changed a shape")
+        out[mode] = {"shapes": shapes, "gt_kept": True}
+    return out
+
+
+def route_steps(K, S, cfg, derived, dataset, store, card: str, label: str) -> dict:
+    """One route of batch assembly: the host's assembly ms of the first
+    batches of an epoch; then train steps fed as ``fit`` feeds them (the
+    batcher on a prefetch thread), host clock per step from taking the batch
+    to the loss on the host, and the card's busy share of a step."""
+    from vmrframe_tpu_torch.data.batcher import Batcher, BatchPrefetcher
+    from vmrframe_tpu_torch.tools.profile_serve import _device_profile
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    batcher = Batcher(dataset["train_set"], store, cfg, derived, "train")
+    epoch = batcher.epoch(seed=0)
+    assembly = []
+    for _ in range(N_ASSEMBLED):
+        t0 = time.perf_counter()
+        batch = next(epoch)
+        assembly.append((time.perf_counter() - t0) * 1e3)
+    trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
+
+    def stream():
+        for seed in range(1, 1000):
+            yield from batcher.epoch(seed=seed)
+
+    feed = BatchPrefetcher(stream())
+    step = lambda: float(trainer.train_step(trainer.to_device(next(feed)))["loss"])  # noqa: E731
+    zero_counts(K.KERNELS + S.KERNELS)
+    times, losses = [], []
+    try:
+        for _ in range(N_WARMUP_STEPS + N_TIMED_STEPS // 2):
+            t0 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        # droprate 0.2: no kernel in a train step, on either route
+        read_launches(f"pipeline {label}", K.KERNELS + S.KERNELS,
+                      want_launches(SEQPAN_TRAIN_LAUNCHES, 0))
+        profiled = _device_profile(step, N_PROFILED_STEPS)
+    finally:
+        feed.close()
+    if not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"pipeline {label}: losses {losses}")
+    timed = times[N_WARMUP_STEPS:]
+    median = statistics.median(timed)
+    busy = profiled["device_busy_ms_per_step"]
+    out = {"route": label, "device_pipeline": "raw_vfeats" in batch,
+           "num_workers": batcher.num_workers, "augmentation": list(batcher.aug),
+           "assembly_ms_median": statistics.median(assembly), "assembly_ms": assembly,
+           "step_ms_median": median, "step_ms_min": min(timed), "step_ms_max": max(timed),
+           "steps": len(timed), "samples_per_s": B / (median / 1e3),
+           "device_busy_ms_per_step": busy, "device_ops_per_step": profiled.get(
+               "device_ops_per_step"), "top_device_ops": profiled.get("top_kernels", [])[:6],
+           "device_busy_share": busy / median if busy else None}
+    log(f"[pipeline] {label}: assembly {out['assembly_ms_median']:.1f} ms a batch (first "
+        f"{N_ASSEMBLED} of an epoch), fed train step {median:.3f} ms ({min(timed):.3f}-"
+        f"{max(timed):.3f}, host clock, {len(timed)} steps), card busy "
+        f"{busy if busy is None else round(busy, 3)} ms a step "
+        f"({'not measured' if not busy else f'{busy / median:.1%}'}), on {card}")
+    return out
+
+
+def phase_pipeline(K, S, card: str, config: str) -> dict:
+    """Batch 128 on the same files: the pipeline on the card against the
+    CPU, then the host's assembly and fed train steps under each route
+    (``num_workers`` 0, 4, 8 and ``device_pipeline``), with erosion 0.05 and
+    with ``unchanged``."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.data.datasets import load_dataset
+    from vmrframe_tpu_torch.data.features import open_feature_store
+
+    base = load_config(config)
+    store = open_feature_store(base.paths.feature_path, base.model.vlen)
+    dataset = load_dataset(base, Derived())
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    derived.num_train_steps = derived.steps_per_epoch = len(dataset["train_set"]) // B
+    pipe = base.updated({"dataprocess.device_pipeline": True})
+    stats = {"card": card, "batch_size": B, "dtype": str(base.train.compute_dtype),
+             "check": check_pipeline_on_the_card(
+                 pipe, Batcher(dataset["train_set"], store, pipe, derived, "train"))}
+    for name, aug in PIPELINE_AUGMENTATIONS.items():
+        routes = [(f"workers {w}", {"train.num_workers": w}) for w in WORKER_ROUTES]
+        routes.append(("device pipeline", {"dataprocess.device_pipeline": True}))
+        for label, updates in routes:
+            cfg = base.updated({"dataprocess.video_augmentation": aug, **updates})
+            stats[f"{name}, {label}"] = route_steps(K, S, cfg, derived, dataset, store, card,
+                                                   f"{name}, {label}")
+    log(f"[pipeline] {json.dumps(stats)}")
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the full record to this JSON file")
@@ -1482,6 +1747,12 @@ def main() -> int:
     record["serve_router"] = phase("serve-router", phase_serve_router, kernels, card)
     record["train_seqpan"] = phase("train-SeqPAN", phase_train_seqpan, K, S, card)
     record["verify_train_seqpan"] = phase("verify-train-SeqPAN", phase_verify_train_seqpan, K, S)
+    with tempfile.TemporaryDirectory() as root:  # the dataset files, checkpoints and caches
+        record["train_files"], config, best, predictions = phase(
+            "train-files", phase_train_files, K, S, card, root)
+        record["serve_files"] = phase("serve-files", phase_serve_files, kernels, card, config,
+                                      best, predictions)
+        record["pipeline"] = phase("pipeline", phase_pipeline, K, S, card, config)
     record["seconds"] = seconds
     # the main path each kernel's launches are read from, and the type of the
     # numbers in its line: the serve phases run bf16, training the YAML's f32

@@ -14,6 +14,8 @@
   on the CPU.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import os
 
 import jax

@@ -23,6 +23,8 @@ tensor's largest magnitude (at least 1e-6): the schedules differ from the
 plain versions only in the order of f32 sums, over up to a few hundred terms.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import numpy as np
 import pytest
 import torch

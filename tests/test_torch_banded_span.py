@@ -12,6 +12,8 @@
 - ``kernels/build.py`` names a library by its source and its headers.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import math
 
 import jax

@@ -22,6 +22,8 @@ the outputs' last rounding, which a dropped lo term exceeds.  The
 schedule's constants are read back from the CUDA source.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import math
 import re
 from pathlib import Path

@@ -22,6 +22,8 @@ and its weight stacks against the JAX package.
 - ``MultiHeadAttentionBlock`` against the flax module at 1e-4.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

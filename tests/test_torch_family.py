@@ -15,6 +15,8 @@ The JAX models are applied op by op (no ``jit``): compiling the dim-128
 forward would take minutes here.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import functools
 import os
 

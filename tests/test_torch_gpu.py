@@ -623,3 +623,43 @@ def test_seqpan_train_step_on_the_kernels_matches_plain_on_cpu(cuda):
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(K.KERNELS, before)] == [0, 0, 0]
     assert torch.isfinite(out["loss"]) and trainer.optimizer.state["count"] == 1
+
+
+def _raw_batch(g, B=16, max_raw=90, D=64):
+    """Padded raw features with lengths from 5 to ``max_raw`` and gt spans."""
+    lens = torch.randint(5, max_raw + 1, (B,), generator=g)
+    lens[:2] = torch.tensor([5, max_raw])
+    raw = torch.randn(B, max_raw, D, generator=g) * (torch.arange(max_raw) < lens[:, None])[..., None]
+    s = torch.rand(B, generator=g) * 0.8
+    fracs = torch.stack([s, (s + torch.rand(B, generator=g) * 0.4).clamp(max=1.0)], 1)
+    return raw, lens.to(torch.int32), fracs
+
+
+@pytest.mark.parametrize("sample_type", ["truncation", "samelen"])
+def test_input_pipeline_on_the_card_matches_the_cpu(cuda, sample_type):
+    """``unchanged`` draws nothing: the card's resampling and labels equal
+    the CPU's, f32 with TF32 off."""
+    from vmrframe_tpu_torch.ops.input_pipeline import device_augment_resample
+
+    args = _raw_batch(torch.Generator().manual_seed(0))
+    cpu = device_augment_resample(*args, 3, vlen=32, sample_type=sample_type)
+    card = device_augment_resample(*[a.to(cuda) for a in args], 3, vlen=32,
+                                   sample_type=sample_type)
+    for key, want in cpu.items():
+        got = card[key].cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape, key
+        tol = 0 if key in ("vmasks", "NER_labels") else 1e-5
+        assert (got.float() - want.float()).abs().max() <= tol, key
+
+
+@pytest.mark.parametrize("mode", ["erosion", "dilation"])
+def test_input_pipeline_augments_on_the_card_keeping_the_gt(cuda, mode):
+    from vmrframe_tpu_torch.ops.input_pipeline import device_augment_resample
+
+    args = [a.to(cuda) for a in _raw_batch(torch.Generator().manual_seed(1))]
+    out = device_augment_resample(*args, 7, vlen=32, aug_mode=mode, erosion_p=0.2)
+    again = device_augment_resample(*args, 7, vlen=32, aug_mode=mode, erosion_p=0.2)
+    assert out["vfeats"].shape == (16, 32, 64) and torch.isfinite(out["vfeats"]).all()
+    assert (out["label1ds"].amax(-1) == 1).all()  # every sample keeps a gt span
+    for key in out:
+        assert torch.equal(out[key], again[key]), key

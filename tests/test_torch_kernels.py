@@ -6,6 +6,8 @@ sample: additive -1e30 must give such a row the uniform average over all
 keys in both frameworks.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,8 @@ against the JAX package, on the CPU.
   attention kernel's staging is sized and checked as the kernel needs.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import os
 
 import jax

@@ -6,6 +6,8 @@ package's own per-layer bar).  On the CPU the port's wrappers run the
 kernels' plain versions.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

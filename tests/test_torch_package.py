@@ -2,6 +2,8 @@
 package, and ``chip_smoke.py`` runs only on a card and only beside the port.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import ast
 import os
 import shutil

@@ -11,6 +11,8 @@
 - an ``.npz`` of the JAX variables loads like the trees, strictly.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import os
 
 import jax

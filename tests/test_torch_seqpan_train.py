@@ -13,10 +13,12 @@
 - ``dilation``/``erosion`` identical to the JAX functions, and train batches
   with them identical to the JAX ``Batcher``'s;
 - CQAttention at droprate 0.5 against the JAX module with the same masks;
-- a resumed run at droprate 0.2 equal to an uninterrupted one; the CLI.
+- the resumed run and the CLI are in ``test_torch_seqpan_train_resume.py``.
 
 All at the tiny test config (vlen 32, dim 32).
 """
+
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 import math
 import os
@@ -27,7 +29,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import yaml
 from flax import traverse_util
 
 import vmrframe_tpu.layers.attention as JA
@@ -49,7 +50,6 @@ from vmrframe_tpu_torch.layers.dropout import Dropout
 from vmrframe_tpu_torch.models import seqpan as S
 from vmrframe_tpu_torch.registry import get_model_entry
 from vmrframe_tpu_torch.testing import make_synthetic_data
-from vmrframe_tpu_torch.train.checkpoints import restore_into, save_checkpoint
 from vmrframe_tpu_torch.train.trainer import Trainer
 from vmrframe_tpu_torch.weights import _leaf, from_jax_params, init_weights, load_jax_params
 
@@ -435,52 +435,3 @@ def test_cq_attention_at_droprate_half_matches_jax(monkeypatch):
     jp = from_jax_params(jax.device_get(jgrads[0]), {})
     for name, p in mod.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), jp[name].numpy(), atol=1e-4, err_msg=name)
-
-
-# ------------------------------------------------------ resume and the CLI
-
-
-def test_resumed_run_at_droprate_equals_uninterrupted_one(tmp_path):
-    """droprate 0.2 and the gumbel head live: each step's stream comes from
-    (seed, step), so a run resumed after step 2 draws what a whole run draws."""
-    w = _worlds("SeqPAN", {"model.droprate": 0.2, "train.batch_size": 8}, n_train=32)
-    batches = list(w["train"].epoch(seed=2))
-    assert len(batches) == 4
-    make = lambda: Trainer(w["cfg"], w["der"], w["ds"]["word_vector"], device="cpu")  # noqa: E731
-    whole = make()
-    for b in batches:
-        whole.train_step(whole.to_device(b))
-    first = make()
-    for b in batches[:2]:
-        first.train_step(first.to_device(b))
-    path = save_checkpoint(str(tmp_path), first, name="last_SeqPAN", full=True)
-    resumed = make()
-    restore_into(resumed, path)
-    for b in batches[2:]:
-        resumed.train_step(resumed.to_device(b))
-    for (name, p), q in zip(whole.model.named_parameters(), resumed.model.parameters()):
-        torch.testing.assert_close(q, p, rtol=0, atol=0, msg=name)
-    # and the dropout is live: the same weights with another step stream end elsewhere
-    other = make()
-    other.seed = 7
-    for b in batches:
-        other.train_step(other.to_device(b))
-    assert not torch.equal(other.model.cq_cat.conv1d.weight, whole.model.cq_cat.conv1d.weight)
-
-
-@pytest.mark.parametrize("name", MODELS)
-def test_cli_trains_and_evaluates_the_family_on_cpu(name, tmp_path, monkeypatch):
-    from vmrframe_tpu_torch.cli import main
-
-    cfg = load_config(CFG).updated({"model.name": name, "paths.ckpt_dir": "ckpt/",
-                                    "dataprocess.video_augmentation": AUG})
-    (tmp_path / "tiny.yaml").write_text(yaml.safe_dump(cfg.to_dict()))
-    monkeypatch.chdir(tmp_path)
-    before = [fn.launches for fn in K.KERNELS]
-    result = main(["--config", "tiny.yaml", "--synthetic", "--epochs", "1", "--device", "cpu"])
-    assert result["steps"] == 4 and os.path.exists(result["best_path"])
-    assert np.isfinite(result["history"][0]["train_loss"])
-    evaluated = main(["--config", "tiny.yaml", "--synthetic", "--eval", "--device", "cpu",
-                      "--checkpoint", result["best_path"]])
-    assert evaluated["miou"] == result["best_miou"]
-    assert [fn.launches for fn in K.KERNELS] == before  # CPU: the plain versions

@@ -4,6 +4,8 @@ loading, and the rule that entry points never fall back to the CPU on their
 own.  (JAX is imported, as in every test process here, and kept on the CPU.)
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import json
 import sys
 import threading

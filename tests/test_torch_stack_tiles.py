@@ -18,6 +18,8 @@ a bf16 boundary where the two sums differ in their last bit).  The
 schedule's constants are read back from the CUDA source.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 import math
 import re
 from pathlib import Path

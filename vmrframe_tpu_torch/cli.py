@@ -1,15 +1,20 @@
 """Command line (counterpart of ``vmrframe_tpu/cli.py``): train and evaluate.
 
+    python -m vmrframe_tpu_torch --config config/charades/SeqPAN.yaml
+    python -m vmrframe_tpu_torch --config ... --eval --checkpoint ckpt/.../best_SeqPAN.pt
+    python -m vmrframe_tpu_torch --config ... --debug          # lazy feature reads
     python -m vmrframe_tpu_torch --config configs/tacos_actionformer_long.yaml --synthetic
-    python -m vmrframe_tpu_torch --config ... --synthetic --eval --checkpoint ckpt/.../best_X.pt
     python -m vmrframe_tpu_torch --config ... --synthetic --epochs 1 --device cpu
 
-The flags are the JAX package's (``--config --checkpoint --eval --suffix
---seed --synthetic --epochs --bf16 --save-results``) plus ``--device``
-(default ``cuda``).  float32 means float32 on the card: no TF32
-(``device.strict_f32``).  ``--synthetic`` runs on deterministic random features
-and captions; real datasets need ``data/datasets.py``, which is not ported
-yet, so without it the CLI raises.  Checkpoints and a log file go to
+The flags are the JAX package's (``--config --checkpoint --eval --debug
+--suffix --seed --synthetic --epochs --bf16 --save-results``) plus
+``--device`` (default ``cuda``).  float32 means float32 on the card: no TF32
+(``device.strict_f32``).  The data come from the config's ``paths``: the
+features (``paths.feature_path``, a directory of ``*.npy`` or one ``.h5``
+file, read lazily under ``--debug``) and the dataset built from the
+annotation and GloVe files, cached as ``<paths.cache_dir>/<task>_<suffix>.pkl``
+(``data/datasets.py``).  ``--synthetic`` runs on deterministic random features
+and captions instead.  Checkpoints and a log file go to
 ``<paths.ckpt_dir>/<task>_<suffix>/``, relative to the working directory.
 """
 
@@ -28,6 +33,7 @@ def parse_args(argv=None):
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="checkpoint to evaluate (--eval) or to resume from")
     parser.add_argument("--eval", action="store_true", help="only evaluate")
+    parser.add_argument("--debug", action="store_true", help="lazy feature loading")
     parser.add_argument("--suffix", type=str, default="", help="task suffix")
     parser.add_argument("--seed", default=1234, type=int, help="random seed")
     parser.add_argument("--synthetic", action="store_true", help="synthetic features/annotations")
@@ -68,9 +74,6 @@ def main(argv=None):
     from vmrframe_tpu_torch.train.trainer import Trainer, fit
 
     strict_f32()
-    if not args.synthetic:
-        raise NotImplementedError("real datasets need data/datasets.py, which is not ported "
-                                  "yet: pass --synthetic")
     cfg = load_config(args.config)
     if args.epochs is not None:
         cfg = cfg.updated({"train.epochs": args.epochs})
@@ -78,9 +81,29 @@ def main(argv=None):
         cfg = cfg.updated({"train.compute_dtype": "bfloat16"})
     derived = Derived(suffix=args.suffix, seed=args.seed)
 
-    from vmrframe_tpu_torch.testing import make_synthetic_data
+    if args.synthetic:
+        from vmrframe_tpu_torch.testing import make_synthetic_data
 
-    dataset, features = make_synthetic_data(cfg, seed=args.seed)
+        t0 = time.perf_counter()
+        dataset, features = make_synthetic_data(cfg, seed=args.seed)
+        cache, features_s = "synthetic", 0.0
+    else:
+        from vmrframe_tpu_torch.data.datasets import cache_path, load_dataset
+        from vmrframe_tpu_torch.data.features import open_feature_store
+
+        t0 = time.perf_counter()
+        feature_path = cfg.get("paths", {}).get("feature_path", "")
+        if not os.path.exists(feature_path):
+            raise FileNotFoundError(f"paths.feature_path {feature_path!r} does not exist: name "
+                                    f"the dataset's files in the config, or pass --synthetic")
+        features = open_feature_store(feature_path, cfg.model.vlen, lazy=args.debug)
+        features_s = time.perf_counter() - t0
+        cache = "loaded" if os.path.exists(cache_path(cfg, derived)) else "built"
+        t0 = time.perf_counter()
+        dataset = load_dataset(cfg, derived, vfeat_lens=features.lengths())
+    data_s = time.perf_counter() - t0  # the dataset: its cache built or read
+    data = {"cache": cache, "data_s": data_s, "features_s": features_s,
+            "lazy": bool(getattr(features, "lazy", False))}
     derived.num_words = dataset["n_words"]
     derived.num_chars = dataset["n_chars"]
 
@@ -94,6 +117,9 @@ def main(argv=None):
     ckpt_dir = os.path.join(cfg.paths.ckpt_dir, f"{cfg.task}_{derived.suffix}")
     logger = setup_logger(ckpt_dir, cfg.model.name)
     logger.info(str(args))
+    logger.info(f"data: {dataset['n_train']} train, {dataset['n_test']} test records, "
+                f"{dataset['n_words']} words; cache {cache} in {data_s:.2f} s, features read in "
+                f"{features_s:.2f} s")
 
     trainer = Trainer(cfg, derived, dataset["word_vector"], device=args.device)
 
@@ -120,7 +146,7 @@ def main(argv=None):
                 json.dump(out, f)
             logger.info(f"wrote {len(out)} predictions to {args.save_results}")
         return {"r1i3": r1i3, "r1i5": r1i5, "r1i7": r1i7, "miou": mi,
-                "eval_batches": len(test_batcher)}
+                "eval_batches": len(test_batcher), **data}
 
     result = fit(trainer, train_batcher, test_batcher, rng_seed=args.seed, ckpt_dir=ckpt_dir,
                  log=logger.info, resume_from=args.checkpoint)
@@ -129,4 +155,4 @@ def main(argv=None):
         with open(args.save_results, "w", encoding="utf8") as f:
             json.dump({k: result[k] for k in ("best_miou", "best_path", "history")}, f)
         logger.info(f"wrote training history to {args.save_results}")
-    return {**result, "eval_batches": len(test_batcher)}
+    return {**result, "eval_batches": len(test_batcher), **data}

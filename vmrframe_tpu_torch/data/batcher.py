@@ -10,6 +10,23 @@ batches are the JAX package's; a ``test`` batcher (serving, evaluation)
 applies none.  Under the identity augmentation with ``truncation``/``samelen``
 sampling a video's resampled features depend on the vid alone and are
 cached, as in the JAX package.
+
+Two routes take the per-sample work off the one host thread, both opt-in
+as in the JAX package:
+
+- ``num_workers`` (default ``train.num_workers``, 0): with more than one, the
+  samples of a batch are augmented and resampled on a pool of that many
+  threads (numpy releases the interpreter's lock in its larger operations),
+  each with ``random.Random(seed)`` for a seed drawn from the epoch's
+  stream, one a sample in slot order, so a batch does not depend on the
+  threads' timing and equals the JAX ``Batcher``'s;
+- ``dataprocess.device_pipeline: true``: the batch carries each sample's
+  raw features padded to the dataset's longest video (``raw_vfeats``,
+  ``raw_lens``, ``pipeline_seed``) and the step runs augmentation,
+  resampling and labels on the card (``ops/input_pipeline.py``).  As in the
+  JAX package it applies only to a config of one augmentation and a
+  ``truncation``/``samelen`` sampling; otherwise the host route runs.
+
 ``BatchPrefetcher`` assembles the next batches on a thread while the device
 runs the current step.
 """
@@ -19,6 +36,7 @@ from __future__ import annotations
 import queue
 import random
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -32,7 +50,8 @@ class Batcher:
     """Assemble fixed-shape numpy batches from records + a feature store."""
 
     def __init__(self, dataset: List[dict], feature_store, cfg, derived,
-                 loadertype: str = "test", batch_size: Optional[int] = None):
+                 loadertype: str = "test", batch_size: Optional[int] = None,
+                 num_workers: Optional[int] = None):
         self.cfg = cfg
         self.dataset = dataset
         self.features = feature_store
@@ -45,11 +64,21 @@ class Batcher:
         dp = cfg.get("dataprocess")
         self.sample_type = dp.get("sample_type", "truncation") if dp else "truncation"
         aug = dp.get("video_augmentation") if dp else None
-        self.aug = {"unchanged": None}
-        if loadertype == "train" and aug:
-            self.aug = dict(aug.to_dict() if hasattr(aug, "to_dict") else aug)
+        cfg_aug = dict(aug.to_dict() if hasattr(aug, "to_dict") else aug) if aug else {}
+        self.aug = cfg_aug if loadertype == "train" and cfg_aug else {"unchanged": None}
         self.aug_is_identity = set(self.aug) == {"unchanged"}
         self._resample_cache: Dict[str, tuple] = {}
+        if num_workers is None:
+            train = cfg.get("train")
+            num_workers = int(train.get("num_workers", 0)) if train else 0
+        self.num_workers = num_workers
+        # the JAX gate: one augmentation in the config, and not 'original'
+        self.device_pipeline = (bool(dp.get("device_pipeline", False)) if dp else False) \
+            and len(cfg_aug or {"unchanged": None}) == 1 and self.sample_type != "original"
+        self._max_raw_len = 0
+        if self.device_pipeline:
+            lens = feature_store.lengths()
+            self._max_raw_len = max(lens[record["vid"]] for record in dataset)
 
     def __len__(self) -> int:
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
@@ -82,8 +111,66 @@ class Batcher:
                                        self.vlen, self.sample_type)
         return vfeat, label
 
+    def _make_raw_batch(self, indices: List[int], rng: random.Random) -> Dict[str, np.ndarray]:
+        """The device pipeline's batch: raw features padded to the dataset's
+        longest video, their lengths, the text and the pipeline's seed."""
+        B, tlen, clen = self.batch_size, self.tlen, self.char_len
+        raw = np.zeros((B, self._max_raw_len, self.vdim), dtype=np.float32)
+        raw_lens = np.ones((B,), dtype=np.int32)
+        words_ids = np.zeros((B, tlen), dtype=np.int32)
+        char_ids = np.zeros((B, tlen, clen), dtype=np.int32)
+        se_times = np.zeros((B, 2), dtype=np.float32)
+        se_fracs = np.zeros((B, 2), dtype=np.float32)
+        sample_mask = np.zeros((B,), dtype=np.float32)
+        for slot, idx in enumerate(indices):
+            record = self.dataset[idx]
+            f = self.features[record["vid"]]
+            raw[slot, : f.shape[0]] = f
+            raw_lens[slot] = f.shape[0]
+            self._put_text(record, slot, words_ids, char_ids)
+            se_times[slot] = record["se_time"]
+            se_fracs[slot] = record["se_frac"]
+            sample_mask[slot] = 1.0
+        return {
+            "raw_vfeats": raw,
+            "raw_lens": raw_lens,
+            "words_ids": words_ids,
+            "char_ids": char_ids,
+            "tmasks": (words_ids != 0).astype(np.float32),
+            "se_times": se_times,
+            "se_fracs": se_fracs,
+            "sample_mask": sample_mask,
+            "pipeline_seed": np.int32(rng.randrange(2**31)),
+            "num_valid": np.int32(len(indices)),
+        }
+
+    def _put_text(self, record: dict, slot: int, words_ids: np.ndarray,
+                  char_ids: np.ndarray) -> None:
+        tlen, clen = self.tlen, self.char_len
+        wids = record["wids"][:tlen]
+        words_ids[slot, : len(wids)] = wids
+        for wi, cids in enumerate(record["cids"][:tlen]):
+            cids = cids[:clen]
+            char_ids[slot, wi, : len(cids)] = cids
+
+    def _vfeats_labels(self, indices: List[int], rng: random.Random) -> list:
+        """Each sample's (features, label curve), on ``num_workers`` threads
+        when there are more than one.  The pool lives for one batch: a
+        service builds a batcher per micro-batch."""
+        if self.num_workers <= 1:
+            return [self._get_vfeat_label(self.dataset[idx], rng) for idx in indices]
+        seeds = [rng.randrange(2**32) for _ in indices]
+        with ThreadPoolExecutor(max_workers=self.num_workers,
+                                thread_name_prefix="batcher") as pool:
+            return list(pool.map(
+                lambda job: self._get_vfeat_label(self.dataset[job[0]], random.Random(job[1])),
+                zip(indices, seeds)))
+
     def make_batch(self, indices: List[int],
                    rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+        rng = rng or random.Random(0)
+        if self.device_pipeline:
+            return self._make_raw_batch(indices, rng)
         B, vlen, tlen, clen = self.batch_size, self.vlen, self.tlen, self.char_len
         vfeats = np.zeros((B, vlen, self.vdim), dtype=np.float32)
         vmasks = np.zeros((B, vlen), dtype=np.float32)
@@ -95,21 +182,17 @@ class Batcher:
         se_fracs = np.zeros((B, 2), dtype=np.float32)
         sample_mask = np.zeros((B,), dtype=np.float32)
 
-        rng = rng or random.Random(0)
+        results = self._vfeats_labels(indices, rng)
         for slot, idx in enumerate(indices):
             record = self.dataset[idx]
-            vfeat, label = self._get_vfeat_label(record, rng)
+            vfeat, label = results[slot]
             cur_len = vfeat.shape[0]
             sidx, eidx = label_span_from_curve(label)
             vfeats[slot, :cur_len] = vfeat
             vmasks[slot, :cur_len] = 1.0
             label1ds[slot] = dist_idx_label(sidx, eidx, vlen)
             ner_labels[slot] = ner_label(sidx, eidx, cur_len, vlen)
-            wids = record["wids"][:tlen]
-            words_ids[slot, : len(wids)] = wids
-            for wi, cids in enumerate(record["cids"][:tlen]):
-                cids = cids[:clen]
-                char_ids[slot, wi, : len(cids)] = cids
+            self._put_text(record, slot, words_ids, char_ids)
             se_times[slot] = record["se_time"]
             se_fracs[slot] = record["se_frac"]
             sample_mask[slot] = 1.0

@@ -18,8 +18,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 def batch_to(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """A host batch's arrays as tensors on ``device`` (``num_valid`` stays behind)."""
-    return {k: torch.as_tensor(v).to(device, non_blocking=True)
+    """A host batch's arrays as tensors on ``device`` (``num_valid`` stays
+    behind; a device pipeline's ``pipeline_seed`` stays a host int, so that
+    seeding its generator reads nothing back from the card)."""
+    return {k: int(v) if k == "pipeline_seed" else torch.as_tensor(v).to(device, non_blocking=True)
             for k, v in batch.items() if k != "num_valid"}
 
 

@@ -1,7 +1,12 @@
 """Synthetic data for tests, smoke runs and the serve self-test (counterpart
-of ``vmrframe_tpu/testing.py``: the same seed gives the same records)."""
+of ``vmrframe_tpu/testing.py``: the same seed gives the same records), and a
+writer of dataset files in the reference's formats (``write_dataset_files``)."""
 
 from __future__ import annotations
+
+import json
+import os
+import string
 
 import numpy as np
 
@@ -101,3 +106,88 @@ def lift_label_embs(model, seed: int = 0):
     with torch.no_grad():
         model.label_embs.copy_(torch.randn(model.label_embs.shape, generator=g))
     return model
+
+
+def _vocabulary(n_words: int, rng: np.random.Generator) -> list:
+    """The caption words of ``make_synthetic_data`` and made-up lowercase
+    words after them, ``n_words`` distinct ones in all."""
+    words = sorted(set(_WORDS))
+    seen = set(words)
+    letters = np.array(list(string.ascii_lowercase))
+    while len(words) < n_words:
+        word = "".join(letters[rng.integers(0, 26, size=int(rng.integers(3, 10)))])
+        if word not in seen:
+            seen.add(word)
+            words.append(word)
+    return words
+
+
+def write_dataset_files(root: str, cfg, n_videos: int = 24, n_train: int = 64,
+                        n_test: int = 32, seed: int = 0, n_words: int = 200,
+                        min_len: int = 30, max_len: int = 250) -> str:
+    """Writes a dataset in the reference's formats under ``root`` and returns
+    the path of a config (``cfg`` with its ``paths`` set to them, as JSON):
+
+    - ``features/<vid>.npy``: float32 (frames, ``model.vdim``) features, one
+      file per video, frames drawn in [min_len, max_len];
+    - ``train.json``/``test.json``: annotation lists ``[vid, duration,
+      [stime, etime], sentence]``; some end times pass the duration (clamped
+      when read), some captions are longer than ``model.tlen``, and a few
+      training records name a video that has no features (dropped when
+      read), beyond the ``n_train`` that remain;
+    - ``glove.txt``: a header line, then 300-d vectors for nine in ten of the
+      ``n_words`` caption words (the rest read as UNK) and a few words that
+      no caption uses.
+
+    A writer of fixtures for tests and smoke runs: the same arguments write
+    the same bytes."""
+    rng = np.random.default_rng(seed)
+    feature_dir = os.path.join(root, "features")
+    os.makedirs(feature_dir, exist_ok=True)
+    vdim, tlen = int(cfg.model.vdim), int(cfg.model.tlen)
+    durations = {}
+    for i in range(n_videos):
+        vid = f"v{i:05d}"
+        frames = int(rng.integers(min_len, max_len + 1))
+        np.save(os.path.join(feature_dir, f"{vid}.npy"),
+                rng.standard_normal((frames, vdim)).astype(np.float32))
+        durations[vid] = round(frames / float(rng.uniform(2.0, 4.0)), 2)
+    vocab = _vocabulary(n_words, rng)
+    # word frequencies fall off as 1 / rank, as a caption corpus's do
+    weights = 1.0 / np.arange(1, len(vocab) + 1)
+    weights /= weights.sum()
+
+    def annotations(n, offset, n_missing=0):
+        out = []
+        for i in range(n + n_missing):
+            if i < n:
+                vid = f"v{(i + offset) % n_videos:05d}"
+                duration = durations[vid]
+            else:
+                vid, duration = f"missing{i - n}", 30.0
+            s = float(rng.uniform(0.0, duration * 0.7))
+            e = float(rng.uniform(s + duration * 0.05, duration * 1.05))
+            words = rng.choice(vocab, size=int(rng.integers(4, tlen + 4)), p=weights)
+            out.append([vid, duration, [round(s, 2), round(e, 2)], " ".join(words)])
+        return out
+
+    paths = {"feature_path": feature_dir, "glove_path": os.path.join(root, "glove.txt"),
+             "train_path": os.path.join(root, "train.json"),
+             "test_path": os.path.join(root, "test.json"), "val_path": "",
+             "cache_dir": os.path.join(root, "cache")}
+    with open(paths["train_path"], "w", encoding="utf8") as f:
+        json.dump(annotations(n_train, 0, n_missing=max(1, n_train // 64)), f)
+    with open(paths["test_path"], "w", encoding="utf8") as f:
+        json.dump(annotations(n_test, n_videos // 3), f)
+    glove_words = [w for i, w in enumerate(vocab) if i % 10 != 9] + ["zzunused", "qqunused"]
+    vectors = rng.standard_normal((len(glove_words), 300)).astype(np.float32) * 0.3
+    with open(paths["glove_path"], "w", encoding="utf8") as f:
+        f.write(f"{len(glove_words)} 300\n")
+        for word, vec in zip(glove_words, vectors):
+            f.write(word + " " + " ".join(f"{x:.5f}" for x in vec) + "\n")
+    data = cfg.to_dict()
+    data["paths"] = {**data.get("paths", {}), **paths}
+    config_path = os.path.join(root, "config.json")
+    with open(config_path, "w", encoding="utf8") as f:
+        json.dump(data, f, indent=1)
+    return config_path

@@ -8,6 +8,16 @@
         --config configs/tacos_actionformer_long.yaml
     python -m vmrframe_tpu_torch.tools.profile_serve --train \
         --config configs/charades_seqpan_fused.yaml [--droprate 0]
+    python -m vmrframe_tpu_torch.tools.profile_serve [--train] \
+        --config configs/charades_seqpan_fused.yaml --data-dir DIR [--workers 8 | --device-pipeline]
+
+``--data-dir DIR`` reads the dataset files that
+``testing.write_dataset_files`` wrote under DIR (its ``config.json``'s
+``paths``; serving through a lazy store, training through an eager one)
+instead of synthetic data; ``--workers N`` assembles each batch on N threads
+(``train.num_workers``), ``--device-pipeline`` ships raw features and
+resamples them on the card (``dataprocess.device_pipeline``), so that the
+host-assembly stage can be profiled under each route.
 
 With ``--train`` (the config's batch, compute type and droprate unless
 ``--batch-size`` or ``--droprate`` says otherwise): host assembly of one
@@ -45,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import time
 from collections import defaultdict
@@ -115,8 +126,32 @@ def _device_profile(step, steps: int) -> dict:
     }
 
 
+def with_routes(cfg, data_dir: Optional[str] = None, workers: Optional[int] = None,
+                device_pipeline: bool = False):
+    """``cfg`` with the paths of the dataset files under ``data_dir`` and the
+    batch assembly's route."""
+    updates = {}
+    if data_dir:
+        updates["paths"] = {**(cfg.get("paths").to_dict() if cfg.get("paths") else {}),
+                            **load_config(os.path.join(data_dir, "config.json")).paths.to_dict()}
+    if workers is not None:
+        updates["train.num_workers"] = workers
+    if device_pipeline:
+        updates["dataprocess.device_pipeline"] = True
+    return cfg.updated(updates)
+
+
+def _route(cfg, batch) -> dict:
+    """Where the data came from and how the batch was assembled (the batcher
+    keeps the host route where the device pipeline does not apply)."""
+    return {"data": "files" if (cfg.get("paths") or {}).get("feature_path") else "synthetic",
+            "num_workers": int(cfg.train.get("num_workers", 0)),
+            "device_pipeline": "raw_vfeats" in batch}
+
+
 def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20,
-                  config: Optional[str] = None) -> dict:
+                  config: Optional[str] = None, data_dir: Optional[str] = None,
+                  workers: Optional[int] = None, device_pipeline: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_serve measures the card: no CUDA device is available")
     if config:
@@ -124,7 +159,9 @@ def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20,
                                            "train.batch_size": batch_size})
     else:
         cfg = make_cfg(batch_size=batch_size)
-    service, dataset = build_service(cfg, n_synthetic=batch_size, device="cuda")
+    cfg = with_routes(cfg, data_dir, workers, device_pipeline)
+    service, dataset = build_service(cfg, n_synthetic=batch_size, device="cuda",
+                                     synthetic=not data_dir)
     try:
         ev = service.evaluator
         reqs = dataset["test_set"][:batch_size]
@@ -145,6 +182,7 @@ def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20,
         report = {
             "card": torch.cuda.get_device_name(0), "torch": torch.__version__,
             "model": str(cfg.model.name), "config": config or "tools/serve.py::make_cfg",
+            **_route(cfg, batch),
             "fused_dual_stack": bool(cfg.model.get("fused_dual_stack", False)),
             "launches_per_step": {fn.__name__: fn.launches - c for fn, c in zip(kernels, counts)},
             "batch_size": batch_size, "dtype": "bfloat16",
@@ -162,7 +200,9 @@ def profile_serve(batch_size: int = 128, steps: int = 10, reps: int = 20,
 
 
 def profile_train(config: str, batch_size: Optional[int] = None, steps: int = 10,
-                  reps: int = 20, droprate: Optional[float] = None) -> dict:
+                  reps: int = 20, droprate: Optional[float] = None,
+                  data_dir: Optional[str] = None, workers: Optional[int] = None,
+                  device_pipeline: bool = False) -> dict:
     from vmrframe_tpu_torch.config import Derived
     from vmrframe_tpu_torch.data.batcher import Batcher
     from vmrframe_tpu_torch.device import strict_f32
@@ -178,8 +218,16 @@ def profile_train(config: str, batch_size: Optional[int] = None, steps: int = 10
         cfg = cfg.updated({"train.batch_size": batch_size})
     if droprate is not None:
         cfg = cfg.updated({"model.droprate": droprate})
+    cfg = with_routes(cfg, data_dir, workers, device_pipeline)
     B = int(cfg.train.batch_size)
-    dataset, store = make_synthetic_data(cfg, seed=0, n_train=max(64, B))
+    if data_dir:
+        from vmrframe_tpu_torch.data.datasets import load_dataset
+        from vmrframe_tpu_torch.data.features import open_feature_store
+
+        store = open_feature_store(cfg.paths.feature_path, cfg.model.vlen)
+        dataset = load_dataset(cfg, Derived(), vfeat_lens=store.lengths())
+    else:
+        dataset, store = make_synthetic_data(cfg, seed=0, n_train=max(64, B))
     derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
     batcher = (get_model_entry(cfg.model.name).batcher_cls or Batcher)(
         dataset["train_set"], store, cfg, derived, "train")
@@ -200,6 +248,7 @@ def profile_train(config: str, batch_size: Optional[int] = None, steps: int = 10
     report = {
         "card": torch.cuda.get_device_name(0), "torch": torch.__version__,
         "model": str(cfg.model.name), "config": config, "mode": "train", "batch_size": B,
+        **_route(cfg, batch), "augmentation": list(batcher.aug),
         "dtype": str(cfg.train.get("compute_dtype", "float32")),
         "droprate": cfg.model.get("droprate"),
         "launches_per_step": {fn.__name__: fn.launches - c for fn, c in zip(kernels, counts)},
@@ -223,6 +272,12 @@ def main():
                     help="requests per batch (default: 128, or 8 with --config)")
     ap.add_argument("--droprate", type=float, default=None,
                     help="--train: override model.droprate (0 puts #1-#3 on the train route)")
+    ap.add_argument("--data-dir", default=None,
+                    help="the dataset files testing.write_dataset_files wrote here")
+    ap.add_argument("--workers", type=int, default=None,
+                    help="assemble batches on this many threads (train.num_workers)")
+    ap.add_argument("--device-pipeline", action="store_true",
+                    help="resample and label on the card (dataprocess.device_pipeline)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", default=None)
@@ -231,10 +286,11 @@ def main():
         if not args.config:
             ap.error("--train needs --config")
         report = profile_train(args.config, args.batch_size, args.steps, args.reps,
-                               args.droprate)
+                               args.droprate, args.data_dir, args.workers, args.device_pipeline)
     else:
         batch_size = args.batch_size or (8 if args.config else 128)
-        report = profile_serve(batch_size, args.steps, args.reps, args.config)
+        report = profile_serve(batch_size, args.steps, args.reps, args.config, args.data_dir,
+                               args.workers, args.device_pipeline)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

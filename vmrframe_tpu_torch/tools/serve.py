@@ -14,8 +14,13 @@
   weights swapped in between micro-batches (400 for a missing file or an
   unknown model, 500 for a checkpoint that does not fit: the old weights
   go on serving);
-- ``--selftest`` boots the service on synthetic data, fires concurrent
-  requests through real HTTP and prints latency percentiles and throughput.
+- ``--selftest`` boots the service, fires concurrent requests through real
+  HTTP and prints latency percentiles and throughput.
+
+A model's data come from its config's ``paths`` (the cached dataset of
+``data/datasets.py`` and a lazy feature store) unless ``--synthetic`` is
+given, or the config names no ``paths.feature_path`` (``make_cfg``; then
+``--synthetic`` or ``--selftest`` is needed).
 
 The config is built in code (``make_cfg``: SeqPAN at Charades width) unless
 ``--config`` names a YAML file: ``configs/tacos_actionformer_long.yaml``
@@ -28,6 +33,7 @@ the model's registered batcher.  A checkpoint is a ``torch.save``d
 state_dict or an ``.npz`` of the JAX package's variables.
 
 Usage:
+  python -m vmrframe_tpu_torch.tools.serve --config data/config.json --port 8901
   python -m vmrframe_tpu_torch.tools.serve --selftest [--device cuda]
   python -m vmrframe_tpu_torch.tools.serve --synthetic --port 8901
   python -m vmrframe_tpu_torch.tools.serve --selftest --batch-size 8 \
@@ -362,14 +368,24 @@ def make_http_server(service, port: int):
 
 def build_service(cfg: Optional[Config] = None, checkpoint: Optional[str] = None,
                   batch_size: Optional[int] = None, flush_ms: float = 5.0,
-                  n_synthetic: int = 64, device=None):
-    """A service over synthetic data (``testing.make_synthetic_data``) and
-    the dataset it serves.  Real datasets need the port of
-    ``data/datasets.py``, which has not been made yet."""
-    from vmrframe_tpu_torch.testing import make_synthetic_data
-
+                  n_synthetic: int = 64, device=None, synthetic: bool = True):
+    """A service and the dataset it serves.  ``synthetic``: deterministic
+    random data (``testing.make_synthetic_data``); otherwise the files of
+    ``cfg.paths``: the cached dataset (``data/datasets.py``, built on first
+    use) and a lazy feature store, which reads each video when a request
+    names it."""
     cfg = cfg or make_cfg()
-    dataset, store = make_synthetic_data(cfg, seed=0, n_train=n_synthetic, n_test=n_synthetic)
+    if synthetic:
+        from vmrframe_tpu_torch.testing import make_synthetic_data
+
+        dataset, store = make_synthetic_data(cfg, seed=0, n_train=n_synthetic,
+                                             n_test=n_synthetic)
+    else:
+        from vmrframe_tpu_torch.data.datasets import load_dataset
+        from vmrframe_tpu_torch.data.features import open_feature_store
+
+        store = open_feature_store(cfg.paths.feature_path, cfg.model.vlen, lazy=True)
+        dataset = load_dataset(cfg, Derived(), vfeat_lens=store.lengths())
     derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
     return MomentRetrievalService(
         cfg, derived, dataset["word_dict"], dataset["char_dict"], dataset["word_vector"],
@@ -446,19 +462,21 @@ def main():
     ap.add_argument("--port", type=int, default=8901)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--flush-ms", type=float, default=5.0)
-    ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="serve deterministic random data instead of the config's files")
     ap.add_argument("--selftest", action="store_true")
     ap.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16",
                     help="serving compute dtype (default bf16)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args()
-    if not (args.synthetic or args.selftest):
-        ap.error("only --synthetic data can be served until data/datasets.py is ported")
 
     def build(cfg, checkpoint):
         cfg = cfg.updated({"train.compute_dtype": args.dtype})
+        has_files = bool((cfg.get("paths") or {}).get("feature_path"))
+        if not (has_files or args.synthetic or args.selftest):
+            ap.error("the config names no paths.feature_path: pass --synthetic")
         return build_service(cfg, checkpoint, args.batch_size, args.flush_ms,
-                             device=args.device)
+                             device=args.device, synthetic=args.synthetic or not has_files)
 
     services: Dict[str, MomentRetrievalService] = {}
     dataset = None

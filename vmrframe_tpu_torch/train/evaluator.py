@@ -7,7 +7,9 @@ weights and the batch's rank >= 2 floats run in bf16 (``ops/precision.py``);
 outputs come back to f32 before the loss and the spans, as
 ``_cast_for_compute``/``_upcast_outputs`` do.  A stateful model's loss
 (ActionFormer's EMA normaliser) reads the ``extras`` its ``init_extras``
-made, as the trainer's eval step reads them from its state.  There is no
+made, as the trainer's eval step reads them from its state.  A batch of raw
+features (``dataprocess.device_pipeline``) is resampled and labelled on the
+device first (``ops/input_pipeline.py``, no augmentation).  There is no
 optimizer here.
 """
 
@@ -21,6 +23,7 @@ import torch
 
 from vmrframe_tpu_torch.device import batch_to, resolve_device
 from vmrframe_tpu_torch.metrics import AverageMeter, iou_device
+from vmrframe_tpu_torch.ops.input_pipeline import apply_device_pipeline
 from vmrframe_tpu_torch.ops.precision import cast_batch, cast_module_
 from vmrframe_tpu_torch.registry import get_model_entry
 from vmrframe_tpu_torch.weights import init_weights
@@ -58,6 +61,7 @@ class Evaluator:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch = apply_device_pipeline(batch, self.cfg, augment=False)
         outputs = self.forward(batch)
         if self.entry.stateful:
             loss, _ = self.entry.loss_fn(outputs, batch, self.cfg, self.extras)

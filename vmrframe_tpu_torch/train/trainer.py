@@ -14,6 +14,10 @@ stochastic depth draw, in module order, from one ``torch.Generator`` per
 step seeded from (seed, step), the counterpart of ``fold_in(rng, step)``: a
 resumed run draws what an uninterrupted one would.
 
+A batch whose batcher shipped raw features (``dataprocess.device_pipeline``)
+goes through ``ops/input_pipeline.py`` on the device first: the train step
+augments it with the config's augmentation, the eval step does not.
+
 ``fit`` runs the epochs: each a shuffled train pass seeded ``seed + epoch``
 and a test pass at seed 0, a rolling ``last_`` full checkpoint and a
 ``best_`` one by test mIoU (``train/checkpoints.py``).  Torch modules need no
@@ -31,6 +35,7 @@ from torch.func import functional_call
 
 from vmrframe_tpu_torch.device import batch_to, resolve_device
 from vmrframe_tpu_torch.metrics import AverageMeter, get_i345_mi, iou_device
+from vmrframe_tpu_torch.ops.input_pipeline import apply_device_pipeline
 from vmrframe_tpu_torch.ops.precision import cast_batch, cast_params
 from vmrframe_tpu_torch.registry import get_model_entry
 from vmrframe_tpu_torch.train.evaluator import run_epoch
@@ -96,6 +101,7 @@ class Trainer:
         return loss, dict(zip(named, grads)), outputs, new_extras
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch = apply_device_pipeline(batch, self.cfg, augment=True)
         self.model.train()
         generator = torch.Generator(device=self.device).manual_seed(step_seed(self.seed, self.step))
         loss, grads, outputs, new_extras = self.loss_and_grads(batch, generator)
@@ -110,6 +116,7 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch = apply_device_pipeline(batch, self.cfg, augment=False)
         self.model.eval()
         outputs = self.forward(batch)
         loss, _ = self._loss(outputs, batch)
