@@ -115,6 +115,28 @@ Phases, in order; any failure exits non-zero:
    batch and train steps fed as ``fit`` feeds them (host clock, median of
    10 after 2, the card's busy share from ``torch.profiler``) under
    ``num_workers`` 0, 4, 8 and ``device_pipeline``.
+19. distill: on the same files and the SeqPAN checkpoint of phase 16,
+   ``python -m vmrframe_tpu_torch.tools.export_labels`` (its ``main``) writes
+   the train split's teacher curves: one a record, in order, (2, clip
+   length), values in (0, 1), the first batch within 1e-3 of the sigmoid of
+   the serving evaluator's bf16 eval forward; 1/0/2/2 launches per export
+   forward.  ``OneTeacher_SoftLabel``
+   (``configs/charades_oneteacher_softlabel.yaml`` with its ``paths`` set and
+   that checkpoint as its frozen teacher) trained through the CLI's ``main``
+   for 1 epoch, then ``--eval`` of the best checkpoint, whose mIoU must
+   equal the logged best: every ``teach_model.`` tensor of that checkpoint
+   bit-equal to the SeqPAN checkpoint's, every predictor weight moved from
+   the seeded init, 1/0/4/4 launches of stack/dual/CQ/masked per eval
+   forward and none in a train step (droprate 0.2).  ``MultiTeacher``
+   (``configs/charades_multiteacher.yaml``, its three teachers the exported
+   curves) for 1 epoch: finite losses, 0/0/2/2 per eval forward.  Then >= 20
+   timed ``OneTeacher_SoftLabel`` train steps through ``Trainer`` at
+   droprate 0.2 and at 0 (0/4/4/4 a step), as in phase 14.
+20. verify-train-distill: phase 15's check on ``OneTeacher`` (the teacher
+   trained jointly, so both towers take gradients through #1-#3's
+   Functions): 4/4/4 launches of #1/#2/#3, one gumbel noise for both match
+   heads, both label embeddings lifted, both towers' predictor biases held
+   to the largest gradient as in phase 15 (their own maxima are printed).
 
 The check phase also holds the backward kernels (#6, #7) against their
 plain versions at the training shapes (B 2, 4 heads of 128, window 19,
@@ -1276,7 +1298,7 @@ def family_world(config: str, updates: dict, n_batches: int):
 
 
 def family_steps(K, S, config: str, updates: dict, n: int, card: str, want: dict,
-                 label: str) -> dict:
+                 label: str, phase: str = "train-SeqPAN") -> dict:
     """``n`` train steps through ``Trainer`` on ``N_SEQPAN_BATCHES`` batches
     already on the card, in turn; the host clock of each ends in a
     synchronise; the launch counts must be ``want`` per step.  The first
@@ -1297,10 +1319,9 @@ def family_steps(K, S, config: str, updates: dict, n: int, card: str, want: dict
         losses.append(float(trainer.train_step(batches[i % len(batches)])["loss"]))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = read_launches(f"train-SeqPAN {label}", K.KERNELS + S.KERNELS,
-                             want_launches(want, n))
+    launches = read_launches(f"{phase} {label}", K.KERNELS + S.KERNELS, want_launches(want, n))
     if not all(math.isfinite(x) for x in losses):
-        raise SmokeFailure(f"train-SeqPAN {label}: losses {losses}")
+        raise SmokeFailure(f"{phase} {label}: losses {losses}")
     timed = times[N_WARMUP_STEPS:] if n > N_WARMUP_STEPS + 1 else times
     median = statistics.median(timed)
     out = {"card": card, "model": str(cfg.model.name), "config": config,
@@ -1312,7 +1333,7 @@ def family_steps(K, S, config: str, updates: dict, n: int, card: str, want: dict
            "peak_device_mem_bytes": torch.cuda.max_memory_allocated(),
            "held_before_bytes": held}
     out["peak_training_bytes"] = out["peak_device_mem_bytes"] - held
-    log(f"[train-SeqPAN] {label}: {n} steps, median {median:.3f} ms/step (host clock, "
+    log(f"[{phase}] {label}: {n} steps, median {median:.3f} ms/step (host clock, "
         f"{min(timed):.3f}-{max(timed):.3f}), {out['samples_per_s']:.1f} samples/s, peak "
         f"{out['peak_training_bytes']} bytes beyond the {held} the earlier phases hold, "
         f"on {card}")
@@ -1364,19 +1385,22 @@ def phase_train_seqpan(K, S, card: str) -> dict:
     return stats
 
 
-def phase_verify_train_seqpan(K, S) -> dict:
-    """One f32 batch at full width, droprate 0, one gumbel noise for both
-    (drawn on the CPU): the loss and every parameter gradient of SeqPAN's
-    train mode, kernels #1-#3 on the card (their recomputed backward) against
-    the plain versions on the CPU.  The label embeddings are drawn off their
-    orthogonal init (``testing.lift_label_embs``), where the orthogonality
-    penalty has no gradient."""
+def verify_train(K, S, phase: str, config: str, updates: dict, want: dict,
+                 shift_invariant: tuple) -> dict:
+    """One f32 batch at full width, droprate 0, one gumbel noise for every
+    match head (drawn on the CPU): the loss and every parameter gradient of
+    the model's train mode, kernels #1-#3 on the card (``want`` launches;
+    their recomputed backward) against the plain versions on the CPU.  The
+    label embeddings are drawn off their orthogonal init
+    (``testing.lift_label_embs``), where the orthogonality penalty has no
+    gradient.  The gradients named by ``shift_invariant`` are zero up to
+    rounding: they are held to the largest gradient."""
     from vmrframe_tpu_torch.models import seqpan
     from vmrframe_tpu_torch.testing import lift_label_embs
     from vmrframe_tpu_torch.train.trainer import Trainer
 
     cfg, derived, dataset, batcher = family_world(
-        SEQPAN_CONFIG, {"train.compute_dtype": "float32", "model.droprate": 0.0}, 1)
+        config, {"train.compute_dtype": "float32", "model.droprate": 0.0, **updates}, 1)
     batch = batcher.make_batch(list(range(B)))
     noise = torch.empty(B, int(cfg.model.vlen), 4).exponential_(
         generator=torch.Generator().manual_seed(0)).log().neg()  # Gumbel(0, 1)
@@ -1393,38 +1417,51 @@ def phase_verify_train_seqpan(K, S) -> dict:
                 trainer.to_device(batch), torch.Generator(device=device).manual_seed(0))
             outs[device] = (float(loss.detach()),
                             {k: None if v is None else v.detach().cpu() for k, v in grads.items()})
-            want = SEQPAN_TRAIN_LAUNCHES if device == "cuda" else want_launches(
-                SEQPAN_TRAIN_LAUNCHES, 0)
-            read_launches(f"verify-train-SeqPAN {device}", K.KERNELS + S.KERNELS, want)
+            read_launches(f"{phase} {device}", K.KERNELS + S.KERNELS,
+                          want if device == "cuda" else want_launches(want, 0))
     finally:
         seqpan.gumbel_noise = draw
     (loss_k, g_k), (loss_p, g_p) = outs["cuda"], outs["cpu"]
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     largest = max(v.abs().max().item() for v in g_p.values() if v is not None)
     worst, worst_name, shift = float("-inf"), None, 0.0
-    for name, want in g_p.items():
+    shift_own, shift_own_name = 0.0, None  # recorded, not held to the tolerance
+    for name, want_g in g_p.items():
         got = g_k[name]
         if got is None or not torch.isfinite(got).all():
-            raise SmokeFailure(f"verify-train-SeqPAN: {name}'s gradient on the card is {got}")
-        if want is not None and want.abs().max() > 0 and got.abs().max() == 0:
-            raise SmokeFailure(f"verify-train-SeqPAN: {name}'s gradient is zero on the card only")
-        want = torch.zeros_like(got) if want is None else want
-        if name.endswith(seqpan.SHIFT_INVARIANT):  # zero up to rounding: held to the largest
-            shift = max(shift, got.abs().max().item() / largest, want.abs().max().item() / largest)
+            raise SmokeFailure(f"{phase}: {name}'s gradient on the card is {got}")
+        if want_g is not None and want_g.abs().max() > 0 and got.abs().max() == 0:
+            raise SmokeFailure(f"{phase}: {name}'s gradient is zero on the card only")
+        want_g = torch.zeros_like(got) if want_g is None else want_g
+        rel = (got - want_g).abs().max().item() / max(want_g.abs().max().item(), 1e-30)
+        if name.endswith(shift_invariant):  # zero up to rounding: held to the largest
+            shift = max(shift, got.abs().max().item() / largest,
+                        want_g.abs().max().item() / largest)
+            if rel > shift_own:
+                shift_own, shift_own_name = rel, name
             continue
-        rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
         if rel > worst:
             worst, worst_name = rel, name
     ok = max(loss_err, worst, shift) <= TOL_TRAIN_F32
-    log(f"[verify-train-SeqPAN] loss card {loss_k!r} cpu {loss_p!r} (rel {loss_err:.3e}); worst "
+    log(f"[{phase}] loss card {loss_k!r} cpu {loss_p!r} (rel {loss_err:.3e}); worst "
         f"gradient {worst_name} at {worst:.3e} of its max; the shift-invariant biases' (zero "
-        f"up to rounding) at {shift:.3e} of the largest; {len(g_p)} gradients; tol "
-        f"{TOL_TRAIN_F32}  {'ok' if ok else 'FAIL'}")
+        f"up to rounding) at {shift:.3e} of the largest (their worst, {shift_own_name}, at "
+        f"{shift_own:.3e} of its own max); {len(g_p)} gradients; tol {TOL_TRAIN_F32}  "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SmokeFailure("verify-train-SeqPAN: kernel path and plain path disagree")
+        raise SmokeFailure(f"{phase}: kernel path and plain path disagree")
     return {"loss_rel_err": loss_err, "worst_grad_rel_err": worst, "worst_grad": worst_name,
-            "shift_invariant_grad_rel": shift, "n_grads": len(g_p), "tol": TOL_TRAIN_F32,
-            "launches": SEQPAN_TRAIN_LAUNCHES}
+            "shift_invariant_grad_rel": shift, "shift_invariant_own_rel": shift_own,
+            "shift_invariant_own_worst": shift_own_name, "n_grads": len(g_p),
+            "tol": TOL_TRAIN_F32, "launches": want}
+
+
+def phase_verify_train_seqpan(K, S) -> dict:
+    """SeqPAN's train mode, card against CPU (``verify_train``)."""
+    from vmrframe_tpu_torch.models import seqpan
+
+    return verify_train(K, S, "verify-train-SeqPAN", SEQPAN_CONFIG, {}, SEQPAN_TRAIN_LAUNCHES,
+                        seqpan.SHIFT_INVARIANT)
 
 
 # ----------------------------------------------------- the file-backed path
@@ -1667,6 +1704,193 @@ def phase_pipeline(K, S, card: str, config: str) -> dict:
     return stats
 
 
+# ------------------------------------------------------------ distillation
+
+
+DISTILL_CONFIG = "configs/charades_oneteacher_softlabel.yaml"
+MULTI_CONFIG = "configs/charades_multiteacher.yaml"
+# kernel launches of one OneTeacher_SoftLabel forward (student and teacher):
+# in eval with the teacher's stack flag on, and in a train step at droprate 0
+DISTILL_EVAL_LAUNCHES = {STACK: 1, "fused_dual_attention": 0, "fused_cq_attention": 4,
+                         "fused_masked_attention": 4}
+DISTILL_TRAIN_LAUNCHES = {STACK: 0, "fused_dual_attention": 4, "fused_cq_attention": 4,
+                          "fused_masked_attention": 4}
+# the student alone (MultiTeacher, BaseFast_CCA_PreTrain), eval forward
+STUDENT_LAUNCHES = {STACK: 0, "fused_dual_attention": 0, "fused_cq_attention": 2,
+                    "fused_masked_attention": 2}
+TOL_EXPORT = 1e-3  # bf16: the export's forward against the serving evaluator's
+
+
+def files_variant(root: str, files_config: str, config: str, name: str, updates: dict) -> str:
+    """``config`` with the paths (files, cache) of the file-backed phases'
+    config and ``updates``, written as ``<root>/<name>.json``."""
+    from vmrframe_tpu_torch.config import load_config
+
+    paths = load_config(files_config).paths.to_dict()
+    cfg = load_config(config).updated({"paths": {**paths, "ckpt_dir": os.path.join(root, name)},
+                                       "train.epochs": 1, **updates})
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w", encoding="utf8") as f:
+        json.dump(cfg.to_dict(), f)
+    return path
+
+
+def check_export(K, S, files_config: str, checkpoint: str, curves: list) -> dict:
+    """The exported curves against the train split (one a record, in order,
+    (2, clip length), values in (0, 1)) and, on the first batch, against the
+    sigmoid of the serving evaluator's eval forward of the checkpoint."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.data.datasets import load_dataset
+    from vmrframe_tpu_torch.data.features import open_feature_store
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+    from vmrframe_tpu_torch.weights import load_checkpoint
+
+    cfg = load_config(files_config)
+    store = open_feature_store(cfg.paths.feature_path, cfg.model.vlen)
+    dataset = load_dataset(cfg, Derived())
+    records = dataset["train_set"]
+    if [v for v, _ in curves] != [r["vid"] for r in records]:
+        raise SmokeFailure(f"distill export: {len(curves)} curves, not one per train record "
+                           f"({len(records)}) in order")
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    batches = list(Batcher(records, store, cfg, derived, "test").epoch(seed=0, shuffle=False))
+    lens = np.concatenate([b["vmasks"].sum(1)[: int(b["num_valid"])] for b in batches]).astype(int)
+    shapes_ok = all(c.shape == (2, n) for (_, c), n in zip(curves, lens))
+    inside = all(((c > 0) & (c < 1)).all() for _, c in curves)
+    ev = Evaluator(cfg, derived, dataset["word_vector"], device="cuda")
+    load_checkpoint(ev.model, checkpoint)
+    zero_counts(K.KERNELS + S.KERNELS)  # not the export's launches
+    out = ev.forward(ev.to_device(batches[0]))
+    direct = torch.stack([torch.sigmoid(out["slogits"]), torch.sigmoid(out["elogits"])], 1).cpu()
+    err = max(float((torch.from_numpy(c) - direct[i, :, : c.shape[1]]).abs().max())
+              for i, (_, c) in enumerate(curves[: int(batches[0]["num_valid"])]))
+    ok = shapes_ok and inside and err <= TOL_EXPORT
+    log(f"[distill] export: {len(curves)} curves for {len(records)} train records, in order; "
+        f"shapes (2, clip length): {shapes_ok}; values in (0, 1): {inside}; the first batch "
+        f"against the evaluator's eval forward, max abs err {err:.3e}, tol {TOL_EXPORT}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("distill: the exported curves are wrong")
+    return {"curves": len(curves), "max_abs_err_first_batch": err, "tol": TOL_EXPORT,
+            "clip_lengths": [int(lens.min()), int(lens.max())]}
+
+
+def check_student_trained(config: str, checkpoint: str, teacher_checkpoint: str,
+                          seed: int = 1234) -> dict:
+    """Every ``teach_model.`` tensor of the student's checkpoint bit-equal to
+    the teacher checkpoint's; every predictor weight moved from the CLI's
+    seeded init (``--seed`` 1234)."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.datasets import load_dataset
+    from vmrframe_tpu_torch.registry import get_model_entry
+    from vmrframe_tpu_torch.weights import init_weights, read_checkpoint
+
+    got, teacher = read_checkpoint(checkpoint), read_checkpoint(teacher_checkpoint)
+    differ = [k for k, v in teacher.items() if not torch.equal(got[f"teach_model.{k}"], v)]
+    cfg = load_config(config)
+    dataset = load_dataset(cfg, Derived())
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    init = init_weights(get_model_entry(cfg.model.name).model_cls(
+        cfg, derived, dataset["word_vector"]), seed).state_dict()
+    weights = [k for k in init if k.startswith("predictor.") and k.endswith(".weight")]
+    still = [k for k in weights if torch.equal(init[k], got[k])]
+    log(f"[distill] teacher tensors bit-equal to the SeqPAN checkpoint: "
+        f"{len(teacher) - len(differ)} of {len(teacher)}; predictor weights moved from the "
+        f"seeded init: {len(weights) - len(still)} of {len(weights)}")
+    if differ or still or not weights:
+        raise SmokeFailure(f"distill: teacher tensors changed {differ[:3]}, predictor weights "
+                           f"that did not move {still[:3]}")
+    return {"teacher_tensors_equal": len(teacher), "predictor_weights_moved": len(weights)}
+
+
+def phase_distill(K, S, card: str, root: str, files_config: str, teacher: str) -> dict:
+    """On the file-backed phases' dataset and SeqPAN checkpoint: the teacher's
+    curves exported through ``tools/export_labels.py``'s ``main``;
+    ``OneTeacher_SoftLabel`` trained through the CLI's ``main`` with that
+    checkpoint as its frozen teacher, then ``--eval`` of its best checkpoint;
+    ``MultiTeacher`` trained on the exported curves; then timed
+    ``OneTeacher_SoftLabel`` train steps at droprate 0.2 and 0."""
+    from vmrframe_tpu_torch.cli import main as cli_main
+    from vmrframe_tpu_torch.tools import export_labels
+
+    stats = {"card": card}
+    kernels = K.KERNELS + S.KERNELS
+    curves_path = os.path.join(root, "teacher_curves.pkl")
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    curves = export_labels.main(["--config", files_config, "--checkpoint", teacher, "--out",
+                                 curves_path, "--device", "cuda"])
+    stats["export_s"] = time.perf_counter() - t0
+    n_export = -(-len(curves) // B)
+    stats["export_launches"] = read_launches("distill export", kernels,
+                                             want_launches(SERVE_LAUNCHES[True], n_export))
+    stats["export"] = check_export(K, S, files_config, teacher, curves)
+
+    config = files_variant(root, files_config, DISTILL_CONFIG, "oneteacher_softlabel",
+                           {"teacher0.model.checkpoint": teacher})
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    fit = cli_main(["--config", config, "--device", "cuda"])
+    stats["fit_s"] = time.perf_counter() - t0
+    # droprate 0.2 in both towers: the train steps launch none
+    stats["fit_launches"] = read_launches("distill fit", kernels, want_launches(
+        DISTILL_EVAL_LAUNCHES, fit["eval_batches"]))
+    zero_counts(kernels)
+    ev = cli_main(["--config", config, "--eval", "--checkpoint", fit["best_path"], "--device",
+                   "cuda"])
+    stats["eval_launches"] = read_launches("distill eval", kernels, want_launches(
+        DISTILL_EVAL_LAUNCHES, ev["eval_batches"]))
+    stats.update(steps=fit["steps"], eval_forwards=ev["eval_batches"],
+                 best_miou=fit["best_miou"], eval_miou=ev["miou"],
+                 train_loss=fit["history"][0]["train_loss"],
+                 launches_per_eval_forward={k: v / ev["eval_batches"]
+                                            for k, v in stats["eval_launches"].items()})
+    log(f"[distill] OneTeacher_SoftLabel: best mIoU logged by fit {fit['best_miou']!r}, --eval "
+        f"of its checkpoint {ev['miou']!r}; train loss {stats['train_loss']!r}")
+    if ev["miou"] != fit["best_miou"] or not math.isfinite(stats["train_loss"]):
+        raise SmokeFailure("distill: --eval of the best checkpoint gives another mIoU, or the "
+                           "loss is not finite")
+    stats["trained"] = check_student_trained(config, fit["best_path"], teacher)
+
+    config = files_variant(root, files_config, MULTI_CONFIG, "multiteacher",
+                           {f"loss.t{i}_path": curves_path for i in range(3)})
+    zero_counts(kernels)
+    multi = cli_main(["--config", config, "--device", "cuda"])
+    stats["multi"] = {"steps": multi["steps"], "eval_forwards": multi["eval_batches"],
+                      "train_loss": multi["history"][0]["train_loss"],
+                      "best_miou": multi["best_miou"],
+                      "launches": read_launches("distill MultiTeacher", kernels, want_launches(
+                          STUDENT_LAUNCHES, multi["eval_batches"]))}
+    log(f"[distill] MultiTeacher on the exported curves: {json.dumps(stats['multi'])}")
+    if not math.isfinite(stats["multi"]["train_loss"]):
+        raise SmokeFailure(f"distill: MultiTeacher's loss is {stats['multi']['train_loss']}")
+
+    n = N_WARMUP_STEPS + N_TIMED_STEPS
+    none = want_launches(DISTILL_TRAIN_LAUNCHES, 0)
+    stats["droprate_0.2"] = family_steps(K, S, DISTILL_CONFIG, {}, n, card, none,
+                                         "droprate 0.2", "distill")
+    stats["droprate_0"] = family_steps(
+        K, S, DISTILL_CONFIG, {"model.droprate": 0.0, "teacher0.model.droprate": 0.0}, n, card,
+        DISTILL_TRAIN_LAUNCHES, "droprate 0", "distill")
+    log(f"[distill] {json.dumps(stats)}")
+    return stats
+
+
+def phase_verify_train_distill(K, S) -> dict:
+    """``OneTeacher``'s train mode (both towers take gradients through the
+    #1-#3 Functions), card against CPU (``verify_train``), under SeqPAN's
+    rule.  Both towers' predictor biases (``seqpan.SHIFT_INVARIANT``) get
+    the hard losses' gradient, zero up to rounding, plus softloc's, which its
+    L2 normalisation keeps from being shift-invariant but leaves ~1e-5 of
+    the largest gradient: their own maxima are the cancellation's rounding."""
+    from vmrframe_tpu_torch.models import seqpan
+
+    return verify_train(K, S, "verify-train-distill", DISTILL_CONFIG,
+                        {"model.name": "OneTeacher"}, DISTILL_TRAIN_LAUNCHES,
+                        seqpan.SHIFT_INVARIANT)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the full record to this JSON file")
@@ -1753,6 +1977,9 @@ def main() -> int:
         record["serve_files"] = phase("serve-files", phase_serve_files, kernels, card, config,
                                       best, predictions)
         record["pipeline"] = phase("pipeline", phase_pipeline, K, S, card, config)
+        record["distill"] = phase("distill", phase_distill, K, S, card, root, config, best)
+    record["verify_train_distill"] = phase("verify-train-distill", phase_verify_train_distill,
+                                           K, S)
     record["seconds"] = seconds
     # the main path each kernel's launches are read from, and the type of the
     # numbers in its line: the serve phases run bf16, training the YAML's f32
@@ -1782,6 +2009,10 @@ def main() -> int:
         if name in ATTENTION:  # a SeqPAN train step at droprate 0
             out[-1]["launches_per_train_step"] = \
                 record["train_seqpan"]["droprate_0"]["launches_per_step"][name]
+        if name in ATTENTION + (STACK,):  # the distillation path: OneTeacher_SoftLabel
+            out[-1]["launches_distill_eval"] = record["distill"]["eval_launches"][name]
+            out[-1]["launches_per_distill_train_step"] = \
+                record["distill"]["droprate_0"]["launches_per_step"][name]
         if "module_path_ms" in t:  # the other route to the same result, not a library call
             out[-1]["module_path_ms"] = t["module_path_ms"]
         if key == "bf16" and "f32" in record["time"][name]:

@@ -63,6 +63,38 @@ def setup_logger(ckpt_dir: str, title: str) -> logging.Logger:
     return logger
 
 
+def load_data(cfg, derived, synthetic: bool, seed: int, lazy: bool = False):
+    """(dataset, feature store, timings) for ``cfg``: deterministic random
+    data from ``seed`` when ``synthetic``, else the files of ``cfg.paths``
+    (the dataset through its ``.pkl`` cache).  Sets ``derived``'s vocabulary
+    sizes."""
+    if synthetic:
+        from vmrframe_tpu_torch.testing import make_synthetic_data
+
+        t0 = time.perf_counter()
+        dataset, features = make_synthetic_data(cfg, seed=seed)
+        cache, features_s = "synthetic", 0.0
+    else:
+        from vmrframe_tpu_torch.data.datasets import cache_path, load_dataset
+        from vmrframe_tpu_torch.data.features import open_feature_store
+
+        t0 = time.perf_counter()
+        feature_path = cfg.get("paths", {}).get("feature_path", "")
+        if not os.path.exists(feature_path):
+            raise FileNotFoundError(f"paths.feature_path {feature_path!r} does not exist: name "
+                                    f"the dataset's files in the config, or pass --synthetic")
+        features = open_feature_store(feature_path, cfg.model.vlen, lazy=lazy)
+        features_s = time.perf_counter() - t0
+        cache = "loaded" if os.path.exists(cache_path(cfg, derived)) else "built"
+        t0 = time.perf_counter()
+        dataset = load_dataset(cfg, derived, vfeat_lens=features.lengths())
+    data_s = time.perf_counter() - t0  # the dataset: its cache built or read
+    derived.num_words = dataset["n_words"]
+    derived.num_chars = dataset["n_chars"]
+    return dataset, features, {"cache": cache, "data_s": data_s, "features_s": features_s,
+                               "lazy": bool(getattr(features, "lazy", False))}
+
+
 def main(argv=None):
     args = parse_args(argv)
 
@@ -81,31 +113,7 @@ def main(argv=None):
         cfg = cfg.updated({"train.compute_dtype": "bfloat16"})
     derived = Derived(suffix=args.suffix, seed=args.seed)
 
-    if args.synthetic:
-        from vmrframe_tpu_torch.testing import make_synthetic_data
-
-        t0 = time.perf_counter()
-        dataset, features = make_synthetic_data(cfg, seed=args.seed)
-        cache, features_s = "synthetic", 0.0
-    else:
-        from vmrframe_tpu_torch.data.datasets import cache_path, load_dataset
-        from vmrframe_tpu_torch.data.features import open_feature_store
-
-        t0 = time.perf_counter()
-        feature_path = cfg.get("paths", {}).get("feature_path", "")
-        if not os.path.exists(feature_path):
-            raise FileNotFoundError(f"paths.feature_path {feature_path!r} does not exist: name "
-                                    f"the dataset's files in the config, or pass --synthetic")
-        features = open_feature_store(feature_path, cfg.model.vlen, lazy=args.debug)
-        features_s = time.perf_counter() - t0
-        cache = "loaded" if os.path.exists(cache_path(cfg, derived)) else "built"
-        t0 = time.perf_counter()
-        dataset = load_dataset(cfg, derived, vfeat_lens=features.lengths())
-    data_s = time.perf_counter() - t0  # the dataset: its cache built or read
-    data = {"cache": cache, "data_s": data_s, "features_s": features_s,
-            "lazy": bool(getattr(features, "lazy", False))}
-    derived.num_words = dataset["n_words"]
-    derived.num_chars = dataset["n_chars"]
+    dataset, features, data = load_data(cfg, derived, args.synthetic, args.seed, lazy=args.debug)
 
     entry = get_model_entry(cfg.model.name)
     batcher_cls = entry.batcher_cls or Batcher
@@ -118,8 +126,8 @@ def main(argv=None):
     logger = setup_logger(ckpt_dir, cfg.model.name)
     logger.info(str(args))
     logger.info(f"data: {dataset['n_train']} train, {dataset['n_test']} test records, "
-                f"{dataset['n_words']} words; cache {cache} in {data_s:.2f} s, features read in "
-                f"{features_s:.2f} s")
+                f"{dataset['n_words']} words; cache {data['cache']} in {data['data_s']:.2f} s, "
+                f"features read in {data['features_s']:.2f} s")
 
     trainer = Trainer(cfg, derived, dataset["word_vector"], device=args.device)
 

@@ -1,8 +1,10 @@
 """Labels (counterpart of ``vmrframe_tpu/data/labels.py``), trimmed to
-what a test-mode batch needs."""
+what a batch needs, and the Gaussian splat of the distillation batchers'
+synthetic teacher."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -39,6 +41,17 @@ def ner_label(sidx: int, eidx: int, cur_len: int, vlen: int, ext_len: int = 1) -
     out[new_st_r + 1 : new_et_l] = 2
     out[new_et_l : new_et_r + 1] = 3
     return out
+
+
+def gaussian_weight(center: int, vlen: int, L: int, alpha: float) -> np.ndarray:
+    """Max-normalised Gaussian splat on a length-L grid, zeroed past vlen."""
+    x = np.linspace(-1, 1, num=L, dtype=np.float32)
+    sig = (vlen / L) * alpha
+    u = (center / L) * 2 - 1
+    weight = np.exp(-((x - u) ** 2) / (2 * sig**2)) / (math.sqrt(2 * math.pi) * sig)
+    weight /= np.max(weight)
+    weight[vlen:] = 0.0
+    return weight
 
 
 def label_span_from_curve(label: np.ndarray, threshold: float = 0.01) -> Tuple[int, int]:

@@ -1,4 +1,5 @@
 """Model zoo; importing it registers each model (SeqPAN, BackBone, BaseFast,
-ActionFormer)."""
+ActionFormer, and the distillation family: OneTeacher, OneTeacher_SoftLabel,
+BaseFast_BAN_CoTrain, MultiTeacher, BaseFast_CCA_PreTrain)."""
 
-from vmrframe_tpu_torch.models import actionformer, backbone, basefast, seqpan  # noqa: F401
+from vmrframe_tpu_torch.models import actionformer, backbone, basefast, distill, seqpan  # noqa: F401

@@ -1,6 +1,7 @@
 """Model registry (counterpart of ``vmrframe_tpu/registry.py``), trimmed to
 what serving and training need: the module class, its batcher, its loss
-(stateful or not) and its span inference."""
+(stateful or not), its span inference, and the distillation family's frozen
+parameters and init hook."""
 
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ class ModelEntry:
     # loss_fn(outputs, batch, cfg, extras) -> (loss, new_extras)
     stateful: bool = False
     init_extras: Optional[Callable] = None  # (cfg) -> dict of tensors
+    # distillation: a parameter whose name (``teach_model.predictor...``)
+    # matches ``frozen_filter`` gets no optimizer update (a frozen teacher);
+    # ``init_hook`` runs once after the seeded init, e.g. to load a
+    # pretrained teacher into the model's parameters in place
+    frozen_filter: Optional[Callable] = None  # (name) -> bool
+    init_hook: Optional[Callable] = None  # (trainer, cfg) -> None
     # the JAX package's measured choice between its two AdamW formulations;
     # a record only here: the port has one AdamW (train/optim.py)
     optimizer_impl: Optional[str] = None

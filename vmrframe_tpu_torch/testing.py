@@ -95,16 +95,19 @@ def lift_drop_path(model, seed: int = 0):
 
 
 def lift_label_embs(model, seed: int = 0):
-    """Draws the match head's ``label_embs`` from N(0, 1) by ``seed``, the
-    same on every device.  At their orthogonal init the loss's orthogonality
-    penalty, the norm of the Gram matrix's off-diagonal, sits at zero, where
-    the norm has no gradient: what comes out is the direction of the
-    rounding noise, which differs between two devices."""
+    """Draws every match head's ``label_embs`` (a distillation model has two)
+    from N(0, 1) by ``seed``, in parameter order, the same on every device.
+    At their orthogonal init the loss's orthogonality penalty, the norm of
+    the Gram matrix's off-diagonal, sits at zero, where the norm has no
+    gradient: what comes out is the direction of the rounding noise, which
+    differs between two devices."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        model.label_embs.copy_(torch.randn(model.label_embs.shape, generator=g))
+        for name, p in model.named_parameters():
+            if name.split(".")[-1] == "label_embs":
+                p.copy_(torch.randn(p.shape, generator=g))
     return model
 
 

@@ -8,6 +8,8 @@
         --config configs/tacos_actionformer_long.yaml
     python -m vmrframe_tpu_torch.tools.profile_serve --train \
         --config configs/charades_seqpan_fused.yaml [--droprate 0]
+    python -m vmrframe_tpu_torch.tools.profile_serve --train \
+        --config configs/charades_oneteacher_softlabel.yaml [--droprate 0]
     python -m vmrframe_tpu_torch.tools.profile_serve [--train] \
         --config configs/charades_seqpan_fused.yaml --data-dir DIR [--workers 8 | --device-pipeline]
 
@@ -216,8 +218,9 @@ def profile_train(config: str, batch_size: Optional[int] = None, steps: int = 10
     cfg = load_config(config)
     if batch_size:
         cfg = cfg.updated({"train.batch_size": batch_size})
-    if droprate is not None:
-        cfg = cfg.updated({"model.droprate": droprate})
+    if droprate is not None:  # a distillation config's teacher too
+        cfg = cfg.updated({"model.droprate": droprate, **(
+            {"teacher0.model.droprate": droprate} if cfg.get("teacher0") else {})})
     cfg = with_routes(cfg, data_dir, workers, device_pipeline)
     B = int(cfg.train.batch_size)
     if data_dir:

@@ -17,10 +17,17 @@ with optax's semantics rather than torch's defaults.
   for ``/`` and ``weight`` for ``kernel``/``scale``, so the mask is the same
   (ActionFormer's ``ChannelLayerNorm`` weights are decayed, biases are not).
 
+- A frozen parameter (``frozen_filter(name)``, a distillation model's
+  teacher) gets no update, no weight decay, and moments that stay exactly
+  zero, as ``flat_adamw``'s ``keep`` mask and ``tree_adamw``'s
+  ``set_to_zero`` give; its gradient still counts toward the global clip
+  norm.  The mask matters even where the gradient is zero: AdamW would
+  still decay the weight by ``lr * 0.01 * p`` every step.
+
 The JAX package also has a raveled single-buffer form (``flat_adamw``) with
-the same values and a frozen-parameter filter for distillation; the port
-has this one AdamW.  Its state is a dict keyed by parameter name, so a
-checkpoint restores by key.  The updates run as ``torch._foreach_*`` ops.
+the same values; the port has this one AdamW.  Its state is a dict keyed by
+parameter name (frozen ones too, at zero), so a checkpoint restores by key.
+The updates run as ``torch._foreach_*`` ops.
 """
 
 from __future__ import annotations
@@ -60,11 +67,12 @@ class AdamW:
     """Clip-by-global-norm + AdamW over named parameters, updated in place."""
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Callable[[int], float],
-                 clip_norm: float):
+                 clip_norm: float, frozen_filter: Optional[Callable[[str], bool]] = None):
         self.params = dict(params)
-        self.names = list(self.params)
         self.schedule, self.clip_norm = schedule, float(clip_norm)
-        self._decayed = [i for i, n in enumerate(self.names) if decays(n)]
+        frozen = frozen_filter or (lambda name: False)
+        self.trained = [n for n in self.params if not frozen(n)]
+        self._decayed = [i for i, n in enumerate(self.trained) if decays(n)]
         self.state = self.init_state()
 
     def init_state(self) -> dict:
@@ -74,17 +82,17 @@ class AdamW:
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
         """One update from ``grads`` (by name; a missing one counts as zero).
-        Returns the global norm before clipping."""
-        params = [self.params[n] for n in self.names]
-        g = [grads[n] if grads.get(n) is not None else torch.zeros_like(p)
-             for n, p in zip(self.names, params)]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        Returns the global norm before clipping, frozen gradients included."""
+        g = {n: grads[n] if grads.get(n) is not None else torch.zeros_like(p)
+             for n, p in self.params.items()}
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(g.values()))))
         coef = torch.where(norm < self.clip_norm, torch.ones_like(norm), self.clip_norm / norm)
-        g = torch._foreach_mul(g, coef)
+        params = [self.params[n] for n in self.trained]
+        g = torch._foreach_mul([g[n] for n in self.trained], coef)
 
         count = self.state["count"] + 1
-        mu = [self.state["mu"][n] for n in self.names]
-        nu = [self.state["nu"][n] for n in self.names]
+        mu = [self.state["mu"][n] for n in self.trained]
+        nu = [self.state["nu"][n] for n in self.trained]
         torch._foreach_mul_(mu, B1)
         torch._foreach_add_(mu, g, alpha=1.0 - B1)
         torch._foreach_mul_(nu, B2)
@@ -106,9 +114,11 @@ class AdamW:
         return norm
 
 
-def build_optimizer(cfg, num_train_steps: int, params: Dict[str, torch.Tensor]) -> AdamW:
+def build_optimizer(cfg, num_train_steps: int, params: Dict[str, torch.Tensor],
+                    frozen_filter: Optional[Callable[[str], bool]] = None) -> AdamW:
     """The config's AdamW (``train.lr``, ``train.warmup_proportion``,
-    ``train.clip_norm``) over ``params``."""
+    ``train.clip_norm``) over ``params``, those named by ``frozen_filter``
+    held fixed."""
     schedule = linear_warmup_decay(float(cfg.train.lr), num_train_steps,
                                    float(cfg.train.warmup_proportion))
-    return AdamW(params, schedule, float(cfg.train.clip_norm))
+    return AdamW(params, schedule, float(cfg.train.clip_norm), frozen_filter)

@@ -2,7 +2,8 @@
 and ``fit``), on one device, ``cuda`` unless the caller asks for another.
 
 A ``Trainer`` holds the model with its f32 master weights, the optimizer
-(``train/optim.py``), the step count and the ``extras`` of a stateful loss
+(``train/optim.py``, with the registry entry's frozen parameters held
+fixed), the step count and the ``extras`` of a stateful loss
 (ActionFormer's EMA loss normaliser, detached after each step).  One train
 step is the train-mode forward, the loss, the backward, clipping and AdamW,
 then span inference and IoU on the step's outputs, as the JAX step does.
@@ -62,11 +63,17 @@ class Trainer:
         self.init_state(derived.seed)
 
     def init_state(self, seed: int) -> None:
-        """Seeded initial weights, a fresh optimizer, step 0, initial extras."""
+        """Seeded initial weights, the entry's ``init_hook`` (a distillation
+        model's pretrained teacher, copied into the parameters in place), a
+        fresh optimizer with the entry's frozen parameters, step 0, initial
+        extras."""
         self.seed = int(seed)
         init_weights(self.model.cpu(), self.seed).to(self.device)
+        if self.entry.init_hook is not None:
+            self.entry.init_hook(self, self.cfg)
         self.optimizer = build_optimizer(self.cfg, max(1, self.derived.num_train_steps),
-                                         dict(self.model.named_parameters()))
+                                         dict(self.model.named_parameters()),
+                                         self.entry.frozen_filter)
         self.step = 0
         self.extras = {}
         if self.entry.stateful:

@@ -18,7 +18,10 @@ The port's parameter names follow the flax tree, so a leaf maps by rule:
 
 The rules cover the whole SeqPAN family: BackBone's tree adds a
 ``tfeat_encoder`` and drops the match head, BaseFast's drops the two
-dual-attention blocks and has 2 encoder layers.
+dual-attention blocks and has 2 encoder layers.  The distillation models'
+teachers are whole SeqPAN trees nested under one prefix (``teacher_t0/...``
+in ``OneTeacher``, ``teach_model/...`` in the frozen-teacher models), which
+the same rules carry across as ``teacher_t0.`` and ``teach_model.``.
 """
 
 from __future__ import annotations
