@@ -138,7 +138,31 @@ Phases, in order; any failure exits non-zero:
    heads, both label embeddings lifted, both towers' predictor biases held
    to the largest gradient as in phase 15 (their own maxima are printed).
 
-The check phase also holds the backward kernels (#6, #7) against their
+21. sentence: BackBoneBertSentence (``configs/charades_backbone_bertsentence.yaml``,
+   one 768-d sentence vector a sample, one text position) and
+   BackBoneAlignFeature (``configs/charades_backbone_alignfeature.yaml``, D
+   768: #1/#2 at head dim 192, #3 at D 768) at full width, bf16, synthetic
+   data, behind one ``ModelRouter`` over HTTP as ``--model NAME=CONFIG``
+   gives them: 2/4/2 launches of #1/#2/#3 per forward (their blocks are
+   called directly: #4 never); 3 train steps of each at droprate 0 (2/4/2 a
+   step) and at the config's 0.2 (none); one f32 forward and loss of each,
+   card against the CPU.
+22. backbone-af: BackBoneActionFormer (``configs/charades_backbone_actionformer.yaml``)
+   served the same way (1/0/2/2 of #4/#2/#3/#1 per forward, no banded
+   attention at T 64), 3 train steps at droprate 0 (0/4/2/2) and at 0.2
+   (none; stochastic depth live), one f32 forward and loss, card against CPU.
+23. af-rest: the long ActionFormer config with the FPN neck (4 banded
+   launches), the conv backbone (none) and rel-PE (none), each one f32 batch
+   of 8 through the whole forward, card against CPU; then
+   ``actionformer_infer_full`` on the FPN variant's card outputs, its
+   soft-NMS held per video against the C++ twin
+   (``vmrframe_tpu_torch/native``, built with ``g++`` at first use).
+
+The check phase also holds #1-#3 at the sentence variants' shapes (head
+dim 192 at B 128: 64 queries over 64 and 30 keys and 30 over 64; one key;
+one query over one key; #3 at D 768 both ways, and at one query or one
+context row), which the time phase times as extra rows beside their bound
+and SDPA.  It also holds the backward kernels (#6, #7) against their
 plain versions at the training shapes (B 2, 4 heads of 128, window 19,
 T = 2304, 1152, 576, 1000, 300) with a random cotangent on every row, and
 the ``autograd.Function``'s grads against ``torch.autograd`` through the
@@ -173,6 +197,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core b
 B, H, HD, LV, LT, D = 128, 4, 32, 64, 30, 128
 LV_LONG = 256  # SeqPAN's vlen at TACoS width (the reference's longest SeqPAN grid)
 LV_ANET = 100  # SeqPAN's vlen at ANet width
+D_ALIGN, HD_ALIGN = 768, 192  # BackBoneAlignFeature's width (the SBERT width), 4 heads
 TOL_F32 = 1e-4  # f32 sums taken in another order, expf against torch.exp
 BF16_ULPS = 2.0 ** -6  # bf16 check: 2-4 ulps of the output's largest magnitude
 TOL_MODEL_F32 = 1e-3  # whole f32 forward, card against CPU: ~40 layers of reordered f32 sums
@@ -180,6 +205,7 @@ TOL_MODEL_F32 = 1e-3  # whole f32 forward, card against CPU: ~40 layers of reord
 # to each gradient's largest magnitude beyond the card's band-mask route's
 # own distance to the CPU): ~40 layers of reordered f32 sums, forward and back
 TOL_TRAIN_F32 = 1e-3
+TOL_NMS = 1e-5  # decayed scores: the card's exp and the C++ twin's expf, a few ulps a step
 N_REQUESTS, CONCURRENCY, NUM_WORDS = 1024, 256, 1000
 SLEEP_CYCLES = 100_000_000  # ~50 ms of GPU clock: the host queues a timed run meanwhile
 AF_CONFIG = "configs/tacos_actionformer_long.yaml"
@@ -289,6 +315,50 @@ def long_kernel_cases(g: torch.Generator):
                                (rows(LT), rows(L), w4C, w4Q, w4mlu, tm, vm),
                                (rows(A), rows(LT), w4C, w4Q, w4mlu, va, tm),
                                (rows(LT), rows(A), w4C, w4Q, w4mlu, tm, va)],
+    }
+
+
+def sentence_kernel_cases(g: torch.Generator):
+    """The shapes the sentence variants give #1-#3 at full width:
+    BackBoneAlignFeature (D 768, 4 heads of 192; 64 video and 30 text
+    positions: #1 in the predictor, #2 both ways, #3 both ways) and
+    BackBoneBertSentence (D 128, 4 heads of 32; one text position: #1 over
+    one key, #2 with one cross key and with one query over one self key, #3
+    with one query and with one context row), and #3 at D 768 with one
+    query and with one context row.  Sample 0 is wholly masked, the
+    one-position side too."""
+    vm, tm, one = lengths_mask(g, LV), lengths_mask(g, LT), lengths_mask(g, 1)
+    outer = lambda a, b: a[:, :, None] * b[:, None, :]  # noqa: E731
+    heads = lambda L, hd: torch.randn(B, H, L, hd, generator=g, device="cuda")  # noqa: E731
+    rows = lambda L, d: torch.randn(B, L, d, generator=g, device="cuda")  # noqa: E731
+
+    def vecs(d):
+        bound = math.sqrt(6.0 / (d + 1))
+        return [(torch.rand(*s, generator=g, device="cuda") * 2 - 1) * bound
+                for s in ((d, 1), (d, 1), (1, 1, d))]
+
+    wa, wb = vecs(D_ALIGN), vecs(D)
+    hd = HD_ALIGN
+    return {
+        "fused_masked_attention": [
+            (heads(LV, hd), heads(LV, hd), heads(LV, hd), outer(vm, vm)),
+            (heads(LV, HD), heads(1, HD), heads(1, HD), outer(vm, one))],
+        "fused_dual_attention": [
+            (heads(LV, hd), heads(LV, hd), heads(LV, hd), heads(LT, hd), heads(LT, hd),
+             outer(vm, vm), outer(vm, tm)),
+            (heads(LT, hd), heads(LT, hd), heads(LT, hd), heads(LV, hd), heads(LV, hd),
+             outer(tm, tm), outer(tm, vm)),
+            (heads(LV, HD), heads(LV, HD), heads(LV, HD), heads(1, HD), heads(1, HD),
+             outer(vm, vm), outer(vm, one)),
+            (heads(1, HD), heads(1, HD), heads(1, HD), heads(LV, HD), heads(LV, HD),
+             outer(one, one), outer(one, vm))],
+        "fused_cq_attention": [
+            (rows(LV, D_ALIGN), rows(LT, D_ALIGN), *wa, vm, tm),
+            (rows(LT, D_ALIGN), rows(LV, D_ALIGN), *wa, tm, vm),
+            (rows(LV, D), rows(1, D), *wb, vm, one),
+            (rows(1, D), rows(LV, D), *wb, one, vm),
+            (rows(LV, D_ALIGN), rows(1, D_ALIGN), *wa, vm, one),
+            (rows(1, D_ALIGN), rows(LV, D_ALIGN), *wa, one, vm)],
     }
 
 
@@ -437,13 +507,13 @@ def work(name: str, args) -> tuple:
 
         (Bc, Lc, Dc), Lq = args[0].shape, args[1].shape[1]
         return cq_work(Bc, Lc, Lq, Dc, size)
-    L = args[0].shape[2]
+    Bq, Hq, L, hd = args[0].shape
     # Lk of each branch: (q, k, v, mask) or (q, f_k, f_v, t_k, t_v, s_mask, x_mask)
     keys = [args[1].shape[2]] if name == "fused_masked_attention" else \
         [args[1].shape[2], args[3].shape[2]]
-    elems = B * H * L * HD * (1 + len(keys))  # q, and one output per branch
-    elems += sum(2 * B * H * Lk * HD + B * L * Lk for Lk in keys)  # k, v, mask
-    ops = sum(4 * B * H * L * Lk * HD for Lk in keys)
+    elems = Bq * Hq * L * hd * (1 + len(keys))  # q, and one output per branch
+    elems += sum(2 * Bq * Hq * Lk * hd + Bq * L * Lk for Lk in keys)  # k, v, mask
+    ops = sum(4 * Bq * Hq * L * Lk * hd for Lk in keys)
     return elems * size, ops
 
 
@@ -603,8 +673,9 @@ DTYPE_KEYS = {"f32": torch.float32, "bf16": torch.bfloat16}
 def time_row(name: str, wrapper, plain, args, key: str, weight: int) -> dict:
     """One shape's kernel, plain and library times, and its bound."""
     args = cast_args(name, args, DTYPE_KEYS[key])
+    shaped = (args[0], args[3]) if name == "fused_dual_attention" else args[:2]  # q, cross k
     row = {
-        "shape": [list(a.shape) for a in args[:2]], "launches_per_forward": weight,
+        "shape": [list(a.shape) for a in shaped], "launches_per_forward": weight,
         "ms": device_ms(lambda: wrapper(*args)),
         "plain_ms": device_ms(lambda: plain(*args),
                               n=N_QUEUED_SMALL_OPS if name == STACK else 20),
@@ -631,14 +702,16 @@ def weighted(rows) -> dict:
             "bound_by": rows[0]["bound_by"], "shapes": rows}
 
 
-def phase_time(fns, cases, weights, card: str, long_cases: dict, f32_cases: dict) -> dict:
+def phase_time(fns, cases, weights, card: str, long_cases: dict, f32_cases: dict,
+               sentence_cases: dict) -> dict:
     """Per call; a kernel's ms are its launch-weighted mean over the shapes
     one forward (or train step) gives it (``weights``: launches per forward).
     The forward kernels in bf16 (#1-#3 in f32 too); the backward kernels in
     f32 (the long config's type) and bf16; the whole-stack kernel in both.
-    ``long_cases`` (#1-#4 at TACoS width, #3 at ANet width) are extra
-    rows, outside the means, so that the means stay comparable with earlier
-    runs.
+    ``long_cases`` (#1-#4 at TACoS width, #3 at ANet width) and
+    ``sentence_cases`` (#1-#3 at the sentence variants' shapes: head dim 192,
+    D 768, one text position) are extra rows, outside the means, so that the
+    means stay comparable with earlier runs.
     ``f32_cases`` give a kernel timed in bf16 its f32 time at other shapes
     (the banded forward at the training batch)."""
     results = {}
@@ -650,7 +723,10 @@ def phase_time(fns, cases, weights, card: str, long_cases: dict, f32_cases: dict
                     for args, weight in zip(shapes, weights[name])]
             long_rows = [time_row(name, wrapper, plain, args, key, 0)
                          for args in long_cases.get(name, ())]
-            results.setdefault(name, {})[key] = {**weighted(rows), "long_shapes": long_rows}
+            sentence_rows = [time_row(name, wrapper, plain, args, key, 0)
+                             for args in sentence_cases.get(name, ())]
+            results.setdefault(name, {})[key] = {**weighted(rows), "long_shapes": long_rows,
+                                                 "sentence_shapes": sentence_rows}
     for name, shapes in f32_cases.items():
         wrapper, plain = fns[name]
         log(f"[time] {name} f32 at the training batch, per call, on {card}")
@@ -832,17 +908,32 @@ def phase_verify_long(fused: bool = False) -> dict:
                         "verify-stack-long" if fused else "verify-long")
 
 
-def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict) -> dict:
+def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict,
+                   with_loss: bool = False, kernels=(), outputs: dict = None) -> dict:
+    """One f32 forward, the kernels on the card against the plain versions
+    on the CPU; ``with_loss``: the eval step's loss too (relative).  The
+    launch counts of ``kernels`` are set to 0 just before the card's forward
+    and read into the result just after it; ``outputs``, if given, receives
+    the card's outputs (on the card)."""
     from vmrframe_tpu_torch.testing import lift_drop_path
     from vmrframe_tpu_torch.train.evaluator import Evaluator
 
     cfg32 = cfg.updated({"train.compute_dtype": "float32"})
-    outs = {}
+    outs, losses, launches = {}, {}, {}
     for device in ("cuda", "cpu"):
         ev = Evaluator(cfg32, derived, word_vector, device=device, seed=0)
         lift_drop_path(ev.model, seed=0)
-        out = ev.forward(ev.to_device(batch))
+        b = ev.to_device(batch)
+        zero_counts(kernels)
+        out = ev.forward(b)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            if outputs is not None:
+                outputs.update(out)
         outs[device] = {k: out[k].cpu() for k in shapes}
+        if with_loss:
+            losses[device] = float(ev.eval_step(b)["loss"])
     errs = {}
     for key, shape in shapes.items():
         got, want = outs["cuda"][key], outs["cpu"][key]
@@ -850,11 +941,18 @@ def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict) -
             raise SmokeFailure(f"{phase}: {key} is not a finite {shape} tensor")
         errs[key] = (got - want).abs().max().item()
     ok = max(errs.values()) <= TOL_MODEL_F32
+    loss_err = None
+    if with_loss:
+        loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        ok = ok and math.isfinite(losses["cuda"]) and loss_err <= TOL_TRAIN_F32
     log(f"[{phase}] f32 forward, kernels on the card vs plain on the CPU: "
-        f"{json.dumps(errs)}  tol {TOL_MODEL_F32}  {'ok' if ok else 'FAIL'}")
+        f"{json.dumps(errs)}  tol {TOL_MODEL_F32}"
+        + (f"; loss card {losses['cuda']!r} cpu {losses['cpu']!r} (rel {loss_err:.3e}, tol "
+           f"{TOL_TRAIN_F32})" if with_loss else "") + f"  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SmokeFailure(f"{phase}: kernel path and plain path disagree")
-    return {"max_abs_err": errs, "tol": TOL_MODEL_F32}
+    return {"max_abs_err": errs, "tol": TOL_MODEL_F32, "loss_rel_err": loss_err,
+            "launches": launches}
 
 
 def compare_serving(off: dict, on: dict) -> None:
@@ -1284,25 +1382,29 @@ def want_launches(per_forward: dict, n: int) -> dict:
 
 def family_world(config: str, updates: dict, n_batches: int):
     """A SeqPAN-family config (with ``updates``), its synthetic dataset of
-    ``n_batches`` train batches, derived record and train batcher."""
+    ``n_batches`` train batches, derived record and train batcher (the
+    model's registered one)."""
     from vmrframe_tpu_torch.config import Derived, load_config
     from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.registry import get_model_entry
     from vmrframe_tpu_torch.testing import make_synthetic_data
 
     cfg = load_config(config).updated(updates)
     dataset, store = make_synthetic_data(cfg, seed=0, n_train=n_batches * B, n_test=B)
     derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
-    batcher = Batcher(dataset["train_set"], store, cfg, derived, "train")
+    batcher_cls = get_model_entry(str(cfg.model.name)).batcher_cls or Batcher
+    batcher = batcher_cls(dataset["train_set"], store, cfg, derived, "train")
     derived.num_train_steps = derived.steps_per_epoch = len(batcher)
     return cfg, derived, dataset, batcher
 
 
 def family_steps(K, S, config: str, updates: dict, n: int, card: str, want: dict,
-                 label: str, phase: str = "train-SeqPAN") -> dict:
+                 label: str, phase: str = "train-SeqPAN", kernels=None) -> dict:
     """``n`` train steps through ``Trainer`` on ``N_SEQPAN_BATCHES`` batches
     already on the card, in turn; the host clock of each ends in a
-    synchronise; the launch counts must be ``want`` per step.  The first
-    ``N_WARMUP_STEPS`` of a long run are not in the median."""
+    synchronise; the launch counts of ``kernels`` (default #1-#4) must be
+    ``want`` per step.  The first ``N_WARMUP_STEPS`` of a long run are not in
+    the median."""
     from vmrframe_tpu_torch.train.trainer import Trainer
 
     cfg, derived, dataset, batcher = family_world(config, updates, N_SEQPAN_BATCHES)
@@ -1312,14 +1414,15 @@ def family_steps(K, S, config: str, updates: dict, n: int, card: str, want: dict
     batches = [trainer.to_device(b) for b in batcher.epoch(seed=0)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(K.KERNELS + S.KERNELS)
+    kernels = kernels or K.KERNELS + S.KERNELS
+    zero_counts(kernels)
     times, losses = [], []
     for i in range(n):
         t0 = time.perf_counter()
         losses.append(float(trainer.train_step(batches[i % len(batches)])["loss"]))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = read_launches(f"{phase} {label}", K.KERNELS + S.KERNELS, want_launches(want, n))
+    launches = read_launches(f"{phase} {label}", kernels, want_launches(want, n))
     if not all(math.isfinite(x) for x in losses):
         raise SmokeFailure(f"{phase} {label}: losses {losses}")
     timed = times[N_WARMUP_STEPS:] if n > N_WARMUP_STEPS + 1 else times
@@ -1891,6 +1994,234 @@ def phase_verify_train_distill(K, S) -> dict:
                         seqpan.SHIFT_INVARIANT)
 
 
+# ------------------------------------- the sentence variants, BackBoneActionFormer
+
+
+# the routes of the sentence phase, as ``--model NAME=CONFIG`` gives them
+SENTENCE_SPECS = ("bertsentence=configs/charades_backbone_bertsentence.yaml",
+                  "alignfeature=configs/charades_backbone_alignfeature.yaml")
+# kernel launches of one sentence-variant forward (eval, or a train step at
+# droprate 0): they call their blocks directly, so #4 never runs
+SENTENCE_LAUNCHES = {STACK: 0, "fused_dual_attention": 4, "fused_cq_attention": 2,
+                     "fused_masked_attention": 2}
+N_SENTENCE_REQUESTS, SENTENCE_CONCURRENCY = 256, 64
+
+
+def serve_routes(phase: str, specs, kernels, want: dict, card: str) -> dict:
+    """The ``--model NAME=CONFIG`` routes behind one ``ModelRouter`` over
+    real HTTP (bf16, synthetic data, batch 128): a burst on each route
+    alone, its launch counts ``want`` per forward."""
+    from vmrframe_tpu_torch.config import load_config
+    from vmrframe_tpu_torch.tools.serve import (ModelRouter, build_service, make_http_server,
+                                                model_spec)
+
+    services, dataset = {}, None
+    t0 = time.perf_counter()
+    for spec in specs:
+        name, config, checkpoint = model_spec(spec)
+        services[name], dataset = build_service(load_config(config), checkpoint,
+                                                n_synthetic=2 * B, device="cuda")
+    stats = {"card": card, "routes": list(specs), "boot_s": time.perf_counter() - t0,
+             "batch_size": B, "dtype": "bfloat16", "bursts": {}}
+    router = ModelRouter(services)
+    server = make_http_server(router, 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        for route in services:
+            burst = http_drive(phase, url, router, dataset["test_set"], N_SENTENCE_REQUESTS,
+                               SENTENCE_CONCURRENCY, lambda i, r=route: r, True, kernels)
+            forwards = burst["forwards"][route]
+            expect = want_launches(want, forwards)
+            got = {name: burst["launches"][name] for name in expect}
+            log(f"[{phase}] /predict/{route}: {forwards} forwards, launches {json.dumps(got)}, "
+                f"want {json.dumps(expect)}; {burst['qps']:.1f} requests/s, p50 "
+                f"{burst['p50_ms']:.1f} ms, p99 {burst['p99_ms']:.1f} ms, on {card}")
+            if forwards < 1 or got != expect or burst["served"][route] != N_SENTENCE_REQUESTS:
+                raise SmokeFailure(f"{phase}: /predict/{route} launches {got}, want {expect}")
+            stats["bursts"][route] = {**burst, "launches_per_forward": {
+                k: v / forwards for k, v in got.items()}}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        router.close()
+    return stats
+
+
+def verify_family(phase: str, config: str, kernels, want: dict) -> dict:
+    """One f32 batch of the model's test batcher at full width: forward and
+    eval loss on the card against the CPU's plain path; ``want`` launches of
+    ``kernels`` in the card's forward."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.registry import get_model_entry
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+
+    cfg = load_config(config)
+    dataset, store = make_synthetic_data(cfg, seed=0, n_train=B, n_test=B)
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    batcher_cls = get_model_entry(str(cfg.model.name)).batcher_cls or Batcher
+    batch = batcher_cls(dataset["test_set"], store, cfg, derived).make_batch(list(range(B)))
+    vlen = int(cfg.model.vlen)
+    out = verify_forward(phase, cfg, derived, dataset["word_vector"], batch,
+                         {"slogits": (B, vlen), "elogits": (B, vlen)}, with_loss=True,
+                         kernels=kernels)
+    got = {k: out["launches"][k] for k in want}
+    log(f"[{phase}] launches in one f32 forward on the card: {json.dumps(got)}")
+    if got != want:
+        raise SmokeFailure(f"{phase}: launches {got} in one forward on the card, want {want}")
+    return out
+
+
+def phase_sentence(K, S, card: str) -> dict:
+    """BackBoneBertSentence and BackBoneAlignFeature (D 768: head dim 192,
+    #3 at D 768) at full width on synthetic data: served behind one router
+    (2/4/2 launches of #1/#2/#3 per forward), 3 train steps of each at
+    droprate 0 (2/4/2 a step) and at the config's 0.2 (none), and one f32
+    forward and loss, card against CPU."""
+    from vmrframe_tpu_torch.tools.serve import model_spec
+
+    kernels = K.KERNELS + S.KERNELS
+    stats = {"serve": serve_routes("sentence", SENTENCE_SPECS, kernels, SENTENCE_LAUNCHES, card)}
+    none = want_launches(SENTENCE_LAUNCHES, 0)
+    for spec in SENTENCE_SPECS:
+        name, config, _ = model_spec(spec)
+        stats[name] = {
+            "droprate_0": family_steps(K, S, config, {"model.droprate": 0.0}, N_FAMILY_STEPS,
+                                       card, SENTENCE_LAUNCHES, f"{name} droprate 0",
+                                       "sentence"),
+            "droprate_0.2": family_steps(K, S, config, {}, N_FAMILY_STEPS, card, none,
+                                         f"{name} droprate 0.2", "sentence"),
+            "verify": verify_family(f"sentence {name}", config, kernels, SENTENCE_LAUNCHES)}
+    log(f"[sentence] {json.dumps(stats)}")
+    return stats
+
+
+BBAF_CONFIG = "configs/charades_backbone_actionformer.yaml"
+# one BackBoneActionFormer eval forward with the stack's flag on: #4 once,
+# #3 and #1 twice, no banded attention (T 64 < pallas_min_len 512); a train
+# step at droprate 0 runs the module path (4 of #2)
+BBAF_EVAL_LAUNCHES = {STACK: 1, "fused_dual_attention": 0, "fused_cq_attention": 2,
+                      "fused_masked_attention": 2, "banded_attention": 0}
+BBAF_TRAIN_LAUNCHES = {**SEQPAN_TRAIN_LAUNCHES, "banded_attention": 0}
+
+
+def phase_backbone_af(K, S, W, card: str) -> dict:
+    """BackBoneActionFormer from its config: served (bf16, batch 128), 3
+    train steps at droprate 0 and at 0.2 (stochastic depth live), one f32
+    forward and loss, card against CPU."""
+    kernels = K.KERNELS + S.KERNELS + W.KERNELS
+    name = "backbone_af"
+    stats = {"serve": serve_routes("backbone-af", (f"{name}={BBAF_CONFIG}",), kernels,
+                                   BBAF_EVAL_LAUNCHES, card)}
+    none = want_launches(BBAF_TRAIN_LAUNCHES, 0)
+    stats["droprate_0"] = family_steps(K, S, BBAF_CONFIG, {"model.droprate": 0.0},
+                                       N_FAMILY_STEPS, card, BBAF_TRAIN_LAUNCHES, "droprate 0",
+                                       "backbone-af", kernels)
+    stats["droprate_0.2"] = family_steps(K, S, BBAF_CONFIG, {}, N_FAMILY_STEPS, card, none,
+                                         "droprate 0.2", "backbone-af", kernels)
+    stats["verify"] = verify_family("backbone-af verify", BBAF_CONFIG, kernels,
+                                    BBAF_EVAL_LAUNCHES)
+    log(f"[backbone-af] {json.dumps(stats)}")
+    return stats
+
+
+# the long config with each of the rest of ActionFormer: the FPN neck (4
+# banded launches a forward, as the identity neck), the conv backbone (no
+# attention) and rel-PE (no banded kernel: it does not add the term)
+AF_VARIANTS = {"fpn": ({"actionformer.fpn_type": "fpn"}, 4),
+               "conv": ({"actionformer.backbone_type": "conv"}, 0),
+               "rel_pe": ({"actionformer.use_rel_pe": True}, 0)}
+
+
+def phase_af_rest(W) -> dict:
+    """Each variant of the long config: one f32 batch of 8 through the whole
+    forward, the card against the CPU, with its banded launches; then
+    ``actionformer_infer_full`` on the FPN variant's card outputs, its
+    soft-NMS held per video against the C++ twin."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.af_batcher import ActionFormerBatcher
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+
+    stats = {}
+    for name, (updates, banded) in AF_VARIANTS.items():
+        cfg = load_config(AF_CONFIG).updated(updates)
+        dataset, store = make_synthetic_data(cfg, seed=0, n_train=B_AF, n_test=B_AF)
+        derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+        batch = ActionFormerBatcher(dataset["test_set"], store, cfg, derived,
+                                    batch_size=B_AF).make_batch(list(range(B_AF)))
+        P = sum(cfg.actionformer.max_seq_len // 2 ** i
+                for i in range(cfg.actionformer.backbone_arch[2] + 1))
+        outputs = {}
+        out = verify_forward(f"af-rest {name}", cfg, derived, None, batch,
+                             {"cls_logits": (B_AF, P, 1), "offsets": (B_AF, P, 2)},
+                             kernels=W.KERNELS, outputs=outputs)
+        want = {"banded_attention": banded, "banded_attention_dq": 0, "banded_attention_dkv": 0}
+        log(f"[af-rest] {name}: launches in one f32 forward on the card "
+            f"{json.dumps(out['launches'])}, want {json.dumps(want)}")
+        if out["launches"] != want:
+            raise SmokeFailure(f"af-rest {name}: launches {out['launches']}, want {want}")
+        stats[name] = out
+        if name == "fpn":
+            stats["nms"] = check_nms_twin(cfg, batch, outputs)
+    return stats
+
+
+def check_nms_twin(cfg, batch, outputs) -> dict:
+    """``actionformer_infer_full`` on the card's outputs; its soft-NMS
+    (before voting) against the C++ twin on each video's candidates: the
+    same picks, in order, above ``min_score``."""
+    from vmrframe_tpu_torch import native
+    from vmrframe_tpu_torch.models import actionformer as A
+    from vmrframe_tpu_torch.ops.nms import batched_nms_1d
+
+    test = cfg.actionformer.test_cfg
+    method = {"soft": 2, "linear": 1}.get(test.nms_method, 0)
+    K = int(test.max_seg_num)
+    card_batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    A.actionformer_infer_full(outputs, card_batch, cfg)  # warm: the first call loads kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = A.actionformer_infer_full(outputs, card_batch, cfg)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    segs, scores, _ = A._decode_candidates(outputs, cfg)
+    kept_segs, kept_scores, valid = batched_nms_1d(segs, scores, test.iou_threshold, K,
+                                                   test.min_score, method, test.nms_sigma)
+    if not (torch.equal(full["scores"], kept_scores) and torch.equal(full["valid"], valid)):
+        raise SmokeFailure("af-rest: actionformer_infer_full's NMS is not batched_nms_1d's")
+    segs, scores = segs.cpu().numpy(), scores.cpu().numpy()
+    kept_segs, kept_scores, valid = kept_segs.cpu(), kept_scores.cpu(), valid.cpu()
+    t0 = time.perf_counter()
+    twin = [native.nms_1d_cpu(segs[b], scores[b], test.iou_threshold, test.min_score, method,
+                              test.nms_sigma, K) for b in range(segs.shape[0])]
+    twin_s = time.perf_counter() - t0
+    seg_err, score_err, kept = 0.0, 0.0, []
+    for b, (c_segs, c_scores, _) in enumerate(twin):
+        n = int(valid[b].sum())
+        if len(c_scores) != n or not bool(valid[b, :n].all()):
+            raise SmokeFailure(f"af-rest: video {b}: the twin keeps {len(c_scores)}, the card "
+                               f"{n} (valid {valid[b].tolist()})")
+        seg_err = max(seg_err, float(np.abs(c_segs - kept_segs[b, :n].numpy()).max(initial=0)))
+        score_err = max(score_err, float((np.abs(c_scores - kept_scores[b, :n].numpy())
+                                          / np.abs(c_scores)).max(initial=0)))
+        kept.append(n)
+    ok = seg_err == 0.0 and score_err <= TOL_NMS
+    log(f"[af-rest] actionformer_infer_full on the card ({full_s * 1e3:.1f} ms host clock, "
+        f"second call, {K} steps of "
+        f"{test.nms_method} NMS over {segs.shape[1]} candidates x {segs.shape[0]} videos) "
+        f"against the C++ twin per video ({twin_s * 1e3:.1f} ms): kept {kept}; segments max "
+        f"abs diff {seg_err:.3e}; scores max rel diff {score_err:.3e}, tol {TOL_NMS}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("af-rest: the card's NMS and the C++ twin disagree")
+    return {"kept": kept, "segments_max_abs_diff": seg_err, "scores_max_rel_diff": score_err,
+            "tol": TOL_NMS, "infer_full_ms": full_s * 1e3, "twin_ms": twin_s * 1e3,
+            "segments_shape": list(full["segments"].shape)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the full record to this JSON file")
@@ -1913,11 +2244,13 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = kernel_cases(g)
     long_cases = long_kernel_cases(g)
+    sentence_cases = sentence_kernel_cases(g)
     blocks = stack_blocks(seed=0)
     cases[STACK] = stack_cases(g, blocks, STACK_CHECK_SHAPES[:1])
     long_cases[STACK] = stack_cases(g, blocks, ((B, LV_LONG, LT),))
     odd_hd = lambda make: [c for hd in AF_CHECK_HD for c in make(hd)]  # noqa: E731
-    check_cases = {**cases, **{name: cases[name] + long_cases[name] for name in ATTENTION},
+    check_cases = {**cases, **{name: cases[name] + long_cases[name] + sentence_cases[name]
+                               for name in ATTENTION},
                    "banded_attention": banded_cases(g, AF_CHECK_T)
                    + odd_hd(lambda hd: banded_cases(g, (1000,), hd=hd)),
                    STACK: cases[STACK] + stack_cases(g, blocks, STACK_CHECK_SHAPES[1:])
@@ -1944,14 +2277,14 @@ def main() -> int:
     record["build"] = phase("build", phase_build)
     record["check"] = phase("check", phase_check, fns, check_cases)
     record["time"] = phase("time", phase_time, fns, time_cases, weights, card, long_cases,
-                           f32_cases)
+                           f32_cases, sentence_cases)
     # free the long grids, the odd head dims and the f32 rows: the serve
     # phases' peak memory stays comparable
     for name in ATTENTION + (STACK,):
         check_cases[name] = cases[name]
     for name in ("banded_attention",) + BWD_KERNELS:
         check_cases[name] = check_cases[name][:len(AF_CHECK_T)]
-    del long_cases, f32_cases, bwd_check
+    del long_cases, f32_cases, bwd_check, sentence_cases
     time_module_path(blocks, cases[STACK][0], record["time"], card)
     record["serve"], dataset, store, derived, cfg = phase("serve", phase_serve, kernels, card)
     record["verify"] = phase("verify", phase_verify, cfg, derived, dataset, store)
@@ -1980,6 +2313,9 @@ def main() -> int:
         record["distill"] = phase("distill", phase_distill, K, S, card, root, config, best)
     record["verify_train_distill"] = phase("verify-train-distill", phase_verify_train_distill,
                                            K, S)
+    record["sentence"] = phase("sentence", phase_sentence, K, S, card)
+    record["backbone_af"] = phase("backbone-af", phase_backbone_af, K, S, W, card)
+    record["af_rest"] = phase("af-rest", phase_af_rest, W)
     record["seconds"] = seconds
     # the main path each kernel's launches are read from, and the type of the
     # numbers in its line: the serve phases run bf16, training the YAML's f32
@@ -2013,8 +2349,21 @@ def main() -> int:
             out[-1]["launches_distill_eval"] = record["distill"]["eval_launches"][name]
             out[-1]["launches_per_distill_train_step"] = \
                 record["distill"]["droprate_0"]["launches_per_step"][name]
+            # the sentence variants and BackBoneActionFormer, per served forward
+            out[-1]["launches_per_sentence_forward"] = {
+                route: burst["launches_per_forward"][name]
+                for route, burst in record["sentence"]["serve"]["bursts"].items()}
+            out[-1]["launches_per_backbone_af_forward"] = \
+                record["backbone_af"]["serve"]["bursts"]["backbone_af"][
+                    "launches_per_forward"][name]
         if "module_path_ms" in t:  # the other route to the same result, not a library call
             out[-1]["module_path_ms"] = t["module_path_ms"]
+        if name in ATTENTION:  # the sentence variants' shapes, outside the means
+            out[-1]["sentence_shapes"] = {
+                k: [{"shape": r["shape"], "ms": r["ms"]["median"], "bound_ms": r["bound_ms"],
+                     "library_ms": r["library_ms"]["median"] if r["library_ms"] else None}
+                    for r in record["time"][name][k]["sentence_shapes"]]
+                for k in ("bf16", "f32")}
         if key == "bf16" and "f32" in record["time"][name]:
             out[-1]["ms_f32"] = record["time"][name]["f32"]["ms"]
             out[-1]["bound_ms_f32"] = record["time"][name]["f32"]["bound_ms"]

@@ -143,7 +143,8 @@ def test_masked_mhca_both_routes_match_jax(stride):
 def test_band_gate_conditions():
     """The port's counterpart of the JAX gate: a window, T at or above the
     eval threshold, Tq == Tk, one key window within the padded length.  An
-    unset eval threshold is ``pallas_min_len``; rel-PE is not ported."""
+    unset eval threshold is ``pallas_min_len``; a rel-PE layer never takes
+    the kernel, which does not add the term."""
     m = L.MaskedMHCA(64, 4, window_size=19, pallas_min_len=256)
     assert m.use_banded_kernel(512, 512)
     assert m.use_banded_kernel(300, 300)  # padded to 384 = K_WIN
@@ -165,8 +166,9 @@ def test_band_gate_conditions():
     assert m3.train().use_banded_kernel(512, 512)
     assert not L.MaskedMHCA(64, 4, window_size=19, pallas_min_len=-1,
                             pallas_min_len_eval=256).train().use_banded_kernel(512, 512)
-    with pytest.raises(NotImplementedError, match="rel-PE"):
-        L.MaskedMHCA(64, 4, window_size=19, use_rel_pe=True)
+    rel = L.MaskedMHCA(64, 4, window_size=19, use_rel_pe=True, pallas_min_len=256)
+    assert not rel.use_banded_kernel(512, 512) and not rel.train().use_banded_kernel(512, 512)
+    assert tuple(rel.rel_pe.shape) == (4, 19)
     # the long config sets no eval threshold: every level with T >= 512 takes the kernel
     cfg = load_config(LONG)
     assert cfg.actionformer.get("pallas_min_len_eval") is None

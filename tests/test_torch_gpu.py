@@ -7,7 +7,7 @@ file imports no JAX, so it runs on a machine without it:
 
 (``--noconftest`` because ``tests/conftest.py`` sets JAX up.)  Shapes are
 ragged on purpose (lengths that are no multiple of a tile, head dims 16 to
-128) and the masks hold wholly masked rows and a wholly masked sample.
+256) and the masks hold wholly masked rows and a wholly masked sample.
 Tolerances: f32 1e-4 (sums in another order); bf16 2**-6 of the largest
 output magnitude (a few bf16 ulps).
 """
@@ -96,7 +96,10 @@ def test_dual_attention_kernel_on_strided_views(cuda, dtype, L, M):
     # one position a side; past a 16-row tile on either side (the scores in
     # the scratch); the longest grid both ways; the serving batch
     (4, 1, 1, 1), (4, 65, 257, 128), (4, 257, 65, 128), (4, 1024, 1024, 128),
-    (128, 64, 30, 128)])
+    (128, 64, 30, 128),
+    # the sentence variants at D = 768: AlignFeature's grids, and BertSentence's
+    # one text position as the query side and as the context side
+    (4, 64, 30, 768), (4, 30, 64, 768), (4, 64, 1, 768), (4, 1, 64, 768)])
 def test_cq_attention_kernel(cuda, dtype, B, Lc, Lq, D):
     g = torch.Generator().manual_seed(2)
     c = torch.randn(B, Lc, D, generator=g).to(cuda, dtype)
@@ -148,6 +151,31 @@ def test_attention_kernels_at_long_grids(cuda, dtype, hd):
         (before[0] + 2, before[1] + 1)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("L,M,hd", [
+    # BackBoneAlignFeature at D = 768, 4 heads: video 64 and text 30 rows
+    (64, 30, 192), (30, 64, 192),
+    # past 128 off the 16-column grid; the widest; several key chunks
+    (37, 11, 136), (64, 30, 256), (150, 30, 192),
+    # BackBoneBertSentence: one text position, as the cross keys and as the query
+    (64, 1, 32), (1, 64, 32), (64, 1, 192), (1, 64, 192)])
+def test_attention_kernels_past_head_dim_128_and_at_one_key(cuda, dtype, L, M, hd):
+    """#2 and #1 (self and cross branches alone) at the sentence variants'
+    shapes, on strided views, with wholly masked rows and samples."""
+    g = torch.Generator().manual_seed(10)
+    q, fk, fv, tk, tv, s_mask, x_mask = _long_attention_inputs(g, 3, 4, L, M, hd, dtype, cuda)
+    before = (K.fused_masked_attention.launches, K.fused_dual_attention.launches)
+    got = K.fused_dual_attention(q, fk, fv, tk, tv, s_mask, x_mask)
+    torch.cuda.synchronize()
+    _close(got, K.dual_attention_plain(q, fk, fv, tk, tv, s_mask, x_mask), dtype)
+    _close(K.fused_masked_attention(q, fk, fv, s_mask),
+           K.masked_attention_plain(q, fk, fv, s_mask), dtype)
+    _close(K.fused_masked_attention(q, tk, tv, x_mask),
+           K.masked_attention_plain(q, tk, tv, x_mask), dtype)
+    assert (K.fused_masked_attention.launches, K.fused_dual_attention.launches) == \
+        (before[0] + 2, before[1] + 1)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.randn(2, 2, 5, 8, device=cuda, dtype=torch.float16)
     mask = torch.ones(2, 5, 5, device=cuda)
@@ -159,8 +187,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         K.fused_masked_attention(x, x, x, mask[:, :4])
     before = [fn.launches for fn in K.KERNELS]
-    with pytest.raises(ValueError, match="head dim"):  # bf16 head dims end at 128
-        y = torch.randn(1, 1, 8, 144, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):  # bf16 head dims end at 256
+        y = torch.randn(1, 1, 8, 264, device=cuda, dtype=torch.bfloat16)
         K.fused_masked_attention(y, y, y, torch.ones(1, 8, 8, device=cuda))
     with pytest.raises(ValueError, match="shared memory"):  # K and V of two 512-key branches
         y = torch.randn(1, 1, 512, 128, device=cuda, dtype=torch.bfloat16)

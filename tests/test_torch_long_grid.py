@@ -173,7 +173,10 @@ def test_cq_plan_raises_beyond_what_the_kernel_takes(Lc, Lq, D):
 
 @pytest.mark.parametrize("Lq,Lks,hd", [(64, (64, 30), 32), (30, (30, 64), 32),
                                        (256, (256, 30), 32), (30, (30, 256), 128),
-                                       (256, (256, 30), 128), (512, (512,), 64)])
+                                       (256, (256, 30), 128), (512, (512,), 64),
+                                       (64, (64, 30), 192), (30, (30, 64), 192),
+                                       (64, (64, 1), 32), (1, (1, 64), 32),
+                                       (64, (64,), 256)])
 def test_attention_staging_fits_at_the_grids_the_tests_use(Lq, Lks, hd):
     for dtype in (torch.bfloat16, torch.float32):
         assert K.attention_shared_bytes(dtype, Lq, Lks, hd) <= K.SHARED_BYTES
@@ -188,11 +191,15 @@ def test_attention_limits_name_what_the_kernel_takes():
     # f32: a 32-key chunk of K (33 columns) and V, 4 Q rows, 16 rows' max and sum
     assert K.attention_shared_bytes(torch.float32, 64, (64, 30), 32) == \
         4 * (32 * 65 + 4 * 32 + 2 * 16)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        K._check_attention(torch.bfloat16, 8, (8,), 144, "test")
-    K._check_attention(torch.float32, 8, (8,), 144, "test")  # f32 takes head dims to 256
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        K._check_attention(torch.float32, 8, (8,), 264, "test")
+    # both types take head dims to 256 (bf16 past 128: Q read from its tile)
+    for dtype in (torch.bfloat16, torch.float32):
+        K._check_attention(dtype, 8, (8,), 144, "test")
+        with pytest.raises(ValueError, match="head dims up to 256"):
+            K._check_attention(dtype, 8, (8,), 264, "test")
+    # AlignFeature's dual attention at D = 768, 4 heads: 4 warps, Q tiles of
+    # 192 + 8 columns, K and V of 64 and 32 (30 padded) keys; about 112 KB
+    assert K.attention_shared_bytes(torch.bfloat16, 64, (64, 30), 192) == \
+        2 * (4 * 16 * (200 + 72) + 200 * (2 * 64 + 2 * 32)) == 111_616
     with pytest.raises(ValueError, match="shared memory"):
         K._check_attention(torch.bfloat16, 512, (512, 512), 128, "test")
     with pytest.raises(ValueError, match="at least 1"):

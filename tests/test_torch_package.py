@@ -43,6 +43,31 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert offenders == []
 
 
+# modules added by the sentence-variant and ActionFormer slice, held to the rule above
+SLICE_MODULES = ("data/sentence_encoder.py", "models/sentence_variants.py",
+                 "models/backbone_actionformer.py", "native/__init__.py")
+
+
+def test_the_slice_modules_are_held_to_the_rule():
+    checked = {p.relative_to(REPO / "vmrframe_tpu_torch").as_posix() for p in _port_files()
+               if p.is_relative_to(REPO / "vmrframe_tpu_torch")}
+    assert set(SLICE_MODULES) <= checked
+
+
+def test_the_nms_twin_is_the_ports_own_copy():
+    """The C++ NMS twin is built from the port's copy, never from the JAX
+    package's ``vmrframe_tpu/native``, which no port file names."""
+    import vmrframe_tpu_torch.native as N
+
+    assert N.SOURCE == REPO / "vmrframe_tpu_torch" / "native" / "nms_1d.cpp"
+    assert "extern \"C\"" in N.SOURCE.read_text()
+    assert N.library_path().parent == REPO / "vmrframe_tpu_torch" / "kernels" / "_build"
+    offenders = [str(p.relative_to(REPO)) for p in _port_files() + [N.SOURCE]
+                 if "vmrframe_tpu.native" in p.read_text()
+                 or "vmrframe_tpu/native" in p.read_text()]
+    assert offenders == []
+
+
 def _run_smoke(cwd: Path):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,

@@ -52,7 +52,9 @@ _ARGTYPES = {
 }
 _lib = None
 SHARED_BYTES = 232_448  # what one block may hold in shared memory on an H100
-MMA_MAX_HEAD_DIM = 128  # bf16 attention: Q fragments and outputs of 16 rows in registers
+# bf16 attention: head dims to 128 hold a tile's Q fragments and outputs in
+# registers; 129-256 read Q from its shared tile and run P.V in two halves
+MMA_MAX_HEAD_DIM = 256
 F32_MAX_HEAD_DIM = 256  # f32 attention: 8 outputs a lane
 # mirror attention.cu: kMaxWarps, the 8-column row pad, kChunk + 8 (a warp's mask tile row)
 MMA_MAX_WARPS, MMA_ROW_PAD, MMA_MASK_ROW = 8, 8, 72
@@ -200,9 +202,10 @@ def cq_attention_reference(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
 def attention_shared_bytes(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int) -> int:
     """Shared memory of the attention kernels.  bf16: K and V of every
     branch (rows padded to 16 keys, columns to 16 plus 8) and, per warp, a
-    16-row Q tile and its (16, 64) mask tile.  f32: one 32-key chunk of K
-    (rows padded by 1) and V, a Q row per warp, and the max and sum of the
-    block's 16 rows."""
+    16-row Q tile and its (16, 64) mask tile (past head dim 128 the Q
+    fragments are read from that tile, so the head dim adds no more).  f32:
+    one 32-key chunk of K (rows padded by 1) and V, a Q row per warp, and
+    the max and sum of the block's 16 rows."""
     if dtype == torch.float32:
         return 4 * (F32_CHUNK * (2 * hd + 1) + F32_WARPS * hd + 2 * F32_ROWS)
     stride = -(-hd // 16) * 16 + MMA_ROW_PAD

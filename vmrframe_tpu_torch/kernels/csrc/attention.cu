@@ -25,8 +25,14 @@
 // fragments by ldmatrix.trans).  That is where the TPU kernel and the plain
 // version round, so the numbers are theirs, not an online softmax's.  With
 // one chunk (Lk <= 64) the scores of the first walk are kept.  #2 runs the
-// same tile over two branches with the Q fragments loaded once.  The
-// fragment helpers are in mma_bf16.cuh, shared with window_attention.cu.
+// same tile over two branches with the Q fragments loaded once.  Past head
+// dim 128 (to 256) a warp holding every Q fragment and every output
+// accumulator would spill: there the Q fragments are read from the warp's
+// staged Q tile at each 16-column step of the scores, and walk 2 runs twice,
+// over each half of the output columns (at most 128 each; the scores are
+// kept across the halves when there is one chunk, recomputed otherwise).
+// P is the same bf16 value in both halves.  The fragment helpers are in
+// mma_bf16.cuh, shared with window_attention.cu.
 //
 // #1/#2, f32: attention_f32 stays full f32 on the CUDA cores (TF32 would
 // keep ~3 digits): the same two walks over keys staged 32 at a time in
@@ -140,24 +146,45 @@ __device__ __forceinline__ const T* at(const View& v, int b, int h) {
 // The scores of one 64-key chunk for a warp's 16-row tile, in the mma's C
 // layout: s[j] holds keys c0 + 8j + 2t, +1 of rows g (s[j][0..1]) and g + 8
 // (s[j][2..3]); scaled, masked with -1e30 by the chunk's mask tile m_s
-// (16 rows of kMaskRS), -inf beyond Lk.
-template <int HDK, int RS>
-__device__ __forceinline__ void chunk_scores(float (&s)[8][4], const uint32_t (&qa)[HDK][4],
-                                             const bf16* k_s, const bf16* m_s, int c0, int Lk,
-                                             int Lkp, float scale, int lane) {
+// (16 rows of kMaskRS), -inf beyond Lk.  The Q fragments come from qa, or
+// with QS from the warp's Q tile q_s, one 16-column step at a time.
+template <int HDK, int RS, bool QS>
+__device__ __forceinline__ void chunk_scores(float (&s)[8][4],
+                                             const uint32_t (&qa)[QS ? 1 : HDK][4],
+                                             const bf16* q_s, const bf16* k_s, const bf16* m_s,
+                                             int c0, int Lk, int Lkp, float scale, int lane) {
   const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r = lane & 7;
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  if constexpr (QS) {
+    // each product still sums its 16-column steps in order, as below
 #pragma unroll
-  for (int j2 = 0; j2 < 4; ++j2) {
-    if (c0 + 16 * j2 < Lkp) {
-      const bf16* krow = k_s + (c0 + 16 * j2 + r + ((mi >> 1) << 3)) * RS + ((mi & 1) << 3);
+    for (int kk = 0; kk < HDK; ++kk) {
+      uint32_t qf[4];
+      ldmatrix_x4(qf, q_s + (r + ((mi & 1) << 3)) * RS + 16 * kk + ((mi >> 1) << 3));
 #pragma unroll
-      for (int kk = 0; kk < HDK; ++kk) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, krow + 16 * kk);
-        mma_bf16(s[2 * j2], qa[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * j2 + 1], qa[kk], kb[2], kb[3]);
+      for (int j2 = 0; j2 < 4; ++j2) {
+        if (c0 + 16 * j2 < Lkp) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, k_s + (c0 + 16 * j2 + r + ((mi >> 1) << 3)) * RS + ((mi & 1) << 3) +
+                              16 * kk);
+          mma_bf16(s[2 * j2], qf, kb[0], kb[1]);
+          mma_bf16(s[2 * j2 + 1], qf, kb[2], kb[3]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j2 = 0; j2 < 4; ++j2) {
+      if (c0 + 16 * j2 < Lkp) {
+        const bf16* krow = k_s + (c0 + 16 * j2 + r + ((mi >> 1) << 3)) * RS + ((mi & 1) << 3);
+#pragma unroll
+        for (int kk = 0; kk < HDK; ++kk) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, krow + 16 * kk);
+          mma_bf16(s[2 * j2], qa[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * j2 + 1], qa[kk], kb[2], kb[3]);
+        }
       }
     }
   }
@@ -177,12 +204,16 @@ __device__ __forceinline__ void chunk_scores(float (&s)[8][4], const uint32_t (&
 }
 
 // vmr_masked_attention (nbranch = 1) and vmr_dual_attention (nbranch = 2),
-// bf16, on the tensor cores.  HDK = head dim padded to 16, over 16.
+// bf16, on the tensor cores.  HDK = head dim padded to 16, over 16 (1-16).
 template <int HDK>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     attention_mma(View qv, Branch b0, Branch b1, int nbranch, int H, int Lq, int hd,
                   float scale) {
   constexpr int HDP = 16 * HDK, RS = HDP + 8;
+  // past head dim 128: Q fragments from shared memory, P.V over OT column
+  // tiles of 16 (at most 8) at a time, in NPASS passes
+  constexpr bool QS = HDK > 8;
+  constexpr int OT = QS ? (HDK + 1) / 2 : HDK, NPASS = (HDK + OT - 1) / OT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -212,10 +243,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     stage<HDP, RS>(q_s, q + i0 * qv.sl, qv.sl, min(16, Lq - i0), 16, hd, lane, 32);
     cp_async_wait_all();
     __syncwarp();
-    uint32_t qa[HDK][4];
+    uint32_t qa[QS ? 1 : HDK][4];
+    if constexpr (!QS) {
 #pragma unroll
-    for (int kk = 0; kk < HDK; ++kk)
-      ldmatrix_x4(qa[kk], q_s + (r + ((mi & 1) << 3)) * RS + 16 * kk + ((mi >> 1) << 3));
+      for (int kk = 0; kk < HDK; ++kk)
+        ldmatrix_x4(qa[kk], q_s + (r + ((mi & 1) << 3)) * RS + 16 * kk + ((mi >> 1) << 3));
+    }
     const int ra = i0 + g, rb = ra + 8;
 
     for (int n = 0; n < nbranch; ++n) {
@@ -238,7 +271,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
       for (int c = 0; c < nchunk; ++c) {
         stage_mask(c * kChunk);
-        chunk_scores<HDK, RS>(s, qa, k_s, m_s, c * kChunk, Lk, Lkp, scale, lane);
+        chunk_scores<HDK, RS, QS>(s, qa, q_s, k_s, m_s, c * kChunk, Lk, Lkp, scale, lane);
         float c0 = -CUDART_INF_F, c1 = -CUDART_INF_F;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -258,46 +291,55 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       }
       const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
 
-      // walk 2: the normalised probabilities, rounded to bf16, times V
-      float o[2 * HDK][4];
+      // walk 2: the normalised probabilities, rounded to bf16, times V, over
+      // output column tiles [d0, d0 + OT) in each pass
+      bf16* out = static_cast<bf16*>(const_cast<void*>(B_.out.p)) + b * B_.out.sb + h * B_.out.sh;
 #pragma unroll
-      for (int d = 0; d < 2 * HDK; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-      for (int c = 0; c < nchunk; ++c) {
-        if (nchunk > 1) {
-          stage_mask(c * kChunk);
-          chunk_scores<HDK, RS>(s, qa, k_s, m_s, c * kChunk, Lk, Lkp, scale, lane);
-        }
+      for (int pass = 0; pass < NPASS; ++pass) {
+        const int d0 = pass * OT;
+        float o[2 * OT][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int key0 = c * kChunk + 16 * kk;
-          if (key0 < Lkp) {
-            uint32_t pa[4];
-            pa[0] = pack_bf16(__expf(s[2 * kk][0] - m0) * inv0, __expf(s[2 * kk][1] - m0) * inv0);
-            pa[1] = pack_bf16(__expf(s[2 * kk][2] - m1) * inv1, __expf(s[2 * kk][3] - m1) * inv1);
-            pa[2] = pack_bf16(__expf(s[2 * kk + 1][0] - m0) * inv0,
-                              __expf(s[2 * kk + 1][1] - m0) * inv0);
-            pa[3] = pack_bf16(__expf(s[2 * kk + 1][2] - m1) * inv1,
-                              __expf(s[2 * kk + 1][3] - m1) * inv1);
-            const bf16* vrow = v_s + (key0 + r + ((mi & 1) << 3)) * RS + ((mi >> 1) << 3);
+        for (int d = 0; d < 2 * OT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+        for (int c = 0; c < nchunk; ++c) {
+          if (nchunk > 1) {
+            stage_mask(c * kChunk);
+            chunk_scores<HDK, RS, QS>(s, qa, q_s, k_s, m_s, c * kChunk, Lk, Lkp, scale, lane);
+          }
 #pragma unroll
-            for (int dp = 0; dp < HDK; ++dp) {
-              uint32_t vb[4];
-              ldmatrix_x4_trans(vb, vrow + 16 * dp);
-              mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-              mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+          for (int kk = 0; kk < 4; ++kk) {
+            const int key0 = c * kChunk + 16 * kk;
+            if (key0 < Lkp) {
+              uint32_t pa[4];
+              pa[0] = pack_bf16(__expf(s[2 * kk][0] - m0) * inv0,
+                                __expf(s[2 * kk][1] - m0) * inv0);
+              pa[1] = pack_bf16(__expf(s[2 * kk][2] - m1) * inv1,
+                                __expf(s[2 * kk][3] - m1) * inv1);
+              pa[2] = pack_bf16(__expf(s[2 * kk + 1][0] - m0) * inv0,
+                                __expf(s[2 * kk + 1][1] - m0) * inv0);
+              pa[3] = pack_bf16(__expf(s[2 * kk + 1][2] - m1) * inv1,
+                                __expf(s[2 * kk + 1][3] - m1) * inv1);
+              const bf16* vrow = v_s + (key0 + r + ((mi & 1) << 3)) * RS + ((mi >> 1) << 3);
+#pragma unroll
+              for (int dp = 0; dp < OT; ++dp) {
+                if (d0 + dp < HDK) {
+                  uint32_t vb[4];
+                  ldmatrix_x4_trans(vb, vrow + 16 * (d0 + dp));
+                  mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+                  mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+                }
+              }
             }
           }
         }
-      }
-      bf16* out = static_cast<bf16*>(const_cast<void*>(B_.out.p)) + b * B_.out.sb + h * B_.out.sh;
 #pragma unroll
-      for (int d = 0; d < 2 * HDK; ++d) {
-        const int col = 8 * d + 2 * t;
+        for (int d = 0; d < 2 * OT; ++d) {
+          const int col = 16 * d0 + 8 * d + 2 * t;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e < 2 ? ra : rb;
-          if (row < Lq && col + (e & 1) < hd)
-            out[row * B_.out.sl + col + (e & 1)] = __float2bfloat16(o[d][e]);
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? ra : rb;
+            if (row < Lq && col + (e & 1) < hd)
+              out[row * B_.out.sl + col + (e & 1)] = __float2bfloat16(o[d][e]);
+          }
         }
       }
     }
@@ -1129,6 +1171,14 @@ int launch_attention(int dtype, View q, Branch b0, Branch b1, int nbranch, int B
     case 6: return launch_mma<6>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
     case 7: return launch_mma<7>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
     case 8: return launch_mma<8>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
+    case 9: return launch_mma<9>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
+    case 10: return launch_mma<10>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
+    case 11: return launch_mma<11>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
+    case 12: return launch_mma<12>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
+    case 13: return launch_mma<13>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
+    case 14: return launch_mma<14>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
+    case 15: return launch_mma<15>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
+    case 16: return launch_mma<16>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

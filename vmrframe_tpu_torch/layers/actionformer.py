@@ -8,8 +8,9 @@ In train mode (``module.train()``) ``AffineDropPath`` applies stochastic
 depth (``drop_path``) with uniforms drawn from the ``torch.Generator`` the
 caller threads through ``forward``, and so does dropout (``proj_pdrop``,
 after the attention's projection and around the MLP's second dense, the
-JAX package's four sites).  Not ported yet: rel-PE,
-``ConvBackbone``/``ConvBlock`` and ``FPN1D`` (ROADMAP).
+JAX package's four sites).  Besides the conv-transformer backbone and the
+identity neck, the conv-only backbone (``ConvBlock``, ``ConvBackbone``) and
+the feature-pyramid neck (``FPN1D``).
 
 ``MaskedMHCA`` with ``window_size > 0`` runs the banded attention kernels
 (``kernels/window_attention.py``: the forward, and in backward the dq and
@@ -17,6 +18,9 @@ dk/dv kernels) when one key window fits the padded length and T reaches the
 mode's threshold: ``pallas_min_len`` in train mode, ``pallas_min_len_eval``
 in eval mode (the config keys keep the JAX package's names), as the JAX
 gate does; otherwise it computes the full (T, T) scores with a band mask.
+With ``use_rel_pe`` a learned (n_head, window_size) relative position term
+is added to the in-window scores (its offsets clipped to the window); the
+kernels do not add it, so such a layer never takes them, as in the JAX gate.
 Both routes give the same values on every valid row.  An unset
 ``pallas_min_len_eval`` means the same threshold as ``pallas_min_len``: the
 JAX model routes eval away from its TPU kernel by default because of a TPU
@@ -115,10 +119,13 @@ class MaskedMHCA(nn.Module):
                  window_size: int = -1, use_rel_pe: bool = False, pallas_min_len: int = 512,
                  pallas_min_len_eval: Optional[int] = None, proj_pdrop: float = 0.0):
         super().__init__()
-        if use_rel_pe:
-            raise NotImplementedError("MaskedMHCA: rel-PE is not ported yet")
         self.n_embd, self.n_head = n_embd, n_head
         self.window_size = window_size
+        # the JAX layer creates rel_pe only inside its window branch
+        self.use_rel_pe = use_rel_pe and window_size > 0
+        if self.use_rel_pe:  # truncated normal, std sqrt(2 / n_embd) (weights.init_weights)
+            self.rel_pe = nn.Parameter(torch.zeros(n_head, window_size))
+            self.rel_pe_std = math.sqrt(2.0 / n_embd)
         self.min_len_train = pallas_min_len
         self.min_len = pallas_min_len if pallas_min_len_eval is None else pallas_min_len_eval
         q_ks = n_qx_stride + 1 if n_qx_stride > 1 else 3
@@ -137,11 +144,11 @@ class MaskedMHCA(nn.Module):
         self.proj_drop = Dropout(proj_pdrop)
 
     def use_banded_kernel(self, Tq: int, Tk: int) -> bool:
-        """The kernel route: a window, T at or above the mode's threshold
-        (train: ``min_len_train``, eval: ``min_len``; -1 disables), Tq == Tk,
-        and one key window within the padded length."""
+        """The kernel route: a window without rel-PE, T at or above the
+        mode's threshold (train: ``min_len_train``, eval: ``min_len``; -1
+        disables), Tq == Tk, and one key window within the padded length."""
         min_len = self.min_len_train if self.training else self.min_len
-        if self.window_size <= 0 or min_len < 0:
+        if self.window_size <= 0 or self.use_rel_pe or min_len < 0:
             return False
         if Tq != Tk or Tq < min_len:
             return False
@@ -169,7 +176,12 @@ class MaskedMHCA(nn.Module):
             if self.window_size > 0:
                 qi = torch.arange(Tq, device=x.device)[:, None]
                 kj = torch.arange(Tk, device=x.device)[None, :]
-                att = att.masked_fill((qi - kj).abs() > self.window_size // 2, neg)
+                half = self.window_size // 2
+                outside = (qi - kj).abs() > half
+                if self.use_rel_pe:  # (n_head, Tq, Tk), 0 outside the band
+                    offset = (kj - qi + half).clamp(0, self.window_size - 1)
+                    att = att + self.rel_pe[:, offset].masked_fill(outside, 0.0)
+                att = att.masked_fill(outside, neg)
             att = torch.softmax(att, dim=-1)
             out = att @ (vh * kv_mask[:, None, :, None])
         out = self.proj(out.transpose(1, 2).reshape(B, Tq, self.n_embd))
@@ -273,9 +285,12 @@ class ConvTransformerBackbone(nn.Module):
                 x = getattr(self, f"embd_norm_{idx}")(x)
             x = torch.relu(x)
         if self.use_abs_pe:
+            # scaled in f32, added in x's type: JAX adds the f32 table to a bf16
+            # x and so runs the layers after it in f32 (flax's promotion); the
+            # port keeps the activations in the compute type
             T = x.shape[1]
             pe = torch.from_numpy(get_sinusoid_encoding(self.max_len, self.n_embd)).to(x.device)
-            x = x + pe[None, :T] / (self.n_embd ** 0.5) * mask[..., None]
+            x = x + (pe[None, :T] / (self.n_embd ** 0.5)).to(x.dtype) * mask[..., None]
         for idx in range(self.arch[1]):
             x, mask = getattr(self, f"stem_{idx}")(x, mask, generator)
         feats, masks = [x], [mask]
@@ -284,6 +299,95 @@ class ConvTransformerBackbone(nn.Module):
             feats.append(x)
             masks.append(mask)
         return feats, masks
+
+
+class ConvBlock(nn.Module):
+    """ResNet-style basic block: a (strided) conv to ``expansion_factor``
+    times the width, ReLU, a conv back; a strided 1x1 conv on the skip when
+    strided; ReLU of the sum."""
+
+    def __init__(self, n_embd: int, kernel_size: int = 3, n_ds_stride: int = 1,
+                 expansion_factor: int = 2):
+        super().__init__()
+        width = n_embd * expansion_factor
+        self.conv1 = MaskedConv1D(n_embd, width, kernel_size, n_ds_stride)
+        self.conv2 = MaskedConv1D(width, n_embd, kernel_size, 1)
+        if n_ds_stride > 1:
+            self.downsample = MaskedConv1D(n_embd, n_embd, 1, n_ds_stride)
+
+    def forward(self, x, mask):
+        out, out_mask = self.conv1(x, mask)
+        out, out_mask = self.conv2(torch.relu(out), out_mask)
+        identity = self.downsample(x, mask)[0] if hasattr(self, "downsample") else x
+        return torch.relu(out + identity), out_mask
+
+
+class ConvBackbone(nn.Module):
+    """The conv-only pyramid: embedding convs, stem ``ConvBlock``s, then
+    stride ``scale_factor`` branch blocks; per-level (feats, masks)."""
+
+    def __init__(self, n_in: int, n_embd: int, n_embd_ks: int,
+                 arch: Tuple[int, int, int] = (2, 2, 5), scale_factor: int = 2,
+                 with_ln: bool = True):
+        super().__init__()
+        self.arch, self.with_ln = tuple(arch), with_ln
+        for idx in range(self.arch[0]):
+            setattr(self, f"embd_{idx}", MaskedConv1D(n_in if idx == 0 else n_embd, n_embd,
+                                                      n_embd_ks, use_bias=not with_ln))
+            if with_ln:
+                setattr(self, f"embd_norm_{idx}", ChannelLayerNorm(n_embd))
+        for idx in range(self.arch[1]):
+            setattr(self, f"stem_{idx}", ConvBlock(n_embd, 3, 1))
+        for idx in range(self.arch[2]):
+            setattr(self, f"branch_{idx}", ConvBlock(n_embd, 3, scale_factor))
+
+    def forward(self, x, mask, generator: Optional[torch.Generator] = None
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        for idx in range(self.arch[0]):
+            x, mask = getattr(self, f"embd_{idx}")(x, mask)
+            if self.with_ln:
+                x = getattr(self, f"embd_norm_{idx}")(x)
+            x = torch.relu(x)
+        for idx in range(self.arch[1]):
+            x, mask = getattr(self, f"stem_{idx}")(x, mask)
+        feats, masks = [x], [mask]
+        for idx in range(self.arch[2]):
+            x, mask = getattr(self, f"branch_{idx}")(x, mask)
+            feats.append(x)
+            masks.append(mask)
+        return feats, masks
+
+
+class FPN1D(nn.Module):
+    """Feature-pyramid neck: lateral 1x1 convs, a top-down pathway of
+    nearest upsampling by ``scale_factor`` (cut to the finer level's length),
+    then depthwise 3-tap convs and channel LN per level."""
+
+    def __init__(self, num_levels: int, in_channel: int, out_channel: int,
+                 scale_factor: int = 2, with_ln: bool = True):
+        super().__init__()
+        self.num_levels, self.scale_factor, self.with_ln = num_levels, scale_factor, with_ln
+        for i in range(num_levels):
+            setattr(self, f"lateral_{i}", MaskedConv1D(in_channel, out_channel, 1,
+                                                       use_bias=not with_ln))
+            setattr(self, f"fpn_conv_{i}", MaskedConv1D(out_channel, out_channel, 3,
+                                                        groups=out_channel,
+                                                        use_bias=not with_ln))
+            if with_ln:
+                setattr(self, f"fpn_norm_{i}", ChannelLayerNorm(out_channel))
+
+    def forward(self, feats, masks):
+        laterals = [getattr(self, f"lateral_{i}")(feats[i], masks[i])[0]
+                    for i in range(self.num_levels)]
+        for i in range(self.num_levels - 1, 0, -1):
+            up = laterals[i].repeat_interleave(self.scale_factor, dim=1)
+            laterals[i - 1] = laterals[i - 1] + up[:, : laterals[i - 1].shape[1]]
+        out_feats, out_masks = [], []
+        for i in range(self.num_levels):
+            x, m = getattr(self, f"fpn_conv_{i}")(laterals[i], masks[i])
+            out_feats.append(getattr(self, f"fpn_norm_{i}")(x) if self.with_ln else x)
+            out_masks.append(m)
+        return out_feats, out_masks
 
 
 class FPNIdentity(nn.Module):

@@ -4,9 +4,13 @@ eval and train mode (``module.train()``: stochastic depth and dropout
 drawing from the ``generator`` argument, the banded kernels by
 ``pallas_min_len``),
 the single-gt label assignment and loss (with the EMA loss normaliser
-carried in ``extras``), and the fast top-1 span inference.  The model has
-no text branch: the query is carried and unused.  The full ranked-list
-protocol (``actionformer_infer_full``, soft-NMS) waits for a later slice.
+carried in ``extras``), the fast top-1 span inference (the registered
+``infer_fn``) and the full protocol, ``actionformer_infer_full``: the top
+``test_cfg.max_seg_num`` segments per video by (soft-)NMS over the whole
+batch on its device (``ops/nms.py``), with voting, or a plain top-k when
+``nms_method`` is ``"none"``.  ``backbone_type: conv`` builds the conv-only
+backbone and ``fpn_type: fpn`` the FPN neck, as in the JAX package.  The
+model has no text branch: the query is carried and unused.
 """
 
 from __future__ import annotations
@@ -19,10 +23,11 @@ import torch
 from torch import nn
 
 from vmrframe_tpu_torch.data.af_batcher import ActionFormerBatcher
-from vmrframe_tpu_torch.layers.actionformer import (ConvHead, ConvTransformerBackbone,
-                                                    FPNIdentity, Scale, generate_points)
+from vmrframe_tpu_torch.layers.actionformer import (FPN1D, ConvBackbone, ConvHead,
+                                                    ConvTransformerBackbone, FPNIdentity, Scale,
+                                                    generate_points)
 from vmrframe_tpu_torch.layers.dropout import dropout_bits, set_dropout_bits
-from vmrframe_tpu_torch.ops.nms import batched_seg_voting
+from vmrframe_tpu_torch.ops.nms import batched_nms_1d, batched_seg_voting
 from vmrframe_tpu_torch.registry import register_model
 
 
@@ -30,29 +35,36 @@ class ActionFormer(nn.Module):
     def __init__(self, cfg, derived, word_vectors):
         super().__init__()
         af = cfg.actionformer
-        if af.backbone_type == "conv" or af.fpn_type == "fpn":
-            raise NotImplementedError("ActionFormer: the conv backbone and FPN1D neck are not "
-                                      "ported yet")
         arch = tuple(af.backbone_arch)
         self.num_levels = arch[2] + 1
         win = af.n_mha_win_size
         win_list = [win] * self.num_levels if isinstance(win, int) else list(win)
         tc = af.train_cfg
         eval_len = af.get("pallas_min_len_eval")
-        self.backbone = ConvTransformerBackbone(
-            n_in=af.input_dim, n_embd=af.embd_dim, n_head=af.n_head,
-            n_embd_ks=af.embd_kernel_size, max_len=af.max_seq_len, arch=arch,
-            mha_win_size=win_list, scale_factor=af.scale_factor, with_ln=af.embd_with_ln,
-            path_pdrop=tc.droppath, use_abs_pe=af.use_abs_pe,
-            use_rel_pe=bool(af.get("use_rel_pe", False)),
-            pallas_min_len=int(af.get("pallas_min_len", 512)),
-            pallas_min_len_eval=None if eval_len is None else int(eval_len),
-            proj_pdrop=float(tc.get("dropout", 0.0)))
-        self.neck = FPNIdentity(self.num_levels, af.embd_dim, with_ln=af.fpn_with_ln)
+        if af.backbone_type == "conv":
+            self.backbone = ConvBackbone(af.input_dim, af.embd_dim, af.embd_kernel_size, arch,
+                                         af.scale_factor, with_ln=af.embd_with_ln)
+        else:
+            self.backbone = ConvTransformerBackbone(
+                n_in=af.input_dim, n_embd=af.embd_dim, n_head=af.n_head,
+                n_embd_ks=af.embd_kernel_size, max_len=af.max_seq_len, arch=arch,
+                mha_win_size=win_list, scale_factor=af.scale_factor, with_ln=af.embd_with_ln,
+                path_pdrop=tc.droppath, use_abs_pe=af.use_abs_pe,
+                use_rel_pe=bool(af.get("use_rel_pe", False)),
+                pallas_min_len=int(af.get("pallas_min_len", 512)),
+                pallas_min_len_eval=None if eval_len is None else int(eval_len),
+                proj_pdrop=float(tc.get("dropout", 0.0)))
+        if af.fpn_type == "fpn":
+            self.neck = FPN1D(self.num_levels, af.embd_dim, af.fpn_dim, af.scale_factor,
+                              with_ln=af.fpn_with_ln)
+            head_in = af.fpn_dim
+        else:
+            self.neck = FPNIdentity(self.num_levels, af.embd_dim, with_ln=af.fpn_with_ln)
+            head_in = af.embd_dim
         prior_bias = -math.log((1 - tc.cls_prior_prob) / tc.cls_prior_prob)
-        self.cls_head = ConvHead(af.embd_dim, af.head_dim, af.num_classes, af.head_num_layers,
+        self.cls_head = ConvHead(head_in, af.head_dim, af.num_classes, af.head_num_layers,
                                  af.head_kernel_size, af.head_with_ln, final_bias_init=prior_bias)
-        self.reg_head = ConvHead(af.embd_dim, af.head_dim, 2, af.head_num_layers,
+        self.reg_head = ConvHead(head_in, af.head_dim, 2, af.head_num_layers,
                                  af.head_kernel_size, af.head_with_ln)
         for lvl in range(self.num_levels):
             setattr(self, f"scale_{lvl}", Scale())
@@ -201,6 +213,37 @@ def actionformer_infer(outputs, batch, cfg) -> torch.Tensor:
     any_valid = scores.amax(dim=1) > 0
     top = torch.where(any_valid[:, None, None], top, torch.zeros_like(top))
     return _grid_to_seconds(top[:, 0], batch) / batch["duration"][:, None]
+
+
+def _decode_and_nms(outputs, cfg):
+    """(segs (B, K, 2) grid coordinates, scores (B, K), valid (B, K)) with
+    K = ``test_cfg.max_seg_num``, by decayed score: (soft-)NMS over the
+    batch (``nms_method`` soft: gaussian, linear, else hard), then voting on
+    the class-agnostic path where the config votes; ``"none"`` takes the K
+    best pre-NMS scores, ties to the lower index, as ``lax.top_k``."""
+    segs, scores, test = _decode_candidates(outputs, cfg)
+    K = int(test.max_seg_num)
+    if test.nms_method == "none":
+        kept_scores, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+        kept_scores, idx = kept_scores[:, :K], idx[:, :K]
+        kept_segs = torch.gather(segs, 1, idx[..., None].expand(-1, -1, 2))
+        return kept_segs, kept_scores, kept_scores > 0
+    method = {"soft": 2, "linear": 1}.get(test.nms_method, 0)
+    kept_segs, kept_scores, valid = batched_nms_1d(segs, scores, test.iou_threshold, K,
+                                                   test.min_score, method, test.nms_sigma)
+    voting = float(test.get("voting_thresh", 0.0) or 0.0)
+    if voting > 0 and not bool(test.get("multiclass_nms", False)):
+        kept_segs = batched_seg_voting(kept_segs, segs, scores, voting)
+    return kept_segs, kept_scores, valid
+
+
+def actionformer_infer_full(outputs, batch, cfg) -> Dict[str, torch.Tensor]:
+    """The full protocol: the top ``test_cfg.max_seg_num`` segments of each
+    video, {'segments': (B, K, 2) seconds, 'scores': (B, K), 'valid': (B, K)},
+    on the outputs' device."""
+    kept_segs, kept_scores, valid = _decode_and_nms(outputs, cfg)
+    return {"segments": _grid_to_seconds(kept_segs, batch), "scores": kept_scores,
+            "valid": valid}
 
 
 register_model(

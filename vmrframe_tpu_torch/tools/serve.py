@@ -42,6 +42,10 @@ Usage:
       --model seqpan=configs/charades_seqpan_fused.yaml \
       --model backbone=configs/charades_backbone_fused.yaml \
       --model basefast=configs/charades_basefast.yaml
+  python -m vmrframe_tpu_torch.tools.serve --synthetic \
+      --model bertsentence=configs/charades_backbone_bertsentence.yaml \
+      --model alignfeature=configs/charades_backbone_alignfeature.yaml \
+      --model backbone_af=configs/charades_backbone_actionformer.yaml
 """
 
 from __future__ import annotations
@@ -448,6 +452,16 @@ def selftest(service, dataset, port: int = 0,
     return stats
 
 
+def model_spec(spec: str):
+    """(name, config path, checkpoint or None) of a ``--model
+    NAME=CONFIG[:CKPT]`` argument; raises ``ValueError`` without ``=CONFIG``."""
+    name, _, rest = spec.partition("=")
+    if not name or not rest:
+        raise ValueError(f"--model needs NAME=CONFIG[:CKPT], got {spec!r}")
+    config, _, checkpoint = rest.partition(":")
+    return name, config, checkpoint or None
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=None,
@@ -484,11 +498,11 @@ def main():
         cfg = load_config(args.config) if args.config else make_cfg()
         services["default"], dataset = build(cfg, args.checkpoint)
     for spec in args.model or []:
-        name, _, rest = spec.partition("=")
-        if not rest:
-            ap.error(f"--model needs NAME=CONFIG[:CKPT], got {spec!r}")
-        cfg_path, _, ckpt = rest.partition(":")
-        services[name], ds = build(load_config(cfg_path), ckpt or None)
+        try:
+            name, cfg_path, ckpt = model_spec(spec)
+        except ValueError as e:
+            ap.error(str(e))
+        services[name], ds = build(load_config(cfg_path), ckpt)
         dataset = dataset or ds
     router = ModelRouter(services)
     service = next(iter(services.values()))

@@ -18,7 +18,14 @@ The port's parameter names follow the flax tree, so a leaf maps by rule:
 
 The rules cover the whole SeqPAN family: BackBone's tree adds a
 ``tfeat_encoder`` and drops the match head, BaseFast's drops the two
-dual-attention blocks and has 2 encoder layers.  The distillation models'
+dual-attention blocks and has 2 encoder layers; BackBoneBertSentence's has a
+``text_affine`` projection in place of the GloVe/char ``text_encoder``,
+BackBoneAlignFeature's is BackBone's without the match head, and
+BackBoneActionFormer's adds a ``backbone`` of ActionFormer's.  On
+ActionFormer's trees, the conv backbone (``embd_*``, ``stem_*/conv1``,
+``conv2``, ``branch_*/downsample``: conv kernels), the FPN neck
+(``lateral_*``, the depthwise ``fpn_conv_*``, ``fpn_norm_*``) and rel-PE
+(``rel_pe``, (n_head, window) as it is) follow the same rules.  The distillation models'
 teachers are whole SeqPAN trees nested under one prefix (``teacher_t0/...``
 in ``OneTeacher``, ``teach_model/...`` in the frozen-teacher models), which
 the same rules carry across as ``teacher_t0.`` and ``teach_model.``.
@@ -34,6 +41,10 @@ import torch
 from torch import nn
 
 from vmrframe_tpu_torch.layers.basic import DepthwiseConv1D, LayerNorm
+
+# the std of a standard normal truncated at +-2: flax's truncated_normal
+# divides by it so that the truncated draw has the std asked for
+TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -126,13 +137,18 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     tables, Xavier-uniform vectors, orthogonal label embeddings, zero
     BiLinear extra bias; a module that states an ``init_value`` (ActionFormer's
     ``ChannelLayerNorm``, ``Scale`` and ``AffineDropPath``) gets its weight
-    filled with it and its bias zeroed."""
+    filled with it and its bias zeroed; ``MaskedMHCA``'s ``rel_pe`` a normal
+    truncated at 2 sigma with std ``rel_pe_std`` after the truncation, as
+    flax's ``truncated_normal``."""
     g = torch.Generator().manual_seed(seed)
 
     def uniform_(t, bound):
         t.uniform_(-bound, bound, generator=g)
 
     for mod in model.modules():
+        if getattr(mod, "rel_pe_std", None):  # ActionFormer's rel-PE: flax's truncated normal
+            std = mod.rel_pe_std / TRUNCATED_NORMAL_STD  # the std after truncation at 2 sigma
+            nn.init.trunc_normal_(mod.rel_pe, std=std, a=-2.0 * std, b=2.0 * std, generator=g)
         if isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
