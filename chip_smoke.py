@@ -157,6 +157,32 @@ Phases, in order; any failure exits non-zero:
    ``actionformer_infer_full`` on the FPN variant's card outputs, its
    soft-NMS held per video against the C++ twin
    (``vmrframe_tpu_torch/native``, built with ``g++`` at first use).
+24. serve-BAN: BAN on ``configs/tacos_ban_long.yaml`` as it is (vlen 128,
+   pooling [15, 8, 8, 8], vdim 1024, dim 256, fuse 512, topk 16, neighbor 4,
+   f32), seeded random weights, synthetic features, service batch 8, 256
+   concurrent predictions: rate, p50/p99; no launch of any kernel (BAN runs
+   cuDNN's LSTMs and plain torch).
+25. verify-BAN: one f32 batch of 8 through BAN's forward, loss and
+   backward, card against CPU: tmap within 1e-4, ``proposal_selection`` on
+   the card equal to the CPU's on the same scores, final_pred and offset
+   within 1e-4 and the loss within 1e-5 relative on those proposals, every
+   gradient within 1e-3 of its largest magnitude (BANCQAttention's scalar
+   bias, zero up to rounding, of the largest gradient; a unit on a ReLU's
+   kink, whose sign rounding flips, left out and counted), ``ban_infer``'s spans
+   equal (the card's own selection counted: at random init the scores tie).
+26. train-BAN: the CLI trains BAN one epoch on that config (``--synthetic``)
+   in a temporary directory, ``--eval`` of the best checkpoint gives the
+   logged best mIoU and test loss; then 10 timed train steps (host clock, samples/s, peak
+   bytes, the card's busy share).
+27. ban-pretrain: ``BaseFast_BAN_PreTrain`` with that checkpoint as its
+   frozen teacher, 3 train steps at droprate 0.1 (no launch) and 3 at 0
+   (2/2 of #3/#1 a step), one eval forward (2/2); the teacher bit-equal
+   after; ``export_labels`` of the BAN checkpoint on the card against the
+   CPU within 1e-5.
+28. repairs: BackBoneActionFormer's bf16 forward against its f32 forward
+   on the card, and one case just past each
+   kernel's limit (#4 at D 256, #5 at head dim 192, #3 at Lc 1025, #1 at
+   head dim 264): the plain route, no launch, the CPU's values.
 
 The check phase also holds #1-#3 at the sentence variants' shapes (head
 dim 192 at B 128: 64 queries over 64 and 30 keys and 30 over 64; one key;
@@ -2222,6 +2248,440 @@ def check_nms_twin(cfg, batch, outputs) -> dict:
             "segments_shape": list(full["segments"].shape)}
 
 
+BAN_CONFIG = "configs/tacos_ban_long.yaml"
+B_BAN = 8  # the config's batch
+N_BAN_REQUESTS, BAN_CONCURRENCY = 256, 32
+N_BAN_TIMED, N_PRETRAIN_STEPS = 10, 3
+# the whole f32 BAN forward, card (cuDNN's LSTMs) against the CPU: tmap,
+# final_pred and offset; the loss relative; the export's curves
+TOL_BAN, TOL_BAN_LOSS, TOL_BAN_EXPORT = 1e-4, 1e-5, 1e-5
+
+
+def ban_world(config: str = BAN_CONFIG, updates: dict = None, n_train: int = 64):
+    """A config as it is (or updated), its synthetic dataset and derived record."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+
+    cfg = load_config(config).updated(updates or {})
+    dataset, store = make_synthetic_data(cfg, seed=0, n_train=n_train, n_test=32)
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    return cfg, dataset, store, derived
+
+
+def phase_serve_ban(kernels, card: str) -> dict:
+    """BAN on its long config as it is (vlen 128, pooling [15, 8, 8, 8], vdim
+    1024, dim 256, fuse 512, topk 16, neighbor 4, f32), seeded random
+    weights, synthetic features, behind the service at the config's batch
+    of 8: a few hundred concurrent predictions.  BAN runs no hand-written
+    kernel: every count stays 0."""
+    from vmrframe_tpu_torch.config import load_config
+    from vmrframe_tpu_torch.tools.serve import build_service
+
+    cfg = load_config(BAN_CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    service, dataset = build_service(cfg, batch_size=B_BAN, n_synthetic=64, device="cuda")
+    boot_s = time.perf_counter() - t0
+    try:
+        load = drive(service, dataset["test_set"], N_BAN_REQUESTS, BAN_CONCURRENCY, kernels)
+    finally:
+        service.close()
+    m = cfg.model
+    stats = {"card": card, "model": "BAN", "config": BAN_CONFIG, "batch_size": service.batch_size,
+             "dtype": str(cfg.train.get("compute_dtype", "float32")), "vlen": m.vlen,
+             "pooling_counts": list(m.pooling_counts), "vdim": m.vdim, "dim": m.dim,
+             "fuse_dim": m.fuse_dim, "topk": m.topk, "neighbor": m.neighbor, "boot_s": boot_s,
+             **load, "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[serve-BAN] {json.dumps(stats)}")
+    check_launches("serve-BAN", stats, {fn.__name__: 0 for fn in kernels})
+    return stats
+
+
+def _ban_pass(model, cfg, batch, selection=None):
+    """One deterministic forward with the loss and every parameter
+    gradient: train mode (cuDNN's LSTM has a backward only there) with
+    every dropout at rate 0; ``selection`` forces the proposals.  Returns
+    (outputs, the selection it made, loss, grads) on the CPU."""
+    from vmrframe_tpu_torch.layers.dropout import Dropout
+    from vmrframe_tpu_torch.models import ban
+    from vmrframe_tpu_torch.registry import get_model_entry
+
+    model.train()
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.rate = 0.0
+
+    real, made = ban.proposal_selection, []
+
+    def select(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1] if selection is None else selection.to(made[-1].device)
+
+    ban.proposal_selection = select
+    try:
+        out = model(batch)
+    finally:
+        ban.proposal_selection = real
+    loss = get_model_entry("BAN").loss_fn(out, batch, cfg)
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    cpu = lambda t: t.detach().cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    return ({k: cpu(v) for k, v in out.items()}, made[0].cpu(), float(loss.detach()),
+            {k: None if g is None else g.cpu() for k, g in zip(named, grads)})
+
+
+def _record_pre_activations(model, into: dict) -> list:
+    """Hooks that keep each ``MLPBlock``'s input times its weight plus its
+    bias (its ReLU's argument) in ``into`` by module name, on the CPU."""
+    from vmrframe_tpu_torch.models.ban import MLPBlock
+
+    def keep(name):
+        def hook(mod, inputs, _):
+            into[name] = (inputs[0] @ mod.weight.t() + mod.bias).detach().cpu()
+        return hook
+
+    return [mod.register_forward_hook(keep(name)) for name, mod in model.named_modules()
+            if isinstance(mod, MLPBlock)]
+
+
+def phase_verify_ban() -> dict:
+    """One f32 batch of 8 through the whole BAN forward, loss and backward
+    (dropout off), card (cuDNN's LSTMs, no TF32) against the CPU, same
+    seeded weights.
+    tmap (before the selection) within ``TOL_BAN``; ``proposal_selection``
+    on the card on the CPU's scores gives the CPU's indices exactly.  At
+    random init the ~3600 cell scores spread over ~0.003 with exact f32
+    ties, so the card's own scores may select differently where f32 and f64
+    on the CPU also do: the card's own selection is counted, must be the
+    CPU's selection on the card's scores, and where it differs, the two
+    stable orders of the scores must first part at two cells whose CPU
+    scores lie within twice the largest distance of the scores; the rest
+    of the forward (final_pred, offset within ``TOL_BAN``), the loss
+    (``TOL_BAN_LOSS`` relative) and every gradient (``TOL_TRAIN_F32`` of its
+    largest magnitude; ``models/ban.py::SHIFT_INVARIANT``'s, zero up to
+    rounding, of the largest gradient; the rows of an ``MLPBlock`` unit
+    whose pre-activation is on the ReLU's kink, its sign differing by
+    rounding, left out and counted) run on the CPU's proposals.  ``ban_infer``'s spans
+    from the card's own forward equal the CPU's."""
+    from vmrframe_tpu_torch.data.ban_batcher import BANBatcher
+    from vmrframe_tpu_torch.models import ban
+    from vmrframe_tpu_torch.registry import get_model_entry
+    from vmrframe_tpu_torch.weights import init_weights
+
+    cfg, dataset, store, derived = ban_world()
+    batch = BANBatcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B_BAN)))
+    batch = {k: torch.as_tensor(v) for k, v in batch.items() if k != "num_valid"}
+    entry = get_model_entry("BAN")
+    cpu_model = init_weights(entry.model_cls(cfg, derived, dataset["word_vector"]), 0)
+    card_model = init_weights(entry.model_cls(cfg, derived, dataset["word_vector"]), 0).cuda()
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    pre = {"cpu": {}, "cuda": {}}  # each MLPBlock's pre-activations (before its ReLU)
+    hooks = _record_pre_activations(cpu_model, pre["cpu"])
+    out_p, sel_p, loss_p, g_p = _ban_pass(cpu_model, cfg, batch)
+    cpu_s = time.perf_counter() - t0
+    own, sel_own, _, _ = _ban_pass(card_model, cfg, card_batch)
+    hooks += _record_pre_activations(card_model, pre["cuda"])
+    out_k, _, loss_k, g_k = _ban_pass(card_model, cfg, card_batch, selection=sel_p)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    # a unit whose pre-activation sits on the ReLU's kink (its sign differs
+    # between the card and the CPU by rounding) has its weight row's and
+    # bias entry's gradient switched on one side only: those rows are left
+    # out of the comparison, counted, and their pre-activations held to TOL_BAN
+    kinks, kink_pre = {}, 0.0
+    for name, a in pre["cpu"].items():
+        b = pre["cuda"][name]
+        flip = (a > 0) != (b > 0)
+        kink_pre = max(kink_pre, a[flip].abs().max().item() if flip.any() else 0.0)
+        kinks[name] = torch.nonzero(flip.reshape(-1, a.shape[-1]).any(dim=0)).flatten()
+    errs = {key: (out_k[key] - out_p[key]).abs().max().item()
+            for key in ("tmap", "final_pred", "offset", "td", "sen_proj")}
+    scores = torch.sigmoid(out_p["tmap_cells"])
+    on_card = ban.proposal_selection(scores.cuda(), card_model.moments, card_model.topk,
+                                     card_model.neighbor, card_model.negative, 0.7).cpu()
+    spans_k = entry.infer_fn(own, {k: v.cpu() for k, v in card_batch.items()}, cfg)
+    spans_p = entry.infer_fn(out_p, batch, cfg)
+    # where the card's own selection differs, it must be the CPU's selection
+    # on the card's scores, and the two stable orders must first part at a
+    # pair of cells whose CPU scores lie within twice the scores' distance
+    own_scores = torch.sigmoid(own["tmap_cells"].cuda()).cpu()
+    score_err = (own_scores - scores).abs().max().item()
+    own_on_cpu = ban.proposal_selection(own_scores, cpu_model.moments, cpu_model.topk,
+                                        cpu_model.neighbor, cpu_model.negative, 0.7)
+    order_p = torch.argsort(-scores, dim=1, stable=True)
+    order_k = torch.argsort(-own_scores, dim=1, stable=True)
+    differ = (sel_own != sel_p).any(dim=1)
+    own_differ, tie_gap = int(differ.sum()), 0.0
+    ties_ok = torch.equal(own_on_cpu, sel_own)
+    for b in torch.nonzero(differ).flatten().tolist():
+        parted = torch.nonzero(order_p[b] != order_k[b]).flatten()
+        if not len(parted):
+            ties_ok = False
+            continue
+        t = int(parted[0])
+        tie_gap = max(tie_gap, (scores[b, order_p[b, t]] - scores[b, order_k[b, t]]).item())
+    ties_ok = ties_ok and tie_gap <= 2 * score_err
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    largest = max(v.abs().max().item() for v in g_p.values() if v is not None)
+    worst, worst_name, shift = 0.0, None, 0.0
+    for name, want in g_p.items():
+        got = g_k[name]
+        if (got is None) != (want is None):
+            raise SmokeFailure(f"verify-BAN: {name} has a gradient on one side only")
+        if got is None:
+            continue
+        if not torch.isfinite(got).all():
+            raise SmokeFailure(f"verify-BAN: {name}'s gradient on the card is not finite")
+        if name in ban.SHIFT_INVARIANT:  # zero up to rounding: held to the largest
+            shift = max(shift, got.abs().max().item() / largest,
+                        want.abs().max().item() / largest)
+            continue
+        units = kinks.get(name.rsplit(".", 1)[0])
+        if units is not None and len(units):
+            keep = torch.ones(got.shape[0], dtype=torch.bool)
+            keep[units] = False
+            got, want = got[keep], want[keep]
+        rel = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    n_kinks = {k: len(v) for k, v in kinks.items() if len(v)}
+    ok = (max(errs["tmap"], errs["final_pred"], errs["offset"], kink_pre) <= TOL_BAN
+          and torch.equal(on_card, sel_p) and torch.equal(spans_k, spans_p) and ties_ok
+          and loss_err <= TOL_BAN_LOSS and max(worst, shift) <= TOL_TRAIN_F32
+          and math.isfinite(loss_k))
+    log(f"[verify-BAN] f32, card against CPU: {json.dumps(errs)} (tol {TOL_BAN}); the card's "
+        f"selection on the CPU's scores equal: {torch.equal(on_card, sel_p)}; its own "
+        f"selection differs in {own_differ} of {B_BAN} samples, each the CPU's selection on "
+        f"the card's scores: {torch.equal(own_on_cpu, sel_own)}, first parting at a CPU score "
+        f"gap of {tie_gap:.3e} (at most twice the scores' distance {score_err:.3e}); ban_infer spans equal: {torch.equal(spans_k, spans_p)}; loss card {loss_k!r} "
+        f"cpu {loss_p!r} (rel {loss_err:.3e}, tol {TOL_BAN_LOSS}); worst gradient "
+        f"{worst_name} at {worst:.3e} of its max over {len(g_p)}, the shift-invariant "
+        f"{ban.SHIFT_INVARIANT} at {shift:.3e} of the largest (tol {TOL_TRAIN_F32}); units "
+        f"on a ReLU kink left out {json.dumps(n_kinks)} (their pre-activations within "
+        f"{kink_pre:.3e}); "
+        f"CPU pass {cpu_s:.1f} s  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("verify-BAN: the card and the CPU disagree")
+    return {"max_abs_err": errs, "tol": TOL_BAN, "selection_on_cpu_scores_equal": True,
+            "own_selection_differs": own_differ, "own_selection_tie_gap": tie_gap,
+            "score_max_abs_err": score_err, "spans_equal": True, "loss_rel_err": loss_err,
+            "worst_grad_rel_err": worst, "worst_grad": worst_name,
+            "shift_invariant_grad_rel": shift, "kink_units": n_kinks, "kink_pre_max": kink_pre,
+            "n_grads": len(g_p)}
+
+
+def phase_train_ban(kernels, card: str, root: str) -> dict:
+    """The CLI's train-then-eval on the long BAN config as it is (f32, batch
+    8, --synthetic --epochs 1) in ``root``; ``--eval`` of the best
+    checkpoint must give the logged best mIoU and test loss (one epoch, so
+    the best is the only one).  Then ``N_BAN_TIMED`` timed
+    train steps (after 2) through ``Trainer``: host clock per step,
+    samples/s, peak device bytes and the card's busy share."""
+    from vmrframe_tpu_torch.cli import main as cli_main
+    from vmrframe_tpu_torch.data.ban_batcher import BANBatcher
+    from vmrframe_tpu_torch.tools.profile_serve import _device_profile
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    config = os.path.abspath(BAN_CONFIG)
+    stats = {"card": card, "config": BAN_CONFIG, "batch_size": B_BAN, "dtype": "float32"}
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        fit = cli_main(["--config", config, "--synthetic", "--epochs", "1", "--device", "cuda"])
+        stats["fit_s"] = time.perf_counter() - t0
+        ev = cli_main(["--config", config, "--synthetic", "--eval", "--checkpoint",
+                       fit["best_path"], "--device", "cuda"])
+        stats.update(steps=fit["steps"], best_miou=fit["best_miou"], eval_miou=ev["miou"],
+                     train_loss=fit["history"][0]["train_loss"],
+                     test_loss=fit["history"][0]["test_loss"], eval_loss=ev["loss"],
+                     best_path=os.path.abspath(fit["best_path"]),
+                     launches=read_launches("train-BAN", kernels,
+                                            {fn.__name__: 0 for fn in kernels}))
+    finally:
+        os.chdir(cwd)
+    log(f"[train-BAN] best mIoU logged by fit {fit['best_miou']!r}, --eval of its checkpoint "
+        f"{ev['miou']!r}; test loss logged by fit {stats['test_loss']!r}, --eval's "
+        f"{stats['eval_loss']!r}; mean train loss {stats['train_loss']!r}")
+    if ev["miou"] != fit["best_miou"] or ev["loss"] != stats["test_loss"] \
+            or not math.isfinite(stats["train_loss"]):
+        raise SmokeFailure("train-BAN: --eval of the best checkpoint gives another mIoU or "
+                           "test loss, or the train loss is not finite")
+    cfg, dataset, store, derived = ban_world()
+    batcher = BANBatcher(dataset["train_set"], store, cfg, derived, "train")
+    derived.num_train_steps = derived.steps_per_epoch = len(batcher)
+    trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
+    batches = [trainer.to_device(b) for b in batcher.epoch(seed=0)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(N_WARMUP_STEPS + N_BAN_TIMED):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batches[i % len(batches)])["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    it = iter(range(10 ** 6))
+    profiled = _device_profile(
+        lambda: float(trainer.train_step(batches[next(it) % len(batches)])["loss"]), 4)
+    timed = times[N_WARMUP_STEPS:]
+    median = statistics.median(timed)
+    busy = profiled["device_busy_ms_per_step"]
+    if not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"train-BAN: losses {losses}")
+    stats["timed"] = {"steps": len(timed), "step_ms_median": median, "step_ms_min": min(timed),
+                      "step_ms_max": max(timed), "samples_per_s": B_BAN / (median / 1e3),
+                      "peak_device_mem_bytes": peak, "device_busy_ms_per_step": busy,
+                      "device_busy_share": busy / median if busy else None,
+                      "device_ops_per_step": profiled.get("device_ops_per_step"),
+                      "top_device_ops": profiled.get("top_kernels", [])[:6], "losses": losses}
+    log(f"[train-BAN] f32 batch {B_BAN}: median {median:.3f} ms/step ({min(timed):.3f}-"
+        f"{max(timed):.3f}, host clock, {len(timed)} steps), {B_BAN / (median / 1e3):.1f} "
+        f"samples/s, peak {peak} bytes, card busy "
+        f"{'not measured' if not busy else f'{busy:.3f} ms ({busy / median:.1%})'}, on {card}")
+    return stats
+
+
+def phase_ban_pretrain(kernels, card: str, teacher: str) -> dict:
+    """``BaseFast_BAN_PreTrain`` on the long BAN config's data (vlen 128,
+    vdim 1024; the QANet-block student at dim 256, 4 heads) with the
+    train-BAN checkpoint as its frozen teacher: ``N_PRETRAIN_STEPS`` train
+    steps at the config's droprate (0.1: the student's cores plain, no
+    launch) and at 0 (2 of #3 and 2 of #1 a step), one eval forward (2 and
+    2); the teacher bit-equal after.  Then ``export_labels`` of that BAN
+    checkpoint on the card against the CPU's curves (``TOL_BAN_EXPORT``)."""
+    from vmrframe_tpu_torch.config import load_config
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.tools.export_labels import export_labels
+    from vmrframe_tpu_torch.train.trainer import Trainer
+    from vmrframe_tpu_torch.weights import load_checkpoint, read_checkpoint
+
+    ban_model = load_config(BAN_CONFIG).model.to_dict()
+    updates = {"model.name": "BaseFast_BAN_PreTrain", "loss.temperature": 3,
+               "teacher0.model": {**ban_model, "checkpoint": teacher}}
+    stats = {"card": card, "teacher": os.path.basename(teacher)}
+    for label, rate in (("droprate 0.1", None), ("droprate 0", 0.0)):
+        up = dict(updates) if rate is None else {**updates, "model.droprate": rate}
+        cfg, dataset, store, derived = ban_world(updates=up, n_train=B_BAN * N_PRETRAIN_STEPS)
+        train = Batcher(dataset["train_set"], store, cfg, derived, "train")
+        derived.num_train_steps = derived.steps_per_epoch = len(train)
+        trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
+        start = {k: v.clone() for k, v in trainer.model.named_parameters()
+                 if k.startswith("teach_model.")}
+        saved = read_checkpoint(teacher)
+        if any(not torch.equal(v.cpu(), saved[k[len("teach_model."):]]) for k, v in start.items()):
+            raise SmokeFailure("ban-pretrain: the hook did not load the BAN checkpoint")
+        zero_counts(kernels)
+        times, losses = [], []
+        for b in train.epoch(seed=0):
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(trainer.to_device(b))["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        n = len(times)
+        launches = read_launches(f"ban-pretrain {label}", kernels,
+                                 want_launches(STUDENT_LAUNCHES, n if rate == 0.0 else 0))
+        moved = [k for k, v in start.items()
+                 if not torch.equal(v, dict(trainer.model.named_parameters())[k])]
+        if moved or not all(math.isfinite(x) for x in losses):
+            raise SmokeFailure(f"ban-pretrain {label}: teacher moved {moved[:3]}, losses {losses}")
+        stats[label] = {"steps": n, "losses": losses, "step_ms": times,
+                        "launches_per_step": {k: v / n for k, v in launches.items()}}
+        log(f"[ban-pretrain] {label}: {n} steps, {json.dumps(times)} ms (host clock), losses "
+            f"{losses}, the teacher's {len(start)} tensors bit-equal after, launches "
+            f"{json.dumps(launches)}")
+    zero_counts(kernels)
+    test = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B_BAN)))
+    trainer.model.eval()
+    with torch.no_grad():
+        trainer.forward(trainer.to_device(test))
+    stats["eval_launches"] = read_launches("ban-pretrain eval", kernels, STUDENT_LAUNCHES)
+
+    cfg, dataset, store, derived = ban_world(n_train=16)
+    curves = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(cfg, derived, dataset["word_vector"], device=device)
+        load_checkpoint(trainer.model, teacher)
+        with tempfile.NamedTemporaryFile(suffix=".pkl") as f:
+            t0 = time.perf_counter()
+            curves[device] = export_labels(cfg, derived, dataset, store, trainer, f.name)
+            stats[f"export_{device}_s"] = time.perf_counter() - t0
+    err = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(curves["cuda"], curves["cpu"]))
+    same = [a[0] for a in curves["cuda"]] == [b[0] for b in curves["cpu"]] and all(
+        a[1].shape == b[1].shape for a, b in zip(curves["cuda"], curves["cpu"]))
+    ok = same and err <= TOL_BAN_EXPORT
+    log(f"[ban-pretrain] export_labels of the BAN checkpoint, {len(curves['cuda'])} curves: "
+        f"card against CPU max abs {err:.3e} (tol {TOL_BAN_EXPORT})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("ban-pretrain: the card's export and the CPU's disagree")
+    stats["export_max_abs_err"] = err
+    return stats
+
+
+def phase_repairs(kernels, card: str) -> dict:
+    """The repaired bf16 route and the kernels' gates.  BackBoneActionFormer's
+    bf16 eval forward (the serving policy) against its f32 eval forward on
+    the card, same seeded weights and batch of 32, the AffineDropPath
+    scales lifted (``testing.lift_drop_path``): each logit's largest
+    distance beside its largest f32 magnitude, printed and held to
+    finiteness only.  Then one case just past each kernel's limit
+    (``testing.past_limit_cases``: #4 at D 256, #5 at head dim 192, #3 at a
+    1025-position context, #1 at head dim 264), f32: no launch of that
+    kernel, and the CPU's values within ``TOL_F32``."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.testing import lift_drop_path, make_synthetic_data, past_limit_cases
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+
+    cfg = load_config("configs/charades_backbone_actionformer.yaml")
+    dataset, store = make_synthetic_data(cfg, seed=0, n_train=32, n_test=32)
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    batch = Batcher(dataset["test_set"], store, cfg, derived, batch_size=32).make_batch(
+        list(range(32)))
+    outs = {}
+    for dtype in ("float32", "bfloat16"):
+        ev = Evaluator(cfg.updated({"train.compute_dtype": dtype}), derived,
+                       dataset["word_vector"], device="cuda", seed=0)
+        lift_drop_path(ev.model, seed=0)
+        outs[dtype] = ev.forward(ev.to_device(batch))
+    route = {}
+    for key in ("slogits", "elogits"):
+        f32, bf16 = outs["float32"][key].float(), outs["bfloat16"][key].float()
+        if not torch.isfinite(bf16).all():
+            raise SmokeFailure(f"repairs: BackBoneActionFormer's bf16 {key} are not finite")
+        route[key] = {"max_abs_dist": (bf16 - f32).abs().max().item(),
+                      "f32_max_abs": f32.abs().max().item()}
+    stats = {"bf16_route": route}
+    log(f"[repairs] BackBoneActionFormer bf16 route against f32 on {card}: {json.dumps(route)}")
+
+    def move(xs, dev):
+        return tuple({k: v.to(dev) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+                     for x in xs)
+
+    first = lambda o: o[0] if isinstance(o, tuple) else o  # noqa: E731
+    for name, (kernel, module, inputs) in past_limit_cases().items():
+        with torch.no_grad():
+            want = module(*inputs)
+            zero_counts(kernels)
+            got = module.cuda()(*move(inputs, "cuda"))
+            torch.cuda.synchronize()
+        want = want if isinstance(want, dict) else {"out": first(want)}
+        got = got if isinstance(got, dict) else {"out": first(got)}
+        err = max((got[k].cpu() - w).abs().max().item() for k, w in want.items()
+                  if torch.is_floating_point(w))
+        n = kernel.launches
+        ok = n == 0 and err <= TOL_F32
+        log(f"[repairs] {name}: {n} launches of {kernel.__name__}, card against CPU max abs "
+            f"{err:.3e} (tol {TOL_F32})  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"repairs: {name} took the kernel or disagrees with the CPU")
+        stats[name] = {"launches": n, "max_abs_err": err}
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the full record to this JSON file")
@@ -2316,6 +2776,13 @@ def main() -> int:
     record["sentence"] = phase("sentence", phase_sentence, K, S, card)
     record["backbone_af"] = phase("backbone-af", phase_backbone_af, K, S, W, card)
     record["af_rest"] = phase("af-rest", phase_af_rest, W)
+    record["serve_ban"] = phase("serve-BAN", phase_serve_ban, kernels, card)
+    record["verify_ban"] = phase("verify-BAN", phase_verify_ban)
+    with tempfile.TemporaryDirectory() as root:  # the BAN checkpoint, the student's run
+        record["train_ban"] = phase("train-BAN", phase_train_ban, kernels, card, root)
+        record["ban_pretrain"] = phase("ban-pretrain", phase_ban_pretrain, kernels, card,
+                                       record["train_ban"]["best_path"])
+    record["repairs"] = phase("repairs", phase_repairs, kernels, card)
     record["seconds"] = seconds
     # the main path each kernel's launches are read from, and the type of the
     # numbers in its line: the serve phases run bf16, training the YAML's f32

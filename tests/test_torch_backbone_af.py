@@ -142,6 +142,50 @@ def test_fused_stack_route_matches_jax(monkeypatch):
     assert [fn.launches for fn in K.KERNELS + S.KERNELS] == before  # plain versions on the CPU
 
 
+def test_bf16_route_follows_flax_promotion(monkeypatch):
+    """BackBoneActionFormer's bf16 eval forward (weights and batch cast by
+    the bf16 policy) in both packages on the same weights, from the fusion
+    on: both packages' ``encode_and_fuse`` give one seeded bf16 tensor, and
+    the backbone's two embedding convs are left out in both (``arch[0]``
+    0), so that the ulps XLA's and torch's bf16 convolutions round apart do
+    not hide the route.  JAX adds the f32 position table to the bf16
+    activations, so its blocks and its predictor run in f32 on their bf16
+    weights promoted; the port does the same
+    (``ops/precision.py::promoted_call``).  Largest logit distance to the
+    JAX bf16 forward: 4.8e-3 before the promotion was ported (the port
+    stayed in bf16 after the table and returned bf16 logits), 3.6e-7 with
+    it, so 1e-4 fails the one and passes the other."""
+    from vmrframe_tpu.models import backbone_actionformer as JBBAF
+    from vmrframe_tpu.ops.precision import cast_floating
+    from vmrframe_tpu_torch.models import backbone_actionformer as BBAF
+    from vmrframe_tpu_torch.ops.precision import cast_batch, cast_module_
+
+    w = _world(False)
+    shape = (w["batch"]["vfeats"].shape[0], w["cfg"].model.vlen, w["cfg"].model.dim)
+    fuse = jnp.asarray(np.random.default_rng(5).standard_normal(shape), jnp.bfloat16)
+    no_embd = lambda cls: lambda **kw: cls(**{**kw, "arch": (0,) + tuple(kw["arch"][1:])})  # noqa: E731
+    monkeypatch.setattr(JBBAF, "encode_and_fuse", lambda *a, **k: (None, None, fuse))
+    monkeypatch.setattr(JBBAF, "ConvTransformerBackbone", no_embd(JL.ConvTransformerBackbone))
+    monkeypatch.setattr(BBAF, "encode_and_fuse", lambda *a: (
+        None, None, torch.from_numpy(np.asarray(fuse, np.float32)).to(torch.bfloat16)))
+    monkeypatch.setattr(BBAF, "ConvTransformerBackbone", no_embd(L.ConvTransformerBackbone))
+    jentry = jget_model_entry(NAME)
+    want = jentry.model_cls(w["jcfg"], w["jder"], w["ds"]["word_vector"]).apply(
+        cast_floating(w["variables"], jnp.bfloat16), cast_floating(w["jb"], jnp.bfloat16), True)
+    model = get_model_entry(NAME).model_cls(w["cfg"], w["der"], w["ds"]["word_vector"]).eval()
+    state = from_jax_params(w["variables"]["params"], w["variables"]["constants"])
+    model.load_state_dict({k: v for k, v in state.items() if "embd" not in k}, strict=True)
+    cast_module_(model, torch.bfloat16)
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in w["batch"].items()}
+    with torch.no_grad():
+        got = model(cast_batch(tb, torch.bfloat16))
+    for key in ("slogits", "elogits"):
+        assert want[key].dtype == jnp.float32, key
+        np.testing.assert_allclose(got[key].float().numpy(), np.asarray(want[key]), atol=1e-4,
+                                   err_msg=key)
+        assert got[key].dtype == torch.float32, key
+
+
 # ------------------------------------------------------------ trajectories
 
 

@@ -11,7 +11,8 @@ tiny test config (vlen 32, dim 32):
   and their refusal of ``dataprocess.device_pipeline``;
 - each of the five models: the JAX tree carried across strictly, and the
   deterministic forward and loss at 1e-4 (the JAX models applied op by op);
-- the service answers for a model with a teacher and for the two batchers.
+- the service answers for a model with a teacher and for the two batchers;
+- ``BaseFast_BAN_PreTrain`` is registered as in the JAX package.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -285,8 +286,13 @@ def test_deterministic_forward_and_loss_match_jax(name):
 
 
 def test_ban_pretrain_is_not_registered():
-    with pytest.raises(KeyError, match="BaseFast_BAN_PreTrain"):
-        get_model_entry("BaseFast_BAN_PreTrain")
+    """Once unregistered (its BAN teacher was not ported); now registered
+    as the JAX package registers it: the frozen-teacher filter and hook,
+    the softloc loss, the student's batcher.  Its forward against JAX is
+    in ``test_torch_ban_train.py``."""
+    entry = get_model_entry("BaseFast_BAN_PreTrain")
+    assert entry.frozen_filter is D.teacher_frozen and entry.init_hook is D.load_teacher_hook
+    assert entry.loss_fn is D.softlabel_loss and entry.batcher_cls is None
 
 
 @pytest.mark.parametrize("name", ["OneTeacher_SoftLabel", "MultiTeacher",

@@ -7,8 +7,9 @@ tiny test config (vlen 32, dim 32):
 - ``import_external_labels`` writes what the JAX function writes for
   EMAT-style tuples and GMD-style dicts (time-major arrays, lists of rows,
   the sigmoid overridden);
-- the BAN and CCA branches of ``curves_from_outputs`` raise
-  ``NotImplementedError`` naming the missing model;
+- the CCA branch of ``curves_from_outputs`` raises
+  ``NotImplementedError`` naming the missing model, the BAN branch gives
+  the map's row and column maxima;
 - ``main`` with ``--device cpu`` exports from dataset files and a trainer
   checkpoint, and ``--import-external`` converts.
 """
@@ -100,8 +101,20 @@ def test_import_external_labels_matches_jax(style, sigmoid, tmp_path):
 
 @pytest.mark.parametrize("key,model", [("tmap", "models/ban.py"), ("scores2d", "models/cca.py")])
 def test_2d_branches_name_the_missing_model(key, model):
-    with pytest.raises(NotImplementedError, match=model):
-        E.curves_from_outputs("X", {key: torch.zeros(2, 4, 4)})
+    """CCA's branch still names its missing model; BAN's, ported since,
+    gives the row and column maxima of sigmoid(tmap) * mask2d (its
+    normalization and the whole export against JAX are in
+    ``test_torch_ban_train.py``)."""
+    tmap = torch.linspace(-2.0, 2.0, 32).reshape(2, 4, 4)
+    if key == "tmap":
+        mask = torch.ones(4, 4, dtype=torch.bool).triu()
+        got = E.curves_from_outputs("BAN", {key: tmap, "map2d_mask": mask})
+        smap = torch.sigmoid(tmap) * mask
+        np.testing.assert_array_equal(got, torch.stack([smap.amax(2), smap.amax(1)], 1).numpy())
+        assert got.shape == (2, 2, 4) and got.dtype == np.float32
+    else:
+        with pytest.raises(NotImplementedError, match=model):
+            E.curves_from_outputs("X", {key: tmap})
     with pytest.raises(ValueError):
         E.curves_from_outputs("X", {"logits": torch.zeros(2, 4)})
 

@@ -691,3 +691,26 @@ def test_input_pipeline_augments_on_the_card_keeping_the_gt(cuda, mode):
     assert (out["label1ds"].amax(-1) == 1).all()  # every sample keeps a gt span
     for key in out:
         assert torch.equal(out[key], again[key]), key
+
+
+def test_gates_route_past_each_limit_to_the_plain_version(cuda):
+    """Just past each kernel's limit (#4 at D 256, #5 at head dim 192, #3 at
+    a 1025-position context, #1 at head dim 264) the models' gates take the
+    plain route on the card: no launch, and the CPU's values (f32, 1e-4)."""
+    from vmrframe_tpu_torch.testing import past_limit_cases
+
+    for name, (kernel, module, inputs) in past_limit_cases().items():
+        with torch.no_grad():
+            want = module(*inputs)
+            before = kernel.launches
+            got = module.to(cuda)(*({k: v.to(cuda) for k, v in x.items()} if isinstance(x, dict)
+                                    else x.to(cuda) for x in inputs))
+            torch.cuda.synchronize()
+        assert kernel.launches == before, name
+        want = want if isinstance(want, dict) else {"out": want}
+        got = got if isinstance(got, dict) else {"out": got}
+        for key, w_ in want.items():
+            w_ = w_[0] if isinstance(w_, tuple) else w_
+            g_ = got[key][0] if isinstance(got[key], tuple) else got[key]
+            if torch.is_floating_point(w_):
+                assert (g_.cpu() - w_).abs().max() <= 1e-4, (name, key)

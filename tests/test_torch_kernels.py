@@ -104,3 +104,58 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_no_launch():
         torch.testing.assert_close(g, want, rtol=0, atol=0)
     assert [fn.launches for fn in K.KERNELS] == before
 
+
+
+# ------------------------------------------------------------ limit functions
+
+
+def test_limit_functions_match_what_the_wrappers_refuse():
+    """Each kernel module's pure limit function, read by the models' gates
+    before a launch and by the wrappers' raises: the edges of each limit."""
+    from vmrframe_tpu_torch.kernels import dual_stack as S
+    from vmrframe_tpu_torch.kernels import window_attention as W
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # #1/#2: head dims to 256 in both types, lengths from 1, shared memory
+    assert K.attention_takes(bf16, 64, (64,), 256) and not K.attention_takes(bf16, 64, (64,), 257)
+    assert K.attention_takes(f32, 64, (64, 30), 256)
+    assert not K.attention_takes(f32, 64, (0,), 32) and not K.attention_takes(f32, 64, (64,), 0)
+    assert not K.attention_takes(torch.float64, 64, (64,), 32)
+    assert K.attention_takes(bf16, 256, (256, 30), 32)  # TACoS width
+    assert not K.attention_takes(bf16, 512, (512, 512), 128)  # K and V of 1024 keys
+    assert K.attention_shared_bytes(bf16, 512, (512, 512), 128) > K.SHARED_BYTES
+    # #3: grids of 1-1024 a side, D to 8192
+    assert K.cq_takes(1024, 30, 128) and K.cq_takes(1, 1, 1, f32)
+    assert not K.cq_takes(1025, 30, 128) and not K.cq_takes(30, 1025, 128, f32)
+    assert K.cq_takes(64, 30, 8192) and not K.cq_takes(64, 30, 8193)
+    assert not K.cq_takes(0, 30, 128) and not K.cq_takes(64, 30, 128, torch.float64)
+    with pytest.raises(ValueError, match="Lc and Lq from 1 to 1024"):
+        K.cq_plan(1025, 30, 128)
+    # #4: D = 128, heads dividing it into multiples of 4, any lengths
+    assert S.takes(bf16, 128, 4, 64, 30) and S.takes(f32, 128, 32, 1, 1)
+    assert not S.takes(bf16, 256, 4, 64, 30) and not S.takes(bf16, 64, 4, 64, 30)
+    assert not S.takes(bf16, 128, 64, 64, 30)  # head dim 2
+    assert not S.takes(bf16, 128, 3, 64, 30) and not S.takes(bf16, 128, 4, 0, 30)
+    # #5-#7: head dims 1-128, one key window within the padded length
+    assert W.takes(2304, 128, 19) and not W.takes(2304, 129, 19) and not W.takes(2304, 0, 19)
+    assert W.takes(300, 64, 19) and not W.takes(200, 64, 19)  # 384 = K_WIN at window 19
+    with pytest.raises(ValueError, match="too small"):
+        W._check_len(200, 19)
+
+
+def test_gates_route_past_a_limit_to_the_plain_version():
+    """Just past each limit the models' gates choose the plain route before
+    any launch (on the card too): #4 at D 256, #5 at head dim 192, #3 at Lc
+    1025, #1 at head dim 264."""
+    from vmrframe_tpu_torch.layers import actionformer as AF
+    from vmrframe_tpu_torch.layers.attention import kernel_route
+
+    module = torch.nn.Linear(1, 1).eval()
+    assert kernel_route(module, 0.2, K.cq_takes(1024, 30, 128))
+    assert not kernel_route(module, 0.2, K.cq_takes(1025, 30, 128))
+    assert not kernel_route(module.train(), 0.2, True) and kernel_route(module, 0.0, True)
+    assert not kernel_route(module, 0.0, K.attention_takes(torch.bfloat16, 64, (64,), 264))
+    m = AF.MaskedMHCA(768, 4, window_size=19, pallas_min_len=256).eval()  # head dim 192
+    assert not m.use_banded_kernel(2304, 2304)
+    assert AF.MaskedMHCA(512, 4, window_size=19, pallas_min_len=256).eval().use_banded_kernel(
+        2304, 2304)

@@ -153,7 +153,7 @@ def main(argv=None):
             with open(args.save_results, "w", encoding="utf8") as f:
                 json.dump(out, f)
             logger.info(f"wrote {len(out)} predictions to {args.save_results}")
-        return {"r1i3": r1i3, "r1i5": r1i5, "r1i7": r1i7, "miou": mi,
+        return {"r1i3": r1i3, "r1i5": r1i5, "r1i7": r1i7, "miou": mi, "loss": lossmeter.avg,
                 "eval_batches": len(test_batcher), **data}
 
     result = fit(trainer, train_batcher, test_batcher, rng_seed=args.seed, ckpt_dir=ckpt_dir,

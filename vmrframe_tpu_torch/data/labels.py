@@ -1,11 +1,12 @@
 """Labels (counterpart of ``vmrframe_tpu/data/labels.py``), trimmed to
-what a batch needs, and the Gaussian splat of the distillation batchers'
-synthetic teacher."""
+what a batch needs: the 1D labels, the Gaussian splat of the distillation
+batchers' synthetic teacher, and BAN's 2D labels (the IoU map, the sparse
+validity mask, the contrastive masks and the start/end offsets)."""
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -60,3 +61,78 @@ def label_span_from_curve(label: np.ndarray, threshold: float = 0.01) -> Tuple[i
     if hit.size == 0:
         raise ValueError("label curve empty after resampling")
     return int(hit.min()), int(hit.max())
+
+
+def iou_1d(candidates: np.ndarray, gt: Sequence[float]) -> np.ndarray:
+    """IoU of (N, 2) candidate spans with one gt span."""
+    start, end = candidates[:, 0], candidates[:, 1]
+    s, e = float(gt[0]), float(gt[1])
+    inter = np.minimum(end, e) - np.maximum(start, s)
+    union = np.maximum(end, e) - np.minimum(start, s)
+    return np.clip(inter, 0, None) / union
+
+
+def iou2d_label(stime: float, etime: float, duration: float, num_clips: int,
+                end_plus_one: bool = True) -> np.ndarray:
+    """(L, L) IoU of cell (i, j)'s span with the gt moment: the span is
+    [i, j + 1] * duration / L, or [i, j] * duration / L without
+    ``end_plus_one`` (BAN's batches use that one)."""
+    i = np.arange(num_clips, dtype=np.float64)
+    starts = np.repeat(i, num_clips) * duration / num_clips
+    ends = (np.tile(i, num_clips) + (1 if end_plus_one else 0)) * duration / num_clips
+    cand = np.stack([starts, ends], axis=1)
+    return iou_1d(cand, [stime, etime]).reshape(num_clips, num_clips).astype(np.float32)
+
+
+def mask2d(L: int, pooling_counts: Optional[Sequence[int]] = None) -> np.ndarray:
+    """(L, L) bool validity of the sparse 2D map: the diagonal, then
+    ``pooling_counts[k]`` diagonals at stride 2**k each."""
+    if pooling_counts is None:
+        pooling_counts = [L // 4, L // 8, L // 8]
+    out = np.zeros((L, L), dtype=bool)
+    out[np.arange(L), np.arange(L)] = True
+    stride, offset = 1, 0
+    for c in pooling_counts:
+        for _ in range(c):
+            offset += stride
+            if offset >= L:
+                break
+            idx = np.arange(0, L - offset)
+            out[idx, idx + offset] = True
+        stride *= 2
+    return out
+
+
+def map2d_contrast(sidx: int, eidx: int, num_clips: int) -> np.ndarray:
+    """(2, L, L) bool positive and negative cells of BAN's contrastive loss:
+    spans that contain the gt, and spans wholly before or after it."""
+    x = np.arange(0, sidx + 1, dtype=int)
+    y = np.arange(max(eidx - 1, 0), num_clips, dtype=int)
+    pos = np.zeros((num_clips, num_clips), dtype=bool)
+    pos[np.ix_(x, y)] = True
+
+    neg = np.zeros((num_clips, num_clips), dtype=bool)
+    for offset in range(sidx):
+        i = np.arange(0, sidx - offset)
+        neg[i, i + offset] = True
+    for offset in range(eidx):
+        i = np.arange(eidx, num_clips - offset)
+        j = i + offset
+        keep = j < num_clips
+        neg[i[keep], j[keep]] = True
+    if neg.sum() == 0:
+        neg[0, 0] = True
+        neg[num_clips - 1, num_clips - 1] = True
+    return np.stack([pos, neg])
+
+
+def se_offset_label(stime: float, etime: float, duration: float, num_clips: int) -> np.ndarray:
+    """(L, L, 2) start and end offsets, as fractions of the duration, from
+    cell (i, j)'s span [i, j + 1] * duration / L to the gt moment."""
+    i = np.arange(num_clips, dtype=np.float64)
+    starts = np.repeat(i, num_clips) * duration / num_clips
+    ends = (np.tile(i, num_clips) + 1) * duration / num_clips
+    off = np.empty((num_clips * num_clips, 2), dtype=np.float32)
+    off[:, 0] = (stime - starts) / duration
+    off[:, 1] = (etime - ends) / duration
+    return off.reshape(num_clips, num_clips, 2)

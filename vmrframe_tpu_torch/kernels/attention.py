@@ -9,10 +9,12 @@ beside its plain PyTorch version.
   ``fused_cq_attention`` (``_cq_kernel``) there.
 
 The sources are ``csrc/attention.cu`` (bounds and design are noted there).
-The kernels' limits are checked here before a launch: ``cq_plan`` lays out
-#3 for any grid of up to ``CQ_MAX_LEN`` positions a side and D up to
-``CQ_MAX_D``, and
-``attention_shared_bytes`` sizes the attention kernels' shared memory.
+The kernels' limits are pure functions of shapes and types, read by the
+models' gates before a launch and by the wrappers, which raise on what they
+refuse: ``attention_takes`` (#1/#2: head dims, lengths, and the shared
+memory ``attention_shared_bytes`` sizes) and ``cq_takes`` (#3: grids of up
+to ``CQ_MAX_LEN`` positions a side, D up to ``CQ_MAX_D``, a layout
+``cq_plan`` fits in one block).
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises, and counts the launch in ``<wrapper>.launches``.
 
@@ -214,16 +216,33 @@ def attention_shared_bytes(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: 
                 + stride * sum(2 * (-(-Lk // 16) * 16) for Lk in Lks))
 
 
-def _check_attention(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int, what: str):
+def attention_refusal(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int):
+    """Why #1/#2's kernels do not take these shapes, or None when they do:
+    every length at least 1, the head dim within the type's limit, shared
+    memory within one block's."""
     if min(Lq, *Lks) < 1:
-        raise ValueError(f"{what}: every length must be at least 1, got Lq {Lq}, Lk {list(Lks)}")
+        return f"every length must be at least 1, got Lq {Lq}, Lk {list(Lks)}"
     limit = MMA_MAX_HEAD_DIM if dtype == torch.bfloat16 else F32_MAX_HEAD_DIM
-    if hd > limit:
-        raise ValueError(f"{what}: the {dtype} kernel takes head dims up to {limit}, got {hd}")
+    if not 1 <= hd <= limit:
+        return f"the {dtype} kernel takes head dims up to {limit}, got {hd}"
     need = attention_shared_bytes(dtype, Lq, Lks, hd)
     if need > SHARED_BYTES:
-        raise ValueError(f"{what}: Lq {Lq} and Lk {list(Lks)} at head dim {hd} need {need} "
-                         f"bytes of shared memory, more than the {SHARED_BYTES} a block has")
+        return (f"Lq {Lq} and Lk {list(Lks)} at head dim {hd} need {need} bytes of shared "
+                f"memory, more than the {SHARED_BYTES} a block has")
+    return None
+
+
+def attention_takes(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int) -> bool:
+    """Whether #1 (``Lks = (Lk,)``) or #2 (``Lks = (L, M)``) takes these
+    shapes: the models' gates read it before a launch, the wrappers raise
+    on what it refuses."""
+    return dtype in _DTYPE_CODE and attention_refusal(dtype, Lq, Lks, hd) is None
+
+
+def _check_attention(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int, what: str):
+    reason = attention_refusal(dtype, Lq, Lks, hd)
+    if reason is not None:
+        raise ValueError(f"{what}: {reason}")
 
 
 def cq_shared_bytes(Lc: int, Lq: int, stage_cols: int, out_cols: int, size: int,
@@ -250,19 +269,8 @@ def _even_chunks(n: int, most: int, gran: int) -> int:
     return -(-width // gran) * gran
 
 
-def cq_plan(Lc: int, Lq: int, D: int, dtype: torch.dtype = torch.bfloat16) -> dict:
-    """How ``vmr_cq_attention`` lays out one batch element in one block's
-    shared memory: the scores S and S_t there (``scores_shared``) whenever
-    they fit with the narrowest chunks, else in a scratch of
-    ``scratch_floats`` per element; then the widest even chunks of columns
-    that fit, all multiples of ``CQ_COLS[dtype]``: first one width for both
-    (so that neither is starved), then ``stage_cols`` (columns of c and q
-    staged at a time) as wide as that leaves room for, then ``out_cols``
-    (columns of S_t^T c and of the outputs at a time, within a staged
-    chunk); ``shared_bytes`` in all.  Raises beyond what the kernel takes."""
-    if not (1 <= Lc <= CQ_MAX_LEN and 1 <= Lq <= CQ_MAX_LEN) or not 1 <= D <= CQ_MAX_D:
-        raise ValueError(f"fused_cq_attention: the kernel takes Lc and Lq from 1 to "
-                         f"{CQ_MAX_LEN} and D up to {CQ_MAX_D}, got Lc {Lc}, Lq {Lq}, D {D}")
+def _cq_layout(Lc: int, Lq: int, D: int, dtype: torch.dtype):
+    """``cq_plan``'s layout, or None when no layout fits one block."""
     size, gran = torch.finfo(dtype).bits // 8, CQ_COLS[dtype]
     lcp, lqp = -(-Lc // 16) * 16, -(-Lq // 16) * 16
     widest = -(-D // gran) * gran
@@ -280,7 +288,41 @@ def cq_plan(Lc: int, Lq: int, D: int, dtype: torch.dtype = torch.bfloat16) -> di
         return {"stage_cols": stage, "out_cols": out, "scores_shared": shared,
                 "scratch_floats": 0 if shared else 2 * lcp * (lqp + CQ_SCORE_PAD),
                 "shared_bytes": cq_shared_bytes(Lc, Lq, stage, out, size, shared)}
-    raise ValueError(f"fused_cq_attention: Lc {Lc}, Lq {Lq} do not fit one block")
+    return None
+
+
+def cq_refusal(Lc: int, Lq: int, D: int, dtype: torch.dtype = torch.bfloat16):
+    """Why #3's kernel does not take these shapes, or None when it does:
+    Lc and Lq from 1 to ``CQ_MAX_LEN``, D from 1 to ``CQ_MAX_D``, and a
+    layout that fits one block."""
+    if not (1 <= Lc <= CQ_MAX_LEN and 1 <= Lq <= CQ_MAX_LEN) or not 1 <= D <= CQ_MAX_D:
+        return (f"the kernel takes Lc and Lq from 1 to {CQ_MAX_LEN} and D up to {CQ_MAX_D}, "
+                f"got Lc {Lc}, Lq {Lq}, D {D}")
+    if _cq_layout(Lc, Lq, D, dtype) is None:
+        return f"Lc {Lc}, Lq {Lq} do not fit one block"
+    return None
+
+
+def cq_takes(Lc: int, Lq: int, D: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether #3 takes these shapes: the models' gate reads it before a
+    launch, ``cq_plan`` (so the wrapper) raises on what it refuses."""
+    return dtype in _DTYPE_CODE and cq_refusal(Lc, Lq, D, dtype) is None
+
+
+def cq_plan(Lc: int, Lq: int, D: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How ``vmr_cq_attention`` lays out one batch element in one block's
+    shared memory: the scores S and S_t there (``scores_shared``) whenever
+    they fit with the narrowest chunks, else in a scratch of
+    ``scratch_floats`` per element; then the widest even chunks of columns
+    that fit, all multiples of ``CQ_COLS[dtype]``: first one width for both
+    (so that neither is starved), then ``stage_cols`` (columns of c and q
+    staged at a time) as wide as that leaves room for, then ``out_cols``
+    (columns of S_t^T c and of the outputs at a time, within a staged
+    chunk); ``shared_bytes`` in all.  Raises on what ``cq_takes`` refuses."""
+    reason = cq_refusal(Lc, Lq, D, dtype)
+    if reason is not None:
+        raise ValueError(f"fused_cq_attention: {reason}")
+    return _cq_layout(Lc, Lq, D, dtype)
 
 
 # ------------------------------------------------------------------ wrappers

@@ -162,6 +162,15 @@ def _check(vfeat, tfeat, vmask, tmask, p1, p2, num_heads) -> Tuple[int, int, int
     return B, Lv, Lt, D
 
 
+def takes(dtype: torch.dtype, D: int, num_heads: int, Lv: int, Lt: int) -> bool:
+    """Whether the kernel takes these shapes: f32 or bf16, D = ``KERNEL_D``,
+    heads dividing D into head dims that are multiples of 4, Lv, Lt >= 1.
+    The models' gate reads it before a launch (``models/common.py``); the
+    wrapper raises on what it refuses."""
+    return (dtype in _DTYPE_CODE and D == KERNEL_D and num_heads > 0 and D % num_heads == 0
+            and (D // num_heads) % 4 == 0 and Lv >= 1 and Lt >= 1)
+
+
 def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
     """(vfeat', tfeat') of the 2-layer stack, in the shapes and type given.
 
@@ -180,8 +189,7 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
     for t in (tfeat, p1["W"], p2["W"]):
         if t.device != device or t.dtype != dtype:
             raise ValueError(f"{what}: features and weights must share {device} and {dtype}")
-    hd = D // num_heads
-    if D != KERNEL_D or hd % 4 or Lv < 1 or Lt < 1:
+    if not takes(dtype, D, num_heads, Lv, Lt):
         raise ValueError(f"{what}: the kernel takes D = {KERNEL_D}, a head dim that is a "
                          f"multiple of 4 and Lv, Lt >= 1; got D = {D}, {num_heads} heads, "
                          f"Lv = {Lv}, Lt = {Lt}")

@@ -119,6 +119,14 @@ def _check_len(T: int, window: int) -> None:
                          f"(needs a padded length >= {key_window(window)})")
 
 
+def takes(T: int, hd: int, window: int) -> bool:
+    """Whether #5-#7 take these shapes (both types alike): head dims 1 to
+    ``MAX_HEAD_DIM`` and one key window within the padded length.  The
+    band gate reads it before a launch (``layers/actionformer.py``); the
+    wrappers raise on what it refuses."""
+    return 1 <= hd <= MAX_HEAD_DIM and T >= 1 and padded_len(T) >= key_window(window)
+
+
 # ------------------------------------------------------------ plain versions
 
 
@@ -231,9 +239,10 @@ def _check_args(tensors, what: str, window: int):
     B, H, T, hd = q.shape
     if any(t.shape != q.shape for t in tensors):
         raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in tensors]} disagree")
-    if not 1 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"{what}: the kernels take head dims 1 to {MAX_HEAD_DIM}, got {hd}")
-    _check_len(T, window)
+    if not takes(T, hd, window):
+        if not 1 <= hd <= MAX_HEAD_DIM:
+            raise ValueError(f"{what}: the kernels take head dims 1 to {MAX_HEAD_DIM}, got {hd}")
+        _check_len(T, window)
     return dtype, B, H, T, hd
 
 

@@ -38,8 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vmrframe_tpu_torch.kernels.window_attention import banded_attention, key_window, padded_len
+from vmrframe_tpu_torch.kernels.window_attention import banded_attention
+from vmrframe_tpu_torch.kernels.window_attention import takes as banded_takes
 from vmrframe_tpu_torch.layers.dropout import Dropout
+from vmrframe_tpu_torch.ops.precision import promoted_call
 
 
 class ChannelLayerNorm(nn.Module):
@@ -146,13 +148,15 @@ class MaskedMHCA(nn.Module):
     def use_banded_kernel(self, Tq: int, Tk: int) -> bool:
         """The kernel route: a window without rel-PE, T at or above the
         mode's threshold (train: ``min_len_train``, eval: ``min_len``; -1
-        disables), Tq == Tk, and one key window within the padded length."""
+        disables), Tq == Tk, and shapes the kernels take
+        (``kernels/window_attention.py::takes``: one key window within the
+        padded length, head dims to 128)."""
         min_len = self.min_len_train if self.training else self.min_len
         if self.window_size <= 0 or self.use_rel_pe or min_len < 0:
             return False
         if Tq != Tk or Tq < min_len:
             return False
-        return padded_len(Tq) >= key_window(self.window_size)
+        return banded_takes(Tq, self.n_embd // self.n_head, self.window_size)
 
     def forward(self, x, mask, generator: Optional[torch.Generator] = None):
         B = x.shape[0]
@@ -285,17 +289,18 @@ class ConvTransformerBackbone(nn.Module):
                 x = getattr(self, f"embd_norm_{idx}")(x)
             x = torch.relu(x)
         if self.use_abs_pe:
-            # scaled in f32, added in x's type: JAX adds the f32 table to a bf16
-            # x and so runs the layers after it in f32 (flax's promotion); the
-            # port keeps the activations in the compute type
+            # as in JAX: the f32 table added to a bf16 x makes x f32, and every
+            # block after it runs in f32 on its bf16 weights promoted
+            # (flax's promotion; ``ops/precision.py::promoted_call``)
             T = x.shape[1]
             pe = torch.from_numpy(get_sinusoid_encoding(self.max_len, self.n_embd)).to(x.device)
-            x = x + (pe[None, :T] / (self.n_embd ** 0.5)).to(x.dtype) * mask[..., None]
+            x = x.to(torch.promote_types(x.dtype, pe.dtype)) \
+                + pe[None, :T] / (self.n_embd ** 0.5) * mask[..., None]
         for idx in range(self.arch[1]):
-            x, mask = getattr(self, f"stem_{idx}")(x, mask, generator)
+            x, mask = promoted_call(getattr(self, f"stem_{idx}"), x.dtype, x, mask, generator)
         feats, masks = [x], [mask]
         for idx in range(self.arch[2]):
-            x, mask = getattr(self, f"branch_{idx}")(x, mask, generator)
+            x, mask = promoted_call(getattr(self, f"branch_{idx}"), x.dtype, x, mask, generator)
             feats.append(x)
             masks.append(mask)
         return feats, masks

@@ -21,7 +21,8 @@ import math
 import torch
 from torch import nn
 
-from vmrframe_tpu_torch.kernels.attention import cq_attention, dual_attention, masked_attention
+from vmrframe_tpu_torch.kernels.attention import (attention_takes, cq_attention, cq_takes,
+                                                  dual_attention, masked_attention)
 from vmrframe_tpu_torch.layers.basic import Conv1D, LayerNorm, fused_linear
 from vmrframe_tpu_torch.layers.dropout import Dropout
 from vmrframe_tpu_torch.ops.masking import MASK_VALUE, attention_mask_2d, mask_logits
@@ -50,9 +51,11 @@ def head_attention(q, k, v, mask_add, scale: float, num_heads: int, drop: Dropou
     return merge_heads(p @ split_heads(v, num_heads))
 
 
-def kernel_route(module: nn.Module, droprate: float) -> bool:
-    """The kernels' Functions serve eval mode and droprate 0."""
-    return not module.training or droprate == 0.0
+def kernel_route(module: nn.Module, droprate: float, takes: bool) -> bool:
+    """The kernels' Functions serve eval mode and droprate 0, at shapes the
+    kernel takes (``takes``: its limit function, read before any launch);
+    elsewhere the plain torch route runs, on the card too."""
+    return (not module.training or droprate == 0.0) and takes
 
 
 class BiLinear(nn.Module):
@@ -102,7 +105,8 @@ class DualMultiAttention(nn.Module):
         t_k, t_v = fused_linear(to_tensor, [pair(self.t_key), pair(self.t_value)])
         s_mask, x_mask = attention_mask_2d(from_mask, from_mask), attention_mask_2d(from_mask,
                                                                                     to_mask)
-        if kernel_route(self, self.dropout.rate):
+        L, M, hd = from_tensor.shape[1], to_tensor.shape[1], q.shape[-1] // self.num_heads
+        if kernel_route(self, self.dropout.rate, attention_takes(q.dtype, L, (L, M), hd)):
             s_val, x_val = dual_attention(
                 split_heads(q, H), split_heads(f_k, H), split_heads(f_v, H),
                 split_heads(t_k, H), split_heads(t_v, H), s_mask, x_mask)
@@ -193,7 +197,7 @@ class MultiHeadAttentionBlock(nn.Module):
                                                            (self.query, self.key, self.value)])
         B, L, D = x.shape
         keys = x.new_ones(B, L) if mask is None else mask
-        if kernel_route(self, self.dropout.rate):
+        if kernel_route(self, self.dropout.rate, attention_takes(q.dtype, L, (L,), D // H)):
             # the mask is on keys only: every query row attends
             out = merge_heads(masked_attention(split_heads(q, H), split_heads(k, H),
                                                split_heads(v, H), keys[:, None, :].expand(B, L, L)))
@@ -220,7 +224,8 @@ class CQAttention(nn.Module):
         self.dropout = Dropout(droprate)
 
     def forward(self, context, query, c_mask, q_mask, generator=None):
-        if kernel_route(self, self.dropout.rate):
+        takes = cq_takes(context.shape[1], query.shape[1], context.shape[2], context.dtype)
+        if kernel_route(self, self.dropout.rate, takes):
             c2q, q2c = cq_attention(context, query, self.w4C, self.w4Q, self.w4mlu, c_mask,
                                     q_mask)
         else:

@@ -15,7 +15,7 @@ import math
 import torch
 from torch import nn
 
-from vmrframe_tpu_torch.kernels.attention import masked_attention
+from vmrframe_tpu_torch.kernels.attention import attention_takes, masked_attention
 from vmrframe_tpu_torch.layers.attention import (head_attention, kernel_route, merge_heads,
                                                  split_heads)
 from vmrframe_tpu_torch.layers.basic import (Conv1D, DepthwiseSeparableConvBlock, LayerNorm,
@@ -40,7 +40,8 @@ class TopSelfAttention(nn.Module):
         H = self.num_heads
         q, k, v = fused_linear(x, [(m.weight, m.bias) for m in (self.query, self.key, self.value)])
         attn_mask = attention_mask_2d(mask, mask)
-        if kernel_route(self, self.dropout.rate):
+        L, hd = x.shape[1], x.shape[-1] // H
+        if kernel_route(self, self.dropout.rate, attention_takes(q.dtype, L, (L,), hd)):
             out = merge_heads(masked_attention(split_heads(q, H), split_heads(k, H),
                                                split_heads(v, H), attn_mask))
         else:

@@ -1,8 +1,8 @@
 """Model zoo; importing it registers each model (SeqPAN, BackBone, BaseFast,
 ActionFormer, BackBoneActionFormer, the sentence variants
-BackBoneBertSentence and BackBoneAlignFeature, and the distillation family:
-OneTeacher, OneTeacher_SoftLabel, BaseFast_BAN_CoTrain, MultiTeacher,
-BaseFast_CCA_PreTrain)."""
+BackBoneBertSentence and BackBoneAlignFeature, BAN, and the distillation
+family: OneTeacher, OneTeacher_SoftLabel, BaseFast_BAN_CoTrain,
+BaseFast_BAN_PreTrain, MultiTeacher, BaseFast_CCA_PreTrain)."""
 
 from vmrframe_tpu_torch.models import (actionformer, backbone, backbone_actionformer,  # noqa: F401
-                                       basefast, distill, seqpan, sentence_variants)
+                                       ban, basefast, distill, seqpan, sentence_variants)

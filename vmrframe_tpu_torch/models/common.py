@@ -23,7 +23,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from vmrframe_tpu_torch.kernels.dual_stack import dual_attention_stack
+from vmrframe_tpu_torch.kernels.dual_stack import dual_attention_stack, dual_attention_stack_plain
+from vmrframe_tpu_torch.kernels.dual_stack import takes as stack_takes
 from vmrframe_tpu_torch.layers.attention import CQAttention, CQConcatenate, DualAttentionBlock
 from vmrframe_tpu_torch.layers.basic import Embedding, FeatureEncoder, VisualProjection
 
@@ -33,8 +34,10 @@ def use_fused_stack(m, deterministic: bool) -> bool:
     eval mode, ``model.fused_dual_stack`` set (off by default), D a multiple
     of 128 and heads dividing D.  Any truthy flag selects the fused route
     (the JAX package's ``"interpret"`` has no meaning here): on CPU tensors
-    the wrapper then runs the plain version, on CUDA tensors it launches the
-    kernel or raises on a shape the kernel does not take."""
+    the wrapper then runs the plain version; on CUDA tensors
+    ``encode_and_fuse`` launches the kernel where its limit function
+    (``kernels/dual_stack.py::takes``: D = 128 today) takes the shapes, and
+    runs the plain version of the same stack elsewhere."""
     if not deterministic or not bool(m.get("fused_dual_stack", False)):
         return False
     D, H = int(m.dim), int(m.num_heads)
@@ -75,8 +78,11 @@ def encode_and_fuse(module: nn.Module, batch: Dict[str, torch.Tensor],
     if hasattr(module, "dual_attention_block_1"):
         blocks = (module.dual_attention_block_1, module.dual_attention_block_2)
         if use_fused_stack(module.model_cfg, not module.training):
-            vfeat, tfeat = dual_attention_stack(vfeat, tfeat, vmask, tmask, blocks[0].stacks(),
-                                                blocks[1].stacks(), int(module.model_cfg.num_heads))
+            H = int(module.model_cfg.num_heads)
+            fits = stack_takes(vfeat.dtype, vfeat.shape[2], H, vfeat.shape[1], tfeat.shape[1])
+            stack = dual_attention_stack if fits else dual_attention_stack_plain
+            vfeat, tfeat = stack(vfeat, tfeat, vmask, tmask, blocks[0].stacks(),
+                                 blocks[1].stacks(), H)
         else:
             for block in blocks:
                 vfeat, tfeat = (block(vfeat, tfeat, vmask, tmask, g),

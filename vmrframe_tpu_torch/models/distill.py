@@ -1,6 +1,5 @@
 """The distillation family on the QANet-block student (counterpart of
-``vmrframe_tpu/models/distill.py``, all but ``BaseFast_BAN_PreTrain``, whose
-BAN teacher is not ported yet).
+``vmrframe_tpu/models/distill.py``).
 
 The student is BaseFast's skeleton with a shared encoder of 4 layers and no
 dual attention, the match head and ``SeqPANPredictor``, its parameters at
@@ -21,6 +20,11 @@ the top level of the model as in the flax tree (``text_encoder``,
   ``deterministic`` through) under ``torch.no_grad()``: the JAX package's
   ``stop_gradient``, and no activations kept for a backward that never
   reaches the teacher.  Loss = the student's hard losses + softloc.
+- ``BaseFast_BAN_PreTrain``: the student beside a frozen BAN,
+  ``teach_model``, built and loaded as above (the BAN checkpoint's
+  parameters; the teacher reads the student's default batch and takes its
+  lengths from the masks); its curves are the row and column maxima of
+  ``sigmoid(tmap) * mask2d``, the JAX package's conversion.  Loss as above.
 - ``MultiTeacher``: the student alone, distilled from up to three teachers'
   curves shipped in the batch (``MultiTeacherBatcher``), each softloc term
   weighted by the IoU of the teacher's argmax span with the gt's.
@@ -42,6 +46,7 @@ from vmrframe_tpu_torch.data.distill_batcher import CCAPreTrainBatcher, MultiTea
 from vmrframe_tpu_torch.layers.dropout import dropout_bits, set_dropout_bits
 from vmrframe_tpu_torch.layers.predictor import SeqPANPredictor
 from vmrframe_tpu_torch.losses import _weighted_mean, lossfun_loc, lossfun_match, lossfun_softloc
+from vmrframe_tpu_torch.models.ban import BAN
 from vmrframe_tpu_torch.models.common import add_encoder_modules, encode_and_fuse
 from vmrframe_tpu_torch.models.seqpan import SeqPAN, add_match_head, match_head, seqpan_infer
 from vmrframe_tpu_torch.registry import register_model
@@ -198,6 +203,28 @@ def load_teacher_hook(trainer, cfg) -> None:
 for _cls in (OneTeacher_SoftLabel, BaseFast_BAN_CoTrain):
     register_model(_cls.__name__, loss_fn=softlabel_loss, infer_fn=seqpan_infer,
                    frozen_filter=teacher_frozen, init_hook=load_teacher_hook)(_cls)
+
+
+# ----------------------------------------------- frozen-BAN-teacher pair
+
+
+class BaseFast_BAN_PreTrain(_Student):
+    def __init__(self, cfg, derived, word_vectors):
+        super().__init__(cfg, derived, word_vectors)
+        self.teach_model = BAN(_teacher_cfg(cfg), derived, word_vectors)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        out = self.student(batch, generator)
+        with torch.no_grad():
+            teacher = self.teach_model(batch, generator)
+            smap = torch.sigmoid(teacher["tmap"]) * teacher["map2d_mask"][None].float()
+        out["slogits_t0"], out["elogits_t0"] = smap.amax(dim=2), smap.amax(dim=1)
+        return out
+
+
+register_model("BaseFast_BAN_PreTrain", loss_fn=softlabel_loss, infer_fn=seqpan_infer,
+               frozen_filter=teacher_frozen, init_hook=load_teacher_hook)(BaseFast_BAN_PreTrain)
 
 
 # ------------------------------------------------------------ MultiTeacher

@@ -18,6 +18,11 @@ and ``AffineDropPath``'s (1, 1, D) scale in bf16, and keeps
 ``ChannelLayerNorm``, the biases and ``Scale``'s rank-0 scalar in f32.
 JAX promotes ``bf16 * f32[()]`` to f32 where torch keeps bf16, so ``Scale``
 upcasts its input itself (``layers/actionformer.py``).
+
+Where the JAX model adds an f32 tensor to bf16 activations (ActionFormer's
+absolute position table), flax's promotion runs every layer after it in f32,
+each reading its bf16 weights promoted to f32.  torch refuses a bf16 weight
+against an f32 input, so such a layer runs through ``promoted_call``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 
 def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -64,3 +70,18 @@ def cast_batch(batch: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, 
 def biased(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``y + bias`` in the wider dtype, result cast back to ``y.dtype``."""
     return (y + bias).to(y.dtype)
+
+
+def promoted_call(module: nn.Module, dtype: torch.dtype, *args):
+    """``module(*args)`` with its floating parameters and buffers narrower
+    than ``dtype`` promoted to it (differentiably): the weights flax's
+    promotion reads when a bf16 weight meets an activation of ``dtype``.
+    A plain call when nothing is narrower."""
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    wide = {name: t.to(dtype) for name, t in tensors.items()
+            if t.is_floating_point() and torch.promote_types(t.dtype, dtype) == dtype
+            and t.dtype != dtype}
+    if not wide:
+        return module(*args)
+    return functional_call(module, wide, args)

@@ -6,10 +6,12 @@ which ``MultiTeacherBatcher`` and ``CCAPreTrainBatcher`` read
 (``loss.t{0,1,2}_path``).
 
 A 1D model's curves (SeqPAN, BaseFast, the students, ...) are the sigmoid of
-its start and end logits over the valid frames.  The 2D teachers' curves
-(BAN's and CCA's maps) wait for those models.  The forward is the trainer's
-eval forward, in the config's ``train.compute_dtype`` (the JAX tool applies
-the f32 masters directly: the same in f32).
+its start and end logits over the valid frames.  BAN's are the row and
+column maxima of ``sigmoid(tmap) * mask2d`` over the valid clips, each
+curve L2-normalized (the JAX tool's default ``normalize_2d``; a zero curve
+stays zero).  CCA's wait for that model.  The forward is the
+trainer's eval forward, in the config's ``train.compute_dtype`` (the JAX
+tool applies the f32 masters directly: the same in f32).
 
 ``import_external_labels`` converts a third-party teacher's result pickle
 (EMAT-style ``(vid, se_logits, vlen)`` tuples, GMD-style dicts) into the
@@ -37,19 +39,25 @@ def curves_from_outputs(model_name: str, outputs) -> np.ndarray:
         return torch.stack([torch.sigmoid(outputs["slogits"]),
                             torch.sigmoid(outputs["elogits"])], dim=1).float().cpu().numpy()
     if "tmap" in outputs:
-        raise NotImplementedError(f"{model_name}: curves from BAN's 2D map need models/ban.py, "
-                                  "which is not ported yet")
+        smap = torch.sigmoid(outputs["tmap"]) * outputs["map2d_mask"][None].float()
+        return torch.stack([smap.amax(dim=2), smap.amax(dim=1)], dim=1).float().cpu().numpy()
     if "scores2d" in outputs:
         raise NotImplementedError(f"{model_name}: curves from CCA's 2D map need models/cca.py, "
                                   "which is not ported yet")
     raise ValueError(f"don't know how to export teacher curves for {model_name}")
 
 
+def _norm(x: np.ndarray) -> np.ndarray:
+    n = np.linalg.norm(x)
+    return x / n if n > 0 else x
+
+
 @torch.no_grad()
 def export_labels(cfg, derived, dataset, features, trainer, out_path: str,
                   split: str = "train_set") -> list:
     """Writes ``out_path`` and returns its list: one ``[vid, curves]`` per
-    record of ``dataset[split]``, in order, each cut to its clip's length."""
+    record of ``dataset[split]``, in order, each cut to its clip's length
+    (a 2D model's curves L2-normalized each)."""
     from vmrframe_tpu_torch.data.batcher import Batcher
 
     records = dataset[split]
@@ -60,10 +68,13 @@ def export_labels(cfg, derived, dataset, features, trainer, out_path: str,
     for batch in batcher.epoch(seed=0, shuffle=False):
         outputs = trainer.forward(trainer.to_device(batch))
         curves = curves_from_outputs(cfg.model.name, outputs)
-        vlens = batch["vmasks"].sum(axis=1).astype(int)
+        is_2d = "slogits" not in outputs  # curves from a 2D map, as curves_from_outputs read them
+        vlens = (batch["vmasks"].sum(axis=1) if "vmasks" in batch else batch["vlens"]).astype(int)
         for i in range(int(batch["num_valid"])):
-            save_list.append([records[len(save_list)]["vid"],
-                              curves[i, :, : vlens[i]].astype(np.float32)])
+            c = curves[i, :, : vlens[i]]
+            if is_2d:
+                c = np.stack([_norm(c[0]), _norm(c[1])])
+            save_list.append([records[len(save_list)]["vid"], c.astype(np.float32)])
     with open(out_path, "wb") as f:
         pickle.dump(save_list, f, protocol=pickle.HIGHEST_PROTOCOL)
     return save_list

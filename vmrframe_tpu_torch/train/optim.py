@@ -37,6 +37,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from vmrframe_tpu_torch.weights import jax_name
+
 NO_DECAY = ("bias", "layer_norm", "self_ln_", "enc_ln_", "final_ln_")
 B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 0.01  # the reference's AdamW
 
@@ -59,8 +61,10 @@ def linear_warmup_decay(base_lr: float, num_train_steps: int,
 
 
 def decays(name: str) -> bool:
-    """Whether the parameter ``name`` gets weight decay."""
-    return not any(tok in name.lower() for tok in NO_DECAY)
+    """Whether the parameter ``name`` gets weight decay: the JAX mask on the
+    JAX name.  An LSTM's biases are ``b_ih_l0``... there, without "bias",
+    so they are decayed, whereas ``nn.LSTM`` names them ``bias_ih_l0``."""
+    return not any(tok in jax_name(name).lower() for tok in NO_DECAY)
 
 
 class AdamW:

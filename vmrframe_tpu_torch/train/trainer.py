@@ -183,8 +183,8 @@ def fit(trainer: Trainer, train_batcher, test_batcher, rng_seed: int = 1234,
             f"R1I7: {r1i7:.2f}\tmIoU: {mi:.2f}\tloss: {lossmeter.avg:.4f}\t"
             f"eval_qps: {test_batcher.num_samples / max(secs, 1e-9):.0f}\t"
             f"epoch_s: {time.time() - t_epoch:.1f}")
-        history.append({"epoch": epoch + 1, "train_loss": train_loss, "r1i3": r1i3,
-                        "r1i5": r1i5, "r1i7": r1i7, "miou": mi})
+        history.append({"epoch": epoch + 1, "train_loss": train_loss, "test_loss": lossmeter.avg,
+                        "r1i3": r1i3, "r1i5": r1i5, "r1i7": r1i7, "miou": mi})
 
         if ckpt_dir:  # rolling full checkpoint (with the optimizer) for an exact resume
             save_checkpoint(ckpt_dir, trainer, name=f"last_{name}", full=True)

@@ -25,7 +25,11 @@ BackBoneActionFormer's adds a ``backbone`` of ActionFormer's.  On
 ActionFormer's trees, the conv backbone (``embd_*``, ``stem_*/conv1``,
 ``conv2``, ``branch_*/downsample``: conv kernels), the FPN neck
 (``lateral_*``, the depthwise ``fpn_conv_*``, ``fpn_norm_*``) and rel-PE
-(``rel_pe``, (n_head, window) as it is) follow the same rules.  The distillation models'
+(``rel_pe``, (n_head, window) as it is) follow the same rules.  BAN's LSTM
+leaves are already in ``nn.LSTM``'s layout and only renamed: ``w_ih_l{k}``
+-> ``weight_ih_l{k}``, ``b_hh_l{k}_reverse`` -> ``bias_hh_l{k}_reverse``;
+its ``map2d_proj_kernel`` (3F, F) and ``map2d_proj_bias`` keep name and
+shape.  The distillation models'
 teachers are whole SeqPAN trees nested under one prefix (``teacher_t0/...``
 in ``OneTeacher``, ``teach_model/...`` in the frozen-teacher models), which
 the same rules carry across as ``teacher_t0.`` and ``teach_model.``.
@@ -34,6 +38,7 @@ the same rules carry across as ``teacher_t0.`` and ``teach_model.``.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -58,10 +63,29 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+# an LSTM's leaves, the same shape in both packages: JAX's w_ih_l0 and
+# b_hh_l1_reverse are nn.LSTM's weight_ih_l0 and bias_hh_l1_reverse
+_LSTM_LEAF = re.compile(r"^(w|b|weight|bias)(_(?:ih|hh)_l\d+(?:_reverse)?)$")
+_LSTM_TORCH = {"w": "weight", "b": "bias"}
+
+
+def jax_name(name: str) -> str:
+    """The JAX package's name of the port's parameter ``name`` where the
+    leaf names differ: an LSTM's (the other leaves differ in layout only)."""
+    head, _, leaf = name.rpartition(".")
+    m = _LSTM_LEAF.match(leaf)
+    if m and m.group(1) in ("weight", "bias"):
+        leaf = m.group(1)[0] + m.group(2)
+    return f"{head}.{leaf}" if head else leaf
+
+
 def _leaf(path: str, value: np.ndarray):
     parts = path.split("/")
     name = parts[-1]
-    if name == "kernel":
+    m = _LSTM_LEAF.match(name)
+    if m and m.group(1) in _LSTM_TORCH:
+        name = _LSTM_TORCH[m.group(1)] + m.group(2)
+    elif name == "kernel":
         if value.ndim == 2:
             value = value.T
         elif value.ndim == 3:
@@ -164,6 +188,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             mod.weight.fill_(mod.init_value)
             if getattr(mod, "bias", None) is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, nn.LSTM):  # every leaf U(-1/sqrt(H), 1/sqrt(H)), as flax's BAN
+            for p in mod.parameters(recurse=False):
+                uniform_(p, 1.0 / math.sqrt(mod.hidden_size))
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("position_embeddings", "char_table"):
@@ -175,4 +202,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             p.copy_(q * torch.sign(torch.diagonal(r)))
         elif leaf == "bias_value":
             p.zero_()
+        elif leaf == "map2d_proj_kernel":  # BAN's (3F, F) projection: fan-in 3F
+            uniform_(p, 1.0 / math.sqrt(p.shape[0]))
+        elif leaf == "map2d_proj_bias":
+            uniform_(p, 1.0 / math.sqrt(3 * p.shape[0]))
     return model
