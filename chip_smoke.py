@@ -179,10 +179,35 @@ Phases, in order; any failure exits non-zero:
    (2/2 of #3/#1 a step), one eval forward (2/2); the teacher bit-equal
    after; ``export_labels`` of the BAN checkpoint on the card against the
    CPU within 1e-5.
-28. repairs: BackBoneActionFormer's bf16 forward against its f32 forward
-   on the card, and one case just past each
+28. repairs: the bf16 forward against the f32 forward on the card of
+   BackBoneActionFormer and of SeqPAN with the stack's flag off (4 launches
+   of #2 in its bf16 forward), and one case just past each
    kernel's limit (#4 at D 256, #5 at head dim 192, #3 at Lc 1025, #1 at
    head dim 264): the plain route, no launch, the CPU's values.
+29. serve-CCA: CCA on ``configs/anet_cca.yaml`` as it is (64 clips of
+   1024-d features, the synthetic concept graph of 3152 nodes, the
+   3216-wide transformer, f32), service batch 64, 256 predictions from 64
+   threads: rate, p50/p99; no launch of any kernel (CCA runs cuDNN's
+   LSTMs and convolutions and plain torch).
+30. verify-CCA: one f32 batch of 8 at that width, card against CPU: the
+   eval forward's scores within 1e-4, the loss within 1e-5 relative, the
+   spans equal where the best two cells lie apart; one train-mode forward
+   and backward: every gradient within 1e-3 of its largest magnitude, the
+   BatchNorm running statistics within 1e-4.
+31. train-CCA: the CLI trains CCA one epoch (``--synthetic``), ``--eval``
+   of the best checkpoint gives the logged mIoU and test loss; 10 timed
+   steps (host clock, samples/s, peak bytes, busy share).
+32. cca-pretrain: ``export_labels`` of that checkpoint, card against CPU
+   within 1e-5, and the curves feeding ``BaseFast_CCA_PreTrain`` (3 train
+   steps, no launch; an eval forward, 2/2 of #3/#1).
+33. serve-CPL: CPL on ``configs/charades_cpl.yaml`` as it is (dim 128, 8
+   proposals a clip, f32), service batch 128, 512 predictions from 128
+   threads; no launch.
+34. verify-CPL: one f32 batch of 8 (64 proposals), card against CPU: the
+   logits, Gaussians, centers and widths within 1e-4, the loss within 1e-5
+   relative, every gradient within 1e-3 of its largest magnitude, the spans
+   equal where the two lowest proposal NLLs lie apart.
+35. train-CPL: phase 31 for CPL (batch 128).
 
 The check phase also holds #1-#3 at the sentence variants' shapes (head
 dim 192 at B 128: 64 queries over 64 and 30 keys and 30 over 64; one key;
@@ -2257,7 +2282,7 @@ N_BAN_TIMED, N_PRETRAIN_STEPS = 10, 3
 TOL_BAN, TOL_BAN_LOSS, TOL_BAN_EXPORT = 1e-4, 1e-5, 1e-5
 
 
-def ban_world(config: str = BAN_CONFIG, updates: dict = None, n_train: int = 64):
+def config_world(config: str = BAN_CONFIG, updates: dict = None, n_train: int = 64):
     """A config as it is (or updated), its synthetic dataset and derived record."""
     from vmrframe_tpu_torch.config import Derived, load_config
     from vmrframe_tpu_torch.testing import make_synthetic_data
@@ -2268,33 +2293,41 @@ def ban_world(config: str = BAN_CONFIG, updates: dict = None, n_train: int = 64)
     return cfg, dataset, store, derived
 
 
-def phase_serve_ban(kernels, card: str) -> dict:
-    """BAN on its long config as it is (vlen 128, pooling [15, 8, 8, 8], vdim
-    1024, dim 256, fuse 512, topk 16, neighbor 4, f32), seeded random
-    weights, synthetic features, behind the service at the config's batch
-    of 8: a few hundred concurrent predictions.  BAN runs no hand-written
-    kernel: every count stays 0."""
+def serve_config(phase: str, config: str, batch_size: int, n_requests: int, concurrency: int,
+                 kernels, card: str) -> dict:
+    """A config as it is, seeded random weights, synthetic features, behind
+    the service at ``batch_size``: ``n_requests`` concurrent predictions from
+    ``concurrency`` threads; rate, p50/p99 and peak device bytes.  The
+    families served this way (BAN, CCA, CPL) run no hand-written kernel:
+    every count stays 0."""
     from vmrframe_tpu_torch.config import load_config
     from vmrframe_tpu_torch.tools.serve import build_service
 
-    cfg = load_config(BAN_CONFIG)
+    cfg = load_config(config)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    service, dataset = build_service(cfg, batch_size=B_BAN, n_synthetic=64, device="cuda")
+    service, dataset = build_service(cfg, batch_size=batch_size, n_synthetic=64, device="cuda")
     boot_s = time.perf_counter() - t0
     try:
-        load = drive(service, dataset["test_set"], N_BAN_REQUESTS, BAN_CONCURRENCY, kernels)
+        load = drive(service, dataset["test_set"], n_requests, concurrency, kernels)
     finally:
         service.close()
-    m = cfg.model
-    stats = {"card": card, "model": "BAN", "config": BAN_CONFIG, "batch_size": service.batch_size,
-             "dtype": str(cfg.train.get("compute_dtype", "float32")), "vlen": m.vlen,
-             "pooling_counts": list(m.pooling_counts), "vdim": m.vdim, "dim": m.dim,
-             "fuse_dim": m.fuse_dim, "topk": m.topk, "neighbor": m.neighbor, "boot_s": boot_s,
-             **load, "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
-    log(f"[serve-BAN] {json.dumps(stats)}")
-    check_launches("serve-BAN", stats, {fn.__name__: 0 for fn in kernels})
+    stats = {"card": card, "model": str(cfg.model.name), "config": config,
+             "batch_size": service.batch_size,
+             "dtype": str(cfg.train.get("compute_dtype", "float32")),
+             "widths": cfg.model.to_dict(), "boot_s": boot_s, **load,
+             "peak_device_mem_bytes": torch.cuda.max_memory_allocated()}
+    log(f"[{phase}] {json.dumps(stats)}")
+    check_launches(phase, stats, {fn.__name__: 0 for fn in kernels})
     return stats
+
+
+def phase_serve_ban(kernels, card: str) -> dict:
+    """BAN on its long config as it is (vlen 128, pooling [15, 8, 8, 8], vdim
+    1024, dim 256, fuse 512, topk 16, neighbor 4, f32) at the config's batch
+    of 8 (``serve_config``)."""
+    return serve_config("serve-BAN", BAN_CONFIG, B_BAN, N_BAN_REQUESTS, BAN_CONCURRENCY,
+                        kernels, card)
 
 
 def _ban_pass(model, cfg, batch, selection=None):
@@ -2368,7 +2401,7 @@ def phase_verify_ban() -> dict:
     from vmrframe_tpu_torch.registry import get_model_entry
     from vmrframe_tpu_torch.weights import init_weights
 
-    cfg, dataset, store, derived = ban_world()
+    cfg, dataset, store, derived = config_world()
     batch = BANBatcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B_BAN)))
     batch = {k: torch.as_tensor(v) for k, v in batch.items() if k != "num_valid"}
     entry = get_model_entry("BAN")
@@ -2472,53 +2505,56 @@ def phase_verify_ban() -> dict:
             "n_grads": len(g_p)}
 
 
-def phase_train_ban(kernels, card: str, root: str) -> dict:
-    """The CLI's train-then-eval on the long BAN config as it is (f32, batch
-    8, --synthetic --epochs 1) in ``root``; ``--eval`` of the best
-    checkpoint must give the logged best mIoU and test loss (one epoch, so
-    the best is the only one).  Then ``N_BAN_TIMED`` timed
-    train steps (after 2) through ``Trainer``: host clock per step,
-    samples/s, peak device bytes and the card's busy share."""
+def train_config(phase: str, config: str, batch_size: int, n_timed: int, kernels, card: str,
+                 root: str) -> dict:
+    """The CLI's train-then-eval on a config as it is (``--synthetic
+    --epochs 1``) in ``root``; ``--eval`` of the best checkpoint must give
+    the logged best mIoU and test loss (one epoch, so the best is the only
+    one); no kernel launch (the families trained this way run none).  Then
+    ``n_timed`` timed train steps (after 2) through ``Trainer``: host clock
+    per step, samples/s, peak device bytes and the card's busy share."""
     from vmrframe_tpu_torch.cli import main as cli_main
-    from vmrframe_tpu_torch.data.ban_batcher import BANBatcher
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.registry import get_model_entry
     from vmrframe_tpu_torch.tools.profile_serve import _device_profile
     from vmrframe_tpu_torch.train.trainer import Trainer
 
-    config = os.path.abspath(BAN_CONFIG)
-    stats = {"card": card, "config": BAN_CONFIG, "batch_size": B_BAN, "dtype": "float32"}
+    cfg, dataset, store, derived = config_world(config)
+    dtype = str(cfg.train.get("compute_dtype", "float32"))
+    stats = {"card": card, "config": config, "batch_size": batch_size, "dtype": dtype}
     cwd = os.getcwd()
     os.chdir(root)
     try:
         zero_counts(kernels)
         t0 = time.perf_counter()
-        fit = cli_main(["--config", config, "--synthetic", "--epochs", "1", "--device", "cuda"])
+        fit = cli_main(["--config", os.path.abspath(os.path.join(cwd, config)), "--synthetic",
+                        "--epochs", "1", "--device", "cuda"])
         stats["fit_s"] = time.perf_counter() - t0
-        ev = cli_main(["--config", config, "--synthetic", "--eval", "--checkpoint",
-                       fit["best_path"], "--device", "cuda"])
+        ev = cli_main(["--config", os.path.abspath(os.path.join(cwd, config)), "--synthetic",
+                       "--eval", "--checkpoint", fit["best_path"], "--device", "cuda"])
         stats.update(steps=fit["steps"], best_miou=fit["best_miou"], eval_miou=ev["miou"],
                      train_loss=fit["history"][0]["train_loss"],
                      test_loss=fit["history"][0]["test_loss"], eval_loss=ev["loss"],
                      best_path=os.path.abspath(fit["best_path"]),
-                     launches=read_launches("train-BAN", kernels,
-                                            {fn.__name__: 0 for fn in kernels}))
+                     launches=read_launches(phase, kernels, {fn.__name__: 0 for fn in kernels}))
     finally:
         os.chdir(cwd)
-    log(f"[train-BAN] best mIoU logged by fit {fit['best_miou']!r}, --eval of its checkpoint "
+    log(f"[{phase}] best mIoU logged by fit {fit['best_miou']!r}, --eval of its checkpoint "
         f"{ev['miou']!r}; test loss logged by fit {stats['test_loss']!r}, --eval's "
         f"{stats['eval_loss']!r}; mean train loss {stats['train_loss']!r}")
     if ev["miou"] != fit["best_miou"] or ev["loss"] != stats["test_loss"] \
             or not math.isfinite(stats["train_loss"]):
-        raise SmokeFailure("train-BAN: --eval of the best checkpoint gives another mIoU or "
+        raise SmokeFailure(f"{phase}: --eval of the best checkpoint gives another mIoU or "
                            "test loss, or the train loss is not finite")
-    cfg, dataset, store, derived = ban_world()
-    batcher = BANBatcher(dataset["train_set"], store, cfg, derived, "train")
+    batcher_cls = get_model_entry(str(cfg.model.name)).batcher_cls or Batcher
+    batcher = batcher_cls(dataset["train_set"], store, cfg, derived, "train")
     derived.num_train_steps = derived.steps_per_epoch = len(batcher)
     trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
     batches = [trainer.to_device(b) for b in batcher.epoch(seed=0)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
-    for i in range(N_WARMUP_STEPS + N_BAN_TIMED):
+    for i in range(N_WARMUP_STEPS + n_timed):
         t0 = time.perf_counter()
         losses.append(float(trainer.train_step(batches[i % len(batches)])["loss"]))
         torch.cuda.synchronize()
@@ -2531,18 +2567,23 @@ def phase_train_ban(kernels, card: str, root: str) -> dict:
     median = statistics.median(timed)
     busy = profiled["device_busy_ms_per_step"]
     if not all(math.isfinite(x) for x in losses):
-        raise SmokeFailure(f"train-BAN: losses {losses}")
+        raise SmokeFailure(f"{phase}: losses {losses}")
     stats["timed"] = {"steps": len(timed), "step_ms_median": median, "step_ms_min": min(timed),
-                      "step_ms_max": max(timed), "samples_per_s": B_BAN / (median / 1e3),
+                      "step_ms_max": max(timed), "samples_per_s": batch_size / (median / 1e3),
                       "peak_device_mem_bytes": peak, "device_busy_ms_per_step": busy,
                       "device_busy_share": busy / median if busy else None,
                       "device_ops_per_step": profiled.get("device_ops_per_step"),
                       "top_device_ops": profiled.get("top_kernels", [])[:6], "losses": losses}
-    log(f"[train-BAN] f32 batch {B_BAN}: median {median:.3f} ms/step ({min(timed):.3f}-"
-        f"{max(timed):.3f}, host clock, {len(timed)} steps), {B_BAN / (median / 1e3):.1f} "
+    log(f"[{phase}] {dtype} batch {batch_size}: median {median:.3f} ms/step ({min(timed):.3f}-"
+        f"{max(timed):.3f}, host clock, {len(timed)} steps), {batch_size / (median / 1e3):.1f} "
         f"samples/s, peak {peak} bytes, card busy "
         f"{'not measured' if not busy else f'{busy:.3f} ms ({busy / median:.1%})'}, on {card}")
     return stats
+
+
+def phase_train_ban(kernels, card: str, root: str) -> dict:
+    """BAN's long config as it is (f32, batch 8; ``train_config``)."""
+    return train_config("train-BAN", BAN_CONFIG, B_BAN, N_BAN_TIMED, kernels, card, root)
 
 
 def phase_ban_pretrain(kernels, card: str, teacher: str) -> dict:
@@ -2565,7 +2606,7 @@ def phase_ban_pretrain(kernels, card: str, teacher: str) -> dict:
     stats = {"card": card, "teacher": os.path.basename(teacher)}
     for label, rate in (("droprate 0.1", None), ("droprate 0", 0.0)):
         up = dict(updates) if rate is None else {**updates, "model.droprate": rate}
-        cfg, dataset, store, derived = ban_world(updates=up, n_train=B_BAN * N_PRETRAIN_STEPS)
+        cfg, dataset, store, derived = config_world(updates=up, n_train=B_BAN * N_PRETRAIN_STEPS)
         train = Batcher(dataset["train_set"], store, cfg, derived, "train")
         derived.num_train_steps = derived.steps_per_epoch = len(train)
         trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
@@ -2600,7 +2641,7 @@ def phase_ban_pretrain(kernels, card: str, teacher: str) -> dict:
         trainer.forward(trainer.to_device(test))
     stats["eval_launches"] = read_launches("ban-pretrain eval", kernels, STUDENT_LAUNCHES)
 
-    cfg, dataset, store, derived = ban_world(n_train=16)
+    cfg, dataset, store, derived = config_world(n_train=16)
     curves = {}
     for device in ("cuda", "cpu"):
         trainer = Trainer(cfg, derived, dataset["word_vector"], device=device)
@@ -2621,41 +2662,385 @@ def phase_ban_pretrain(kernels, card: str, teacher: str) -> dict:
     return stats
 
 
+CCA_CONFIG, CPL_CONFIG = "configs/anet_cca.yaml", "configs/charades_cpl.yaml"
+B_CCA, B_CPL = 64, 128  # the configs' batches
+# 40 full batches each, a window of several seconds: a window of 5-7
+# forwards (under a second) reads the host's jitter more than the rate
+N_CCA_REQUESTS, CCA_CONCURRENCY = 40 * B_CCA, 64
+N_CPL_REQUESTS, CPL_CONCURRENCY = 40 * B_CPL, 128
+N_ZOO_TIMED = 10
+B_ZOO_VERIFY = 8  # the card-against-CPU batch: the CPU's side of CCA's 3216-wide layer
+# whole f32 forward of CCA or CPL, card against CPU (absolute; the outputs
+# are O(1)), the loss relative; each gradient within TOL_TRAIN_F32 of its
+# largest magnitude
+TOL_ZOO, TOL_ZOO_LOSS = 1e-4, 1e-5
+
+
+def _zoo_batch(cfg, dataset, store, derived, n: int):
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.registry import get_model_entry
+
+    batcher_cls = get_model_entry(str(cfg.model.name)).batcher_cls or Batcher
+    batch = batcher_cls(dataset["test_set"], store, cfg, derived, batch_size=n).make_batch(
+        list(range(n)))
+    return {k: torch.as_tensor(v) for k, v in batch.items() if k != "num_valid"}
+
+
+def _grads_close(phase: str, g_p: dict, g_k: dict, shift_invariant=()) -> tuple:
+    """(the worst gradient's distance in units of its largest magnitude,
+    its name, the shift-invariant ones' largest magnitude in units of the
+    largest gradient)."""
+    largest = max(v.abs().max().item() for v in g_p.values() if v is not None)
+    worst, worst_name, shift = 0.0, None, 0.0
+    for name, want in g_p.items():
+        got = g_k[name]
+        if (got is None) != (want is None):
+            raise SmokeFailure(f"{phase}: {name} has a gradient on one side only")
+        if got is None:
+            continue
+        if not torch.isfinite(got).all():
+            raise SmokeFailure(f"{phase}: {name}'s gradient on the card is not finite")
+        if name in shift_invariant:  # zero up to rounding: held to the largest
+            shift = max(shift, got.abs().max().item() / largest,
+                        want.abs().max().item() / largest)
+            continue
+        rel = (got.cpu() - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name, shift
+
+
+def _spans_where_apart(choice_k, choice_p, top2, err: float) -> tuple:
+    """(samples whose best two candidates lie more than twice ``err``
+    apart, how many of those choose differently): a nearer pair may flip
+    under any change of rounding.  ``choice_*``: (B, k) spans or indices."""
+    apart = (top2[:, 0] - top2[:, 1]).abs() > 2 * err
+    differ = (choice_k != choice_p).any(dim=1) & apart
+    return int(apart.sum()), int(differ.sum())
+
+
+def _zoo_pass(model, entry, cfg, batch, train: bool):
+    """One forward (train mode with every dropout at 0, or eval), the loss
+    and, in train mode, every parameter's gradient."""
+    from vmrframe_tpu_torch.layers.dropout import Dropout
+
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.rate = 0.0
+    model.train(train)
+    with torch.set_grad_enabled(train):
+        out = model(batch)
+        loss = entry.loss_fn(out, batch, cfg)
+    grads = {}
+    if train:
+        named = dict(model.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()),
+                                                    allow_unused=True)))
+        grads = {k: None if v is None else v.detach().cpu() for k, v in grads.items()}
+    out = {k: v.detach().cpu() for k, v in out.items()}
+    spans = entry.infer_fn(out, {k: v.cpu() for k, v in batch.items()}, cfg)
+    return out, float(loss.detach()), grads, spans
+
+
+def phase_serve_cca(kernels, card: str) -> dict:
+    """CCA on ``configs/anet_cca.yaml`` as it is (64 clips of 1024-d
+    features, the synthetic concept graph of 3152 nodes, the 3216-wide
+    transformer, 3-layer BiLSTM queries, f32) at its batch of 64."""
+    return serve_config("serve-CCA", CCA_CONFIG, B_CCA, N_CCA_REQUESTS, CCA_CONCURRENCY,
+                        kernels, card)
+
+
+def phase_verify_cca() -> dict:
+    """One f32 batch of 8 through CCA at full width, card (no TF32) against
+    the CPU, same seeded weights: the eval forward's ``scores2d`` within
+    ``TOL_ZOO``, its loss within ``TOL_ZOO_LOSS`` relative, ``cca_infer``'s
+    spans equal in every sample whose best two cells lie more than twice the
+    scores' distance apart; then one train-mode forward (BatchNorm on the
+    batch's statistics, dropout off), its loss, every gradient within
+    ``TOL_TRAIN_F32`` of its largest magnitude (the shift-invariant biases,
+    ``models/cca.py::TRAIN_SHIFT_INVARIANT``, of the largest gradient) and
+    BatchNorm's running statistics after it within ``TOL_ZOO``."""
+    from vmrframe_tpu_torch.models import cca
+    from vmrframe_tpu_torch.registry import get_model_entry
+    from vmrframe_tpu_torch.weights import init_weights
+
+    cfg, dataset, store, derived = config_world(CCA_CONFIG)
+    batch = _zoo_batch(cfg, dataset, store, derived, B_ZOO_VERIFY)
+    entry = get_model_entry("CCA")
+    models = {dev: init_weights(entry.model_cls(cfg, derived, dataset["word_vector"]), 0).to(dev)
+              for dev in ("cpu", "cuda")}
+    batches = {"cpu": batch, "cuda": {k: v.cuda() for k, v in batch.items()}}
+    t0 = time.perf_counter()
+    cpu = [_zoo_pass(models["cpu"], entry, cfg, batches["cpu"], train) for train in (False, True)]
+    cpu_s = time.perf_counter() - t0
+    card = [_zoo_pass(models["cuda"], entry, cfg, batches["cuda"], train)
+            for train in (False, True)]
+    (out_p, loss_p, _, spans_p), (_, tloss_p, g_p, _) = cpu
+    (out_k, loss_k, _, spans_k), (_, tloss_k, g_k, _) = card
+    err = (out_k["scores2d"] - out_p["scores2d"]).abs().max().item()
+    L = int(cfg.MODEL.CCA.NUM_CLIPS)
+    scores = torch.sigmoid(out_p["scores2d"]) * torch.as_tensor(cca._dense_mask(L))
+    top2 = scores.reshape(B_ZOO_VERIFY, -1).topk(2, dim=1).values
+    n_apart, n_differ = _spans_where_apart(spans_k, spans_p, top2, err)
+    bn = {dev: models[dev].sim_map.bn for dev in models}
+    stats_err = max((getattr(bn["cuda"], k).cpu() - getattr(bn["cpu"], k)).abs().max().item()
+                    for k in ("running_mean", "running_var"))
+    worst, worst_name, shift = _grads_close("verify-CCA", g_p, g_k, cca.TRAIN_SHIFT_INVARIANT)
+    loss_err = max(abs(loss_k - loss_p) / abs(loss_p), abs(tloss_k - tloss_p) / abs(tloss_p))
+    ok = (err <= TOL_ZOO and loss_err <= TOL_ZOO_LOSS and n_differ == 0 and n_apart > 0
+          and stats_err <= TOL_ZOO and max(worst, shift) <= TOL_TRAIN_F32)
+    log(f"[verify-CCA] f32 batch {B_ZOO_VERIFY}, card against CPU: scores2d max abs {err:.3e} "
+        f"(tol {TOL_ZOO}); loss eval card {loss_k!r} cpu {loss_p!r}, train card {tloss_k!r} cpu "
+        f"{tloss_p!r} (rel {loss_err:.3e}, tol {TOL_ZOO_LOSS}); spans equal in the {n_apart} "
+        f"of {B_ZOO_VERIFY} samples whose best two cells lie more than twice that apart: "
+        f"{n_differ == 0}; BatchNorm running statistics after one train forward within "
+        f"{stats_err:.3e}; worst gradient {worst_name} at {worst:.3e} of its max over "
+        f"{len(g_p)}, the shift-invariant {cca.TRAIN_SHIFT_INVARIANT} at {shift:.3e} of the "
+        f"largest (tol {TOL_TRAIN_F32}); CPU passes {cpu_s:.1f} s  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("verify-CCA: the card and the CPU disagree")
+    return {"scores_max_abs_err": err, "tol": TOL_ZOO, "loss_rel_err": loss_err,
+            "spans_apart": n_apart, "spans_differ": n_differ, "bn_stats_max_abs_err": stats_err,
+            "worst_grad_rel_err": worst, "worst_grad": worst_name,
+            "shift_invariant_grad_rel": shift, "n_grads": len(g_p), "cpu_s": cpu_s}
+
+
+def phase_train_cca(kernels, card: str, root: str) -> dict:
+    """CCA's config as it is (f32, batch 64; ``train_config``); then the
+    device time of its two port-only ops at the shapes a train step gives
+    them (``time_cca_ops``)."""
+    stats = train_config("train-CCA", CCA_CONFIG, B_CCA, N_ZOO_TIMED, kernels, card, root)
+    stats["ops"] = time_cca_ops(card)
+    return stats
+
+
+def time_cca_ops(card: str) -> dict:
+    """``cosine_sum_scores`` (q (64, 64), map (64, 64, 64, 64)) and
+    ``cell_segment_max_map`` (clips (64, 64, 64) over the 1344-row strided
+    map of pooling [15, 8, 8]), f32, forward and forward + backward, device
+    time by CUDA events; beside each, its bytes bound (the map read once,
+    or written once, at 3.35 TB/s)."""
+    from vmrframe_tpu_torch.models import cca
+    from vmrframe_tpu_torch.ops.windowed import cell_segment_max_map
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    Bc = L = Hc = 64
+    _, cells = cca.cca_strided_mask_meta((15, 8, 8), L)
+    q = torch.randn(Bc, Hc, device="cuda", generator=g, requires_grad=True)
+    m = torch.randn(Bc, L, L, Hc, device="cuda", generator=g, requires_grad=True)
+    x = torch.randn(Bc, L, Hc, device="cuda", generator=g, requires_grad=True)
+    gs = torch.randn(Bc, L, L, device="cuda", generator=g)
+    gm = torch.randn(Bc, L, L, Hc, device="cuda", generator=g)
+    map_bytes = m.numel() * 4
+    rows = {
+        "cosine_sum_scores": (lambda: cca.cosine_sum_scores(q, m), gs, (q, m)),
+        "cell_segment_max_map": (lambda: cell_segment_max_map(x, cells), gm, (x,)),
+    }
+    out = {}
+    for name, (fn, grad_out, inputs) in rows.items():
+        with torch.no_grad():
+            fwd = device_ms(fn)
+        both = device_ms(lambda: torch.autograd.grad(fn(), inputs, grad_out))
+        out[name] = {"fwd_ms": fwd["median"], "fwd_bwd_ms": both["median"],
+                     "bytes_bound_fwd_ms": map_bytes / HBM_BYTES_PER_S * 1e3}
+    log(f"[train-CCA] port-only ops at the train shapes, f32, on {card}: {json.dumps(out)}")
+    return out
+
+
+def phase_cca_pretrain(kernels, card: str, teacher: str) -> dict:
+    """CCA's teacher curves feed ``BaseFast_CCA_PreTrain``: ``export_labels``
+    of the train-CCA checkpoint over a train split of 24 on the card, against
+    the CPU's export of the same checkpoint (``TOL_BAN_EXPORT``), each curve
+    the row or column maxima of sigmoid(scores2d) * mask2d(64) over its clip,
+    L2-normalized.  Then the student (the QANet-block tower at Charades'
+    widths, dim 128, 4 heads, over CCA's data) reads the card's curves
+    (``loss.t0_path``) and takes ``N_PRETRAIN_STEPS`` train steps at the
+    config's droprate 0.1 (no launch) and one eval forward (2/2 of #3/#1):
+    finite losses."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.registry import get_model_entry
+    from vmrframe_tpu_torch.tools.export_labels import export_labels
+    from vmrframe_tpu_torch.train.trainer import Trainer
+    from vmrframe_tpu_torch.weights import load_checkpoint
+
+    n_train = B_ZOO_VERIFY * N_PRETRAIN_STEPS
+    cfg, dataset, store, derived = config_world(CCA_CONFIG, {"train.batch_size": B_ZOO_VERIFY},
+                                                n_train=n_train)
+    stats, curves = {"card": card, "teacher": os.path.basename(teacher)}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cuda", "cpu"):
+            trainer = Trainer(cfg, derived, dataset["word_vector"], device=device)
+            load_checkpoint(trainer.model, teacher)
+            zero_counts(kernels)
+            t0 = time.perf_counter()
+            curves[device] = export_labels(cfg, derived, dataset, store, trainer,
+                                           os.path.join(tmp, f"{device}.pkl"))
+            stats[f"export_{device}_s"] = time.perf_counter() - t0
+        stats["export_launches"] = read_launches("cca-pretrain export", kernels,
+                                                 {fn.__name__: 0 for fn in kernels})
+        err = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(curves["cuda"], curves["cpu"]))
+        same = [a[0] for a in curves["cuda"]] == [b[0] for b in curves["cpu"]] and all(
+            a[1].shape == b[1].shape and a[1].shape[0] == 2
+            for a, b in zip(curves["cuda"], curves["cpu"]))
+        norms = [float(np.linalg.norm(c[1], axis=1).min()) for c in curves["cuda"]]
+        ok = same and err <= TOL_BAN_EXPORT and len(curves["cuda"]) == n_train \
+            and min(norms) > 0.99
+        log(f"[cca-pretrain] export_labels of the CCA checkpoint, {len(curves['cuda'])} curves: "
+            f"card against CPU max abs {err:.3e} (tol {TOL_BAN_EXPORT}), smallest curve norm "
+            f"{min(norms):.6f}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure("cca-pretrain: the card's export and the CPU's disagree")
+        stats["export_max_abs_err"] = err
+
+        student = load_config(CCA_CONFIG).updated({
+            "model.name": "BaseFast_CCA_PreTrain", "model.dim": 128, "model.num_heads": 4,
+            "loss.temperature": 3, "loss.t0_path": os.path.join(tmp, "cuda.pkl"),
+            "train.batch_size": B_ZOO_VERIFY})
+        sder = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+        batcher_cls = get_model_entry("BaseFast_CCA_PreTrain").batcher_cls
+        train = batcher_cls(dataset["train_set"], store, student, sder, "train")
+        sder.num_train_steps = sder.steps_per_epoch = len(train)
+        trainer = Trainer(student, sder, dataset["word_vector"], device="cuda")
+        zero_counts(kernels)
+        times, losses = [], []
+        for b in train.epoch(seed=0):
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(trainer.to_device(b))["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        n = len(times)
+        launches = read_launches("cca-pretrain train", kernels, want_launches(STUDENT_LAUNCHES, 0))
+        if not all(math.isfinite(x) for x in losses):
+            raise SmokeFailure(f"cca-pretrain: losses {losses}")
+        zero_counts(kernels)
+        first = batcher_cls(dataset["train_set"], store, student, sder).make_batch(
+            list(range(B_ZOO_VERIFY)))  # the curves are the train split's
+        trainer.model.eval()
+        with torch.no_grad():
+            trainer.forward(trainer.to_device(first))
+        stats.update(steps=n, losses=losses, step_ms=times, train_launches=launches,
+                     eval_launches=read_launches("cca-pretrain eval", kernels, STUDENT_LAUNCHES))
+    log(f"[cca-pretrain] BaseFast_CCA_PreTrain on CCA's curves: {n} steps at droprate 0.1, "
+        f"{json.dumps(times)} ms (host clock), losses {losses}")
+    return stats
+
+
+def phase_serve_cpl(kernels, card: str) -> dict:
+    """CPL on ``configs/charades_cpl.yaml`` as it is (dim 128, 4 heads, 8
+    Gaussian proposals a clip, 64 clips, 25 words, f32) at its batch of 128."""
+    return serve_config("serve-CPL", CPL_CONFIG, B_CPL, N_CPL_REQUESTS, CPL_CONCURRENCY,
+                        kernels, card)
+
+
+def phase_verify_cpl() -> dict:
+    """One f32 batch of 8 through CPL at full width, card against the CPU,
+    same seeded weights, dropout off: ``words_logit``, ``gauss_weight``,
+    ``center`` and ``width`` within ``TOL_ZOO``, the loss within
+    ``TOL_ZOO_LOSS`` relative, every gradient within ``TOL_TRAIN_F32`` of its
+    largest magnitude; ``cpl_infer`` chooses the same proposal in every
+    sample whose two lowest proposal NLLs lie more than twice the NLLs'
+    distance apart, and its spans there lie within ``TOL_ZOO``."""
+    from vmrframe_tpu_torch.losses import cal_nll_loss
+    from vmrframe_tpu_torch.registry import get_model_entry
+    from vmrframe_tpu_torch.weights import init_weights
+
+    cfg, dataset, store, derived = config_world(CPL_CONFIG)
+    batch = _zoo_batch(cfg, dataset, store, derived, B_ZOO_VERIFY)
+    entry = get_model_entry("CPL")
+    models = {dev: init_weights(entry.model_cls(cfg, derived, dataset["word_vector"]), 0).to(dev)
+              for dev in ("cpu", "cuda")}
+    out_p, loss_p, g_p, spans_p = _zoo_pass(models["cpu"], entry, cfg, batch, True)
+    out_k, loss_k, g_k, spans_k = _zoo_pass(models["cuda"], entry, cfg,
+                                            {k: v.cuda() for k, v in batch.items()}, True)
+    errs = {k: (out_k[k] - out_p[k]).abs().max().item()
+            for k in ("words_logit", "gauss_weight", "center", "width")}
+    P = int(cfg.others.cpl_num_props)
+
+    def nll(out):
+        return cal_nll_loss(out["words_logit"], out["word_ids"].repeat_interleave(P, 0),
+                            out["words_mask"].repeat_interleave(P, 0))[0].reshape(-1, P)
+
+    nll_p, nll_k = nll(out_p), nll(out_k)
+    nll_err = (nll_k - nll_p).abs().max().item()
+    low2 = -(-nll_p).topk(2, dim=1).values
+    best_p, best_k = nll_p.argmin(dim=1, keepdim=True), nll_k.argmin(dim=1, keepdim=True)
+    n_apart, n_differ = _spans_where_apart(best_k, best_p, low2, nll_err)
+    same = (best_k == best_p).flatten()
+    span_err = (spans_k[same] - spans_p[same]).abs().max().item() if same.any() else 0.0
+    worst, worst_name, shift = _grads_close("verify-CPL", g_p, g_k)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    ok = (max(errs.values()) <= TOL_ZOO and loss_err <= TOL_ZOO_LOSS and n_differ == 0
+          and n_apart > 0 and span_err <= TOL_ZOO and worst <= TOL_TRAIN_F32)
+    log(f"[verify-CPL] f32 batch {B_ZOO_VERIFY} ({B_ZOO_VERIFY * P} proposals), card against "
+        f"CPU: {json.dumps(errs)} (tol {TOL_ZOO}); loss card {loss_k!r} cpu {loss_p!r} (rel "
+        f"{loss_err:.3e}, tol {TOL_ZOO_LOSS}); proposal NLLs within {nll_err:.3e}, the chosen "
+        f"proposal equal in the {n_apart} of {B_ZOO_VERIFY} samples whose best two lie more "
+        f"than twice that apart: {n_differ == 0}, the spans of the equal choices within "
+        f"{span_err:.3e}; worst gradient {worst_name} at {worst:.3e} of its max over "
+        f"{len(g_p)} (tol {TOL_TRAIN_F32})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("verify-CPL: the card and the CPU disagree")
+    return {"max_abs_err": errs, "tol": TOL_ZOO, "loss_rel_err": loss_err,
+            "nll_max_abs_err": nll_err, "choices_apart": n_apart, "choices_differ": n_differ,
+            "span_max_abs_err": span_err,
+            "worst_grad_rel_err": worst, "worst_grad": worst_name, "n_grads": len(g_p)}
+
+
+def phase_train_cpl(kernels, card: str, root: str) -> dict:
+    """CPL's config as it is (f32, batch 128; ``train_config``)."""
+    return train_config("train-CPL", CPL_CONFIG, B_CPL, N_ZOO_TIMED, kernels, card, root)
+
+
+# the bf16 routes read against f32 by the repairs phase: BackBoneActionFormer
+# (its f32 position table promotes its backbone to f32), and SeqPAN's
+# module-path dual attention, bf16 as in the JAX package's jitted route
+REPAIR_ROUTES = (
+    ("BackBoneActionFormer", "configs/charades_backbone_actionformer.yaml", {}),
+    ("SeqPAN flag off", "configs/charades_seqpan_fused.yaml", {"model.fused_dual_stack": False}),
+)
+
+
 def phase_repairs(kernels, card: str) -> dict:
-    """The repaired bf16 route and the kernels' gates.  BackBoneActionFormer's
+    """The bf16 routes and the kernels' gates.  Each of ``REPAIR_ROUTES``'
     bf16 eval forward (the serving policy) against its f32 eval forward on
     the card, same seeded weights and batch of 32, the AffineDropPath
-    scales lifted (``testing.lift_drop_path``): each logit's largest
-    distance beside its largest f32 magnitude, printed and held to
-    finiteness only.  Then one case just past each kernel's limit
-    (``testing.past_limit_cases``: #4 at D 256, #5 at head dim 192, #3 at a
-    1025-position context, #1 at head dim 264), f32: no launch of that
-    kernel, and the CPU's values within ``TOL_F32``."""
+    scales lifted (``testing.lift_drop_path``; SeqPAN has none): each
+    logit's largest distance beside its largest f32 magnitude and the bf16
+    forward's launches, printed, and held to finiteness only.  Then one
+    case just past each kernel's limit (``testing.past_limit_cases``: #4 at
+    D 256, #5 at head dim 192, #3 at a 1025-position context, #1 at head
+    dim 264), f32: no launch of that kernel, and the CPU's values within
+    ``TOL_F32``."""
     from vmrframe_tpu_torch.config import Derived, load_config
     from vmrframe_tpu_torch.data.batcher import Batcher
     from vmrframe_tpu_torch.testing import lift_drop_path, make_synthetic_data, past_limit_cases
     from vmrframe_tpu_torch.train.evaluator import Evaluator
 
-    cfg = load_config("configs/charades_backbone_actionformer.yaml")
-    dataset, store = make_synthetic_data(cfg, seed=0, n_train=32, n_test=32)
-    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
-    batch = Batcher(dataset["test_set"], store, cfg, derived, batch_size=32).make_batch(
-        list(range(32)))
-    outs = {}
-    for dtype in ("float32", "bfloat16"):
-        ev = Evaluator(cfg.updated({"train.compute_dtype": dtype}), derived,
-                       dataset["word_vector"], device="cuda", seed=0)
-        lift_drop_path(ev.model, seed=0)
-        outs[dtype] = ev.forward(ev.to_device(batch))
-    route = {}
-    for key in ("slogits", "elogits"):
-        f32, bf16 = outs["float32"][key].float(), outs["bfloat16"][key].float()
-        if not torch.isfinite(bf16).all():
-            raise SmokeFailure(f"repairs: BackBoneActionFormer's bf16 {key} are not finite")
-        route[key] = {"max_abs_dist": (bf16 - f32).abs().max().item(),
-                      "f32_max_abs": f32.abs().max().item()}
-    stats = {"bf16_route": route}
-    log(f"[repairs] BackBoneActionFormer bf16 route against f32 on {card}: {json.dumps(route)}")
+    stats = {}
+    for label, config, updates in REPAIR_ROUTES:
+        cfg = load_config(config).updated(updates)
+        dataset, store = make_synthetic_data(cfg, seed=0, n_train=32, n_test=32)
+        derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+        batch = Batcher(dataset["test_set"], store, cfg, derived, batch_size=32).make_batch(
+            list(range(32)))
+        outs = {}
+        for dtype in ("float32", "bfloat16"):
+            ev = Evaluator(cfg.updated({"train.compute_dtype": dtype}), derived,
+                           dataset["word_vector"], device="cuda", seed=0)
+            lift_drop_path(ev.model, seed=0)
+            zero_counts(kernels)
+            outs[dtype] = ev.forward(ev.to_device(batch))
+            outs[f"launches_{dtype}"] = {fn.__name__: fn.launches for fn in kernels}
+        route = {}
+        for key in ("slogits", "elogits"):
+            f32, bf16 = outs["float32"][key].float(), outs["bfloat16"][key].float()
+            if not torch.isfinite(bf16).all():
+                raise SmokeFailure(f"repairs: {label}'s bf16 {key} are not finite")
+            route[key] = {"max_abs_dist": (bf16 - f32).abs().max().item(),
+                          "f32_max_abs": f32.abs().max().item()}
+        route["launches_bf16"] = outs["launches_bfloat16"]
+        stats[f"bf16_route {label}"] = route
+        log(f"[repairs] {label} bf16 route against f32 on {card}: {json.dumps(route)}")
 
     def move(xs, dev):
         return tuple({k: v.to(dev) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
@@ -2783,6 +3168,16 @@ def main() -> int:
         record["ban_pretrain"] = phase("ban-pretrain", phase_ban_pretrain, kernels, card,
                                        record["train_ban"]["best_path"])
     record["repairs"] = phase("repairs", phase_repairs, kernels, card)
+    record["serve_cca"] = phase("serve-CCA", phase_serve_cca, kernels, card)
+    record["verify_cca"] = phase("verify-CCA", phase_verify_cca)
+    with tempfile.TemporaryDirectory() as root:  # the CCA checkpoint, its curves
+        record["train_cca"] = phase("train-CCA", phase_train_cca, kernels, card, root)
+        record["cca_pretrain"] = phase("cca-pretrain", phase_cca_pretrain, kernels, card,
+                                       record["train_cca"]["best_path"])
+    record["serve_cpl"] = phase("serve-CPL", phase_serve_cpl, kernels, card)
+    record["verify_cpl"] = phase("verify-CPL", phase_verify_cpl)
+    with tempfile.TemporaryDirectory() as root:
+        record["train_cpl"] = phase("train-CPL", phase_train_cpl, kernels, card, root)
     record["seconds"] = seconds
     # the main path each kernel's launches are read from, and the type of the
     # numbers in its line: the serve phases run bf16, training the YAML's f32
@@ -2823,6 +3218,11 @@ def main() -> int:
             out[-1]["launches_per_backbone_af_forward"] = \
                 record["backbone_af"]["serve"]["bursts"]["backbone_af"][
                     "launches_per_forward"][name]
+        # CCA and CPL run no hand-written kernel: their served forwards and
+        # train steps (0 each, checked by their phases)
+        out[-1]["launches_cca_cpl"] = {
+            key: record[key]["launches"][name]
+            for key in ("serve_cca", "train_cca", "serve_cpl", "train_cpl")}
         if "module_path_ms" in t:  # the other route to the same result, not a library call
             out[-1]["module_path_ms"] = t["module_path_ms"]
         if name in ATTENTION:  # the sentence variants' shapes, outside the means

@@ -11,9 +11,9 @@ cut to tiny widths, as the JAX package's own tests cut it:
 - the deterministic forward on both routes (compact cells and the dense
   map) at 1e-4, the selected proposals equal, ``ban_infer``'s spans equal,
   and the port's two routes against each other;
-- ``ban_loss`` and the gradient of every parameter at 1e-4 (each gradient
-  scaled by its largest entry), on both routes at the tiny size and on the
-  compact route (the default) at the long config's;
+- (``ban_loss`` and the gradients are in ``test_torch_ban_grads.py``, a
+  file of their own so that xdist's ``--dist loadfile`` can run them on
+  another worker);
 - the service answering BAN requests.
 
 The JAX weights come from the port's seeded init through the carry-over
@@ -249,43 +249,6 @@ def test_compact_and_dense_routes_agree(name):
     view = oc["map2d_proj_inv"][:, None, None, :].expand_as(od["map2d_proj"]).clone()
     view[:, ii, jj] = oc["map2d_proj_cells"]
     np.testing.assert_allclose(_np(view), _np(od["map2d_proj"]), atol=2e-5)
-
-
-# --------------------------------------------------------- loss and gradients
-
-
-@pytest.mark.parametrize("name,compact", [("tiny", True), ("tiny", False), ("long", True)])
-def test_loss_and_grads_match_jax(name, compact):
-    """The JAX gradient is taken op by op, not jitted, for the reason
-    ``_jax_forward`` gives; the selected proposals are compared first, so a
-    selection that flips fails as such and not as a gradient mismatch."""
-    w = world(name, compact, "train_set")
-    jentry, entry = jget_model_entry("BAN"), get_model_entry("BAN")
-    v = w["variables"]
-
-    def jloss(params):
-        out = w["jmodel"].apply({**v, "params": params}, w["jb"], True)
-        return jentry.loss_fn(out, w["jb"], w["jcfg"]), out["coarse_pred"]
-
-    (want_loss, want_props), want_grads = jax.value_and_grad(jloss, has_aux=True)(v["params"])
-    model = w["model"]
-    named = dict(model.named_parameters())
-    out = model(w["tb"])
-    np.testing.assert_array_equal(_np(out["coarse_pred"]), np.asarray(want_props),
-                                  err_msg="the selected proposals differ")
-    loss = entry.loss_fn(out, w["tb"], w["cfg"])
-    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()), allow_unused=True)))
-    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=ATOL, atol=ATOL)
-    flat = from_jax_params(jax.tree_util.tree_map(np.asarray, want_grads), {})
-    assert set(flat) == set(named)
-    for key, jg in flat.items():
-        g = grads[key]
-        g = np.zeros(jg.shape, np.float32) if g is None else g.numpy()
-        scale = max(float(np.abs(jg.numpy()).max()), 1e-6)
-        np.testing.assert_allclose(g / scale, jg.numpy() / scale, atol=ATOL, err_msg=key)
-    # the content stream reaches neither package's loss: no gradient here, zeros in JAX
-    assert grads["boundary_aware.feature_transform_c.weight_ih_l0"] is None
-    assert not flat["boundary_aware.feature_transform_c.weight_ih_l0"].any()
 
 
 # ------------------------------------------------------------------ serving

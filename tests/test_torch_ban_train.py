@@ -28,6 +28,7 @@ import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 import os
 import pickle
+import types
 
 import jax
 import jax.numpy as jnp
@@ -178,7 +179,8 @@ def test_ban_pretrain_forward_and_frozen_teacher():
                                                    "gumbel": key}, b, True), jb)
     variables = jax_variables(model, shapes)
     assert any(k.startswith("teach_model.boundary_aware") for k in model.state_dict())
-    want = jmodel.apply(variables, jb, True)
+    # jitted: the curves read the teacher's map before its proposal selection
+    want = jax.jit(lambda v, b: jmodel.apply(v, b, True))(variables, jb)
     with torch.no_grad():
         got = model(tb)
     for key in ("slogits", "elogits", "slogits_t0", "elogits_t0"):
@@ -215,6 +217,9 @@ def test_ban_export_matches_the_jax_tool(tmp_path):
     jb = {k: jnp.asarray(v) for k, v in jbatch.items() if k != "num_valid"}
     params, constants = _jax_state(jtrainer, trainer.model, jb)
     state = TrainState(params, constants, None, 0, {})
+    # the tool applies the model op by op; the curves read tmap, which comes
+    # before the proposal selection, so the jitted forward gives them too
+    jtrainer.model = types.SimpleNamespace(apply=jax.jit(jtrainer.model.apply, static_argnums=2))
     want = JE.export_labels(jcfg, w["jder"], w["jds"], w["jstore"], state, jtrainer,
                             str(tmp_path / "jax.pkl"))
     assert len(got) == len(want) == n_train

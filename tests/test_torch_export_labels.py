@@ -7,9 +7,8 @@ tiny test config (vlen 32, dim 32):
 - ``import_external_labels`` writes what the JAX function writes for
   EMAT-style tuples and GMD-style dicts (time-major arrays, lists of rows,
   the sigmoid overridden);
-- the CCA branch of ``curves_from_outputs`` raises
-  ``NotImplementedError`` naming the missing model, the BAN branch gives
-  the map's row and column maxima;
+- the 2D branches of ``curves_from_outputs``: the row and column maxima of
+  BAN's map and of CCA's (against the JAX tool's CCA branch);
 - ``main`` with ``--device cpu`` exports from dataset files and a trainer
   checkpoint, and ``--import-external`` converts.
 """
@@ -17,6 +16,7 @@ tiny test config (vlen 32, dim 32):
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 import pickle
+import types
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +63,8 @@ def test_export_matches_the_jax_tool(tmp_path):
         {"params": key, "dropout": key, "gumbel": key}, b, True), jb)
     variables = _jax_variables(trainer.model, shapes)
     state = TrainState(variables["params"], {"constants": variables["constants"]}, None, 0, {})
+    # the tool applies the model op by op: the same forward, jitted
+    jtrainer.model = types.SimpleNamespace(apply=jax.jit(jtrainer.model.apply, static_argnums=2))
     want = JE.export_labels(jcfg, jder, jds, jstore, state, jtrainer, str(tmp_path / "jax.pkl"))
 
     assert len(got) == len(want) == N_TRAIN
@@ -101,20 +103,25 @@ def test_import_external_labels_matches_jax(style, sigmoid, tmp_path):
 
 @pytest.mark.parametrize("key,model", [("tmap", "models/ban.py"), ("scores2d", "models/cca.py")])
 def test_2d_branches_name_the_missing_model(key, model):
-    """CCA's branch still names its missing model; BAN's, ported since,
-    gives the row and column maxima of sigmoid(tmap) * mask2d (its
-    normalization and the whole export against JAX are in
-    ``test_torch_ban_train.py``)."""
-    tmap = torch.linspace(-2.0, 2.0, 32).reshape(2, 4, 4)
+    """Both 2D models are ported (``model`` names the module): BAN's branch
+    gives the row and column maxima of sigmoid(tmap) * its map2d_mask,
+    CCA's those of sigmoid(scores2d) * mask2d(NUM_CLIPS), equal to the JAX
+    tool's CCA branch (their normalization and the whole exports against
+    JAX are in ``test_torch_ban_train.py`` and ``test_torch_cca_train.py``)."""
+    from types import SimpleNamespace
+
+    tmap = torch.linspace(-2.0, 2.0, 2 * 8 * 8).reshape(2, 8, 8)
     if key == "tmap":
-        mask = torch.ones(4, 4, dtype=torch.bool).triu()
+        mask = torch.ones(8, 8, dtype=torch.bool).triu()
         got = E.curves_from_outputs("BAN", {key: tmap, "map2d_mask": mask})
         smap = torch.sigmoid(tmap) * mask
         np.testing.assert_array_equal(got, torch.stack([smap.amax(2), smap.amax(1)], 1).numpy())
-        assert got.shape == (2, 2, 4) and got.dtype == np.float32
     else:
-        with pytest.raises(NotImplementedError, match=model):
-            E.curves_from_outputs("X", {key: tmap})
+        got = E.curves_from_outputs("CCA", {key: tmap})
+        cfg = SimpleNamespace(MODEL=SimpleNamespace(CCA=SimpleNamespace(NUM_CLIPS=8)))
+        want = JE.curves_from_outputs("CCA", {key: jnp.asarray(tmap.numpy())}, None, cfg)
+        np.testing.assert_allclose(got, want, atol=1e-6)
+    assert got.shape == (2, 2, 8) and got.dtype == np.float32
     with pytest.raises(ValueError):
         E.curves_from_outputs("X", {"logits": torch.zeros(2, 4)})
 

@@ -21,6 +21,7 @@ import functools
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -166,3 +167,95 @@ def test_gate_conditions(monkeypatch):
     with torch.no_grad():
         out = model({k: torch.from_numpy(np.asarray(v)) for k, v in w["batch"].items()})
     assert torch.isfinite(out["slogits"]).all()
+
+
+def test_bf16_module_path_follows_jax():
+    """SeqPAN's bf16 eval forward with ``model.fused_dual_stack`` off, the
+    route of the JAX trainer's and evaluator's jitted steps (weights and
+    batch cast by the bf16 policy, the batch on the device): the dual
+    attention and every layer after it stay bf16 in JAX, and in the port.
+    Where JAX is applied op by op to a batch of host numpy bf16 arrays, its
+    masks promote instead: numpy's bf16 minus the Python float 1.0 is f32,
+    so ``(1.0 - s_attn_mask) * -1e30`` (``layers/attention.py``) turns the
+    attention and every layer after it f32.  That promotion belongs to the
+    host arrays, not to the JAX model's route, so the port does not follow
+    it.
+
+    Every port module but the dropouts has a JAX module of the same path,
+    and each call of each gives the dtype the jitted JAX forward gives.  An
+    all-bf16 route rounds apart from XLA's fused one by bf16 steps (JAX's
+    own op-by-op and jitted bf16 forwards lie 7.8e-3, one step, apart on
+    logits of 1.08), so the values are held in steps of bf16 at each
+    output's largest magnitude: every module's output within 6 of the
+    jitted JAX output (here at most 5, at ``q2v_attn``), the logits within
+    3 (here 1.5 and 2.4: 1.17e-2 and 9.3e-3), and the port's bf16 logits no
+    farther from the f32 forward than JAX's, with 25% to spare."""
+    from flax import traverse_util
+
+    from test_torch_cca import jax_variables
+    from vmrframe_tpu.layers.attention import DualMultiAttention as JDual
+    from vmrframe_tpu.ops.precision import cast_floating
+    from vmrframe_tpu_torch.layers.dropout import Dropout
+    from vmrframe_tpu_torch.ops.precision import cast_batch, cast_module_
+    from vmrframe_tpu_torch.weights import init_weights
+
+    def bf16_steps(got, want):
+        got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+        step = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        return np.abs(got - want).max() / step
+
+    jcfg, cfg = jload_config(CFG), load_config(CFG)
+    ds, store = jmake_synthetic_data(jcfg, seed=0, n_train=4, n_test=4)
+    jder = JDerived(num_words=ds["n_words"], num_chars=ds["n_chars"])
+    batch = next(JBatcher(ds["test_set"], store, jcfg, jder, "test").epoch(seed=0, shuffle=False))
+    batch = {k: v for k, v in batch.items() if k != "num_valid"}
+    model = get_model_entry("SeqPAN").model_cls(cfg, Derived(num_words=ds["n_words"],
+                                                             num_chars=ds["n_chars"]),
+                                                ds["word_vector"])
+    init_weights(model.eval(), 3)
+    jmodel = jget_model_entry("SeqPAN").model_cls(jcfg, jder, ds["word_vector"])
+    key = jax.random.PRNGKey(0)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    variables = jax_variables(model, jax.eval_shape(
+        lambda b: jmodel.init({"params": key, "dropout": key, "gumbel": key}, b, True), jb))
+    bf = jnp.bfloat16
+    want, inter = jax.jit(lambda v, b: jmodel.apply(v, b, True, capture_intermediates=True))(
+        cast_floating(variables, bf), cast_floating(jb, bf))
+    jcalls = {path.replace("/__call__", "").replace("/", "."): calls for path, calls in
+              traverse_util.flatten_dict(inter["intermediates"], sep="/").items()}
+    f32 = jax.jit(lambda v, b: jmodel.apply(v, b, True))(variables, jb)
+    cast_module_(model, torch.bfloat16)
+    calls = {}
+    for name, mod in model.named_modules():
+        if name and not isinstance(mod, Dropout):
+            assert name in jcalls, name
+            mod.register_forward_hook(
+                lambda mod, args, out, name=name: calls.setdefault(name, []).append(out))
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    with torch.no_grad():
+        got = model(cast_batch(tb, torch.bfloat16))
+    assert len(calls["dual_attention_block_1.dual_multihead_attention"]) == 2
+    for name, outs in calls.items():
+        assert len(outs) == len(jcalls[name]), name
+        for out, jout in zip(outs, jcalls[name]):
+            outs_t = list(out) if isinstance(out, (tuple, list)) else [out]
+            jouts = jax.tree_util.tree_leaves(jout)
+            assert [str(o.dtype).split(".")[-1] for o in outs_t] == \
+                [str(o.dtype) for o in jouts], name
+            for o, jo in zip(outs_t, jouts):
+                assert bf16_steps(o.detach().float(), jo) <= 6, name
+    for key in ("slogits", "elogits"):
+        assert want[key].dtype == bf and got[key].dtype == torch.bfloat16, key
+        assert bf16_steps(got[key].float(), want[key]) <= 3, key
+        ref = np.asarray(f32[key])
+        port_err = np.abs(got[key].float().numpy() - ref).max()
+        jax_err = np.abs(np.asarray(want[key], np.float32) - ref).max()
+        assert 0 < port_err <= 1.25 * jax_err, (key, port_err, jax_err)
+
+    # the host-array promotion, on the JAX module alone
+    jdual = JDual(16, 4)
+    x, m = np.ones((2, 5, 16), np.float32), np.ones((2, 5), np.float32)
+    v = cast_floating(jdual.init(jax.random.PRNGKey(0), x, x, m, m), bf)
+    host = [a.astype(bf) for a in (x, x, m, m)]
+    assert jdual.apply(v, *host).dtype == jnp.float32
+    assert jdual.apply(v, *map(jnp.asarray, host)).dtype == bf

@@ -71,6 +71,13 @@ class Derived:
     char_len: int = 16
 
 
+def others(cfg: Config, key: str, default: Any) -> Any:
+    """``cfg.others.<key>``, ``default`` where the config has no such key or
+    no ``others`` section (the JAX models' optional switches)."""
+    section = cfg.get("others")
+    return section.get(key, default) if section is not None else default
+
+
 def load_config(path: str) -> Config:
     """Load a reference-format YAML (or JSON) config file."""
     with open(path, encoding="utf8") as fr:

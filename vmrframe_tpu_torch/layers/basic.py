@@ -51,6 +51,18 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias, self.eps).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in x's dtype, as CCA's and CPL's JAX
+    layers write it: the mean and the variance rounded to x's dtype (their
+    reductions accumulate in f32), the f32 scale and bias applied in f32,
+    the result cast back to x's dtype."""
+    mu = x.float().mean(dim=-1, keepdim=True).to(x.dtype)
+    d = x - mu
+    var = (d * d).float().mean(dim=-1, keepdim=True).to(x.dtype)
+    return (d * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
 class WordEmbedding(nn.Module):
     """[zero PAD row, trainable UNK row, frozen GloVe] lookup.  GloVe is a
     buffer, not a parameter.  Dropout on the looked-up vectors."""

@@ -44,6 +44,7 @@ from vmrframe_tpu_torch.layers.dropout import Dropout, dropout_bits, set_dropout
 from vmrframe_tpu_torch.layers.recurrent import LSTM, masked_mean
 from vmrframe_tpu_torch.ops.masking import mask_logits
 from vmrframe_tpu_torch.ops.precision import biased
+from vmrframe_tpu_torch.ops.span import triu_argmax_spans
 from vmrframe_tpu_torch.ops.windowed import all_windowed_maxes, cell_segment_max_map
 from vmrframe_tpu_torch.registry import register_model
 
@@ -490,14 +491,7 @@ def ban_infer(outputs, batch, cfg) -> torch.Tensor:
     """(B, 2) fractions: the argmax row and column of the raw map's upper
     triangle (no sigmoid, no mask2d), over the valid length; ties take the
     first, as ``jnp.argmax``."""
-    tmap = outputs["tmap"]
-    L = tmap.shape[-1]
-    triu = torch.ones(L, L, dtype=torch.bool, device=tmap.device).triu()
-    outer = torch.where(triu[None], tmap, tmap.new_zeros(()))
-    start_idx = outer.amax(dim=2).argmax(dim=1)
-    end_idx = outer.amax(dim=1).argmax(dim=1)
-    denom = outputs["vlens"].float()
-    return torch.stack([start_idx / denom, end_idx / denom], dim=1)
+    return triu_argmax_spans(outputs["tmap"], outputs["vlens"])
 
 
 register_model("BAN", loss_fn=ban_loss, infer_fn=ban_infer, batcher_cls=BANBatcher,

@@ -6,10 +6,11 @@ which ``MultiTeacherBatcher`` and ``CCAPreTrainBatcher`` read
 (``loss.t{0,1,2}_path``).
 
 A 1D model's curves (SeqPAN, BaseFast, the students, ...) are the sigmoid of
-its start and end logits over the valid frames.  BAN's are the row and
-column maxima of ``sigmoid(tmap) * mask2d`` over the valid clips, each
-curve L2-normalized (the JAX tool's default ``normalize_2d``; a zero curve
-stays zero).  CCA's wait for that model.  The forward is the
+its start and end logits over the valid frames.  A 2D model's are the row
+and column maxima of its sigmoid scores times its map's mask over the valid
+clips, each curve L2-normalized (the JAX tool's default ``normalize_2d``; a
+zero curve stays zero): BAN's ``tmap`` with its ``map2d_mask``, CCA's
+``scores2d`` with ``mask2d(NUM_CLIPS)``.  The forward is the
 trainer's eval forward, in the config's ``train.compute_dtype`` (the JAX
 tool applies the f32 masters directly: the same in f32).
 
@@ -32,6 +33,8 @@ import pickle
 import numpy as np
 import torch
 
+from vmrframe_tpu_torch.data.labels import mask2d
+
 
 def curves_from_outputs(model_name: str, outputs) -> np.ndarray:
     """(B, 2, L) teacher curves from one eval forward's outputs."""
@@ -39,12 +42,14 @@ def curves_from_outputs(model_name: str, outputs) -> np.ndarray:
         return torch.stack([torch.sigmoid(outputs["slogits"]),
                             torch.sigmoid(outputs["elogits"])], dim=1).float().cpu().numpy()
     if "tmap" in outputs:
-        smap = torch.sigmoid(outputs["tmap"]) * outputs["map2d_mask"][None].float()
-        return torch.stack([smap.amax(dim=2), smap.amax(dim=1)], dim=1).float().cpu().numpy()
-    if "scores2d" in outputs:
-        raise NotImplementedError(f"{model_name}: curves from CCA's 2D map need models/cca.py, "
-                                  "which is not ported yet")
-    raise ValueError(f"don't know how to export teacher curves for {model_name}")
+        scores, mask = outputs["tmap"], outputs["map2d_mask"]
+    elif "scores2d" in outputs:
+        scores = outputs["scores2d"]
+        mask = torch.as_tensor(mask2d(scores.shape[-1]), device=scores.device)
+    else:
+        raise ValueError(f"don't know how to export teacher curves for {model_name}")
+    smap = torch.sigmoid(scores) * mask[None].float()
+    return torch.stack([smap.amax(dim=2), smap.amax(dim=1)], dim=1).float().cpu().numpy()
 
 
 def _norm(x: np.ndarray) -> np.ndarray:
