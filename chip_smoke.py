@@ -208,6 +208,29 @@ Phases, in order; any failure exits non-zero:
    relative, every gradient within 1e-3 of its largest magnitude, the spans
    equal where the two lowest proposal NLLs lie apart.
 35. train-CPL: phase 31 for CPL (batch 128).
+36. zoo: ``tools/bench_zoo.py`` rows for SeqPAN (Charades width, f32, the
+   stack's flag off), BAN (its test config), CCA, ActionFormerLong and CPL:
+   train and eval step times (5 steps between synchronizes, median of 3),
+   FLOPs on the counting route, MFU against the dense peak of the step's
+   type (no profiler pass: the tool's own run gives the busy share); each
+   row's launches a step (SeqPAN 2/4/2 of #1/#2/#3 an eval step and none a
+   train step at droprate 0.2,
+   ActionFormerLong 4 of #5 an eval step and 4 each of #5/#6/#7 a train
+   step, the others none); SeqPAN's and BAN's FLOP counts equal to the
+   CPU's at the same shapes (1e-6 relative).
+37. sweep: ``tools/flag_sweep.py``'s ``model.fused_dual_stack`` pair, one
+   fresh process each, on SeqPAN's Charades eval step: 4 launches of #2 a
+   step with the flag off, 1 of #4 with it on.
+38. convert: a reference-layout SeqPAN ``state_dict`` at Charades width (a
+   seeded model under the original repository's names, its dead tensors
+   included) through ``tools/convert_torch.py``: every tensor equal to the
+   source's; one f32 batch served by the ``Evaluator`` on the card against
+   the CPU within 1e-3, 1/0/2/2 launches.
+39. ddp: the ``Trainer`` in a NCCL process group of one (its data-parallel
+   route) against the plain trainer, 3 SeqPAN steps at Charades width (f32,
+   droprate 0): losses within 1e-6 relative, 2/4/2 launches a step in both;
+   the group torn down; then ``torchrun --nproc_per_node 1 -m
+   vmrframe_tpu_torch`` trains the tiny SeqPAN test config one epoch.
 
 The check phase also holds #1-#3 at the sentence variants' shapes (head
 dim 192 at B 128: 64 queries over 64 and 30 keys and 30 over 64; one key;
@@ -241,14 +264,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; f32 CUDA cores
-B, H, HD, LV, LT, D = 128, 4, 32, 64, 30, 128
-LV_LONG = 256  # SeqPAN's vlen at TACoS width (the reference's longest SeqPAN grid)
-LV_ANET = 100  # SeqPAN's vlen at ANet width
-D_ALIGN, HD_ALIGN = 768, 192  # BackBoneAlignFeature's width (the SBERT width), 4 heads
+from vmrframe_tpu_torch.tools.bench_kernels import (  # the kernel table's inputs and timing
+    AF_LAUNCHES, ATTENTION, B, B_AF, B_TRAIN, BWD_KERNELS, D, H, HBM_BYTES_PER_S, LT, LV,
+    LV_ANET, LV_LONG, REPLACES, SOURCE_OF, SOURCES, STACK, WINDOW, as_tuple, band_mask,
+    banded_bwd_cases, banded_cases, bound_ms, card_line, cast_args, device_ms, functions,
+    split_heads, stack_cases, table_cases, time_kernels, time_module_path)
+
 TOL_F32 = 1e-4  # f32 sums taken in another order, expf against torch.exp
 BF16_ULPS = 2.0 ** -6  # bf16 check: 2-4 ulps of the output's largest magnitude
 TOL_MODEL_F32 = 1e-3  # whole f32 forward, card against CPU: ~40 layers of reordered f32 sums
@@ -258,46 +280,18 @@ TOL_MODEL_F32 = 1e-3  # whole f32 forward, card against CPU: ~40 layers of reord
 TOL_TRAIN_F32 = 1e-3
 TOL_NMS = 1e-5  # decayed scores: the card's exp and the C++ twin's expf, a few ulps a step
 N_REQUESTS, CONCURRENCY, NUM_WORDS = 1024, 256, 1000
-SLEEP_CYCLES = 100_000_000  # ~50 ms of GPU clock: the host queues a timed run meanwhile
 AF_CONFIG = "configs/tacos_actionformer_long.yaml"
-B_AF, H_AF, HD_AF, WINDOW = 8, 4, 128, 19
-AF_LAUNCHES = {2304: 2, 1152: 1, 576: 1}  # banded launches per forward at each length
 AF_CHECK_T = tuple(AF_LAUNCHES) + (1000, 300)  # + a ragged length, and T_pad == K_WIN
 AF_CHECK_HD = (24, 96)  # head dims off the 32/64/128 grid, checked at T=1000
 N_AF_REQUESTS, AF_CONCURRENCY = 256, 32
-B_TRAIN = 2  # the long config's training batch
 N_TIMED_STEPS, N_WARMUP_STEPS, N_BF16_STEPS = 20, 2, 3
-BWD_KERNELS = ("banded_attention_dq", "banded_attention_dkv")
-STACK = "dual_attention_stack"
-ATTENTION = ("fused_masked_attention", "fused_dual_attention", "fused_cq_attention")
-BOTH_DTYPES = BWD_KERNELS + (STACK,) + ATTENTION  # timed in f32 and bf16
 # Charades, an odd B, a ragged pair; ANet length; a ragged pair past the
 # kernel's 64-row tiles (TACoS length: long_cases)
 STACK_CHECK_SHAPES = ((B, LV, LT), (3, LV, LT), (2, 13, 5), (B, LV_ANET, LT), (3, 129, 65))
-STACK_CAST = (0, 1, 4, 8)  # of a stack case, what the policy casts: v, t and the two W
 # calls queued per timed repetition of the stack's plain version and module
 # path: each is hundreds of small launches, and more than the host can queue
 # during the sleep kernel would time the host, not the card
-N_QUEUED_SMALL_OPS = 1
 N_ROUTE_REQUESTS, ROUTE_CONCURRENCY, N_MIXED_REQUESTS = 128, 64, 192
-REPLACES = {
-    "fused_masked_attention": "vmrframe_tpu/kernels/attention.py:65",
-    "fused_dual_attention": "vmrframe_tpu/kernels/attention.py:116",
-    "fused_cq_attention": "vmrframe_tpu/kernels/attention.py:188",
-    "banded_attention": "vmrframe_tpu/kernels/window_attention.py:41",
-    "banded_attention_dq": "vmrframe_tpu/kernels/window_attention.py:63",
-    "banded_attention_dkv": "vmrframe_tpu/kernels/window_attention.py:89",
-    STACK: "vmrframe_tpu/kernels/dual_stack.py:153",
-}
-SOURCES = {
-    "attention": "vmrframe_tpu_torch/kernels/csrc/attention.cu",
-    "window_attention": "vmrframe_tpu_torch/kernels/csrc/window_attention.cu",
-    "dual_stack": "vmrframe_tpu_torch/kernels/csrc/dual_stack.cu",
-}
-SOURCE_OF = {"fused_masked_attention": "attention", "fused_dual_attention": "attention",
-             "fused_cq_attention": "attention", "banded_attention": "window_attention",
-             "banded_attention_dq": "window_attention", "banded_attention_dkv": "window_attention",
-             STACK: "dual_stack"}
 
 
 class SmokeFailure(RuntimeError):
@@ -308,336 +302,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 # ---------------------------------------------------------------- inputs
-
-
-def lengths_mask(g: torch.Generator, L: int) -> torch.Tensor:
-    """(B, L) {0,1} mask of random valid lengths; sample 0 is wholly padded."""
-    lens = torch.randint(1, L + 1, (B,), generator=g, device="cuda")
-    lens[0] = 0
-    return (torch.arange(L, device="cuda")[None] < lens[:, None]).float()
-
-
-def kernel_cases(g: torch.Generator):
-    """name -> list of argument tuples, one per shape the forward launches."""
-    vm, tm = lengths_mask(g, LV), lengths_mask(g, LT)
-    outer = lambda a, b: a[:, :, None] * b[:, None, :]  # noqa: E731
-    heads = lambda L: torch.randn(B, H, L, HD, generator=g, device="cuda")  # noqa: E731
-    rows = lambda L: torch.randn(B, L, D, generator=g, device="cuda")  # noqa: E731
-    bound = math.sqrt(6.0 / (D + 1))
-    vec = lambda *s: (torch.rand(*s, generator=g, device="cuda") * 2 - 1) * bound  # noqa: E731
-    w4C, w4Q, w4mlu = vec(D, 1), vec(D, 1), vec(1, 1, D)
-    return {
-        "fused_masked_attention": [(heads(LV), heads(LV), heads(LV), outer(vm, vm))],
-        "fused_dual_attention": [
-            (heads(LV), heads(LV), heads(LV), heads(LT), heads(LT), outer(vm, vm), outer(vm, tm)),
-            (heads(LT), heads(LT), heads(LT), heads(LV), heads(LV), outer(tm, tm), outer(tm, vm)),
-        ],
-        "fused_cq_attention": [(rows(LV), rows(LT), w4C, w4Q, w4mlu, vm, tm),
-                               (rows(LT), rows(LV), w4C, w4Q, w4mlu, tm, vm)],
-    }
-
-
-def long_kernel_cases(g: torch.Generator):
-    """The shapes SeqPAN at TACoS width (vlen 256, tlen 30) gives #1-#3,
-    then those at ANet width (vlen 100) gives #3."""
-    vm, tm = lengths_mask(g, LV_LONG), lengths_mask(g, LT)
-    outer = lambda a, b: a[:, :, None] * b[:, None, :]  # noqa: E731
-    heads = lambda L: torch.randn(B, H, L, HD, generator=g, device="cuda")  # noqa: E731
-    rows = lambda L: torch.randn(B, L, D, generator=g, device="cuda")  # noqa: E731
-    bound = math.sqrt(6.0 / (D + 1))
-    vec = lambda *s: (torch.rand(*s, generator=g, device="cuda") * 2 - 1) * bound  # noqa: E731
-    w4C, w4Q, w4mlu = vec(D, 1), vec(D, 1), vec(1, 1, D)
-    L, A = LV_LONG, LV_ANET
-    va = lengths_mask(g, A)
-    return {
-        "fused_masked_attention": [(heads(L), heads(L), heads(L), outer(vm, vm))],
-        "fused_dual_attention": [
-            (heads(L), heads(L), heads(L), heads(LT), heads(LT), outer(vm, vm), outer(vm, tm)),
-            (heads(LT), heads(LT), heads(LT), heads(L), heads(L), outer(tm, tm), outer(tm, vm)),
-        ],
-        "fused_cq_attention": [(rows(L), rows(LT), w4C, w4Q, w4mlu, vm, tm),
-                               (rows(LT), rows(L), w4C, w4Q, w4mlu, tm, vm),
-                               (rows(A), rows(LT), w4C, w4Q, w4mlu, va, tm),
-                               (rows(LT), rows(A), w4C, w4Q, w4mlu, tm, va)],
-    }
-
-
-def sentence_kernel_cases(g: torch.Generator):
-    """The shapes the sentence variants give #1-#3 at full width:
-    BackBoneAlignFeature (D 768, 4 heads of 192; 64 video and 30 text
-    positions: #1 in the predictor, #2 both ways, #3 both ways) and
-    BackBoneBertSentence (D 128, 4 heads of 32; one text position: #1 over
-    one key, #2 with one cross key and with one query over one self key, #3
-    with one query and with one context row), and #3 at D 768 with one
-    query and with one context row.  Sample 0 is wholly masked, the
-    one-position side too."""
-    vm, tm, one = lengths_mask(g, LV), lengths_mask(g, LT), lengths_mask(g, 1)
-    outer = lambda a, b: a[:, :, None] * b[:, None, :]  # noqa: E731
-    heads = lambda L, hd: torch.randn(B, H, L, hd, generator=g, device="cuda")  # noqa: E731
-    rows = lambda L, d: torch.randn(B, L, d, generator=g, device="cuda")  # noqa: E731
-
-    def vecs(d):
-        bound = math.sqrt(6.0 / (d + 1))
-        return [(torch.rand(*s, generator=g, device="cuda") * 2 - 1) * bound
-                for s in ((d, 1), (d, 1), (1, 1, d))]
-
-    wa, wb = vecs(D_ALIGN), vecs(D)
-    hd = HD_ALIGN
-    return {
-        "fused_masked_attention": [
-            (heads(LV, hd), heads(LV, hd), heads(LV, hd), outer(vm, vm)),
-            (heads(LV, HD), heads(1, HD), heads(1, HD), outer(vm, one))],
-        "fused_dual_attention": [
-            (heads(LV, hd), heads(LV, hd), heads(LV, hd), heads(LT, hd), heads(LT, hd),
-             outer(vm, vm), outer(vm, tm)),
-            (heads(LT, hd), heads(LT, hd), heads(LT, hd), heads(LV, hd), heads(LV, hd),
-             outer(tm, tm), outer(tm, vm)),
-            (heads(LV, HD), heads(LV, HD), heads(LV, HD), heads(1, HD), heads(1, HD),
-             outer(vm, vm), outer(vm, one)),
-            (heads(1, HD), heads(1, HD), heads(1, HD), heads(LV, HD), heads(LV, HD),
-             outer(one, one), outer(one, vm))],
-        "fused_cq_attention": [
-            (rows(LV, D_ALIGN), rows(LT, D_ALIGN), *wa, vm, tm),
-            (rows(LT, D_ALIGN), rows(LV, D_ALIGN), *wa, tm, vm),
-            (rows(LV, D), rows(1, D), *wb, vm, one),
-            (rows(1, D), rows(LV, D), *wb, one, vm),
-            (rows(LV, D_ALIGN), rows(1, D_ALIGN), *wa, vm, one),
-            (rows(1, D_ALIGN), rows(LV, D_ALIGN), *wa, one, vm)],
-    }
-
-
-def stack_blocks(seed: int):
-    """Two ``DualAttentionBlock``s on the card in f32, seeded, with every
-    leaf random (the initialisers leave LN at 1/0 and the BiLinear extra
-    bias at 0, which would hide them)."""
-    from vmrframe_tpu_torch.layers.attention import DualAttentionBlock
-    from vmrframe_tpu_torch.weights import init_weights
-
-    g = torch.Generator().manual_seed(seed)
-    blocks = []
-    for i in range(2):
-        block = init_weights(DualAttentionBlock(D, H), seed + i).eval()
-        with torch.no_grad():
-            for name, p in block.named_parameters():
-                if "layer_norm" in name or name.endswith("bias_value"):
-                    p.add_(0.1 * torch.randn(p.shape, generator=g))
-        blocks.append(block.cuda())
-    return blocks
-
-
-def stack_cases(g: torch.Generator, blocks, shapes):
-    """(v, t, vmask, tmask, W1, b1, ln1, xb1, W2, b2, ln2, xb2) per shape;
-    random lengths, sample 0 wholly masked."""
-    with torch.no_grad():
-        stacks = [p[key] for block in blocks for p in (block.stacks(),)
-                  for key in ("W", "b", "ln", "xb")]
-    cases = []
-    for Bc, Lv, Lt in shapes:
-        masks = []
-        for L in (Lv, Lt):
-            lens = torch.randint(1, L + 1, (Bc,), generator=g, device="cuda")
-            lens[0] = 0
-            masks.append((torch.arange(L, device="cuda")[None] < lens[:, None]).float())
-        cases.append((torch.randn(Bc, Lv, D, generator=g, device="cuda"),
-                      torch.randn(Bc, Lt, D, generator=g, device="cuda"), *masks, *stacks))
-    return cases
-
-
-def stack_call(fn):
-    """``fn`` of the stack module on one case's flat arguments."""
-    def call(v, t, vm, tm, *stacks):
-        p1, p2 = (dict(zip(("W", "b", "ln", "xb"), stacks[i:i + 4])) for i in (0, 4))
-        return fn(v, t, vm, tm, p1, p2, H)
-    return call
-
-
-def cast_args(name: str, args, dtype: torch.dtype):
-    """One case's arguments in ``dtype``; of a stack case only what the bf16
-    policy casts (activations and rank >= 2 weights; masks cast too, as the
-    batch's are, would change nothing: the wrapper reads them as f32)."""
-    if name == STACK:
-        return tuple(a.to(dtype) if i in STACK_CAST else a for i, a in enumerate(args))
-    return tuple(a.to(dtype) for a in args)
-
-
-def head_dim(qkv: torch.Tensor) -> int:
-    return qkv.shape[-1] // (3 * H_AF)
-
-
-def split_heads(qkv: torch.Tensor):
-    """q, k, v as the model passes them: head-split views of one (B, T, 3C)
-    projection, (B, H, T, hd) each."""
-    hd = head_dim(qkv)
-    return [t.unflatten(-1, (H_AF, hd)).transpose(1, 2) for t in qkv.split(H_AF * hd, dim=-1)]
-
-
-def banded_cases(g: torch.Generator, lengths, batch: int = B_AF, hd: int = HD_AF):
-    """(qkv, kv_mask) per length; sample 0 is wholly masked."""
-    cases = []
-    for T in lengths:
-        lens = torch.randint(T // 2, T + 1, (batch,), generator=g, device="cuda")
-        lens[0] = 0
-        mask = (torch.arange(T, device="cuda")[None] < lens[:, None]).float()
-        cases.append((torch.randn(batch, T, 3 * H_AF * hd, generator=g, device="cuda"), mask))
-    return cases
-
-
-def banded_bwd_cases(g: torch.Generator, lengths, hd: int = HD_AF):
-    """(qkv, kv_mask, cotangent) per length at the training batch: sample 0
-    wholly masked, sample 1 of a random length with a hole wider than the
-    band; the cotangent random on every row, in (B, T, H, hd) memory as
-    autograd hands it back for the forward's output."""
-    cases = []
-    for T in lengths:
-        mask = torch.zeros(B_TRAIN, T, device="cuda")
-        mask[1, :int(torch.randint(T // 2, T + 1, (1,), generator=g, device="cuda"))] = 1.0
-        mask[1, T // 4:T // 4 + 3 * WINDOW] = 0.0
-        qkv = torch.randn(B_TRAIN, T, 3 * H_AF * hd, generator=g, device="cuda")
-        cases.append((qkv, mask, torch.randn(B_TRAIN, T, H_AF, hd, generator=g, device="cuda")))
-    return cases
-
-
-def functions(K, W, S) -> dict:
-    """name -> (kernel wrapper, plain version), each taking one case's args."""
-    return {
-        STACK: (stack_call(S.dual_attention_stack), stack_call(S.dual_attention_stack_plain)),
-        "fused_masked_attention": (K.fused_masked_attention, K.masked_attention_plain),
-        "fused_dual_attention": (K.fused_dual_attention, K.dual_attention_plain),
-        "fused_cq_attention": (K.fused_cq_attention, K.cq_attention_plain),
-        "banded_attention": (
-            lambda qkv, m: W.banded_attention(*split_heads(qkv), m, WINDOW),
-            lambda qkv, m: W.banded_attention_plain(*split_heads(qkv), m, WINDOW)),
-        "banded_attention_dq": (
-            lambda qkv, m, c: W.banded_attention_dq(*split_heads(qkv), m, c.transpose(1, 2),
-                                                    WINDOW),
-            lambda qkv, m, c: W.banded_attention_dq_plain(*split_heads(qkv), m,
-                                                          c.transpose(1, 2), WINDOW)),
-        "banded_attention_dkv": (
-            lambda qkv, m, c: W.banded_attention_dkv(*split_heads(qkv), m, c.transpose(1, 2),
-                                                     WINDOW),
-            lambda qkv, m, c: W.banded_attention_dkv_plain(*split_heads(qkv), m,
-                                                           c.transpose(1, 2), WINDOW)),
-    }
-
-
-def as_tuple(x):
-    return x if isinstance(x, tuple) else (x,)
-
-
-# ------------------------------------------------------------ bounds
-
-
-def work(name: str, args) -> tuple:
-    """(bytes, operations) the function needs: each input read once, each
-    output written once; the operations are its matrix products."""
-    size = args[0].element_size()
-    if name == STACK:
-        from vmrframe_tpu_torch.tools.bench_stack import stack_work
-
-        return stack_work(args[0].shape[0], args[0].shape[1], args[1].shape[1], size)
-    if name.startswith("banded_attention"):
-        # tensors read and written besides the mask (forward: q, k, v, out;
-        # dq: q, k, v, g, dq; dk/dv: q, k, v, g, dk, dv); the band's products
-        # (forward: scores, p v; dq: scores, dp, ds k; dk/dv: scores, dp,
-        # p^T g, ds^T q), each 2 * T * (2 half + 1) * hd per (batch, head)
-        tensors, products = {"banded_attention": (4, 2), "banded_attention_dq": (5, 3),
-                             "banded_attention_dkv": (6, 4)}[name]
-        Bm, T = args[1].shape
-        band, hd = 2 * (WINDOW // 2) + 1, head_dim(args[0])
-        return (tensors * Bm * H_AF * T * hd + Bm * T) * size, \
-            products * 2 * Bm * H_AF * T * band * hd
-    if name == "fused_cq_attention":
-        from vmrframe_tpu_torch.tools.bench_cq import cq_work
-
-        (Bc, Lc, Dc), Lq = args[0].shape, args[1].shape[1]
-        return cq_work(Bc, Lc, Lq, Dc, size)
-    Bq, Hq, L, hd = args[0].shape
-    # Lk of each branch: (q, k, v, mask) or (q, f_k, f_v, t_k, t_v, s_mask, x_mask)
-    keys = [args[1].shape[2]] if name == "fused_masked_attention" else \
-        [args[1].shape[2], args[3].shape[2]]
-    elems = Bq * Hq * L * hd * (1 + len(keys))  # q, and one output per branch
-    elems += sum(2 * Bq * Hq * Lk * hd + Bq * L * Lk for Lk in keys)  # k, v, mask
-    ops = sum(4 * Bq * Hq * L * Lk * hd for Lk in keys)
-    return elems * size, ops
-
-
-def bound_ms(name: str, args) -> tuple:
-    nbytes, ops = work(name, args)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[args[0].dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-# ------------------------------------------------------------ timing
-
-
-def device_ms(fn, n: int = 20, reps: int = 5) -> dict:
-    """Per-call device time of ``fn``: CUDA events around ``n`` calls queued
-    behind a sleep kernel, so host overhead does not show; median of reps."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(reps):
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return {"median": statistics.median(times), "min": min(times), "max": max(times)}
-
-
-def sdpa_masked(q, k, v, mask):
-    add = ((1.0 - mask) * -1e30).to(q.dtype)[:, None]
-    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add)
-
-
-def band_mask(mask: torch.Tensor) -> torch.Tensor:
-    """The band-and-key boolean mask, (B, 1, T, T)."""
-    i = torch.arange(mask.shape[1], device=mask.device)
-    band = (i[:, None] - i[None, :]).abs() <= WINDOW // 2
-    return (band[None] & (mask[:, None, :] > 0))[:, None]
-
-
-def library_ms(name: str, args):
-    """Device time of one PyTorch call computing the same function, or None;
-    timed only.  For the backward kernels: SDPA's backward with the same
-    boolean band mask (it computes dq, dk and dv together), timed as forward
-    plus backward less forward."""
-    if name in BWD_KERNELS:
-        qkv, mask, cot = args
-        q, k, v = (t.detach().requires_grad_() for t in split_heads(qkv))
-        allowed, g = band_mask(mask), cot.transpose(1, 2)
-        fwd = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)  # noqa: E731
-        both = device_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), g))
-        alone = device_ms(fwd)
-        return {key: both[key] - alone[key] for key in both}
-    lib = library_call(name, args)
-    return device_ms(lib) if lib else None
-
-
-def library_call(name: str, args):
-    """One PyTorch call computing the same function, or None; timed only."""
-    if name == "banded_attention":  # SDPA with the band-and-key boolean mask
-        qkv, mask = args
-        q, k, v = split_heads(qkv)
-        allowed = band_mask(mask)
-        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
-    if name == "fused_masked_attention":
-        return sdpa_masked(*args)
-    if name == "fused_dual_attention":
-        q, fk, fv, tk, tv, s_mask, x_mask = args
-        s, x = sdpa_masked(q, fk, fv, s_mask), sdpa_masked(q, tk, tv, x_mask)
-        return lambda: (s(), x())
-    return None  # CQ attention: no single PyTorch call computes it
 
 
 # ------------------------------------------------------------ phases
@@ -716,103 +381,6 @@ def check_autograd_function(cases) -> dict:
     if not ok:
         raise SmokeFailure("banded_attention: the Function's grads disagree with autograd's")
     return {"max_abs_err": err, "tol": TOL_F32}
-
-
-DTYPE_KEYS = {"f32": torch.float32, "bf16": torch.bfloat16}
-
-
-def time_row(name: str, wrapper, plain, args, key: str, weight: int) -> dict:
-    """One shape's kernel, plain and library times, and its bound."""
-    args = cast_args(name, args, DTYPE_KEYS[key])
-    shaped = (args[0], args[3]) if name == "fused_dual_attention" else args[:2]  # q, cross k
-    row = {
-        "shape": [list(a.shape) for a in shaped], "launches_per_forward": weight,
-        "ms": device_ms(lambda: wrapper(*args)),
-        "plain_ms": device_ms(lambda: plain(*args),
-                              n=N_QUEUED_SMALL_OPS if name == STACK else 20),
-        "library_ms": library_ms(name, args),
-    }
-    row["bound_ms"], row["bound_by"] = bound_ms(name, args)
-    lib_txt = f"{row['library_ms']['median']:.4f}" if row["library_ms"] else \
-        "none (no single PyTorch call computes it)"
-    log(f"[time] {name:24s} {key:4s} {row['shape']}  kernel "
-        f"{row['ms']['median']:.4f} ms  plain {row['plain_ms']['median']:.4f}  "
-        f"library {lib_txt}  bound {row['bound_ms']:.4f} ({row['bound_by']})")
-    return row
-
-
-def weighted(rows) -> dict:
-    """The launch-weighted means of a kernel's per-shape rows."""
-    total = sum(r["launches_per_forward"] for r in rows)
-    mean = lambda f: sum(r["launches_per_forward"] * f(r) for r in rows) / total  # noqa: E731
-    return {"ms": mean(lambda r: r["ms"]["median"]),
-            "plain_ms": mean(lambda r: r["plain_ms"]["median"]),
-            "library_ms": mean(lambda r: r["library_ms"]["median"]) if rows[0]["library_ms"]
-            else None,
-            "bound_ms": mean(lambda r: r["bound_ms"]),
-            "bound_by": rows[0]["bound_by"], "shapes": rows}
-
-
-def phase_time(fns, cases, weights, card: str, long_cases: dict, f32_cases: dict,
-               sentence_cases: dict) -> dict:
-    """Per call; a kernel's ms are its launch-weighted mean over the shapes
-    one forward (or train step) gives it (``weights``: launches per forward).
-    The forward kernels in bf16 (#1-#3 in f32 too); the backward kernels in
-    f32 (the long config's type) and bf16; the whole-stack kernel in both.
-    ``long_cases`` (#1-#4 at TACoS width, #3 at ANet width) and
-    ``sentence_cases`` (#1-#3 at the sentence variants' shapes: head dim 192,
-    D 768, one text position) are extra rows, outside the means, so that the
-    means stay comparable with earlier runs.
-    ``f32_cases`` give a kernel timed in bf16 its f32 time at other shapes
-    (the banded forward at the training batch)."""
-    results = {}
-    for name, shapes in cases.items():
-        wrapper, plain = fns[name]
-        for key in (("f32", "bf16") if name in BOTH_DTYPES else ("bf16",)):
-            log(f"[time] {name} {key}, per call, on {card}")
-            rows = [time_row(name, wrapper, plain, args, key, weight)
-                    for args, weight in zip(shapes, weights[name])]
-            long_rows = [time_row(name, wrapper, plain, args, key, 0)
-                         for args in long_cases.get(name, ())]
-            sentence_rows = [time_row(name, wrapper, plain, args, key, 0)
-                             for args in sentence_cases.get(name, ())]
-            results.setdefault(name, {})[key] = {**weighted(rows), "long_shapes": long_rows,
-                                                 "sentence_shapes": sentence_rows}
-    for name, shapes in f32_cases.items():
-        wrapper, plain = fns[name]
-        log(f"[time] {name} f32 at the training batch, per call, on {card}")
-        results[name]["f32"] = weighted([time_row(name, wrapper, plain, args, "f32", weight)
-                                         for args, weight in zip(shapes, weights[name])])
-    return results
-
-
-def time_module_path(blocks, case, results, card: str) -> None:
-    """The module path's time for the same stack on the same inputs: 4
-    ``DualAttentionBlock`` calls, each through kernel #2 (``fused_dual_attention``),
-    the projections in cuBLAS.  The other route to the same result, not a
-    library call: written beside the stack kernel's numbers."""
-    import copy
-
-    from vmrframe_tpu_torch.ops.precision import cast_module_
-
-    v, t, vm, tm = case[:4]
-    for key, dtype in DTYPE_KEYS.items():
-        mods = [cast_module_(copy.deepcopy(b), dtype) for b in blocks]
-        x, y = v.to(dtype), t.to(dtype)
-
-        @torch.no_grad()
-        def run():
-            a, b = x, y
-            for m in mods:
-                a, b = m(a, b, vm, tm), m(b, a, tm, vm)
-            return a, b
-
-        ms = device_ms(run, n=N_QUEUED_SMALL_OPS)
-        results[STACK][key]["module_path_ms"] = ms["median"]
-        results[STACK][key]["module_path_ms_spread"] = ms
-        log(f"[time] {STACK} {key}: the module path for the same stack (4 DualAttentionBlock "
-            f"calls through fused_dual_attention) {ms['median']:.4f} ms, against the one-launch "
-            f"kernel's {results[STACK][key]['ms']:.4f} ms, on {card}")
 
 
 def charades_vocab(dataset, num_words: int, seed: int) -> None:
@@ -1770,59 +1338,26 @@ def check_pipeline_on_the_card(cfg, batcher) -> dict:
 
 
 def route_steps(K, S, cfg, derived, dataset, store, card: str, label: str) -> dict:
-    """One route of batch assembly: the host's assembly ms of the first
-    batches of an epoch; then train steps fed as ``fit`` feeds them (the
-    batcher on a prefetch thread), host clock per step from taking the batch
-    to the loss on the host, and the card's busy share of a step."""
-    from vmrframe_tpu_torch.data.batcher import Batcher, BatchPrefetcher
-    from vmrframe_tpu_torch.tools.profile_serve import _device_profile
-    from vmrframe_tpu_torch.train.trainer import Trainer
+    """One route of batch assembly (``tools/bench_pipeline.py::time_route``):
+    the host's assembly ms of the first batches of an epoch; then train steps
+    fed as ``fit`` feeds them (the batcher on a prefetch thread), host clock
+    per step from taking the batch to the loss on the host, and the card's
+    busy share of a step."""
+    from vmrframe_tpu_torch.tools.bench_pipeline import time_route
 
-    batcher = Batcher(dataset["train_set"], store, cfg, derived, "train")
-    epoch = batcher.epoch(seed=0)
-    assembly = []
-    for _ in range(N_ASSEMBLED):
-        t0 = time.perf_counter()
-        batch = next(epoch)
-        assembly.append((time.perf_counter() - t0) * 1e3)
-    trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
-
-    def stream():
-        for seed in range(1, 1000):
-            yield from batcher.epoch(seed=seed)
-
-    feed = BatchPrefetcher(stream())
-    step = lambda: float(trainer.train_step(trainer.to_device(next(feed)))["loss"])  # noqa: E731
     zero_counts(K.KERNELS + S.KERNELS)
-    times, losses = [], []
-    try:
-        for _ in range(N_WARMUP_STEPS + N_TIMED_STEPS // 2):
-            t0 = time.perf_counter()
-            losses.append(step())
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        # droprate 0.2: no kernel in a train step, on either route
-        read_launches(f"pipeline {label}", K.KERNELS + S.KERNELS,
-                      want_launches(SEQPAN_TRAIN_LAUNCHES, 0))
-        profiled = _device_profile(step, N_PROFILED_STEPS)
-    finally:
-        feed.close()
+    out = time_route(  # droprate 0.2: no kernel in a train step, on either route
+        cfg, derived, dataset, store, "cuda", N_WARMUP_STEPS, N_TIMED_STEPS // 2, N_ASSEMBLED,
+        N_PROFILED_STEPS, after_timed=lambda: read_launches(
+            f"pipeline {label}", K.KERNELS + S.KERNELS, want_launches(SEQPAN_TRAIN_LAUNCHES, 0)))
+    losses = out.pop("losses")
     if not all(math.isfinite(x) for x in losses):
         raise SmokeFailure(f"pipeline {label}: losses {losses}")
-    timed = times[N_WARMUP_STEPS:]
-    median = statistics.median(timed)
-    busy = profiled["device_busy_ms_per_step"]
-    out = {"route": label, "device_pipeline": "raw_vfeats" in batch,
-           "num_workers": batcher.num_workers, "augmentation": list(batcher.aug),
-           "assembly_ms_median": statistics.median(assembly), "assembly_ms": assembly,
-           "step_ms_median": median, "step_ms_min": min(timed), "step_ms_max": max(timed),
-           "steps": len(timed), "samples_per_s": B / (median / 1e3),
-           "device_busy_ms_per_step": busy, "device_ops_per_step": profiled.get(
-               "device_ops_per_step"), "top_device_ops": profiled.get("top_kernels", [])[:6],
-           "device_busy_share": busy / median if busy else None}
+    out = {"route": label, **out}
+    median, busy = out["step_ms_median"], out["device_busy_ms_per_step"]
     log(f"[pipeline] {label}: assembly {out['assembly_ms_median']:.1f} ms a batch (first "
-        f"{N_ASSEMBLED} of an epoch), fed train step {median:.3f} ms ({min(timed):.3f}-"
-        f"{max(timed):.3f}, host clock, {len(timed)} steps), card busy "
+        f"{N_ASSEMBLED} of an epoch), fed train step {median:.3f} ms ({out['step_ms_min']:.3f}-"
+        f"{out['step_ms_max']:.3f}, host clock, {out['steps']} steps), card busy "
         f"{busy if busy is None else round(busy, 3)} ms a step "
         f"({'not measured' if not busy else f'{busy / median:.1%}'}), on {card}")
     return out
@@ -2991,6 +2526,202 @@ def phase_train_cpl(kernels, card: str, root: str) -> dict:
     return train_config("train-CPL", CPL_CONFIG, B_CPL, N_ZOO_TIMED, kernels, card, root)
 
 
+# ------------------------------------------------ the zoo's tools and DDP
+
+
+ZOO_ROWS = ("SeqPAN", "BAN", "CCA", "ActionFormerLong", "CPL")  # tools/bench_zoo.py rows
+ZOO_FLOP_CHECK = ("SeqPAN", "BAN")  # #1-#3's launches; cuDNN's LSTMs
+ZOO_STEPS, ZOO_REPS = 5, 3
+TOL_FLOPS = 1e-6  # relative: the card's count against the CPU's at the same shapes
+# launches a (train, eval) step of each row (PERF.md §6); a kernel not named: 0.
+# SeqPAN's row is f32 with the stack's flag off at droprate 0.2, where a
+# train step launches nothing
+ZOO_LAUNCHES = {
+    "SeqPAN": ({}, {"fused_masked_attention": 2, "fused_dual_attention": 4,
+                    "fused_cq_attention": 2}),
+    "BAN": ({}, {}), "CCA": ({}, {}), "CPL": ({}, {}),
+    "ActionFormerLong": ({"banded_attention": 4, "banded_attention_dq": 4,
+                          "banded_attention_dkv": 4}, {"banded_attention": 4}),
+}
+SWEEP_LAUNCHES = {"A": {STACK: 0, "fused_dual_attention": 4},  # flag off, per eval step
+                  "B": {STACK: 1, "fused_dual_attention": 0}}  # flag on
+N_DDP_STEPS = 3
+TOL_DDP = 1e-6  # relative, NCCL world 1 against the plain trainer
+
+
+def phase_zoo(card: str) -> dict:
+    """``tools/bench_zoo.py`` rows on the card: times, launches a step, FLOPs
+    and MFU; SeqPAN's and BAN's FLOP counts against the CPU's count at the
+    same shapes (the counting route: plain versions, no cuDNN)."""
+    from vmrframe_tpu_torch.tools import bench_zoo
+
+    rows = {}
+    for name in ZOO_ROWS:
+        # no profiler pass here: tools/bench_zoo.py measures the busy share
+        row = bench_zoo.bench_model(name, "cuda", ZOO_STEPS, ZOO_REPS, profile=False)
+        for mode, want in zip(("train", "eval"), ZOO_LAUNCHES[name]):
+            got = row[f"{mode}_launches_per_step"]
+            if got != {k: want.get(k, 0) for k in got}:
+                raise SmokeFailure(f"zoo {name}: {mode} launches a step {got}, want {want}")
+        for key in ("train_ms_per_step", "eval_ms_per_step", "train_flops", "eval_flops"):
+            if not (math.isfinite(row[key]) and row[key] > 0):
+                raise SmokeFailure(f"zoo {name}: {key} = {row[key]}")
+        if name in ZOO_FLOP_CHECK:
+            path, overrides = bench_zoo.MODELS[name]
+            _, trainer, train, test = bench_zoo.build_from(path, overrides, "cpu")
+            cpu = {"train": bench_zoo.count_flops(trainer, train, train=True),
+                   "eval": bench_zoo.count_flops(trainer, test, train=False)}
+            for mode, flops in cpu.items():
+                rel = abs(row[f"{mode}_flops"] - flops) / flops
+                if rel > TOL_FLOPS:
+                    raise SmokeFailure(f"zoo {name}: {mode} FLOPs {row[f'{mode}_flops']} on "
+                                       f"the card, {flops} on the CPU (rel {rel:.2e})")
+            row["cpu_flops"] = cpu
+        log(f"[zoo] {name} ({row['dtype']}, batch {row['batch_size']}): train "
+            f"{row['train_ms_per_step']:.3f} ms ({row['train_gflops_per_step']:.3f} GFLOP, MFU "
+            f"{row['train_mfu_pct']:.2f}%, {row['train_bound']}), eval "
+            f"{row['eval_ms_per_step']:.3f} ms ({row['eval_gflops_per_step']:.3f} GFLOP, MFU "
+            f"{row['eval_mfu_pct']:.2f}%, {row['eval_bound']})"
+            + (f"; FLOPs equal to the CPU's {row['cpu_flops']}" if "cpu_flops" in row else "")
+            + f", on {card}")
+        rows[name] = row
+    return rows
+
+
+def phase_sweep(card: str) -> dict:
+    """``tools/flag_sweep.py``'s ``fused_dual_stack`` pair (one A/B pair,
+    each a fresh process) on SeqPAN's Charades eval step: 4 launches of #2
+    with the flag off, 1 of #4 with it on."""
+    from vmrframe_tpu_torch.tools import flag_sweep
+
+    res = flag_sweep.sweep("fused_dual_stack", "cuda", pairs=1, steps=10, reps=3, log=log)
+    for label, want in SWEEP_LAUNCHES.items():
+        got = {k: res[label]["launches_per_step"][k] for k in want}
+        if got != want:
+            raise SmokeFailure(f"sweep: candidate {label} launches {got} a step, want {want}")
+    log(f"[sweep] fused_dual_stack on/off eval step: {res['B']['ms']['median']:.3f} / "
+        f"{res['A']['ms']['median']:.3f} ms (one pair; tools/flag_sweep.py takes 3 or more), "
+        f"on {card}")
+    return res
+
+
+def phase_convert(kernels) -> dict:
+    """A reference-layout SeqPAN ``state_dict`` at Charades width (a seeded
+    port model under the reference's names and layouts, with its dead
+    tensors), converted by ``tools/convert_torch.py``: every tensor equal to
+    the source's; then served for one f32 batch by the ``Evaluator`` on the
+    card and on the CPU, within ``TOL_MODEL_F32``; 1/0/2/2 launches."""
+    from vmrframe_tpu_torch.config import Derived, load_config
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.models.seqpan import SeqPAN
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+    from vmrframe_tpu_torch.tools.convert_torch import reference_layout, to_port_state
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+    from vmrframe_tpu_torch.weights import init_weights
+
+    cfg = load_config(SEQPAN_CONFIG).updated({"train.compute_dtype": "float32"})
+    dataset, store = make_synthetic_data(cfg, seed=0, n_train=B, n_test=B)
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    source = init_weights(SeqPAN(cfg, derived, dataset["word_vector"]), seed=7)
+    reference = reference_layout(source)
+    state = to_port_state(reference)
+    for k, v in source.state_dict().items():
+        if not torch.equal(state[k], v):
+            raise SmokeFailure(f"convert: {k} is not the source's after the conversion")
+    batch = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B)))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        ev = Evaluator(cfg, derived, dataset["word_vector"], device=device)
+        ev.load_state_dict(state)
+        b = ev.to_device(batch)
+        zero_counts(kernels)
+        out = ev.forward(b)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in kernels if fn.launches}
+        outs[device] = {k: out[k].cpu() for k in ("slogits", "elogits")}
+    errs = {k: (outs["cuda"][k] - outs["cpu"][k]).abs().max().item() for k in outs["cpu"]}
+    want = {k: v for k, v in SERVE_LAUNCHES[True].items() if v}
+    ok = max(errs.values()) <= TOL_MODEL_F32 and launches == want \
+        and all(torch.isfinite(v).all() for v in outs["cuda"].values())
+    log(f"[convert] {len(reference)} reference tensors -> {len(state)} port tensors, equal to "
+        f"the source; served f32 batch of {B}, card against CPU {json.dumps(errs)} (tol "
+        f"{TOL_MODEL_F32}), launches {json.dumps(launches)}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"convert: errors {errs}, launches {launches} (want {want})")
+    return {"reference_tensors": len(reference), "port_tensors": len(state),
+            "max_abs_err": errs, "tol": TOL_MODEL_F32, "launches": launches}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_ddp(K, S, card: str, root: str) -> dict:
+    """The ``Trainer`` in a NCCL process group of one (its data-parallel
+    route: the outputs gathered, the gradients all-reduced) against the plain
+    trainer: ``N_DDP_STEPS`` SeqPAN steps at Charades width, f32, droprate 0,
+    the same losses (``TOL_DDP`` relative) and launches (2/4/2 of #1/#2/#3 a
+    step); the group torn down.  Then ``torchrun --nproc_per_node 1 -m
+    vmrframe_tpu_torch`` trains the tiny SeqPAN test config one epoch."""
+    import torch.distributed as dist
+
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    cfg, derived, dataset, batcher = family_world(
+        SEQPAN_CONFIG, {"model.droprate": 0.0, "train.compute_dtype": "float32"}, 1)
+    batch = next(batcher.epoch(seed=0))
+    kernels = K.KERNELS + S.KERNELS
+    runs = {}
+    for label in ("plain", "ddp"):
+        if label == "ddp":
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                                    world_size=1, rank=0)
+        try:
+            trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
+            b = trainer.to_device(batch)
+            zero_counts(kernels)
+            losses = [float(trainer.train_step(b)["loss"]) for _ in range(N_DDP_STEPS)]
+            torch.cuda.synchronize()
+            launches = read_launches(f"ddp {label}", kernels,
+                                     want_launches(SEQPAN_TRAIN_LAUNCHES, N_DDP_STEPS))
+        finally:
+            if label == "ddp":
+                dist.destroy_process_group()
+        runs[label] = {"losses": losses, "launches": launches}
+        del trainer
+    rel = max(abs(a - p) / abs(p) for a, p in zip(runs["ddp"]["losses"], runs["plain"]["losses"]))
+    ok = rel <= TOL_DDP and all(math.isfinite(x) for x in runs["ddp"]["losses"])
+    log(f"[ddp] NCCL world 1 against the plain trainer, {N_DDP_STEPS} steps: losses "
+        f"{runs['ddp']['losses']} / {runs['plain']['losses']} (rel {rel:.2e}, tol {TOL_DDP})  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"ddp: losses {runs['ddp']['losses']} against "
+                           f"{runs['plain']['losses']}")
+    config = os.path.join(root, "tiny.yaml")
+    with open("tests/configs/charades_seqpan.yaml") as f:
+        text = f.read()
+    with open(config, "w") as f:
+        f.write(text.replace('ckpt_dir: "/tmp/vmr_tpu_test_ckpt"', 'ckpt_dir: "ckpt/"'))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", "-m", "vmrframe_tpu_torch", "--config",
+                           config, "--synthetic", "--epochs", "1"], cwd=root, text=True,
+                          capture_output=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": os.getcwd()})
+    ckpt = os.path.join(root, "ckpt", "charades_", "best_SeqPAN.pt")
+    if proc.returncode != 0 or not os.path.exists(ckpt):
+        raise SmokeFailure(f"ddp: torchrun failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    seconds = time.perf_counter() - t0
+    log(f"[ddp] torchrun --nproc_per_node 1 -m vmrframe_tpu_torch trained one epoch in "
+        f"{seconds:.1f} s, wrote {os.path.relpath(ckpt, root)}, on {card}")
+    return {**runs, "loss_rel_err": rel, "tol": TOL_DDP, "torchrun_s": seconds}
+
+
 # the bf16 routes read against f32 by the repairs phase: BackBoneActionFormer
 # (its f32 position table promotes its backbone to f32), and SeqPAN's
 # module-path dual attention, bf16 as in the JAX package's jitted route
@@ -3087,12 +2818,8 @@ def main() -> int:
     kernels = K.KERNELS + S.KERNELS + W.KERNELS
     fns = functions(K, W, S)
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = kernel_cases(g)
-    long_cases = long_kernel_cases(g)
-    sentence_cases = sentence_kernel_cases(g)
-    blocks = stack_blocks(seed=0)
-    cases[STACK] = stack_cases(g, blocks, STACK_CHECK_SHAPES[:1])
-    long_cases[STACK] = stack_cases(g, blocks, ((B, LV_LONG, LT),))
+    time_cases, weights, long_cases, f32_cases, sentence_cases, blocks = table_cases(g)
+    cases = {name: time_cases[name] for name in ATTENTION + (STACK,)}
     odd_hd = lambda make: [c for hd in AF_CHECK_HD for c in make(hd)]  # noqa: E731
     check_cases = {**cases, **{name: cases[name] + long_cases[name] + sentence_cases[name]
                                for name in ATTENTION},
@@ -3100,16 +2827,10 @@ def main() -> int:
                    + odd_hd(lambda hd: banded_cases(g, (1000,), hd=hd)),
                    STACK: cases[STACK] + stack_cases(g, blocks, STACK_CHECK_SHAPES[1:])
                    + long_cases[STACK]}
-    time_cases = {**cases, "banded_attention": banded_cases(g, tuple(AF_LAUNCHES))}
-    f32_cases = {"banded_attention": banded_cases(g, tuple(AF_LAUNCHES), batch=B_TRAIN)}
     bwd_check = banded_bwd_cases(g, AF_CHECK_T) + odd_hd(
         lambda hd: banded_bwd_cases(g, (1000,), hd))
-    bwd_time = banded_bwd_cases(g, tuple(AF_LAUNCHES))
     for name in BWD_KERNELS:  # the two backward kernels share their cases
-        check_cases[name], time_cases[name] = bwd_check, bwd_time
-    weights = {name: [1] * len(shapes) for name, shapes in cases.items()}
-    for name in ("banded_attention",) + BWD_KERNELS:
-        weights[name] = list(AF_LAUNCHES.values())
+        check_cases[name] = bwd_check
     record, seconds = {"card": card}, {}
 
     def phase(name, fn, *a):
@@ -3121,7 +2842,7 @@ def main() -> int:
 
     record["build"] = phase("build", phase_build)
     record["check"] = phase("check", phase_check, fns, check_cases)
-    record["time"] = phase("time", phase_time, fns, time_cases, weights, card, long_cases,
+    record["time"] = phase("time", time_kernels, fns, time_cases, weights, card, long_cases,
                            f32_cases, sentence_cases)
     # free the long grids, the odd head dims and the f32 rows: the serve
     # phases' peak memory stays comparable
@@ -3178,6 +2899,11 @@ def main() -> int:
     record["verify_cpl"] = phase("verify-CPL", phase_verify_cpl)
     with tempfile.TemporaryDirectory() as root:
         record["train_cpl"] = phase("train-CPL", phase_train_cpl, kernels, card, root)
+    record["zoo"] = phase("zoo", phase_zoo, card)
+    record["sweep"] = phase("sweep", phase_sweep, card)
+    record["convert"] = phase("convert", phase_convert, K.KERNELS + S.KERNELS)
+    with tempfile.TemporaryDirectory() as root:  # torchrun's checkpoints
+        record["ddp"] = phase("ddp", phase_ddp, K, S, card, root)
     record["seconds"] = seconds
     # the main path each kernel's launches are read from, and the type of the
     # numbers in its line: the serve phases run bf16, training the YAML's f32
@@ -3218,6 +2944,10 @@ def main() -> int:
             out[-1]["launches_per_backbone_af_forward"] = \
                 record["backbone_af"]["serve"]["bursts"]["backbone_af"][
                     "launches_per_forward"][name]
+        # the zoo's rows (tools/bench_zoo.py), per train and eval step
+        out[-1]["launches_per_zoo_step"] = {
+            row: {mode: res[f"{mode}_launches_per_step"][name] for mode in ("train", "eval")}
+            for row, res in record["zoo"].items()}
         # CCA and CPL run no hand-written kernel: their served forwards and
         # train steps (0 each, checked by their phases)
         out[-1]["launches_cca_cpl"] = {

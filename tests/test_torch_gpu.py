@@ -714,3 +714,59 @@ def test_gates_route_past_each_limit_to_the_plain_version(cuda):
             g_ = got[key][0] if isinstance(got[key], tuple) else got[key]
             if torch.is_floating_point(w_):
                 assert (g_.cpu() - w_).abs().max() <= 1e-4, (name, key)
+
+
+def _zoo_counts(path, overrides, device):
+    from vmrframe_tpu_torch.tools import bench_zoo
+
+    _, trainer, train, test = bench_zoo.build_from(path, overrides, device)
+    return (bench_zoo.count_flops(trainer, train, train=True),
+            bench_zoo.count_flops(trainer, test, train=False))
+
+
+def test_flop_count_on_the_card_is_the_cpus(cuda):
+    """``tools/bench_zoo.py``'s count does not depend on the route: SeqPAN
+    with its kernels launching (#1-#3 counted as their plain versions) and
+    with the stack's flag on (#4's route), at droprate 0 so that the train
+    step launches too, and BAN with cuDNN's LSTMs, on the card equal to the
+    CPU's count at the same shapes."""
+    seqpan = "tests/configs/charades_seqpan.yaml"
+    base = {"model.dim": 128, "model.droprate": 0.0}
+    want = _zoo_counts(seqpan, base, "cpu")
+    from vmrframe_tpu_torch.kernels import attention as K
+
+    before = K.fused_dual_attention.launches
+    assert _zoo_counts(seqpan, base, cuda) == want
+    assert K.fused_dual_attention.launches > before  # the kernel route ran
+    assert _zoo_counts(seqpan, {**base, "model.fused_dual_stack": True}, cuda) == want
+    ban = "tests/configs/charades_ban.json"
+    assert _zoo_counts(ban, {}, cuda) == _zoo_counts(ban, {}, "cpu")
+
+
+def test_nccl_world_one_trains_as_the_plain_trainer(cuda):
+    """The trainer's data-parallel route (outputs gathered, gradients
+    all-reduced) in a NCCL group of one: the plain trainer's losses."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vmrframe_tpu_torch.tools import bench_zoo
+
+    overrides = {"model.dim": 128, "model.droprate": 0.0}
+    losses = {}
+    for label in ("plain", "ddp"):
+        if label == "ddp":
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                port = s.getsockname()[1]
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                    world_size=1, rank=0)
+        try:
+            _, trainer, train, _ = bench_zoo.build_from("tests/configs/charades_seqpan.yaml",
+                                                        overrides, cuda)
+            losses[label] = [float(trainer.train_step(train)["loss"]) for _ in range(3)]
+        finally:
+            if label == "ddp":
+                dist.destroy_process_group()
+    torch.testing.assert_close(torch.tensor(losses["ddp"]), torch.tensor(losses["plain"]),
+                               rtol=1e-6, atol=0.0)

@@ -44,11 +44,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 # modules added by the later slices (the sentence variants and ActionFormer's
-# rest; CCA and CPL), held to the rule above
+# rest; CCA and CPL; the zoo's tools and data parallelism), held to the rule
+# above: each keeps its own copy of what it needs of the JAX package
 SLICE_MODULES = ("data/sentence_encoder.py", "models/sentence_variants.py",
                  "models/backbone_actionformer.py", "native/__init__.py", "data/concepts.py",
                  "data/cca_batcher.py", "models/cca.py", "models/cpl.py",
-                 "layers/cpl_decoder.py")
+                 "layers/cpl_decoder.py", "compat.py", "layers/legacy_vsl.py",
+                 "parallel/__init__.py", "parallel/mesh.py", "tools/bench_zoo.py",
+                 "tools/bench_kernels.py", "tools/bench_pipeline.py", "tools/flag_sweep.py",
+                 "tools/convert_torch.py", "tools/clean_data.py", "tools/similar_sentence.py")
 
 
 def test_the_slice_modules_are_held_to_the_rule():

@@ -8,13 +8,19 @@
 
 The flags are the JAX package's (``--config --checkpoint --eval --debug
 --suffix --seed --synthetic --epochs --bf16 --save-results``) plus
-``--device`` (default ``cuda``).  float32 means float32 on the card: no TF32
-(``device.strict_f32``).  The data come from the config's ``paths``: the
-features (``paths.feature_path``, a directory of ``*.npy`` or one ``.h5``
-file, read lazily under ``--debug``) and the dataset built from the
-annotation and GloVe files, cached as ``<paths.cache_dir>/<task>_<suffix>.pkl``
-(``data/datasets.py``).  ``--synthetic`` runs on deterministic random features
-and captions instead.  Checkpoints and a log file go to
+``--device`` (default ``cuda``).  Data parallel over N cards (or N CPU
+processes with ``--device cpu``), with ``train.batch_size`` the global
+batch, as the JAX trainer splits it over its mesh (``parallel/mesh.py``):
+
+    torchrun --nproc_per_node N -m vmrframe_tpu_torch --config ... --synthetic
+
+Only rank 0 logs, writes checkpoints and ``--save-results``.  float32
+means float32 on the card: no TF32 (``device.strict_f32``).  The data come
+from the config's ``paths``: the features (``paths.feature_path``, a
+directory of ``*.npy`` or one ``.h5`` file, read lazily under ``--debug``)
+and the dataset built from the annotation and GloVe files, cached as
+``<paths.cache_dir>/<task>_<suffix>.pkl`` (``data/datasets.py``).
+``--synthetic`` runs on deterministic random features and captions instead.  Checkpoints and a log file go to
 ``<paths.ckpt_dir>/<task>_<suffix>/``, relative to the working directory.
 """
 
@@ -97,11 +103,27 @@ def load_data(cfg, derived, synthetic: bool, seed: int, lazy: bool = False):
 
 def main(argv=None):
     args = parse_args(argv)
+    from torch import device as torch_device
 
+    from vmrframe_tpu_torch.parallel import mesh
+
+    on_cpu = args.device is not None and torch_device(args.device).type == "cpu"
+    joined = mesh.initialize_distributed("gloo" if on_cpu else None)
+    try:
+        return _main(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(args):
     from vmrframe_tpu_torch.config import Derived, load_config
     from vmrframe_tpu_torch.data.batcher import Batcher
     from vmrframe_tpu_torch.device import strict_f32
     from vmrframe_tpu_torch.metrics import get_i345_mi
+    from vmrframe_tpu_torch.parallel import mesh
     from vmrframe_tpu_torch.registry import get_model_entry
     from vmrframe_tpu_torch.train.trainer import Trainer, fit
 
@@ -123,13 +145,22 @@ def main(argv=None):
     derived.num_train_steps = len(train_batcher) * cfg.train.epochs
 
     ckpt_dir = os.path.join(cfg.paths.ckpt_dir, f"{cfg.task}_{derived.suffix}")
-    logger = setup_logger(ckpt_dir, cfg.model.name)
+    if mesh.rank() == 0:
+        logger = setup_logger(ckpt_dir, cfg.model.name)
+    else:  # the other processes of a data-parallel run say nothing
+        logger = logging.getLogger("vmrframe_tpu_torch.quiet")
+        logger.propagate, logger.disabled = False, True
     logger.info(str(args))
     logger.info(f"data: {dataset['n_train']} train, {dataset['n_test']} test records, "
                 f"{dataset['n_words']} words; cache {data['cache']} in {data['data_s']:.2f} s, "
                 f"features read in {data['features_s']:.2f} s")
 
-    trainer = Trainer(cfg, derived, dataset["word_vector"], device=args.device)
+    device = args.device
+    if mesh.is_distributed() and device in (None, "cuda"):  # the card of this process
+        import torch
+
+        device = f"cuda:{torch.cuda.current_device()}"
+    trainer = Trainer(cfg, derived, dataset["word_vector"], device=device)
 
     if args.eval:
         trainer.init_state(args.seed)
@@ -142,7 +173,7 @@ def main(argv=None):
         r1i3, r1i5, _, r1i7, mi = get_i345_mi(ious)
         logger.info(f"TEST |\tR1I3: {r1i3:.2f}\tR1I5: {r1i5:.2f}\tR1I7: {r1i7:.2f}\t"
                     f"mIoU: {mi:.2f}\tloss:{lossmeter.avg:.4f}\tcompute_s:{secs:.2f}")
-        if args.save_results:
+        if args.save_results and mesh.rank() == 0:
             out = []
             for rec, p, iou in zip(dataset["test_set"], props, ious):
                 dur = rec["duration"]
@@ -159,7 +190,7 @@ def main(argv=None):
     result = fit(trainer, train_batcher, test_batcher, rng_seed=args.seed, ckpt_dir=ckpt_dir,
                  log=logger.info, resume_from=args.checkpoint)
     logger.info(f"best mIoU: {result['best_miou']:.2f}")
-    if args.save_results:
+    if args.save_results and mesh.rank() == 0:
         with open(args.save_results, "w", encoding="utf8") as f:
             json.dump({k: result[k] for k in ("best_miou", "best_path", "history")}, f)
         logger.info(f"wrote training history to {args.save_results}")

@@ -55,6 +55,20 @@ def gaussian_weight(center: int, vlen: int, L: int, alpha: float) -> np.ndarray:
     return weight
 
 
+def soft_label(sidx: int, eidx: int, vlen: int, L: int, alpha: float):
+    """Soft O/S/I/E labels: (Ssoft, Esoft, (L, 4) Msoft)."""
+    s_soft = gaussian_weight(sidx, vlen, L, alpha)
+    e_soft = gaussian_weight(eidx, vlen, L, alpha)
+    io_soft = 1 - s_soft - e_soft
+    mask_i = np.zeros(L)
+    mask_i[sidx : eidx + 1] = 1
+    mask_o = np.zeros(L)
+    mask_o[:sidx] = 1
+    mask_o[eidx + 1 : vlen] = 1
+    m_soft = np.stack([io_soft * mask_o, s_soft, io_soft * mask_i, e_soft]).T
+    return s_soft, e_soft, m_soft
+
+
 def label_span_from_curve(label: np.ndarray, threshold: float = 0.01) -> Tuple[int, int]:
     """First/last index where the resampled frame-label curve >= threshold."""
     hit = np.where(label >= threshold)[0]

@@ -41,6 +41,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from vmrframe_tpu_torch.kernels import count_plain
+
 from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -349,6 +351,7 @@ def fused_masked_attention(q, k, v, mask):
         B, H, Lq, Lk, hd, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_masked_attention")
     fused_masked_attention.launches += 1
+    count_plain(masked_attention_plain, q, k, v, mask)
     return out
 
 
@@ -378,6 +381,7 @@ def fused_dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
         B, H, L, M, hd, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_dual_attention")
     fused_dual_attention.launches += 1
+    count_plain(dual_attention_plain, q, f_k, f_v, t_k, t_v, s_mask, x_mask)
     return s_out, x_out
 
 
@@ -417,6 +421,7 @@ def fused_cq_attention(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
     out = _cq_launch(load_kernels().vmr_cq_attention, context, query, w4C, w4Q, w4mlu, c_mask,
                      q_mask)
     fused_cq_attention.launches += 1
+    count_plain(cq_attention_plain, context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
     return out
 
 

@@ -45,6 +45,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from vmrframe_tpu_torch.kernels import count_plain
+
 from vmrframe_tpu_torch.kernels.attention import _DTYPE_CODE, _raise_on, _stream
 from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 
@@ -211,6 +213,7 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
         _stream(v))
     _raise_on(err, "vmr_dual_stack")
     dual_attention_stack.launches += 1
+    count_plain(dual_attention_stack_plain, vfeat, tfeat, vmask, tmask, p1, p2, num_heads)
     return v_out, t_out
 
 

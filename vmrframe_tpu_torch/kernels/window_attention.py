@@ -50,6 +50,8 @@ import math
 
 import torch
 
+from vmrframe_tpu_torch.kernels import count_plain
+
 from vmrframe_tpu_torch.kernels.attention import (
     _DTYPE_CODE, _as, _check_cuda, _head_major_out, _raise_on, _stream, _view)
 from vmrframe_tpu_torch.ops.masking import MASK_VALUE
@@ -257,6 +259,7 @@ def _forward(q, k, v, kv_mask, window: int):
         B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_banded_attention")
     banded_attention.launches += 1
+    count_plain(banded_attention_plain, q, k, v, kv_mask, window)
     return out
 
 
@@ -272,6 +275,7 @@ def banded_attention_dq(q, k, v, kv_mask, g, window: int):
         *_view(dq), B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_banded_attention_dq")
     banded_attention_dq.launches += 1
+    count_plain(banded_attention_dq_plain, q, k, v, kv_mask, g, window)
     return dq
 
 
@@ -287,6 +291,7 @@ def banded_attention_dkv(q, k, v, kv_mask, g, window: int):
         *_view(dk), *_view(dv), B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_banded_attention_dkv")
     banded_attention_dkv.launches += 1
+    count_plain(banded_attention_dkv_plain, q, k, v, kv_mask, g, window)
     return dk, dv
 
 

@@ -38,9 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vmrframe_tpu_torch.kernels import counting
 from vmrframe_tpu_torch.kernels.window_attention import banded_attention
 from vmrframe_tpu_torch.kernels.window_attention import takes as banded_takes
-from vmrframe_tpu_torch.layers.dropout import Dropout
+from vmrframe_tpu_torch.layers.dropout import Dropout, draw_rows
 from vmrframe_tpu_torch.ops.precision import promoted_call
 
 
@@ -150,8 +151,12 @@ class MaskedMHCA(nn.Module):
         mode's threshold (train: ``min_len_train``, eval: ``min_len``; -1
         disables), Tq == Tk, and shapes the kernels take
         (``kernels/window_attention.py::takes``: one key window within the
-        padded length, head dims to 128)."""
+        padded length, head dims to 128).  Inside ``kernels.counting_route``
+        the thresholds are not read: the band's work is counted at every
+        length, whichever route a threshold picks."""
         min_len = self.min_len_train if self.training else self.min_len
+        if counting():
+            min_len = 0
         if self.window_size <= 0 or self.use_rel_pe or min_len < 0:
             return False
         if Tq != Tk or Tq < min_len:
@@ -214,8 +219,8 @@ class AffineDropPath(nn.Module):
         y = self.weight * x
         if not self.training or self.drop_prob == 0.0:
             return y
-        u = torch.rand((y.shape[0],) + (1,) * (y.dim() - 1), generator=generator,
-                       device=y.device, dtype=y.dtype)
+        u = draw_rows(lambda s: torch.rand(s, generator=generator, device=y.device,
+                                           dtype=y.dtype), (y.shape[0],) + (1,) * (y.dim() - 1))
         return drop_path(y, self.drop_prob, u)
 
 

@@ -12,14 +12,50 @@ set on a built model by ``set_dropout_bits``.
 A ``Dropout`` draws from the ``torch.Generator`` passed to ``forward`` and
 raises without one in train mode at a rate above 0, as flax raises without
 ``deterministic``.  In eval mode, or at rate 0, it is the identity.
+
+Under data parallelism (``parallel/mesh.py``) a process runs the forward on
+its rows of the global batch.  ``draw_rows`` is the one place every random
+draw of a forward goes through (the masks here, the gumbel noise,
+stochastic depth): inside ``batch_rows`` a draw whose first dimension is k
+times the process's row count (k = 1, or the positions of a sample-major
+(B * T, ...) tensor: the char embedding's, CPL's proposals) is made at the
+global batch's size and cut to the process's rows, so the stream advances
+as on one process and each process gets the rows of the one-process draw.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
+
+# (start, size, total): this process's rows of the global batch
+_rows = contextvars.ContextVar("batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def batch_rows(start: int, size: int, total: int):
+    """Draws inside are of the global batch, rows [start, start + size) kept."""
+    token = _rows.set((int(start), int(size), int(total)))
+    try:
+        yield
+    finally:
+        _rows.reset(token)
+
+
+def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int]) -> torch.Tensor:
+    """``draw(shape)``, or inside ``batch_rows`` for a sample-major shape the
+    process's rows of ``draw`` at the global batch's shape."""
+    shape = tuple(shape)
+    rows = _rows.get()
+    if rows is None or not shape or shape[0] % rows[1] or rows[1] == rows[2]:
+        return draw(shape)
+    start, size, total = rows
+    k = shape[0] // size
+    return draw((total * k,) + shape[1:])[start * k:(start + size) * k]
 
 
 def dropout_bits(cfg) -> int:
@@ -42,12 +78,13 @@ class Dropout(nn.Module):
             raise ValueError("Dropout in train mode needs the step's torch.Generator")
         t = int(round(self.rate * 256.0))
         if self.bits == 8 and 0 < t < 256:
-            draw = torch.randint(0, 256, x.shape, generator=generator, device=x.device,
-                                 dtype=torch.uint8)
+            draw = draw_rows(lambda s: torch.randint(0, 256, s, generator=generator,
+                                                     device=x.device, dtype=torch.uint8), x.shape)
             scale = torch.tensor(256.0 / (256 - t), dtype=x.dtype).item()  # in x's type, as JAX
             return torch.where(draw >= t, x * scale, x.new_zeros(()))
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        keep = draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device),
+                         x.shape) < keep_prob
         return torch.where(keep, x / keep_prob, x.new_zeros(()))
 
 

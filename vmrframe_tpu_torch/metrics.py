@@ -3,7 +3,7 @@ temporal IoU on the device, then R1@{0.3,0.5,0.7} and mIoU on the host."""
 
 from __future__ import annotations
 
-from typing import Iterable, Sequence, Tuple
+from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +16,22 @@ def iou_device(gt_se: torch.Tensor, pred_se: torch.Tensor) -> torch.Tensor:
     safe = torch.where(union == 0.0, torch.ones_like(union), union)
     iou = torch.where(union == 0.0, torch.zeros_like(inter), inter / safe)
     return iou.clamp_min(0.0)
+
+
+def calculate_iou(i0: Sequence[float], i1: Sequence[float]) -> float:
+    """Scalar temporal IoU of two spans; a zero union gives 0."""
+    union = (min(i0[0], i1[0]), max(i0[1], i1[1]))
+    inter = (max(i0[0], i1[0]), min(i0[1], i1[1]))
+    if (union[1] - union[0]) == 0.0:
+        return 0.0
+    return max(0.0, 1.0 * (inter[1] - inter[0]) / (union[1] - union[0]))
+
+
+def append_ious(ious: List[float], se_gts, se_props) -> List[float]:
+    """Appends each sample's IoU of (B, 2) gt and predicted spans to ``ious``."""
+    for gt_se, prop_se in zip(np.asarray(se_gts), np.asarray(se_props)):
+        ious.append(calculate_iou(gt_se, prop_se))
+    return ious
 
 
 def calculate_iou_accuracy(ious: Iterable[float], threshold: float) -> float:
@@ -48,7 +64,19 @@ class AverageMeter:
         self.avg = self.sum / self.count
 
 
+def time_idx(t, duration, vlen):
+    if isinstance(t, (list, tuple)):
+        return [time_idx(i, duration, vlen) for i in t]
+    return round(t / duration * (vlen - 1))
+
+
 def frac_idx(frac, vlen):
     if isinstance(frac, (list, tuple)):
         return [frac_idx(i, vlen) for i in frac]
     return round(frac * (vlen - 1))
+
+
+def idx_time(t, duration, vlen):
+    if isinstance(t, (list, tuple)):
+        return [idx_time(i, duration, vlen) for i in t]
+    return round(t / (vlen - 1) * duration, 2)

@@ -63,6 +63,7 @@ from vmrframe_tpu_torch.models.ban import Linear
 from vmrframe_tpu_torch.ops.precision import promoted_call
 from vmrframe_tpu_torch.ops.span import infer_span_2d
 from vmrframe_tpu_torch.ops.windowed import cell_segment_max_map
+from vmrframe_tpu_torch.parallel.mesh import all_reduce_sum, is_distributed, world
 from vmrframe_tpu_torch.registry import register_model
 
 HARD_DROP_FUSE = 0.5  # FuseAttention's fixed rate
@@ -261,7 +262,8 @@ class RefBatchTransformerLayer(nn.Module):
 
 class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm`` over the last axis (momentum 0.9, eps 1e-5):
-    statistics in f32, the variance the biased E[x^2] - E[x]^2 clipped at 0;
+    statistics in f32, the variance the biased E[x^2] - E[x]^2 clipped at 0,
+    over every process's rows under data parallelism (``parallel/mesh.py``);
     ``deterministic`` reads the running statistics, otherwise the batch's,
     which also update the running ones (momentum on the old value).  The
     result is f32 (the f32 scale and statistics promote it)."""
@@ -287,8 +289,13 @@ class BatchNorm(nn.Module):
         else:
             axes = tuple(range(x.dim() - 1))
             xf = x.float()
-            mean = xf.mean(dim=axes)
-            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            if is_distributed():  # the statistics of every process's rows
+                n = xf.numel() // xf.shape[-1] * world()
+                sums = all_reduce_sum(torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]))
+                mean, sq = sums[0] / n, sums[1] / n
+            else:
+                mean, sq = xf.mean(dim=axes), (xf * xf).mean(dim=axes)
+            var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

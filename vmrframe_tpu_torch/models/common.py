@@ -23,6 +23,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from vmrframe_tpu_torch.kernels import counting
 from vmrframe_tpu_torch.kernels.dual_stack import dual_attention_stack, dual_attention_stack_plain
 from vmrframe_tpu_torch.kernels.dual_stack import takes as stack_takes
 from vmrframe_tpu_torch.layers.attention import CQAttention, CQConcatenate, DualAttentionBlock
@@ -37,8 +38,10 @@ def use_fused_stack(m, deterministic: bool) -> bool:
     the wrapper then runs the plain version; on CUDA tensors
     ``encode_and_fuse`` launches the kernel where its limit function
     (``kernels/dual_stack.py::takes``: D = 128 today) takes the shapes, and
-    runs the plain version of the same stack elsewhere."""
-    if not deterministic or not bool(m.get("fused_dual_stack", False)):
+    runs the plain version of the same stack elsewhere.  Inside
+    ``kernels.counting_route`` the four block calls run, whose count is the
+    flag-off route's (the stack's plain version multiplies more)."""
+    if not deterministic or not bool(m.get("fused_dual_stack", False)) or counting():
         return False
     D, H = int(m.dim), int(m.num_heads)
     return D % 128 == 0 and H > 0 and D % H == 0

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from vmrframe_tpu_torch.layers.basic import Conv1D
-from vmrframe_tpu_torch.layers.dropout import dropout_bits, set_dropout_bits
+from vmrframe_tpu_torch.layers.dropout import draw_rows, dropout_bits, set_dropout_bits
 from vmrframe_tpu_torch.layers.predictor import SeqPANPredictor
 from vmrframe_tpu_torch.losses import lossfun_loc, lossfun_match
 from vmrframe_tpu_torch.models.common import add_encoder_modules, encode_and_fuse
@@ -50,7 +50,8 @@ def gumbel_noise(logits: torch.Tensor, generator: Optional[torch.Generator]) -> 
     if generator is None:
         raise ValueError("the match head in train mode needs the step's torch.Generator")
     tiny = torch.finfo(logits.dtype).tiny
-    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=logits.device,
+                                       dtype=logits.dtype), logits.shape)
     return -torch.log(-torch.log(u.clamp_min(tiny)))
 
 

@@ -23,6 +23,15 @@ augments it with the config's augmentation, the eval step does not.
 and a test pass at seed 0, a rolling ``last_`` full checkpoint and a
 ``best_`` one by test mIoU (``train/checkpoints.py``).  Torch modules need no
 example batch to build, so ``fit`` takes none.
+
+Under ``torch.distributed`` (``parallel/mesh.py``; ``torchrun``) the trainer
+is data parallel, with the JAX sharded step's semantics: every process
+takes the same global batch, runs the forward on its rows (its draws the
+rows of the one-process draw), gathers the outputs, and computes the loss,
+inference and IoU of the whole batch; the gradients are averaged, so every
+process's AdamW applies the same update.  The same global batch through N
+processes and through one gives the same losses and parameters, up to the
+order of the sums.  Only rank 0 writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -35,9 +44,11 @@ import torch
 from torch.func import functional_call
 
 from vmrframe_tpu_torch.device import batch_to, resolve_device
+from vmrframe_tpu_torch.layers.dropout import batch_rows
 from vmrframe_tpu_torch.metrics import AverageMeter, get_i345_mi, iou_device
 from vmrframe_tpu_torch.ops.input_pipeline import apply_device_pipeline
 from vmrframe_tpu_torch.ops.precision import cast_batch, cast_params
+from vmrframe_tpu_torch.parallel import mesh
 from vmrframe_tpu_torch.registry import get_model_entry
 from vmrframe_tpu_torch.train.evaluator import run_epoch
 from vmrframe_tpu_torch.train.optim import build_optimizer
@@ -86,7 +97,17 @@ class Trainer:
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """The model's outputs (in its current mode) from cast copies of the
-        masters and the batch, upcast to f32."""
+        masters and the batch, upcast to f32.  Data parallel: this process's
+        rows through the model, every process's outputs gathered."""
+        if not mesh.is_distributed():
+            return self._forward(batch, generator)
+        total = batch["sample_mask"].shape[0]
+        start, size = mesh.local_batch_slice(total)
+        with batch_rows(start, size, total):
+            outputs = self._forward(mesh.shard_batch(batch, start, size), generator)
+        return mesh.gather_outputs(outputs, size)
+
+    def _forward(self, batch, generator):
         outputs = functional_call(self.model, cast_params(self.model, self.compute_dtype),
                                   (cast_batch(batch, self.compute_dtype),),
                                   {"generator": generator})
@@ -100,12 +121,16 @@ class Trainer:
     def loss_and_grads(self, batch: Dict[str, torch.Tensor],
                        generator: Optional[torch.Generator] = None):
         """(loss, grads by parameter name, outputs, new extras) of the model
-        in its current mode; nothing is updated."""
+        in its current mode; nothing is updated.  Data parallel: the whole
+        batch's loss and the processes' mean gradients."""
         outputs = self.forward(batch, generator)
         loss, new_extras = self._loss(outputs, batch)
         named = dict(self.model.named_parameters())
-        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-        return loss, dict(zip(named, grads)), outputs, new_extras
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()),
+                                                    allow_unused=True)))
+        if mesh.is_distributed():
+            grads = mesh.all_reduce_grads(grads)
+        return loss, grads, outputs, new_extras
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         batch = apply_device_pipeline(batch, self.cfg, augment=True)
@@ -146,12 +171,16 @@ def fit(trainer: Trainer, train_batcher, test_batcher, rng_seed: int = 1234,
         resume_from: Optional[str] = None) -> Dict[str, Any]:
     """``cfg.train.epochs`` epochs of a train pass and a test pass, the best
     checkpoint by test mIoU.  ``resume_from`` restores a checkpoint (weights,
-    and the optimizer state, step and extras when present) before training."""
+    and the optimizer state, step and extras when present) before training.
+    Data parallel, every process runs the epochs (their metrics are the
+    whole batch's on each) and rank 0 alone logs and writes checkpoints."""
     from vmrframe_tpu_torch.data.batcher import BatchPrefetcher
     from vmrframe_tpu_torch.train.checkpoints import restore_into, save_checkpoint
 
     cfg = trainer.cfg
     name = cfg.model.name
+    if mesh.rank() != 0:
+        ckpt_dir, log = None, (lambda *_: None)
     trainer.init_state(rng_seed)
     if resume_from:
         restore_into(trainer, resume_from)
