@@ -32,6 +32,20 @@ Phases, in order; any failure exits non-zero:
    banded forward (#5) in f32 at the training batch (2) as its f32 time.  The
    whole-stack kernel (#4) in bf16 and f32, and beside it the module path's
    time for the same stack (4 ``DualAttentionBlock`` calls through kernel #2).
+4b. profile: the profiling and roofline tools at one or two reps on
+   SeqPAN at Charades width, before any other phase runs the profiler:
+   ``ops/chunked.py`` at B 512 in chunks of 256, f32, against the direct
+   call (logits within 1e-4, spans equal);
+   ``tools/roofline.py``'s probes (streaming rate at 64 KiB-1 GiB, launch
+   overhead, chain rate) and its measured-over-floor row at B 128;
+   ``tools/trace_profile.py`` of the bf16 eval step at B 128 (2/4/2
+   launches of #1/#2/#3 a step; the operations' device times summing to the
+   busy time within 5%); ``tools/roofline_trace.py`` on the two (no
+   operation below 0.95 of its floor); ``tools/profile_batch.py``'s rows at
+   B 128, 256, 512 with chunk 0 and 256 (printed on a line before the
+   ``kernels`` line); ``tools/profile_seqpan.py``'s blocks;
+   ``tools/profile_model.py``'s SeqPAN pieces, whose GFLOP the zoo phase
+   holds to its row's.
 5. serve: SeqPAN at the full width of its Charades config, seeded random
    weights, bf16, behind the port's ``MomentRetrievalService``; a few
    hundred concurrent ``predict`` calls; the kernels' launch counts must be
@@ -183,7 +197,10 @@ Phases, in order; any failure exits non-zero:
    BackBoneActionFormer and of SeqPAN with the stack's flag off (4 launches
    of #2 in its bf16 forward), and one case just past each
    kernel's limit (#4 at D 256, #5 at head dim 192, #3 at Lc 1025, #1 at
-   head dim 264): the plain route, no launch, the CPU's values.
+   head dim 264): the plain route, no launch, the CPU's values; then BAN's
+   long config in bf16 (its LSTMs in the input's type): served (64
+   requests), its forward's outputs bf16, 3 bf16 train steps with finite
+   losses.
 29. serve-CCA: CCA on ``configs/anet_cca.yaml`` as it is (64 clips of
    1024-d features, the synthetic concept graph of 3152 nodes, the
    3216-wide transformer, f32), service batch 64, 256 predictions from 64
@@ -217,7 +234,8 @@ Phases, in order; any failure exits non-zero:
    train step at droprate 0.2,
    ActionFormerLong 4 of #5 an eval step and 4 each of #5/#6/#7 a train
    step, the others none); SeqPAN's and BAN's FLOP counts equal to the
-   CPU's at the same shapes (1e-6 relative).
+   CPU's at the same shapes (1e-6 relative), and ``profile_model``'s SeqPAN
+   train and eval GFLOP (phase 4b) equal to its row's.
 37. sweep: ``tools/flag_sweep.py``'s ``model.fused_dual_stack`` pair, one
    fresh process each, on SeqPAN's Charades eval step: 4 launches of #2 a
    step with the flag off, 1 of #4 with it on.
@@ -243,7 +261,8 @@ the ``autograd.Function``'s grads against ``torch.autograd`` through the
 plain forward; the time phase times them in f32 and bf16, with SDPA's
 backward (forward + backward, less forward) as their library yardstick.
 
-Prints one ``{"kernels": [...]}`` line, then as the last line
+Prints one ``{"profile_batch": [...]}`` line and one ``{"kernels": [...]}``
+line, then as the last line
 ``{"ok": true, "device": {...}}``.  ``--out`` also writes the full record
 (every timing with its spread) to a JSON file.
 """
@@ -1829,16 +1848,16 @@ def config_world(config: str = BAN_CONFIG, updates: dict = None, n_train: int = 
 
 
 def serve_config(phase: str, config: str, batch_size: int, n_requests: int, concurrency: int,
-                 kernels, card: str) -> dict:
-    """A config as it is, seeded random weights, synthetic features, behind
-    the service at ``batch_size``: ``n_requests`` concurrent predictions from
-    ``concurrency`` threads; rate, p50/p99 and peak device bytes.  The
-    families served this way (BAN, CCA, CPL) run no hand-written kernel:
-    every count stays 0."""
+                 kernels, card: str, updates: dict = None) -> dict:
+    """A config as it is (or updated), seeded random weights, synthetic
+    features, behind the service at ``batch_size``: ``n_requests``
+    concurrent predictions from ``concurrency`` threads; rate, p50/p99 and
+    peak device bytes.  The families served this way (BAN, CCA, CPL) run no
+    hand-written kernel: every count stays 0."""
     from vmrframe_tpu_torch.config import load_config
     from vmrframe_tpu_torch.tools.serve import build_service
 
-    cfg = load_config(config)
+    cfg = load_config(config).updated(updates or {})
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     service, dataset = build_service(cfg, batch_size=batch_size, n_synthetic=64, device="cuda")
@@ -2725,6 +2744,7 @@ def phase_ddp(K, S, card: str, root: str) -> dict:
 # the bf16 routes read against f32 by the repairs phase: BackBoneActionFormer
 # (its f32 position table promotes its backbone to f32), and SeqPAN's
 # module-path dual attention, bf16 as in the JAX package's jitted route
+N_BAN_BF16_REQUESTS, N_BAN_BF16_STEPS = 64, 3
 REPAIR_ROUTES = (
     ("BackBoneActionFormer", "configs/charades_backbone_actionformer.yaml", {}),
     ("SeqPAN flag off", "configs/charades_seqpan_fused.yaml", {"model.fused_dual_stack": False}),
@@ -2795,7 +2815,141 @@ def phase_repairs(kernels, card: str) -> dict:
         if not ok:
             raise SmokeFailure(f"repairs: {name} took the kernel or disagrees with the CPU")
         stats[name] = {"launches": n, "max_abs_err": err}
+    stats["ban_bf16"] = ban_bf16(kernels, card)
     return stats
+
+
+def ban_bf16(kernels, card: str) -> dict:
+    """BAN's long config in bf16 (its LSTMs in the input's type, as the JAX
+    scan runs them): served (``serve_config``, 64 requests), then
+    ``N_BAN_BF16_STEPS`` train steps through ``Trainer``: finite losses, the
+    forward's outputs bf16 before the trainer's upcast."""
+    from torch.func import functional_call
+
+    from vmrframe_tpu_torch.data.ban_batcher import BANBatcher
+    from vmrframe_tpu_torch.ops.precision import cast_batch, cast_params
+    from vmrframe_tpu_torch.train.trainer import Trainer
+
+    bf16 = {"train.compute_dtype": "bfloat16"}
+    served = serve_config("repairs", BAN_CONFIG, B_BAN, N_BAN_BF16_REQUESTS, 16, kernels, card,
+                          bf16)
+    cfg, dataset, store, derived = config_world(BAN_CONFIG, bf16, n_train=N_BAN_BF16_STEPS * B_BAN)
+    batcher = BANBatcher(dataset["train_set"], store, cfg, derived, "train")
+    derived.num_train_steps = derived.steps_per_epoch = len(batcher)
+    trainer = Trainer(cfg, derived, dataset["word_vector"], device="cuda")
+    batches = [trainer.to_device(b) for b in batcher.epoch(seed=0)]
+    with torch.no_grad():  # the trainer's forward before its upcast
+        raw = functional_call(trainer.model.eval(), cast_params(trainer.model, torch.bfloat16),
+                              (cast_batch(batches[0], torch.bfloat16),))
+    times, losses = [], []
+    for b in batches[:N_BAN_BF16_STEPS]:
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(b)["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ok = all(math.isfinite(x) for x in losses) and raw["tmap"].dtype == torch.bfloat16
+    log(f"[repairs] BAN bf16 ({BAN_CONFIG}, batch {B_BAN}): served {served['qps']:.1f} "
+        f"requests/s (p99 {served['p99_ms']:.1f} ms); forward tmap {raw['tmap'].dtype}; "
+        f"{len(losses)} train steps, losses {losses}, {times} ms (host clock, the first "
+        f"with cuDNN's setup), on {card}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("repairs: BAN's bf16 route is not bf16 or its losses are not finite")
+    return {"serve": served, "train_losses": losses, "train_step_ms": times}
+
+
+PROFILE_BATCH, PROFILE_CHUNK = 512, 256  # chunked_batch_apply's check
+PROFILE_BATCHES = (128, 256, 512)  # profile_batch's rows here (the tool's default adds 1024)
+PROFILE_LAUNCHES = {"#1": 2.0, "#2": 4.0, "#3": 2.0}  # a SeqPAN eval step, the flag off
+FLOOR_SHARE = 0.95  # no operation may read below this share of its floor
+BUSY_SHARE = 0.05  # the per-operation times against the busy time
+
+
+def phase_profile(kernels, card: str) -> dict:
+    """The profiling and roofline tools at one or two reps, SeqPAN at
+    Charades width: ``ops/chunked.py`` at B 512 in chunks of 256 (f32)
+    against the direct call (logits within ``TOL_F32``, spans equal);
+    ``roofline``'s probes and its row at B 128; ``trace_profile`` of the
+    bf16 eval step at B 128 (2/4/2 launches of #1/#2/#3 a step, the
+    operations' times summing to the busy time within 5%);
+    ``roofline_trace`` on the two (no operation below 0.95 of its floor);
+    ``profile_batch``'s rows at chunk 0 and 256; ``profile_seqpan``'s
+    blocks; ``profile_model``'s SeqPAN pieces (``check_profile_model`` holds
+    their GFLOP to the zoo phase's)."""
+    from vmrframe_tpu_torch.ops.chunked import chunked_batch_apply
+    from vmrframe_tpu_torch.tools import (profile_batch, profile_model, profile_seqpan,
+                                          roofline, roofline_trace, trace_profile)
+
+    stats = {}
+    fwd, batch, _, ev = roofline.seqpan_eval(PROFILE_BATCH, "cuda", dtype="float32")
+    direct, chunked = fwd(batch), chunked_batch_apply(fwd, batch, PROFILE_BATCH, PROFILE_CHUNK)
+    err = max((chunked[k] - direct[k]).abs().max().item() for k in ("slogits", "elogits"))
+    same = torch.equal(chunked["props"], direct["props"])
+    log(f"[profile] chunked_batch_apply at B {PROFILE_BATCH}, chunk {PROFILE_CHUNK}, f32: "
+        f"logits max abs diff {err:.3e} (tol {TOL_F32}), spans equal {same}  "
+        f"{'ok' if err <= TOL_F32 and same else 'FAIL'}")
+    if err > TOL_F32 or not same:
+        raise SmokeFailure("profile: chunked_batch_apply disagrees with the direct call")
+    stats["chunked"] = {"max_abs_err": err, "spans_equal": same}
+    del fwd, batch, ev, direct, chunked
+    torch.cuda.empty_cache()
+
+    probes = roofline.probes("cuda")
+    stats["probes"] = {"hbm_best_bytes_per_s": probes["hbm"]["best_bytes_per_s"],
+                       "hbm_largest_bytes_per_s": probes["hbm"]["largest_buffer_bytes_per_s"],
+                       "launch_ms": probes["launch"]["ms_per_kernel"],
+                       "chain_bytes_per_s": probes["chain"]["best_bytes_per_s"],
+                       "points": probes["hbm"]["points"]}
+    stats["roofline"] = roofline.roofline_row(128, probes, "cuda", steps=5, reps=1)
+    log(f"[profile] roofline probes {json.dumps(stats['probes'])}; SeqPAN eval B 128 "
+        f"{json.dumps(stats['roofline'])}, on {card}")
+
+    fwd, batch, _, ev = roofline.seqpan_eval(128, "cuda")
+    trace = trace_profile.trace(lambda: fwd(batch), "cuda", steps=5, reps=1)
+    del fwd, batch, ev
+    launches = {k: trace["kernel_launches_per_step"][k] for k in PROFILE_LAUNCHES}
+    busy, ops_ms = trace["device_busy_ms_per_step"], trace["ops_ms_per_step"]
+    rt = roofline_trace.decompose(trace, probes["hbm"])
+    stats["trace"] = {k: trace[k] for k in ("step_ms", "device_busy_ms_per_step",
+                                            "device_ops_per_step", "ops_ms_per_step",
+                                            "by_category", "kernel_launches_per_step")}
+    stats["trace"]["top_sinks"] = trace_profile.top_sinks({"rows": trace["rows"]})
+    stats["roofline_trace"] = {k: v for k, v in rt.items() if k not in ("groups", "unjoined")}
+    stats["roofline_trace"]["top_groups"] = rt["groups"][:12]
+    log(f"[profile] trace_profile SeqPAN eval B 128 bf16: {json.dumps(stats['trace'])}")
+    log(f"[profile] roofline_trace: {json.dumps(stats['roofline_trace'])}")
+    if launches != PROFILE_LAUNCHES:
+        raise SmokeFailure(f"profile: trace_profile saw {launches} a step, want {PROFILE_LAUNCHES}")
+    if abs(ops_ms - busy) > BUSY_SHARE * busy:
+        raise SmokeFailure(f"profile: per-operation times sum to {ops_ms} ms, busy {busy} ms")
+    if rt["below_floor"]:
+        raise SmokeFailure("profile: operations below 0.95 of their floor: "
+                           + json.dumps([{k: g[k] for k in ("op", "shapes", "category",
+                                                            "ms_per_step", "floor_ms")}
+                                         for g in rt["below_floor"][:8]]))
+
+    stats["profile_batch"] = [row for chunk in (0, PROFILE_CHUNK) for row in
+                              profile_batch.batch_rows(PROFILE_BATCHES, "cuda", chunk, steps=3,
+                                                       reps=1, log=lambda s: None)]
+    log(f"[profile] profile_batch: {json.dumps(stats['profile_batch'])}")
+    stats["profile_seqpan"] = profile_seqpan.profile_blocks("cuda", 128, steps=3, reps=1,
+                                                            log=lambda s: None)
+    log(f"[profile] profile_seqpan: {json.dumps(stats['profile_seqpan'])}")
+    pm = profile_model.profile("SeqPAN", "cuda", steps=1, reps=1, log=lambda s: None)
+    stats["profile_model"] = pm
+    log(f"[profile] profile_model SeqPAN: {json.dumps(pm['pieces'])}")
+    return stats
+
+
+def check_profile_model(pm: dict, zoo_seqpan: dict) -> None:
+    """``profile_model``'s GFLOP of SeqPAN's train step and eval step equal
+    ``bench_zoo``'s row of the zoo phase."""
+    want = {"full_train": zoo_seqpan["train_flops"], "eval_step": zoo_seqpan["eval_flops"]}
+    got = {k: pm["pieces"][k]["gflop"] * 1e9 for k in want}
+    ok = all(abs(got[k] - want[k]) <= TOL_FLOPS * want[k] for k in want)
+    log(f"[zoo] profile_model's SeqPAN FLOPs {got} against the zoo row's {want}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"profile: profile_model's FLOPs {got}, the zoo's {want}")
 
 
 def main() -> int:
@@ -2852,6 +3006,9 @@ def main() -> int:
         check_cases[name] = check_cases[name][:len(AF_CHECK_T)]
     del long_cases, f32_cases, bwd_check, sentence_cases
     time_module_path(blocks, cases[STACK][0], record["time"], card)
+    # the profiling tools before the serve phases, in a process whose
+    # profiler has recorded nothing yet
+    record["profile"] = phase("profile", phase_profile, kernels, card)
     record["serve"], dataset, store, derived, cfg = phase("serve", phase_serve, kernels, card)
     record["verify"] = phase("verify", phase_verify, cfg, derived, dataset, store)
     record["verify_long"] = phase("verify-long", phase_verify_long)
@@ -2900,6 +3057,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         record["train_cpl"] = phase("train-CPL", phase_train_cpl, kernels, card, root)
     record["zoo"] = phase("zoo", phase_zoo, card)
+    check_profile_model(record["profile"]["profile_model"], record["zoo"]["SeqPAN"])
     record["sweep"] = phase("sweep", phase_sweep, card)
     record["convert"] = phase("convert", phase_convert, K.KERNELS + S.KERNELS)
     with tempfile.TemporaryDirectory() as root:  # torchrun's checkpoints
@@ -2966,6 +3124,7 @@ def main() -> int:
             out[-1]["bound_ms_f32"] = record["time"][name]["f32"]["bound_ms"]
             out[-1]["library_ms_f32"] = record["time"][name]["f32"]["library_ms"]
     record["kernels"] = out
+    print(json.dumps({"profile_batch": record["profile"]["profile_batch"], "card": card}))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

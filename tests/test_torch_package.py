@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 # modules added by the later slices (the sentence variants and ActionFormer's
-# rest; CCA and CPL; the zoo's tools and data parallelism), held to the rule
+# rest; CCA and CPL; the zoo's tools and data parallelism; chunked evaluation
+# and the profiling and roofline tools), held to the rule
 # above: each keeps its own copy of what it needs of the JAX package
 SLICE_MODULES = ("data/sentence_encoder.py", "models/sentence_variants.py",
                  "models/backbone_actionformer.py", "native/__init__.py", "data/concepts.py",
@@ -52,7 +53,10 @@ SLICE_MODULES = ("data/sentence_encoder.py", "models/sentence_variants.py",
                  "layers/cpl_decoder.py", "compat.py", "layers/legacy_vsl.py",
                  "parallel/__init__.py", "parallel/mesh.py", "tools/bench_zoo.py",
                  "tools/bench_kernels.py", "tools/bench_pipeline.py", "tools/flag_sweep.py",
-                 "tools/convert_torch.py", "tools/clean_data.py", "tools/similar_sentence.py")
+                 "tools/convert_torch.py", "tools/clean_data.py", "tools/similar_sentence.py",
+                 "ops/chunked.py", "tools/h100.py", "tools/roofline.py", "tools/trace_profile.py",
+                 "tools/roofline_trace.py", "tools/profile_batch.py", "tools/profile_seqpan.py",
+                 "tools/profile_model.py")
 
 
 def test_the_slice_modules_are_held_to_the_rule():

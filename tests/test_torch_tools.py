@@ -196,7 +196,9 @@ def test_flag_sweep_alternates_fresh_processes(tmp_path, monkeypatch):
     assert res["ratio_b_over_a"] > 0 and res["pair_ratios"]
 
 
-@pytest.mark.parametrize("name", ["bench_zoo", "bench_kernels", "bench_pipeline", "flag_sweep"])
+@pytest.mark.parametrize("name", ["bench_zoo", "bench_kernels", "bench_pipeline", "flag_sweep",
+                                  "roofline", "trace_profile", "roofline_trace",
+                                  "profile_batch", "profile_seqpan", "profile_model"])
 def test_tools_never_write_the_jax_packages_docs(name):
     """Their default ``--out`` lies under ``chiprun_out/``, never ``docs/``."""
     import importlib

@@ -41,7 +41,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from vmrframe_tpu_torch.kernels import count_plain
+from vmrframe_tpu_torch.kernels import count_plain, launch_range, plain_route
 
 from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 
@@ -336,7 +336,7 @@ def fused_masked_attention(q, k, v, mask):
     mask: (B, Lq, Lk) {0,1}, shared by the heads.
     """
     if q.device.type == "cpu":
-        return masked_attention_plain(q, k, v, mask)
+        return plain_route("fused_masked_attention", masked_attention_plain, q, k, v, mask)
     refuse_detached((q, k, v), "fused_masked_attention")
     dtype = _check_cuda((q, k, v), "fused_masked_attention")
     B, H, Lq, hd = q.shape
@@ -346,12 +346,13 @@ def fused_masked_attention(q, k, v, mask):
     _check_attention(dtype, Lq, (Lk,), hd, "fused_masked_attention")
     mask = _as(mask, q, (B, Lq, Lk))
     out = _head_major_out(q, Lq)
-    err = load_kernels().vmr_masked_attention(
-        _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(out),
-        B, H, Lq, Lk, hd, 1.0 / math.sqrt(hd), _stream(q))
+    with launch_range("fused_masked_attention"):
+        err = load_kernels().vmr_masked_attention(
+            _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(out),
+            B, H, Lq, Lk, hd, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_masked_attention")
     fused_masked_attention.launches += 1
-    count_plain(masked_attention_plain, q, k, v, mask)
+    count_plain(masked_attention_plain, q, k, v, mask, name="fused_masked_attention")
     return out
 
 
@@ -362,7 +363,8 @@ def fused_dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
     s_mask: (B, L, L); x_mask: (B, L, M), {0,1}.
     """
     if q.device.type == "cpu":
-        return dual_attention_plain(q, f_k, f_v, t_k, t_v, s_mask, x_mask)
+        return plain_route("fused_dual_attention", dual_attention_plain, q, f_k, f_v, t_k, t_v,
+                           s_mask, x_mask)
     refuse_detached((q, f_k, f_v, t_k, t_v), "fused_dual_attention")
     dtype = _check_cuda((q, f_k, f_v, t_k, t_v), "fused_dual_attention")
     B, H, L, hd = q.shape
@@ -375,20 +377,22 @@ def fused_dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
     s_mask = _as(s_mask, q, (B, L, L))
     x_mask = _as(x_mask, q, (B, L, M))
     s_out, x_out = _head_major_out(q, L), _head_major_out(q, L)
-    err = load_kernels().vmr_dual_attention(
-        _DTYPE_CODE[dtype], *_view(q), *_view(f_k), *_view(f_v), *_view(t_k), *_view(t_v),
-        s_mask.data_ptr(), x_mask.data_ptr(), *_view(s_out), *_view(x_out),
-        B, H, L, M, hd, 1.0 / math.sqrt(hd), _stream(q))
+    with launch_range("fused_dual_attention"):
+        err = load_kernels().vmr_dual_attention(
+            _DTYPE_CODE[dtype], *_view(q), *_view(f_k), *_view(f_v), *_view(t_k), *_view(t_v),
+            s_mask.data_ptr(), x_mask.data_ptr(), *_view(s_out), *_view(x_out),
+            B, H, L, M, hd, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_dual_attention")
     fused_dual_attention.launches += 1
-    count_plain(dual_attention_plain, q, f_k, f_v, t_k, t_v, s_mask, x_mask)
+    count_plain(dual_attention_plain, q, f_k, f_v, t_k, t_v, s_mask, x_mask,
+                name="fused_dual_attention")
     return s_out, x_out
 
 
 def _cq_launch(entry, context, query, w4C, w4Q, w4mlu, c_mask, q_mask, *extra):
     """Checks and plans one launch of ``entry`` (``vmr_cq_attention``, or
     ``vmr_cq_attention_clocked`` with the clocks' pointer in ``extra``) on
-    CUDA tensors; (c2q, q2c)."""
+    CUDA tensors; ((c2q, q2c), the seven inputs as the kernel reads them)."""
     dtype = _check_cuda((context, query), "fused_cq_attention")
     B, Lc, D = context.shape
     Lq = query.shape[1]
@@ -401,14 +405,15 @@ def _cq_launch(entry, context, query, w4C, w4Q, w4mlu, c_mask, q_mask, *extra):
     c_mask, q_mask = _as(c_mask, context, (B, Lc)), _as(q_mask, context, (B, Lq))
     c2q, q2c = torch.empty_like(context), torch.empty_like(context)
     scratch = torch.empty(B * plan["scratch_floats"], dtype=torch.float32, device=context.device)
-    err = entry(
-        _DTYPE_CODE[dtype], context.data_ptr(), query.data_ptr(), w4C.data_ptr(),
-        w4Q.data_ptr(), w4mlu.data_ptr(), c_mask.data_ptr(), q_mask.data_ptr(),
-        c2q.data_ptr(), q2c.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
-        B, Lc, Lq, D, plan["stage_cols"], plan["out_cols"], plan["scores_shared"],
-        plan["shared_bytes"], _stream(context), *extra)
+    with launch_range("fused_cq_attention"):
+        err = entry(
+            _DTYPE_CODE[dtype], context.data_ptr(), query.data_ptr(), w4C.data_ptr(),
+            w4Q.data_ptr(), w4mlu.data_ptr(), c_mask.data_ptr(), q_mask.data_ptr(),
+            c2q.data_ptr(), q2c.data_ptr(), scratch.data_ptr() if scratch.numel() else None,
+            B, Lc, Lq, D, plan["stage_cols"], plan["out_cols"], plan["scores_shared"],
+            plan["shared_bytes"], _stream(context), *extra)
     _raise_on(err, "vmr_cq_attention")
-    return c2q, q2c
+    return (c2q, q2c), (context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
 
 
 def fused_cq_attention(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
@@ -416,12 +421,13 @@ def fused_cq_attention(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
     concatenates.  context (B, Lc, D), query (B, Lq, D), w4C/w4Q (D, 1),
     w4mlu (1, 1, D), c_mask (B, Lc), q_mask (B, Lq)."""
     if context.device.type == "cpu":
-        return cq_attention_plain(context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
+        return plain_route("fused_cq_attention", cq_attention_plain, context, query, w4C, w4Q,
+                           w4mlu, c_mask, q_mask)
     refuse_detached((context, query, w4C, w4Q, w4mlu), "fused_cq_attention")
-    out = _cq_launch(load_kernels().vmr_cq_attention, context, query, w4C, w4Q, w4mlu, c_mask,
-                     q_mask)
+    out, read = _cq_launch(load_kernels().vmr_cq_attention, context, query, w4C, w4Q, w4mlu,
+                           c_mask, q_mask)
     fused_cq_attention.launches += 1
-    count_plain(cq_attention_plain, context, query, w4C, w4Q, w4mlu, c_mask, q_mask)
+    count_plain(cq_attention_plain, *read, name="fused_cq_attention")
     return out
 
 

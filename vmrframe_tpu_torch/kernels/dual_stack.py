@@ -45,7 +45,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from vmrframe_tpu_torch.kernels import count_plain
+from vmrframe_tpu_torch.kernels import count_plain, launch_range, plain_route
 
 from vmrframe_tpu_torch.kernels.attention import _DTYPE_CODE, _raise_on, _stream
 from vmrframe_tpu_torch.ops.masking import MASK_VALUE
@@ -181,7 +181,8 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
     """
     B, Lv, Lt, D = _check(vfeat, tfeat, vmask, tmask, p1, p2, num_heads)
     if vfeat.device.type == "cpu":
-        return dual_attention_stack_plain(vfeat, tfeat, vmask, tmask, p1, p2, num_heads)
+        return plain_route("dual_attention_stack", dual_attention_stack_plain, vfeat, tfeat,
+                           vmask, tmask, p1, p2, num_heads)
     what = "dual_attention_stack"
     device, dtype = vfeat.device, vfeat.dtype
     if device.type != "cuda":
@@ -206,14 +207,17 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
     # layer's results in f32, and a call's keys and values in the compute type
     scratch = torch.empty(B, Lv + Lt, D, dtype=torch.float32, device=device)
     kv_scratch = torch.empty(B, 2 * (Lv + Lt), D, dtype=dtype, device=device)
-    err = load_kernels().vmr_dual_stack(
-        _DTYPE_CODE[dtype], v.data_ptr(), t.data_ptr(), vm.data_ptr(), tm.data_ptr(),
-        W.data_ptr(), b.data_ptr(), ln.data_ptr(), xb.data_ptr(), v_out.data_ptr(),
-        t_out.data_ptr(), scratch.data_ptr(), kv_scratch.data_ptr(), B, Lv, Lt, num_heads,
-        _stream(v))
+    with launch_range("dual_attention_stack"):
+        err = load_kernels().vmr_dual_stack(
+            _DTYPE_CODE[dtype], v.data_ptr(), t.data_ptr(), vm.data_ptr(), tm.data_ptr(),
+            W.data_ptr(), b.data_ptr(), ln.data_ptr(), xb.data_ptr(), v_out.data_ptr(),
+            t_out.data_ptr(), scratch.data_ptr(), kv_scratch.data_ptr(), B, Lv, Lt, num_heads,
+            _stream(v))
     _raise_on(err, "vmr_dual_stack")
     dual_attention_stack.launches += 1
-    count_plain(dual_attention_stack_plain, vfeat, tfeat, vmask, tmask, p1, p2, num_heads)
+    layer = lambda i: {"W": W[i], "b": b[i], "ln": ln[i], "xb": xb[i]}  # noqa: E731
+    count_plain(dual_attention_stack_plain, v, t, vm, tm, layer(0), layer(1), num_heads,
+                name="dual_attention_stack")
     return v_out, t_out
 
 

@@ -50,7 +50,7 @@ import math
 
 import torch
 
-from vmrframe_tpu_torch.kernels import count_plain
+from vmrframe_tpu_torch.kernels import count_plain, launch_range, plain_route
 
 from vmrframe_tpu_torch.kernels.attention import (
     _DTYPE_CODE, _as, _check_cuda, _head_major_out, _raise_on, _stream, _view)
@@ -250,48 +250,54 @@ def _check_args(tensors, what: str, window: int):
 
 def _forward(q, k, v, kv_mask, window: int):
     if q.device.type == "cpu":
-        return banded_attention_plain(q, k, v, kv_mask, window)
+        return plain_route("banded_attention", banded_attention_plain, q, k, v, kv_mask, window)
     dtype, B, H, T, hd = _check_args((q, k, v), "banded_attention", window)
     mask = _as(kv_mask, q, (B, T))
     out = _head_major_out(q, T)
-    err = load_kernels().vmr_banded_attention(
-        _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(out),
-        B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
+    with launch_range("banded_attention"):
+        err = load_kernels().vmr_banded_attention(
+            _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(out),
+            B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_banded_attention")
     banded_attention.launches += 1
-    count_plain(banded_attention_plain, q, k, v, kv_mask, window)
+    count_plain(banded_attention_plain, q, k, v, mask, window, name="banded_attention")
     return out
 
 
 def banded_attention_dq(q, k, v, kv_mask, g, window: int):
     """dq of the banded attention, (B, H, T, hd); g is the output's cotangent."""
     if q.device.type == "cpu":
-        return banded_attention_dq_plain(q, k, v, kv_mask, g, window)
+        return plain_route("banded_attention_dq", banded_attention_dq_plain, q, k, v, kv_mask, g,
+                           window)
     dtype, B, H, T, hd = _check_args((q, k, v, g), "banded_attention_dq", window)
     mask = _as(kv_mask, q, (B, T))
     dq = _head_major_out(q, T)
-    err = load_kernels().vmr_banded_attention_dq(
-        _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(g),
-        *_view(dq), B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
+    with launch_range("banded_attention_dq"):
+        err = load_kernels().vmr_banded_attention_dq(
+            _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(g),
+            *_view(dq), B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_banded_attention_dq")
     banded_attention_dq.launches += 1
-    count_plain(banded_attention_dq_plain, q, k, v, kv_mask, g, window)
+    count_plain(banded_attention_dq_plain, q, k, v, mask, g, window, name="banded_attention_dq")
     return dq
 
 
 def banded_attention_dkv(q, k, v, kv_mask, g, window: int):
     """(dk, dv) of the banded attention, each (B, H, T, hd)."""
     if q.device.type == "cpu":
-        return banded_attention_dkv_plain(q, k, v, kv_mask, g, window)
+        return plain_route("banded_attention_dkv", banded_attention_dkv_plain, q, k, v, kv_mask,
+                           g, window)
     dtype, B, H, T, hd = _check_args((q, k, v, g), "banded_attention_dkv", window)
     mask = _as(kv_mask, q, (B, T))
     dk, dv = _head_major_out(q, T), _head_major_out(q, T)
-    err = load_kernels().vmr_banded_attention_dkv(
-        _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(g),
-        *_view(dk), *_view(dv), B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
+    with launch_range("banded_attention_dkv"):
+        err = load_kernels().vmr_banded_attention_dkv(
+            _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(g),
+            *_view(dk), *_view(dv), B, H, T, hd, window, 1.0 / math.sqrt(hd), _stream(q))
     _raise_on(err, "vmr_banded_attention_dkv")
     banded_attention_dkv.launches += 1
-    count_plain(banded_attention_dkv_plain, q, k, v, kv_mask, g, window)
+    count_plain(banded_attention_dkv_plain, q, k, v, mask, g, window,
+                name="banded_attention_dkv")
     return dk, dv
 
 

@@ -16,6 +16,14 @@ The parameters are ``nn.LSTM``'s (``weight_ih_l{k}`` (4H, D),
 ``_reverse``; gates in the order i, f, g, o), which are the flax leaves
 ``w_ih_l{k}``, ``w_hh_l{k}``, ``b_ih_l{k}``, ``b_hh_l{k}`` renamed
 (``weights.py``).  On the card cuDNN runs the recurrence.
+
+The LSTM runs in its input's dtype, as the JAX scan does: under the bf16
+policy its rank-2 weights arrive in bf16 and its biases in f32
+(``ops/precision.py``), and the JAX layer adds both biases to the input
+projection in f32 and rounds the sum once to the input's type before the
+scan, whose state stays in that type.  Here the two biases of a gate are
+summed in f32 and rounded once into one bias in the input's type (the
+other zero), and torch's LSTM runs on weights and biases of that type.
 """
 
 from __future__ import annotations
@@ -23,8 +31,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
-from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+from torch import _VF, nn
+from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_sequence
 
 
 class LSTM(nn.LSTM):
@@ -37,12 +45,38 @@ class LSTM(nn.LSTM):
                          bidirectional=bidirectional)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        weights = self._flat_weights
+        if any(w.dtype != x.dtype for w in weights):
+            weights = self._in_dtype(x.dtype)
+        dirs = 2 if self.bidirectional else 1
         if lengths is None:
-            return super().forward(x)[0]
+            h0 = x.new_zeros(self.num_layers * dirs, x.shape[0], self.hidden_size)
+            return _VF.lstm(x, (h0, h0), weights, True, self.num_layers, 0.0, self.training,
+                            self.bidirectional, True)[0]
         packed = pack_padded_sequence(x, lengths.to("cpu", torch.int64), batch_first=True,
                                       enforce_sorted=False)
-        out, _ = super().forward(packed)
+        h0 = x.new_zeros(self.num_layers * dirs, int(packed.batch_sizes[0]), self.hidden_size)
+        data = _VF.lstm(packed.data, packed.batch_sizes, (h0, h0), weights, True,
+                        self.num_layers, 0.0, self.training, self.bidirectional)[0]
+        out = PackedSequence(data, packed.batch_sizes, packed.sorted_indices,
+                             packed.unsorted_indices)
         return pad_packed_sequence(out, batch_first=True, total_length=x.shape[1])[0]
+
+    def _in_dtype(self, dtype: torch.dtype):
+        """The flat weights in ``dtype`` (differentiably): each weight cast,
+        each gate's two biases summed in f32 into ``bias_ih`` and rounded
+        once, ``bias_hh`` zero."""
+        params = dict(zip(self._flat_weights_names, self._flat_weights))
+        out = []
+        for name, p in params.items():
+            if name.startswith("bias_ih"):
+                hh = params[name.replace("bias_ih", "bias_hh")]
+                out.append((p.float() + hh.float()).to(dtype))
+            elif name.startswith("bias_hh"):
+                out.append(torch.zeros_like(p, dtype=dtype))
+            else:
+                out.append(p.to(dtype))
+        return out
 
 
 def masked_mean(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -37,13 +37,12 @@ import subprocess
 import torch
 
 from vmrframe_tpu_torch.tools.bench_banded import device_ms
+from vmrframe_tpu_torch.tools.h100 import HBM_BYTES_PER_S, PEAK_OPS
 
 B, D = 128, 128
 SHAPES = {"charades": ((64, 30), (30, 64)), "anet": ((100, 30), (30, 100)),
           "tacos": ((256, 30), (30, 256))}
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-HBM_BYTES_PER_S = 3.35e12
 
 
 def cq_work(B: int, Lc: int, Lq: int, D: int, size: int) -> tuple:

@@ -38,8 +38,8 @@ import time
 import torch
 import torch.nn.functional as F
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; f32 CUDA cores
+from vmrframe_tpu_torch.tools.h100 import HBM_BYTES_PER_S, PEAK_OPS
+
 B, H, HD, LV, LT, D = 128, 4, 32, 64, 30, 128
 LV_LONG = 256  # SeqPAN's vlen at TACoS width (the reference's longest SeqPAN grid)
 LV_ANET = 100  # SeqPAN's vlen at ANet width
@@ -546,6 +546,13 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def card_name(device) -> str:
+    """``card_line()`` on the card; what the CPU's numbers are, off it."""
+    if torch.device(device).type != "cuda":
+        return "cpu (host clock; each wrapper runs its plain version)"
+    return card_line()
+
+
 KERNEL_NAMES = ATTENTION + (STACK, "banded_attention") + BWD_KERNELS
 
 
@@ -665,11 +672,9 @@ def main(argv=None) -> list:
     unknown = set(names) - set(KERNEL_NAMES)
     if unknown:
         raise SystemExit(f"unknown kernels {sorted(unknown)}; known: {KERNEL_NAMES}")
+    card = card_name(device)
     if device.type == "cuda":
-        card = card_line()
         build.build_all(sorted({SOURCE_OF[n] for n in names}))
-    else:
-        card = "cpu (host clock; each wrapper runs its plain version)"
     log(card)
     g = torch.Generator(device=device).manual_seed(0)
     cases, weights, long_cases, f32_cases, sentence_cases, blocks = table_cases(g, names,

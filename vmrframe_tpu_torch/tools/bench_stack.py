@@ -33,12 +33,11 @@ import subprocess
 import torch
 
 from vmrframe_tpu_torch.tools.bench_banded import device_ms
+from vmrframe_tpu_torch.tools.h100 import HBM_BYTES_PER_S, PEAK_OPS
 
 SHAPES = {"charades": (128, 64, 30), "tacos": (128, 256, 30)}
 D, HEADS = 128, 4
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-HBM_BYTES_PER_S = 3.35e12
 
 
 def blocks(seed: int = 0):

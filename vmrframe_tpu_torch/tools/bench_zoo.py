@@ -30,9 +30,7 @@ SeqPAN at the Charades width the reference ships
 (``configs/charades_seqpan_fused.yaml`` in f32 with the stack's flag off,
 the JAX defaults), BAN and ActionFormer at their test configurations (the
 repository holds no full-width Charades one), CCA, CPL and the two long
-configurations as they are; each but BAN with a ``_bf16`` twin (the
-port's BAN fails in bf16: its LSTMs meet bf16 weights with f32 biases,
-where the JAX package promotes to f32; ``ROADMAP.md`` §3), the route twin
+configurations as they are; each with a ``_bf16`` twin, the route twin
 ``ActionFormerLongXLA`` (``actionformer.pallas_min_len: -1``: the band-mask
 route, no banded kernel) and the batch twin ``BANLong_B32``.  Left out, as
 twins that would time the same program twice: ``CPL_remat``, ``CPL_rep``, ``CPL_sp`` (``others.cpl_remat``
@@ -67,7 +65,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
+from vmrframe_tpu_torch.tools.h100 import PEAK_FLOPS
+
 COMPUTE_BOUND_SHARE = 0.25  # of the peak, as the JAX tool classifies
 HOST_BOUND_BUSY = 0.5  # the card busy less than this share of the step
 
@@ -83,8 +82,7 @@ _BASE = {
 MODELS: Dict[str, tuple] = {}
 for _name, (_path, _over) in _BASE.items():
     MODELS[_name] = (_path, _over)
-    if _name != "BAN":  # the port's BAN does not run in bf16 yet (ROADMAP.md §3)
-        MODELS[f"{_name}_bf16"] = (_path, {**_over, "train.compute_dtype": "bfloat16"})
+    MODELS[f"{_name}_bf16"] = (_path, {**_over, "train.compute_dtype": "bfloat16"})
 MODELS.update({
     "ActionFormerLong": ("configs/tacos_actionformer_long.yaml", {}),
     "ActionFormerLongXLA": ("configs/tacos_actionformer_long.yaml",
@@ -132,11 +130,12 @@ def build_from(path: str, overrides: dict, device: str, batch_size: Optional[int
     return cfg, trainer, trainer.to_device(train), trainer.to_device(test)
 
 
-def count_flops(trainer, batch, train: bool) -> int:
+def count_flops(trainer, batch, train: bool, backward: bool = True) -> int:
     """FLOPs of one step on ``kernels.counting_route``: in train mode the
     forward, loss and gradients (AdamW and the inference after it multiply
-    no matrices); in eval mode ``Trainer.eval_step``.  Nothing the step
-    would update moves: the buffers (BatchNorm's statistics) are put back."""
+    no matrices; ``backward=False``: the forward and loss alone); in eval
+    mode ``Trainer.eval_step``.  Nothing the step would update moves: the
+    buffers (BatchNorm's statistics) are put back."""
     from torch.utils.flop_counter import FlopCounterMode, _FlopCounterMode
 
     from vmrframe_tpu_torch.kernels import counting_route
@@ -152,8 +151,12 @@ def count_flops(trainer, batch, train: bool) -> int:
             trainer.model.train()
             generator = torch.Generator(device=trainer.device).manual_seed(
                 step_seed(trainer.seed, 0))
-            trainer.loss_and_grads(apply_device_pipeline(batch, trainer.cfg, augment=True),
-                                   generator)
+            batch = apply_device_pipeline(batch, trainer.cfg, augment=True)
+            if backward:
+                trainer.loss_and_grads(batch, generator)
+            else:
+                with torch.no_grad():
+                    trainer._loss(trainer.forward(batch, generator), batch)
         else:
             trainer.eval_step(batch)
     with torch.no_grad():

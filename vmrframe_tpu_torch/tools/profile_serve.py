@@ -84,20 +84,30 @@ HAND_WRITTEN = ("attention_mma", "attention_f32", "cq_kernel", "stack_kernel", "
                 "dq_mma", "dq_f32", "dkv_mma", "dkv_f32")
 
 
-def _device_profile(step, steps: int) -> dict:
+def _device_profile(step, steps: int, ops: bool = False, device: str = "cuda") -> dict:
     """Busy time and device operations (kernels and copies) per step, the
     kernels that take the most time, and the hand-written ones, over
     ``steps`` steps; and the device time inside ``RECOMPUTE_SPAN`` ranges,
     both as the kernels the profiler attributes to them and as the span the
-    range covers on the card."""
+    range covers on the card.  Ranges (``RECOMPUTE_SPAN``, the kernels'
+    ``vmr::`` launch ranges) are kept out of the busy time.
+
+    With ``ops``: shapes recorded, and ``ops`` lists each device operation
+    per step (``_device_ops``).  On the CPU (``device``), where there is no
+    card, the operations are the host's: each ATen operation's own time."""
     from torch.profiler import ProfilerActivity, profile
 
     from vmrframe_tpu_torch.kernels.attention import RECOMPUTE_SPAN
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    on_cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_cuda else [])
+    with profile(activities=activities, record_shapes=ops, with_flops=ops) as prof:
         for _ in range(steps):
             step()
-        torch.cuda.synchronize()
+        if on_cuda:
+            torch.cuda.synchronize()
+    if not on_cuda:
+        return _host_profile(prof, steps)
     per_kernel = defaultdict(lambda: [0.0, 0])
     span_kernels_ms = span_device_ms = 0.0
     for evt in prof.events():
@@ -107,7 +117,7 @@ def _device_profile(step, steps: int) -> dict:
                 span_device_ms += evt.device_time_total / 1e3
             else:
                 span_kernels_ms += evt.device_time_total / 1e3
-        elif on_card:
+        elif on_card and not evt.name.startswith(LAUNCH_RANGE):
             slot = per_kernel[evt.name]
             slot[0] += evt.device_time_total / 1e3  # us -> ms
             slot[1] += 1
@@ -117,7 +127,7 @@ def _device_profile(step, steps: int) -> dict:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     row = lambda name, ms, n: {"name": name[:90], "ms_per_step": ms / steps,  # noqa: E731
                                "calls_per_step": n / steps}
-    return {
+    report = {
         "device_busy_ms_per_step": busy,
         "device_ops_per_step": sum(n for _, n in per_kernel.values()) / steps,
         "top_kernels": [row(name, ms, n) for name, (ms, n) in top],
@@ -126,6 +136,94 @@ def _device_profile(step, steps: int) -> dict:
         "recompute_backward_kernels_ms_per_step": span_kernels_ms / steps,
         "recompute_backward_device_span_ms_per_step": span_device_ms / steps,
     }
+    if ops:
+        report["ops"] = _device_ops(prof, steps)
+    return report
+
+
+LAUNCH_RANGE = "vmr::"  # kernels.launch_range's prefix
+CHAIN_DEPTH = 12  # enclosing operations kept per device operation
+
+
+def _chain(evt) -> list:
+    """[name, input shapes] of ``evt`` and the operations and ranges that
+    enclose it, innermost first (ATen operations and ``vmr::`` ranges)."""
+    out = []
+    while evt is not None and len(out) < CHAIN_DEPTH:
+        if evt.name.startswith(("aten::", LAUNCH_RANGE)):
+            out.append([evt.name, [list(s) for s in (evt.input_shapes or [])]])
+        evt = evt.cpu_parent
+    return out
+
+
+def _device_ops(prof, steps: int) -> list:
+    """Each device operation (a kernel, copy or memset) per step: its name,
+    the chain of ATen operations that launched it (through the profiler's
+    correlation ids), its device ms and launches per step.  Ranges are not
+    operations.  A hand-written kernel, launched outside any ATen operation,
+    takes the ``vmr::`` range whose span on the card holds it (a range
+    links no launch through the correlation ids)."""
+    from bisect import bisect_right
+
+    from vmrframe_tpu_torch.kernels.attention import RECOMPUTE_SPAN
+
+    by_id = {evt.id: evt for evt in prof.events()
+             if evt.device_type == torch.autograd.DeviceType.CPU}
+    events = [evt for evt in prof.profiler.kineto_results.events()
+              if evt.device_type() == torch.autograd.DeviceType.CUDA]
+    spans = sorted((evt.start_ns(), evt.end_ns(), evt.name()) for evt in events
+                   if evt.name().startswith(LAUNCH_RANGE))
+    starts = [s for s, _, _ in spans]
+
+    def launch_range(evt):
+        i = bisect_right(starts, evt.start_ns()) - 1
+        if i >= 0 and evt.end_ns() <= spans[i][1]:
+            return [[spans[i][2], []]]
+        return []
+
+    rows = {}
+    for evt in events:
+        name = evt.name()
+        if name == RECOMPUTE_SPAN or name.startswith(LAUNCH_RANGE) \
+                or getattr(evt, "is_user_annotation", lambda: False)():
+            continue
+        chain = _chain(by_id.get(evt.linked_correlation_id())) or launch_range(evt)
+        row = rows.setdefault(json.dumps([name, chain]), {"name": name, "chain": chain,
+                                                          "ns": 0, "launches": 0})
+        row["ns"] += evt.duration_ns()
+        row["launches"] += 1
+    return sorted(({"name": r["name"], "chain": r["chain"], "ms_per_step": r["ns"] / 1e6 / steps,
+                    "launches_per_step": r["launches"] / steps} for r in rows.values()),
+                  key=lambda r: -r["ms_per_step"])
+
+
+def _host_profile(prof, steps: int) -> dict:
+    """``_device_profile`` on the CPU: each ATen operation's own host time
+    (its time less its children's) as a device operation; the operations
+    inside a kernel's ``vmr::`` range (its plain version) as one launch of
+    that range."""
+    rows = {}
+    for evt in prof.events():
+        if not evt.name.startswith("aten::") or evt.self_cpu_time_total <= 0:
+            continue
+        op = evt
+        while op is not None and not op.name.startswith(LAUNCH_RANGE):
+            op = op.cpu_parent
+        op = op or evt
+        chain = _chain(op)
+        row = rows.setdefault(json.dumps([op.name, chain]), {
+            "name": op.name, "chain": chain, "ms_per_step": 0.0, "ids": set()})
+        row["ms_per_step"] += evt.self_cpu_time_total / 1e3 / steps
+        row["ids"].add(op.id)
+    ops = sorted(({**{k: v for k, v in r.items() if k != "ids"},
+                   "launches_per_step": len(r["ids"]) / steps} for r in rows.values()),
+                 key=lambda r: -r["ms_per_step"])
+    return {"device_busy_ms_per_step": sum(r["ms_per_step"] for r in ops),
+            "device_ops_per_step": sum(r["launches_per_step"] for r in ops),
+            "top_kernels": [{"name": r["name"][:90], "ms_per_step": r["ms_per_step"],
+                             "calls_per_step": r["launches_per_step"]} for r in ops[:15]],
+            "hand_written_kernels": [], "ops": ops,
+            "note": "the CPU: host time of each ATen operation, no card"}
 
 
 def with_routes(cfg, data_dir: Optional[str] = None, workers: Optional[int] = None,
