@@ -60,6 +60,7 @@ from vmrframe_tpu_torch.weights import from_jax_params, init_weights
 N_STEPS, BATCH = 3, 8
 TRAJ = {"train.warmup_proportion": 0.0, "train.lr": 1e-3, "train.batch_size": BATCH}
 KEY = jax.random.PRNGKey(0)
+LSTM_STEPS = 4  # bf16 steps at the query LSTM output's largest magnitude (3.0 measured)
 
 
 def _world(n_train, updates=None):
@@ -115,9 +116,9 @@ def test_bf16_route_follows_flax_promotion():
     of two bf16 score maps.  The values agree to the bf16 resolution of the
     scores, two bf16 steps (2 * 2**-7) of their largest magnitude: the port
     rounds each of the two blended maps to bf16, as the model's types say,
-    where XLA's fusion of the jitted JAX forward keeps them f32 (0.0156 of
-    1.7 here); the JAX scan also rounds its LSTM state to bf16 each step,
-    which the port's f32 LSTM on bf16 weights does not."""
+    where XLA's fusion of the jitted JAX forward keeps them f32 (0.0166 of
+    1.7 here).  The query LSTM scans in bf16 on both sides
+    (``test_bf16_query_lstm_follows_the_jax_scan``)."""
     w = _world(BATCH)
     bf = jnp.bfloat16
     v = cast_floating(w["variables"], bf)
@@ -135,6 +136,34 @@ def test_bf16_route_follows_flax_promotion():
     assert want.dtype == jnp.float32 and got.dtype == torch.float32
     scale = float(np.abs(np.asarray(want)).max())
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=2 * 2 ** -7 * scale)
+
+
+def test_bf16_query_lstm_follows_the_jax_scan():
+    """The query LSTM (``sim_lstm``) under the bf16 policy, on the same
+    weights and the same bf16 word features: the jitted JAX scan adds its
+    f32 biases in f32, rounds the input projection to bf16 and keeps its
+    state in bf16; the port's LSTM sums each gate's two biases in f32,
+    rounds them once and runs in bf16 too.  The output is bf16 on both
+    sides and within ``LSTM_STEPS`` bf16 steps of JAX's largest magnitude
+    (the two scans round their gates at different places)."""
+    w = _world(BATCH)
+    bf = jnp.bfloat16
+    _, inter = jax.jit(lambda v, b: w["jmodel"].apply(v, b, True, capture_intermediates=True))(
+        cast_floating(w["variables"], bf), cast_floating(w["jb"], bf))
+    want = inter["intermediates"]["sim_lstm"]["__call__"][0]
+    model = cast_module_(w["model"], torch.bfloat16)
+    got = []
+    hook = model.sim_lstm.register_forward_hook(lambda mod, args, out: got.append(out))
+    try:
+        with torch.no_grad():
+            model(cast_batch(w["tb"], torch.bfloat16))
+    finally:
+        hook.remove()
+        model.float()
+    assert want.dtype == bf and len(got) == 1 and got[0].dtype == torch.bfloat16
+    want = np.asarray(want, np.float32)
+    step = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.abs(_np(got[0]) - want).max() <= LSTM_STEPS * step
 
 
 def got_flat(tree):

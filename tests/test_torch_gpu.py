@@ -6,7 +6,7 @@ file imports no JAX, so it runs on a machine without it:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider -q
 
 (``--noconftest`` because ``tests/conftest.py`` sets JAX up.)  Shapes are
-ragged on purpose (lengths that are no multiple of a tile, head dims 16 to
+ragged on purpose (lengths that are no multiple of a tile, head dims 1 to
 256) and the masks hold wholly masked rows and a wholly masked sample.
 Tolerances: f32 1e-4 (sums in another order); bf16 2**-6 of the largest
 output magnitude (a few bf16 ulps).
@@ -52,9 +52,24 @@ def _heads(g, B, H, L, hd, dtype, device):
     return torch.randn(B, H, L, hd, generator=g).to(device, dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,H,Lq,Lk,hd", [(3, 2, 37, 37, 16), (5, 4, 64, 64, 32),
-                                          (2, 4, 30, 70, 32)])
+def _f32_cases(both, f32_only):
+    """Each case (a tuple, or one value) in both types, then the f32 body's
+    own cases."""
+    def param(key, dtype, case):
+        case = case if isinstance(case, tuple) else (case,)
+        return pytest.param(dtype, *case, id="-".join(map(str, case + (key,))))
+
+    return [param(key, dt, case) for case in both for key, dt in zip(("f32", "bf16"), DTYPES)] \
+        + [param("f32", torch.float32, case) for case in f32_only]
+
+
+@pytest.mark.parametrize("dtype,B,H,Lq,Lk,hd", _f32_cases(
+    [(3, 2, 37, 37, 16), (5, 4, 64, 64, 32), (2, 4, 30, 70, 32)],
+    # f32 (3xTF32 on the tensor cores): head dims 1, 4, 24, 33 (rows of
+    # 33 floats: element loads, not 16-byte copies), 192 and 256 over 1, 65,
+    # 129 and 256 keys; the last three stage K and V in 64-key chunks
+    [(3, 2, 37, 1, 1), (3, 2, 37, 65, 4), (2, 4, 30, 129, 24), (2, 2, 64, 256, 33),
+     (3, 2, 37, 65, 192), (2, 2, 129, 129, 192), (2, 2, 20, 256, 256), (2, 2, 129, 1, 256)]))
 def test_masked_attention_kernel(cuda, dtype, B, H, Lq, Lk, hd):
     g = torch.Generator().manual_seed(0)
     q, k, v = (_heads(g, B, H, L, hd, dtype, cuda) for L in (Lq, Lk, Lk))
@@ -129,8 +144,11 @@ def _long_attention_inputs(g, B, H, L, M, hd, dtype, device):
     return q, fk, fv, tk, tv, fm[:, :, None] * fm[:, None, :], fm[:, :, None] * tm[:, None, :]
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("hd", [16, 24, 32, 64, 128])
+@pytest.mark.parametrize("dtype,hd", _f32_cases(
+    [16, 24, 32, 64, 128],
+    # f32: head dims off the 8-column grid and past 128; views whose rows
+    # are not 16-byte aligned (3 * 2 * hd floats apart, at offsets of 2 * hd)
+    [1, 4, 33, 192, 256]))
 def test_attention_kernels_at_long_grids(cuda, dtype, hd):
     """#1 and #2 at L = 256 against 30 (SeqPAN at TACoS width), every head
     dim the kernels take, on strided views: self (256 keys, several key
@@ -151,14 +169,15 @@ def test_attention_kernels_at_long_grids(cuda, dtype, hd):
         (before[0] + 2, before[1] + 1)
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("L,M,hd", [
+@pytest.mark.parametrize("dtype,L,M,hd", _f32_cases([
     # BackBoneAlignFeature at D = 768, 4 heads: video 64 and text 30 rows
     (64, 30, 192), (30, 64, 192),
     # past 128 off the 16-column grid; the widest; several key chunks
     (37, 11, 136), (64, 30, 256), (150, 30, 192),
     # BackBoneBertSentence: one text position, as the cross keys and as the query
-    (64, 1, 32), (1, 64, 32), (64, 1, 192), (1, 64, 192)])
+    (64, 1, 32), (1, 64, 32), (64, 1, 192), (1, 64, 192)],
+    # f32: 65, 129 and 256 keys at head dims 1, 4, 33 and 256, one key at 256
+    [(65, 129, 1), (129, 65, 4), (256, 65, 33), (129, 256, 256), (256, 1, 256)]))
 def test_attention_kernels_past_head_dim_128_and_at_one_key(cuda, dtype, L, M, hd):
     """#2 and #1 (self and cross branches alone) at the sentence variants'
     shapes, on strided views, with wholly masked rows and samples."""

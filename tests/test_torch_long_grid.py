@@ -188,9 +188,9 @@ def test_attention_limits_name_what_the_kernel_takes():
     # tile; K and V of 64 and 32 (30 padded) keys
     assert K.attention_shared_bytes(torch.bfloat16, 64, (64, 30), 32) == \
         2 * (4 * 16 * (40 + 72) + 40 * (2 * 64 + 2 * 32))
-    # f32: a 32-key chunk of K (33 columns) and V, 4 Q rows, 16 rows' max and sum
-    assert K.attention_shared_bytes(torch.float32, 64, (64, 30), 32) == \
-        4 * (32 * 65 + 4 * 32 + 2 * 16)
+    # f32: the branches in turn through one K and one V buffer of the longer
+    # branch's 64 keys, rows of 32 + 4 floats; Q in registers
+    assert K.attention_shared_bytes(torch.float32, 64, (64, 30), 32) == 4 * 36 * 2 * 64
     # both types take head dims to 256 (bf16 past 128: Q read from its tile)
     for dtype in (torch.bfloat16, torch.float32):
         K._check_attention(dtype, 8, (8,), 144, "test")

@@ -171,6 +171,26 @@ def test_bench_kernels_writes_a_row(tmp_path):
     assert row["bound_ms"] > 0 and row["bound_by"] in ("bytes", "operations")
 
 
+def test_f32_attention_bound_counts_the_3xtf32_rate():
+    """#1/#2's f32 products run on the tensor cores as three TF32 products
+    each: their bound divides by a third of TF32's peak, not by the CUDA
+    cores' f32 rate; every other kernel's f32 keeps the f32 peak.  At TACoS
+    width (B 128, 4 heads of 32, 256 queries over 256 keys) bytes bound #1."""
+    from vmrframe_tpu_torch.tools import bench_kernels, h100
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert h100.peak_ops(f32, "vmr::fused_dual_attention") == h100.TF32X3_OPS == 165e12
+    assert h100.peak_ops("float32", "fused_masked_attention") == h100.TF32X3_OPS
+    assert h100.peak_ops(f32, "fused_cq_attention") == h100.peak_ops(f32) == h100.PEAK_OPS[f32]
+    assert h100.peak_ops(bf16, "fused_masked_attention") == h100.PEAK_OPS[bf16]
+    q, mask = torch.empty(128, 4, 256, 32, device="meta"), torch.empty(128, 256, 256,
+                                                                       device="meta")
+    nbytes, ops = bench_kernels.work("fused_masked_attention", (q, q, q, mask))
+    ms, by = bench_kernels.bound_ms("fused_masked_attention", (q, q, q, mask))
+    assert by == "bytes" and ms == nbytes / h100.HBM_BYTES_PER_S * 1e3
+    assert ops / h100.TF32X3_OPS < nbytes / h100.HBM_BYTES_PER_S < ops / h100.PEAK_OPS[f32]
+
+
 def test_bench_pipeline_writes_a_case(tmp_path):
     from vmrframe_tpu_torch.tools import bench_pipeline
 

@@ -49,8 +49,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _VIEW = [_P, _L, _L, _L]
 _ARGTYPES = {
-    "vmr_masked_attention": [_I] + _VIEW * 3 + [_P] + _VIEW + [_I] * 5 + [_F, _P],
-    "vmr_dual_attention": [_I] + _VIEW * 5 + [_P, _P] + _VIEW * 2 + [_I] * 5 + [_F, _P],
+    "vmr_masked_attention": [_I] + _VIEW * 3 + [_P] + _VIEW + [_I] * 5 + [_F] + [_I] * 4
+    + [_L, _P],
+    "vmr_dual_attention": [_I] + _VIEW * 5 + [_P, _P] + _VIEW * 2 + [_I] * 5 + [_F] + [_I] * 4
+    + [_L, _P],
     "vmr_cq_attention": [_I] + [_P] * 10 + [_I] * 7 + [_L, _P],
     "vmr_cq_attention_clocked": [_I] + [_P] * 10 + [_I] * 7 + [_L, _P, _P],
 }
@@ -59,10 +61,18 @@ SHARED_BYTES = 232_448  # what one block may hold in shared memory on an H100
 # bf16 attention: head dims to 128 hold a tile's Q fragments and outputs in
 # registers; 129-256 read Q from its shared tile and run P.V in two halves
 MMA_MAX_HEAD_DIM = 256
-F32_MAX_HEAD_DIM = 256  # f32 attention: 8 outputs a lane
+# f32 attention: head dims to 256 (Q's fragments in registers to 64, from
+# the warp's staged Q tile past it; outputs in two passes past 128)
+F32_MAX_HEAD_DIM = 256
 # mirror attention.cu: kMaxWarps, the 8-column row pad, kChunk + 8 (a warp's mask tile row)
 MMA_MAX_WARPS, MMA_ROW_PAD, MMA_MASK_ROW = 8, 8, 72
-F32_CHUNK, F32_WARPS, F32_ROWS = 32, 4, 16  # mirror kF32Chunk, kF32Warps, kF32Rows
+# mirror attention.cu: kTfChunk (keys a chunk), kTfRowPad (floats after each
+# staged row), kTfQRegs (Q in registers up to this many 8-column steps)
+F32_CHUNK, F32_ROW_PAD, F32_Q_REGS = 64, 4, 8
+F32_MODES = ("both", "alt", "chunked")  # mirror kTfBoth, kTfAlt, kTfChunked
+# the modes ``attention_f32_plan`` tries before "chunked", in order
+# (``tools/bench_kernels.py --f32-modes`` narrows them to compare modes)
+F32_STAGED_MODES = ("both", "alt")
 CQ_MAX_LEN = 1024  # the longest context or query grid #3 takes
 CQ_MAX_D = 8192  # the widest D #3 takes
 # mirror attention.cu: kCqScorePad; kCqMmaCols (bf16) and kCqF32Cols (f32),
@@ -203,15 +213,61 @@ def cq_attention_reference(context, query, w4C, w4Q, w4mlu, c_mask, q_mask):
 # ------------------------------------------------------------- launch plans
 
 
+def attention_f32_plan(Lq: int, Lks: Sequence[int], hd: int) -> dict:
+    """How the f32 kernel (``attention_tf32`` in ``csrc/attention.cu``) lays
+    out one (batch, head); the wrappers pass it to the C entries, which
+    compute no plan of their own.  Rows of K, V and Q
+    are the head dim rounded up to 8 plus ``F32_ROW_PAD`` floats; up to
+    ``MMA_MAX_WARPS`` warps of 16 query rows, each with a staged 16-row Q
+    tile past head dim ``8 * F32_Q_REGS`` and, where a branch has several
+    ``F32_CHUNK``-key chunks, a score tile of 16 rows of ``score_row``
+    floats (walk 1's masked scores, which walk 2 reads back).  The branches
+    run one after the other through the same buffers of ``kv_rows`` rows,
+    in one of ``F32_MODES``: "both" (K and V whole, staged once), "alt" (one
+    buffer: K for walk 1, V for walk 2), "chunked" (a chunk of K and of V at
+    a time, the scores recomputed in walk 2, with as many warps as fit).
+    The first of ``F32_STAGED_MODES`` that leaves room for two blocks on an
+    SM, else the first that fits one, else "chunked".
+    {"mode", "warps", "kv_rows", "score_row", "shared_bytes"}."""
+    row = 4 * (-(-hd // 8) * 8 + F32_ROW_PAD)
+    qtile = 0 if hd <= 8 * F32_Q_REGS else 16 * row
+    warps = min(MMA_MAX_WARPS, -(-Lq // 16))
+    lk = max(Lks)
+    rows, nchunk = -(-lk // 8) * 8, -(-lk // F32_CHUNK)
+    score_row = nchunk * F32_CHUNK + 8 if nchunk > 1 else 0
+    tiles = warps * (qtile + 16 * score_row * 4)
+    sizes = {"both": 2 * rows * row + tiles, "alt": rows * row + tiles}
+    for limit in (SHARED_BYTES // 2, SHARED_BYTES):
+        for mode in F32_STAGED_MODES:
+            size = sizes[mode]
+            if size <= limit:
+                return {"mode": mode, "warps": warps, "kv_rows": rows, "score_row": score_row,
+                        "shared_bytes": size}
+    if qtile:
+        warps = min(warps, (SHARED_BYTES - 2 * F32_CHUNK * row) // qtile)
+    return {"mode": "chunked", "warps": warps, "kv_rows": F32_CHUNK, "score_row": 0,
+            "shared_bytes": 2 * F32_CHUNK * row + warps * qtile}
+
+
+def _plan_args(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int) -> tuple:
+    """The f32 plan as the C entries take it (mode, warps, kv_rows,
+    score_row, shared_bytes); zeros for bf16, whose body sizes itself."""
+    if dtype != torch.float32:
+        return 0, 0, 0, 0, 0
+    plan = attention_f32_plan(Lq, Lks, hd)
+    return (F32_MODES.index(plan["mode"]), plan["warps"], plan["kv_rows"], plan["score_row"],
+            plan["shared_bytes"])
+
+
 def attention_shared_bytes(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int) -> int:
     """Shared memory of the attention kernels.  bf16: K and V of every
     branch (rows padded to 16 keys, columns to 16 plus 8) and, per warp, a
     16-row Q tile and its (16, 64) mask tile (past head dim 128 the Q
     fragments are read from that tile, so the head dim adds no more).  f32:
-    one 32-key chunk of K (rows padded by 1) and V, a Q row per warp, and
-    the max and sum of the block's 16 rows."""
+    ``attention_f32_plan``'s, which fits one block at every length and head
+    dims to 256."""
     if dtype == torch.float32:
-        return 4 * (F32_CHUNK * (2 * hd + 1) + F32_WARPS * hd + 2 * F32_ROWS)
+        return attention_f32_plan(Lq, Lks, hd)["shared_bytes"]
     stride = -(-hd // 16) * 16 + MMA_ROW_PAD
     warps = min(MMA_MAX_WARPS, -(-Lq // 16))
     return 2 * (16 * warps * (stride + MMA_MASK_ROW)
@@ -349,7 +405,8 @@ def fused_masked_attention(q, k, v, mask):
     with launch_range("fused_masked_attention"):
         err = load_kernels().vmr_masked_attention(
             _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(out),
-            B, H, Lq, Lk, hd, 1.0 / math.sqrt(hd), _stream(q))
+            B, H, Lq, Lk, hd, 1.0 / math.sqrt(hd), *_plan_args(dtype, Lq, (Lk,), hd),
+            _stream(q))
     _raise_on(err, "vmr_masked_attention")
     fused_masked_attention.launches += 1
     count_plain(masked_attention_plain, q, k, v, mask, name="fused_masked_attention")
@@ -381,7 +438,8 @@ def fused_dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
         err = load_kernels().vmr_dual_attention(
             _DTYPE_CODE[dtype], *_view(q), *_view(f_k), *_view(f_v), *_view(t_k), *_view(t_v),
             s_mask.data_ptr(), x_mask.data_ptr(), *_view(s_out), *_view(x_out),
-            B, H, L, M, hd, 1.0 / math.sqrt(hd), _stream(q))
+            B, H, L, M, hd, 1.0 / math.sqrt(hd), *_plan_args(dtype, L, (L, M), hd),
+            _stream(q))
     _raise_on(err, "vmr_dual_attention")
     fused_dual_attention.launches += 1
     count_plain(dual_attention_plain, q, f_k, f_v, t_k, t_v, s_mask, x_mask,

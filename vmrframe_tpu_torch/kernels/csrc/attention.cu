@@ -34,9 +34,23 @@
 // P is the same bf16 value in both halves.  The fragment helpers are in
 // mma_bf16.cuh, shared with window_attention.cu.
 //
-// #1/#2, f32: attention_f32 stays full f32 on the CUDA cores (TF32 would
-// keep ~3 digits): the same two walks over keys staged 32 at a time in
-// shared memory, a warp per query row and a lane per key; head dims to 256.
+// #1/#2, f32: attention_tf32, the same grid, walks and masking on the
+// tensor cores: both products on mma.sync m16n8k8 TF32 in the 3xTF32 split
+// (each operand x as big = tf32(x) and small = tf32(x - big), rounded as
+// cvt.rna rounds; big.small + small.big + big.big summed in f32), which
+// keeps ~22 of f32's 24 bits where one TF32 pass keeps 11.  The branches run
+// in turn; K and V go to shared memory with 16-byte cp.async copies, whole
+// or, when they do not fit, in 64-key chunks (head dims 1-256, any lengths).
+// Q's fragments stay in registers to head dim 64 and come from the warp's
+// staged Q tile past it.  A chunk's scores stay in registers; with several
+// chunks walk 1 keeps them in the warp's score tile in shared memory, so
+// that walk 2 reads only V (and one buffer can hold K, then V).  p leaves
+// its C layout as the A operand of P.V as it stands (V's B fragments read
+// from the matching key rows), and each output is summed in registers over
+// every chunk and written once.  Bytes bound it at SeqPAN's serving shapes
+// (0.0056 ms for #1, 0.0071 for #2 at B 128, 4 heads of 32, L 64 and 30);
+// the splits' conversions, redone by every warp for every fragment, were
+// the largest share of its time in an ablation (PERF.md).
 //
 // #3: cq_kernel, one block of 16 warps per batch element, as the TPU
 // kernel's grid (B,): the column softmax needs every row of c and the row
@@ -91,10 +105,14 @@
 namespace {
 
 constexpr float kMask = -1e30f;
-constexpr int kF32Warps = 4;
-constexpr int kF32Chunk = 32;   // attention_f32: keys per chunk, a lane each
-constexpr int kF32Rows = 16;    // attention_f32: query rows per block (4 a warp)
-constexpr int kMaxWarps = 8;    // attention_mma: query tiles of 16 rows in flight per block
+constexpr size_t kSharedBytes = 232448;  // what one block may hold in shared memory on an H100
+constexpr int kMaxWarps = 8;    // attention_mma, attention_tf32: query tiles of 16 rows a block
+constexpr int kTfChunk = 64;    // attention_tf32: keys per score chunk (8 n-tiles) and per staging
+constexpr int kTfRowPad = 4;    // attention_tf32: floats after each staged K, V and Q row
+constexpr int kTfQRegs = 8;     // attention_tf32: Q's fragments in registers to 8 column steps
+constexpr int kTfOutTiles = 16;  // attention_tf32: 8-column output tiles a pass holds, at most
+// attention_tf32's modes (kernels/attention.py::F32_MODES)
+constexpr int kTfBoth = 0, kTfAlt = 1, kTfChunked = 2;
 constexpr int kChunk = 64;      // attention_mma: keys per score chunk (8 mma n-tiles)
 constexpr int kMaskRS = kChunk + 8;  // attention_mma: row stride of a warp's mask tile
 constexpr int kCqThreads = 512;  // cq_kernel: 16 warps, one block per batch element
@@ -113,16 +131,6 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __flo
 // their value matmul.
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // A (B, H, L, hd) tensor addressed through its strides (the last one is 1),
@@ -347,84 +355,340 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 }
 
-// vmr_masked_attention and vmr_dual_attention, f32, on the CUDA cores.
-// One block per (batch, head) and 16 query rows (more blocks in flight hide
-// the latency of each row's dependent steps); keys pass through shared
-// memory 32 at a time (K rows padded to hd + 1, so a lane per key reads
-// without bank conflicts); each warp takes rows, a lane per key.  Walk
-// 1 keeps each row's running max and sum in shared memory; walk 2 adds each
-// chunk's p.V (a lane per output column) to the f32 output in place.
-// DCH = head dim over 32, rounded up: the output columns a lane holds.
-template <int DCH>
-__global__ void __launch_bounds__(kF32Warps * 32)
-    attention_f32(View qv, Branch b0, Branch b1, int nbranch, int H, int Lq, int hd,
-                  float scale) {
-  extern __shared__ float f32_smem[];
+// Rows [0, rows) x cols [0, cols) of a row-major T matrix (row stride sl)
+// into a (rows_pad, cols_pad) tile of row stride ds, zero beyond, in 16-byte
+// pieces taken by threads tid, tid + nthr, ...: cp.async where the source
+// allows, element loads otherwise.  The caller waits.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ds, const T* src, long long sl, int rows,
+                                           int rows_pad, int cols, int cols_pad, int tid,
+                                           int nthr) {
+  constexpr int E = 16 / sizeof(T);
+  const bool aligned =
+      cols % E == 0 && sl % E == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  const int pieces = cols_pad / E;
+  for (int idx = tid; idx < rows_pad * pieces; idx += nthr) {
+    const int r = idx / pieces, c0 = (idx % pieces) * E;
+    T* d = dst + r * ds + c0;
+    if (aligned && r < rows && c0 < cols) {
+      cp_async16(d, src + r * sl + c0);
+    } else {
+      __align__(16) T tmp[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        tmp[e] = (r < rows && c0 + e < cols) ? src[r * sl + c0 + e] : from_f<T>(0.f);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(tmp);
+    }
+  }
+}
+
+// TF32 fragment helpers (PTX ISA, mma.m16n8k8 with .tf32): lane = 4 g + t;
+// the A tile (16 x 8, row) is a[0] = row g, col t; a[1] = row g + 8, col t;
+// a[2] = row g, col t + 4; a[3] = row g + 8, col t + 4; the B tile (8 x 8,
+// col) is b[0] = row t, col g; b[1] = row t + 4, col g; the C tile as in
+// mma_bf16.cuh (c[0..1] = row g, cols 2t, 2t + 1; c[2..3] = row g + 8).
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away from
+// zero) for every finite x: half of the 13 dropped bits added to the
+// magnitude's bits, then cleared.  Two integer operations, with which the
+// whole kernel ran faster on an H100 than with the cvt.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as big + small, both TF32: big = tf32(x), small = tf32(x - big) (x - big
+// is exact in f32), so big + small keeps 22 of x's 24 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 in, f32 accumulate.  Not volatile:
+// the compiler may interleave the products of independent accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[off + i] += a * b[i] for the first n of N independent accumulators in
+// 3xTF32: big.small of each, then small.big of each, then big.big of each
+// (small.small, ~2^-22 of each product, is dropped).  Each accumulator
+// takes the small terms first; n products stand between two that feed the
+// same one.
+template <int N, int M>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[M][4], int off, const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], const uint32_t (&bb)[N][2],
+                                           const uint32_t (&bs)[N][2], int n) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < n) mma_tf32(d[off + i], ab, bs[i][0], bs[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < n) mma_tf32(d[off + i], as, bb[i][0], bb[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (i < n) mma_tf32(d[off + i], ab, bb[i][0], bb[i][1]);
+}
+
+// The scores of one kTfChunk-key chunk for a warp's 16-row tile, in the
+// mma's C layout: s[j] holds keys c0 + 8j + 2t, +1 of rows g (s[j][0..1])
+// and g + 8 (s[j][2..3]); 3xTF32 products summed over the head dim's
+// 8-column steps in order, scaled, masked with -1e30 by the tile's mask
+// rows mr0, mr1 (null past Lq: taken as valid), -inf beyond the chunk's nk
+// keys.  k_s holds the chunk's keys from its row 0, rows rs floats apart.
+// Q's big and small fragments come from qb, qs, or (QR false) from the
+// warp's Q tile q_s, split at each 8-column step.  The mask values are
+// loaded first, so that their latency passes under the products.
+template <int HD8, bool QR>
+__device__ __forceinline__ void tf32_scores(float (&s)[8][4],
+                                            const uint32_t (&qb)[QR ? HD8 : 1][4],
+                                            const uint32_t (&qs)[QR ? HD8 : 1][4],
+                                            const float* q_s, const float* k_s, int rs, int hd8,
+                                            const float* mr0, const float* mr1, int c0, int nk,
+                                            float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3, nt = (nk + 7) >> 3;
+  float mk[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t + (e & 1);
+      const float* mr = e < 2 ? mr0 : mr1;
+      mk[j][e] = mr && col < nk ? mr[c0 + col] : 1.f;
+    }
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  }
+  // one 8-column step of the head dim: the 8 n-tiles' K fragments, split
+  auto step = [&](int kk, const uint32_t (&ab)[4], const uint32_t (&as)[4]) {
+    uint32_t kb[8][2], ks[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nt) {
+        const float* kr = k_s + (8 * j + g) * rs + 8 * kk + t;
+        split_tf32(kr[0], kb[j][0], ks[j][0]);
+        split_tf32(kr[4], kb[j][1], ks[j][1]);
+      }
+    }
+    mma_3xtf32<8>(s, 0, ab, as, kb, ks, nt);
+  };
+  if constexpr (QR) {
+    // past the call's hd8, Q's fragments are zero: those steps read K's
+    // first columns again and add zero products (no branch between steps)
+#pragma unroll
+    for (int kk = 0; kk < HD8; ++kk) step(kk < hd8 ? kk : 0, qb[kk], qs[kk]);
+  } else {
+#pragma unroll 1
+    for (int kk = 0; kk < hd8; ++kk) {
+      uint32_t ab[4], as[4];
+      const float* qr = q_s + g * rs + 8 * kk + t;
+      split_tf32(qr[0], ab[0], as[0]);
+      split_tf32(qr[8 * rs], ab[1], as[1]);
+      split_tf32(qr[4], ab[2], as[2]);
+      split_tf32(qr[8 * rs + 4], ab[3], as[3]);
+      step(kk, ab, as);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t + (e & 1);
+      s[j][e] = col < nk ? s[j][e] * scale + (1.f - mk[j][e]) * kMask : -CUDART_INF_F;
+    }
+  }
+}
+
+// vmr_masked_attention (nbranch = 1) and vmr_dual_attention (nbranch = 2),
+// f32, on the tensor cores in 3xTF32.  One block per (batch, head), nwarp
+// warps of 16 query rows (kernels/attention.py::attention_f32_plan); the
+// branches one after the other, each over every query tile.  K and V rows
+// are the head dim rounded up to 8 plus kTfRowPad floats: fragment loads of
+// K (row g, column t) and of V (rows 2t, 2t + 1, column g) then hit 32
+// distinct banks.  A branch of several kTfChunk-key chunks keeps walk 1's
+// masked scores in the warp's score tile (rows of ss floats) where mode
+// allows, one chunk keeps them in registers, so that walk 2 reads V alone.
+// mode (the same for both branches):
+//   kTfBoth:  K and V whole in two buffers of kv_rows rows, staged once;
+//   kTfAlt:   one buffer of kv_rows rows, K for walk 1 and V for walk 2 of
+//             each round, the block in step (half the shared memory);
+//   kTfChunked: one kTfChunk-key chunk of K (walk 1) or of K and V (walk 2)
+//             at a time, the scores recomputed in walk 2, the block in step.
+// HD8 = the most 8-column steps of the head dim the body is built for (a
+// bucket: 4, 8, 16, 24 or 32), the call's own hd8 read at run time.  To
+// kTfQRegs Q's fragments are in registers (zero past hd8); past it they
+// come from the warp's staged Q tile and the outputs go in NPASS passes of
+// OT 8-column tiles.
+template <int HD8>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    attention_tf32(View qv, Branch b0, Branch b1, int nbranch, int H, int Lq, int hd,
+                   float scale, int mode, int kv_rows, int ss) {
+  constexpr bool QR = HD8 <= kTfQRegs;
+  constexpr int OT = HD8 <= kTfOutTiles ? HD8 : (HD8 + 1) / 2, NPASS = (HD8 + OT - 1) / OT;
+  // output tiles whose V fragments are held at once (a divisor of OT)
+  constexpr int G = OT <= 8 ? OT : OT % 8 == 0 ? 8 : 4;
+  extern __shared__ __align__(16) float tf_smem[];
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ks = hd + 1;
-  float* k_s = f32_smem;                          // (32, hd + 1)
-  float* v_s = k_s + kF32Chunk * ks;              // (32, hd)
-  float* q_s = v_s + kF32Chunk * hd + warp * hd;  // this warp's query row
-  float* stat = v_s + kF32Chunk * hd + kF32Warps * hd;  // (16, 2): running max, sum
-  const int r0 = blockIdx.y * kF32Rows, r1 = min(Lq, r0 + kF32Rows);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int hd8 = (hd + 7) >> 3, hdp = 8 * hd8, rs = hdp + kTfRowPad;
+  const bool both = mode == kTfBoth, alt = mode == kTfAlt, chunked = mode == kTfChunked;
+  float* k_s = tf_smem;                                  // (kv_rows, rs)
+  float* v_s = alt ? k_s : k_s + kv_rows * rs;           // (kv_rows, rs)
+  float* w_s = v_s + kv_rows * rs;                       // the warps' tiles
+  float* q_s = w_s + warp * 16 * rs;                     // this warp's Q tile (QR false)
+  float* sc_s = w_s + (QR ? 0 : nwarp * 16 * rs) + warp * 16 * ss;  // its score tile
   const float* q = at<float>(qv, b, h);
-  Branch br[2] = {b0, b1};
+
   for (int n = 0; n < nbranch; ++n) {
-    const Branch& B_ = br[n];
-    const int Lk = B_.Lk;
-    const float* k = at<float>(B_.k, b, h);
-    const float* v = at<float>(B_.v, b, h);
+    const Branch& B_ = n ? b1 : b0;
+    const int Lk = B_.Lk, nchunk = (Lk + kTfChunk - 1) / kTfChunk;
+    const bool keep = nchunk > 1 && !chunked;  // walk 1's scores in the score tile
+    const float* kg = at<float>(B_.k, b, h);
+    const float* vg = at<float>(B_.v, b, h);
+    // keys [c0, c0 + nk) of K and/or V from row 0 of their buffers, the block in step
+    auto stage_keys = [&](int c0, int nk, bool keys, bool values) {
+      __syncthreads();  // the last keys' readers are done
+      if (keys)
+        stage_rows(k_s, rs, kg + c0 * B_.k.sl, B_.k.sl, nk, (nk + 7) & ~7, hd, hdp, threadIdx.x,
+                   blockDim.x);
+      if (values)
+        stage_rows(v_s, rs, vg + c0 * B_.v.sl, B_.v.sl, nk, (nk + 7) & ~7, hd, hdp, threadIdx.x,
+                   blockDim.x);
+      cp_async_wait_all();
+      __syncthreads();
+    };
+    if (both) stage_keys(0, Lk, true, true);
+    const int off = chunked ? 0 : kTfChunk * rs;  // a chunk's offset in the buffers
     const float* mask = static_cast<const float*>(B_.mask) + (long long)b * Lq * Lk;
     float* out = static_cast<float*>(const_cast<void*>(B_.out.p)) + b * B_.out.sb +
                  h * B_.out.sh;
-    for (int walk = 0; walk < 2; ++walk) {
-      for (int j0 = 0; j0 < Lk; j0 += kF32Chunk) {
-        const int nj = min(kF32Chunk, Lk - j0);
-        __syncthreads();  // the last chunk's readers are done
-        for (int idx = threadIdx.x; idx < nj * hd; idx += blockDim.x) {
-          const int j = idx / hd, d = idx % hd;
-          k_s[j * ks + d] = k[(j0 + j) * B_.k.sl + d];
-          if (walk) v_s[idx] = v[(j0 + j) * B_.v.sl + d];
+
+    // every warp takes every round (staging keeps the block in step)
+    for (int base = 0; base < Lq; base += nwarp * 16) {
+      const int i0 = base + warp * 16, ra = i0 + g, rb = ra + 8;
+      const bool active = i0 < Lq;
+      uint32_t qb[QR ? HD8 : 1][4], qs[QR ? HD8 : 1][4];
+      if constexpr (QR) {
+#pragma unroll
+        for (int kk = 0; kk < HD8; ++kk) {
+          const int c = 8 * kk + t;
+          split_tf32(ra < Lq && c < hd ? q[ra * qv.sl + c] : 0.f, qb[kk][0], qs[kk][0]);
+          split_tf32(rb < Lq && c < hd ? q[rb * qv.sl + c] : 0.f, qb[kk][1], qs[kk][1]);
+          split_tf32(ra < Lq && c + 4 < hd ? q[ra * qv.sl + c + 4] : 0.f, qb[kk][2], qs[kk][2]);
+          split_tf32(rb < Lq && c + 4 < hd ? q[rb * qv.sl + c + 4] : 0.f, qb[kk][3], qs[kk][3]);
         }
-        __syncthreads();
-        for (int i = r0 + warp; i < r1; i += kF32Warps) {
-          float* st = stat + 2 * (i - r0);
-          for (int d = lane; d < hd; d += 32) q_s[d] = q[i * qv.sl + d];
-          __syncwarp();
-          float s = -CUDART_INF_F;
-          if (lane < nj) {
-            const float* kj = k_s + lane * ks;
-            float dot = 0.f;
-#pragma unroll 8
-            for (int d = 0; d < hd; ++d) dot += q_s[d] * kj[d];
-            s = dot * scale + (1.f - mask[(long long)i * Lk + j0 + lane]) * kMask;
-          }
-          if (walk == 0) {
-            const float m = j0 ? st[0] : -CUDART_INF_F, l = j0 ? st[1] : 0.f;
-            const float mn = fmaxf(m, warp_max(s));
-            const float ln = l * expf(m - mn) + warp_sum(expf(s - mn));
-            if (lane == 0) {
-              st[0] = mn;
-              st[1] = ln;
-            }
-          } else {
-            const float p = expf(s - st[0]) / st[1];
-            float acc[DCH] = {};
-            for (int jj = 0; jj < nj; ++jj) {
-              const float pj = __shfl_sync(0xffffffffu, p, jj);
+      } else if (active) {
+        __syncwarp();  // every lane is done with the last tile
+        stage_rows(q_s, rs, q + i0 * qv.sl, qv.sl, min(16, Lq - i0), 16, hd, hdp, lane, 32);
+        cp_async_wait_all();
+        __syncwarp();
+      }
+      const float* mr0 = ra < Lq ? mask + (long long)ra * Lk : nullptr;
+      const float* mr1 = rb < Lq ? mask + (long long)rb * Lk : nullptr;
+      if (alt) stage_keys(0, Lk, true, false);
+
+      // walk 1: row max and sum (rows g and g + 8 of the tile)
+      float s[8][4];
+      float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+      for (int c = 0; c < nchunk; ++c) {
+        const int c0 = c * kTfChunk, nk = min(kTfChunk, Lk - c0);
+        if (chunked) stage_keys(c0, nk, true, false);
+        if (!active) continue;
+        tf32_scores<HD8, QR>(s, qb, qs, q_s, k_s + c * off, rs, hd8, mr0, mr1, c0, nk, scale,
+                             lane);
+        float x0 = -CUDART_INF_F, x1 = -CUDART_INF_F;
 #pragma unroll
-              for (int dd = 0; dd < DCH; ++dd)
-                if (lane + 32 * dd < hd) acc[dd] += pj * v_s[jj * hd + lane + 32 * dd];
-            }
-            float* o = out + i * B_.out.sl;
+        for (int j = 0; j < 8; ++j) {
+          x0 = fmaxf(x0, fmaxf(s[j][0], s[j][1]));
+          x1 = fmaxf(x1, fmaxf(s[j][2], s[j][3]));
+          if (keep) {
+            *reinterpret_cast<float2*>(sc_s + g * ss + c0 + 8 * j + 2 * t) =
+                make_float2(s[j][0], s[j][1]);
+            *reinterpret_cast<float2*>(sc_s + (g + 8) * ss + c0 + 8 * j + 2 * t) =
+                make_float2(s[j][2], s[j][3]);
+          }
+        }
+        const float n0 = fmaxf(m0, quad_max(x0)), n1 = fmaxf(m1, quad_max(x1));
+        l0 *= expf(m0 - n0);
+        l1 *= expf(m1 - n1);
 #pragma unroll
-            for (int dd = 0; dd < DCH; ++dd) {
-              const int d = lane + 32 * dd;
-              if (d < hd) o[d] = (j0 ? o[d] : 0.f) + acc[dd];
+        for (int j = 0; j < 8; ++j) {
+          l0 += expf(s[j][0] - n0) + expf(s[j][1] - n0);
+          l1 += expf(s[j][2] - n1) + expf(s[j][3] - n1);
+        }
+        m0 = n0;
+        m1 = n1;
+      }
+      const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+      if (alt) stage_keys(0, Lk, false, true);
+
+      // walk 2: p = exp(s - m) / l, split, times V over output column tiles
+      // [d0, d0 + OT) in each pass, G tiles at a time.  The A operand is p
+      // in its C layout as it stands: its k index t is key 2t of the 8, and
+      // t + 4 is key 2t + 1; V's B fragments are read from those rows.
+#pragma unroll
+      for (int pass = 0; pass < NPASS; ++pass) {
+        const int d0 = pass * OT;
+        float o[OT][4];
+#pragma unroll
+        for (int d = 0; d < OT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+        for (int c = 0; c < nchunk; ++c) {
+          const int c0 = c * kTfChunk, nk = min(kTfChunk, Lk - c0);
+          if (chunked) stage_keys(c0, nk, true, true);
+          if (!active) continue;
+          if (keep) {
+            __syncwarp();  // the tile's scores are the warp's own
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 x = *reinterpret_cast<const float2*>(sc_s + g * ss + c0 + 8 * j + 2 * t);
+              const float2 y =
+                  *reinterpret_cast<const float2*>(sc_s + (g + 8) * ss + c0 + 8 * j + 2 * t);
+              s[j][0] = x.x;
+              s[j][1] = x.y;
+              s[j][2] = y.x;
+              s[j][3] = y.y;
+            }
+          } else if (nchunk > 1) {
+            tf32_scores<HD8, QR>(s, qb, qs, q_s, k_s, rs, hd8, mr0, mr1, c0, nk, scale, lane);
+          }
+          const float* vc = v_s + c * off;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (8 * j < nk) {
+              uint32_t pb[4], ps[4];
+              split_tf32(expf(s[j][0] - m0) * inv0, pb[0], ps[0]);
+              split_tf32(expf(s[j][2] - m1) * inv1, pb[1], ps[1]);
+              split_tf32(expf(s[j][1] - m0) * inv0, pb[2], ps[2]);
+              split_tf32(expf(s[j][3] - m1) * inv1, pb[3], ps[3]);
+              const float* vr = vc + (8 * j + 2 * t) * rs + 8 * d0 + g;
+#pragma unroll
+              for (int dg = 0; dg < OT; dg += G) {
+                const int nd = min(G, hd8 - d0 - dg);  // tiles of this group within the head dim
+                uint32_t vb[G][2], vs[G][2];
+#pragma unroll
+                for (int u = 0; u < G; ++u) {
+                  if (u < nd) {
+                    split_tf32(vr[8 * (dg + u)], vb[u][0], vs[u][0]);
+                    split_tf32(vr[rs + 8 * (dg + u)], vb[u][1], vs[u][1]);
+                  }
+                }
+                mma_3xtf32<G>(o, dg, pb, ps, vb, vs, nd);
+              }
             }
           }
-          __syncwarp();  // q_s is read by every lane before the next row overwrites it
+        }
+        if (!active) continue;
+#pragma unroll
+        for (int d = 0; d < OT; ++d) {
+          const int col = 8 * (d0 + d) + 2 * t;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? ra : rb;
+            if (row < Lq && col + (e & 1) < hd) out[row * B_.out.sl + col + (e & 1)] = o[d][e];
+          }
         }
       }
     }
@@ -443,32 +707,6 @@ __global__ void __launch_bounds__(kF32Warps * 32)
 //   w4mlu, w4C, w4Q over the staged columns (f32)
 //   c, q   (Lcp, DS + PAD), (Lqp, DS + PAD) in T: DS columns of each
 //   o      (Lqp, DO + PAD): S_t^T c over DO columns (bf16: hi, then lo)
-
-// Rows [0, rows) x cols [0, cols) of a row-major T matrix (row stride sl)
-// into a (rows_pad, cols_pad) tile of row stride ds, zero beyond, in 16-byte
-// pieces: cp.async where the source allows, element loads otherwise.  The
-// caller waits.
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int ds, const T* src, long long sl, int rows,
-                                           int rows_pad, int cols, int cols_pad) {
-  constexpr int E = 16 / sizeof(T);
-  const bool aligned =
-      cols % E == 0 && sl % E == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-  const int pieces = cols_pad / E;
-  for (int idx = threadIdx.x; idx < rows_pad * pieces; idx += kCqThreads) {
-    const int r = idx / pieces, c0 = (idx % pieces) * E;
-    T* d = dst + r * ds + c0;
-    if (aligned && r < rows && c0 < cols) {
-      cp_async16(d, src + r * sl + c0);
-    } else {
-      __align__(16) T tmp[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        tmp[e] = (r < rows && c0 + e < cols) ? src[r * sl + c0 + e] : from_f<T>(0.f);
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(tmp);
-    }
-  }
-}
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
@@ -592,8 +830,8 @@ template <typename T>
 __device__ __forceinline__ void stage_chunk(T* c_s, T* q_s, int CS, const T* c, const T* q, int D,
                                             int d0, int dw, int dwp, int Lc, int Lq, int Lcp,
                                             int Lqp) {
-  stage_rows(c_s, CS, c + d0, D, Lc, Lcp, dw, dwp);
-  stage_rows(q_s, CS, q + d0, D, Lq, Lqp, dw, dwp);
+  stage_rows(c_s, CS, c + d0, D, Lc, Lcp, dw, dwp, threadIdx.x, kCqThreads);
+  stage_rows(q_s, CS, q + d0, D, Lq, Lqp, dw, dwp, threadIdx.x, kCqThreads);
 }
 
 // The rank-1 terms over one staged chunk, s0 += c . w4C and s1 += q . w4Q:
@@ -1120,16 +1358,19 @@ cudaError_t allow_smem(Kern kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int DCH>
-int launch_f32(View q, Branch b0, Branch b1, int nbranch, int B, int H, int Lq, int hd,
-               float scale, cudaStream_t stream) {
-  const size_t bytes = (kF32Chunk * (2 * (size_t)hd + 1) + kF32Warps * (size_t)hd +
-                        2 * kF32Rows) * sizeof(float);
-  cudaError_t err = allow_smem(attention_f32<DCH>, bytes);
+// attention_tf32's plan, computed by kernels/attention.py::attention_f32_plan.
+struct Tf32Plan {
+  int mode, nwarp, kv_rows, ss;
+  size_t bytes;
+};
+
+template <int HD8>
+int launch_tf32(View q, Branch b0, Branch b1, int nbranch, int B, int H, int Lq, int hd,
+                float scale, const Tf32Plan& plan, cudaStream_t stream) {
+  cudaError_t err = allow_smem(attention_tf32<HD8>, plan.bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Lq + kF32Rows - 1) / kF32Rows);
-  attention_f32<DCH><<<grid, kF32Warps * 32, bytes, stream>>>(q, b0, b1, nbranch, H, Lq, hd,
-                                                              scale);
+  attention_tf32<HD8><<<B * H, plan.nwarp * 32, plan.bytes, stream>>>(
+      q, b0, b1, nbranch, H, Lq, hd, scale, plan.mode, plan.kv_rows, plan.ss);
   return (int)cudaGetLastError();
 }
 
@@ -1148,19 +1389,16 @@ int launch_mma(View q, Branch b0, Branch b1, int nbranch, int B, int H, int Lq, 
 }
 
 int launch_attention(int dtype, View q, Branch b0, Branch b1, int nbranch, int B, int H, int Lq,
-                     int hd, float scale, cudaStream_t stream) {
+                     int hd, float scale, const Tf32Plan& plan, cudaStream_t stream) {
   if (dtype == 0) {
-    switch ((hd + 31) / 32) {
-      case 1: return launch_f32<1>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-      case 2: return launch_f32<2>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-      case 3: return launch_f32<3>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-      case 4: return launch_f32<4>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-      case 5: return launch_f32<5>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-      case 6: return launch_f32<6>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-      case 7: return launch_f32<7>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-      case 8: return launch_f32<8>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    // head dims in buckets of 32, 64, 128, 192 and 256 (the call's own
+    // 8-column steps read at run time)
+    const int hd8 = (hd + 7) / 8;
+    if (hd8 < 1 || hd8 > 32) return (int)cudaErrorInvalidValue;
+    const auto launch = hd8 <= 4 ? launch_tf32<4> : hd8 <= 8 ? launch_tf32<8>
+                        : hd8 <= 16 ? launch_tf32<16> : hd8 <= 24 ? launch_tf32<24>
+                        : launch_tf32<32>;
+    return launch(q, b0, b1, nbranch, B, H, Lq, hd, scale, plan, stream);
   }
   switch ((hd + 15) / 16) {
     case 1: return launch_mma<1>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
@@ -1217,18 +1455,22 @@ int launch_cq_plan(const void* c, const void* q, const void* w4c, const void* w4
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  mode, nwarp,
+// kv_rows, ss and shared_bytes are the f32 body's plan
+// (kernels/attention.py::attention_f32_plan); the bf16 body ignores them.
 extern "C" int vmr_masked_attention(int dtype, const void* q, long long q_sb, long long q_sh,
                                     long long q_sl, const void* k, long long k_sb,
                                     long long k_sh, long long k_sl, const void* v,
                                     long long v_sb, long long v_sh, long long v_sl,
                                     const void* mask, void* out, long long o_sb, long long o_sh,
                                     long long o_sl, int B, int H, int Lq, int Lk, int hd,
-                                    float scale, void* stream) {
+                                    float scale, int mode, int nwarp, int kv_rows, int ss,
+                                    long long shared_bytes, void* stream) {
   const View qv{q, q_sb, q_sh, q_sl};
   const Branch b0{{k, k_sb, k_sh, k_sl}, {v, v_sb, v_sh, v_sl}, {out, o_sb, o_sh, o_sl}, mask,
                   Lk};
   return launch_attention(dtype, qv, b0, b0, 1, B, H, Lq, hd, scale,
+                          {mode, nwarp, kv_rows, ss, (size_t)shared_bytes},
                           static_cast<cudaStream_t>(stream));
 }
 
@@ -1242,13 +1484,15 @@ extern "C" int vmr_dual_attention(int dtype, const void* q, long long q_sb, long
                                   const void* x_mask, void* s_out, long long so_sb,
                                   long long so_sh, long long so_sl, void* x_out, long long xo_sb,
                                   long long xo_sh, long long xo_sl, int B, int H, int L, int M,
-                                  int hd, float scale, void* stream) {
+                                  int hd, float scale, int mode, int nwarp, int kv_rows, int ss,
+                                  long long shared_bytes, void* stream) {
   const View qv{q, q_sb, q_sh, q_sl};
   const Branch self{{fk, fk_sb, fk_sh, fk_sl}, {fv, fv_sb, fv_sh, fv_sl},
                     {s_out, so_sb, so_sh, so_sl}, s_mask, L};
   const Branch cross{{tk, tk_sb, tk_sh, tk_sl}, {tv, tv_sb, tv_sh, tv_sl},
                      {x_out, xo_sb, xo_sh, xo_sl}, x_mask, M};
   return launch_attention(dtype, qv, self, cross, 2, B, H, L, hd, scale,
+                          {mode, nwarp, kv_rows, ss, (size_t)shared_bytes},
                           static_cast<cudaStream_t>(stream));
 }
 

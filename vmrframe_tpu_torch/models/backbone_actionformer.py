@@ -21,7 +21,7 @@ layer, as flax's promotion gives them in the JAX model:
   weights promoted to f32 (``ops/precision.py::promoted_call``), so the
   window-5 attention, LayerNorms and MLPs run in f32;
 - ``SeqPANPredictor`` on pyramid level 0: f32 on promoted weights, its two
-  ``TopSelfAttention`` cores through #1 in f32 (``attention_f32``);
+  ``TopSelfAttention`` cores through #1 in f32 (``attention_tf32``);
 - the logits come out f32.
 
 In f32 every layer is f32 and the promotion is the identity."""

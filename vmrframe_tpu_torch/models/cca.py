@@ -35,9 +35,9 @@ contraction forward with the hand-derived backward.
 Under the bf16 policy the map, the transformer, the GCN and the query branch
 run in bf16 like the JAX model's; BatchNorm normalizes in f32 and its tanh
 returns to bf16; the f32 ``v_t_param`` promotes the blended ``scores2d`` to
-f32.  The query LSTM runs in f32 on its bf16 weights and input and returns
-bf16 (the JAX scan rounds its state to bf16 at each step; torch's LSTM
-takes one dtype for weights and biases).  CCA runs no hand-written kernel.
+f32.  The query LSTM runs in its input's type, as the JAX scan does: bf16
+through the scan, each gate's two f32 biases summed in f32 and rounded once
+(``layers/recurrent.py::LSTM``).  CCA runs no hand-written kernel.
 """
 
 from __future__ import annotations
@@ -60,7 +60,6 @@ from vmrframe_tpu_torch.layers.dropout import Dropout, dropout_bits, set_dropout
 from vmrframe_tpu_torch.layers.recurrent import LSTM
 from vmrframe_tpu_torch.losses import lossfun_loc2d
 from vmrframe_tpu_torch.models.ban import Linear
-from vmrframe_tpu_torch.ops.precision import promoted_call
 from vmrframe_tpu_torch.ops.span import infer_span_2d
 from vmrframe_tpu_torch.ops.windowed import cell_segment_max_map
 from vmrframe_tpu_torch.parallel.mesh import all_reduce_sum, is_distributed, world
@@ -390,7 +389,7 @@ class CCA(nn.Module):
         table = torch.cat([glove.new_zeros(1, glove.shape[1]), self.unk_vec.to(glove.dtype),
                            glove], dim=0)
         tfeat = table[batch["words_ids"].long()]
-        q_out = promoted_call(self.sim_lstm, torch.float32, tfeat.float(), None).to(tfeat.dtype)
+        q_out = self.sim_lstm(tfeat, None)
         wordlens = batch["tmasks"].sum(dim=1).to(torch.int64)
         q_end = q_out[torch.arange(B, device=q_out.device), (wordlens - 1).clamp_min(0)]
         queries = self.fc_full((q_out[:, 0] + q_end) / 2)  # (B, H)

@@ -10,15 +10,22 @@ widths, at the sentence variants' shapes and at the JAX tool's own shapes
 version's, one PyTorch call computing the same function where there is one
 (SDPA for #1, #2 and #5-#7; none for #3 and #4), and the least time the
 card could take (``bound_ms``: the larger of the bytes over 3.35 TB/s and
-the matrix products over the dense peak of their type).  Device times are
+the matrix products over the dense peak of their type, f32 #1/#2 at the
+3xTF32 rate their body runs at: ``tools/h100.py``).  Device times are
 CUDA events around calls queued behind a sleep kernel, median of 5; on the
 CPU (``--device cpu``, where a wrapper runs its plain version) the host
 clock.  ``chip_smoke.py``'s time phase calls ``time_kernels``.
 
 The per-kernel tools ``bench_banded``, ``bench_cq`` and ``bench_stack``
-time a parent against a change; this one writes the whole table:
+time a parent against a change; this one writes the whole table, or some
+kernels' rows (#1/#2 of a parent against a change: run it from each
+checkout's root with ``--kernels``).  ``--f32-modes`` narrows the staging
+modes the f32 body of #1/#2 may take (``kernels/attention.py``'s
+``F32_STAGED_MODES``; "chunked" stays the last resort), to compare them:
 
     python -m vmrframe_tpu_torch.tools.bench_kernels --out chiprun_out/bench_kernels.json
+    python -m vmrframe_tpu_torch.tools.bench_kernels --no-jax-shapes \
+        --kernels fused_masked_attention,fused_dual_attention --f32-modes both
     python -m vmrframe_tpu_torch.tools.bench_kernels --device cpu --batch 2 \
         --kernels fused_masked_attention --out /tmp/k.json
 
@@ -38,7 +45,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-from vmrframe_tpu_torch.tools.h100 import HBM_BYTES_PER_S, PEAK_OPS
+from vmrframe_tpu_torch.tools.h100 import HBM_BYTES_PER_S, peak_ops
 
 B, H, HD, LV, LT, D = 128, 4, 32, 64, 30, 128
 LV_LONG = 256  # SeqPAN's vlen at TACoS width (the reference's longest SeqPAN grid)
@@ -346,7 +353,7 @@ def work(name: str, args) -> tuple:
 
 def bound_ms(name: str, args) -> tuple:
     nbytes, ops = work(name, args)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[args[0].dtype] * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops(args[0].dtype, name) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -657,6 +664,8 @@ def main(argv=None) -> list:
     ap.add_argument("--kernels", default=",".join(KERNEL_NAMES))
     ap.add_argument("--batch", type=int, default=B, help="SeqPAN's batch for #1-#4")
     ap.add_argument("--no-jax-shapes", action="store_true", help="skip the JAX tool's shapes")
+    ap.add_argument("--f32-modes", default=None,
+                    help="the staging modes #1/#2's f32 body may take, in order (both, alt)")
     ap.add_argument("--out", default="chiprun_out/bench_kernels.json")
     args = ap.parse_args(argv)
 
@@ -672,6 +681,11 @@ def main(argv=None) -> list:
     unknown = set(names) - set(KERNEL_NAMES)
     if unknown:
         raise SystemExit(f"unknown kernels {sorted(unknown)}; known: {KERNEL_NAMES}")
+    if args.f32_modes is not None:
+        modes = tuple(m.strip() for m in args.f32_modes.split(",") if m.strip())
+        if not modes or set(modes) - set(K.F32_STAGED_MODES):
+            raise SystemExit(f"--f32-modes: some of {K.F32_STAGED_MODES}, got {modes}")
+        K.F32_STAGED_MODES = modes
     card = card_name(device)
     if device.type == "cuda":
         build.build_all(sorted({SOURCE_OF[n] for n in names}))
@@ -689,8 +703,8 @@ def main(argv=None) -> list:
         print(json.dumps(row), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"card": card, "device": str(device), "kernels": rows, "detail": results}, f,
-                  indent=1)
+        json.dump({"card": card, "device": str(device), "f32_modes": list(K.F32_STAGED_MODES),
+                   "kernels": rows, "detail": results}, f, indent=1)
     return rows
 
 

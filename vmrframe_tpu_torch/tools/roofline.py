@@ -199,7 +199,7 @@ def count_traffic(fn, *args) -> dict:
     ops = sorted(mode.rows.values(), key=lambda r: -r["bytes"])
     return {"ops": ops, "calls": sum(r["calls"] for r in ops),
             "flops": sum(r["flops"] for r in ops), "bytes": sum(r["bytes"] for r in ops),
-            "flop_time_ms": sum(r["flops"] / peak_ops(r["dtype"] or "float32")
+            "flop_time_ms": sum(r["flops"] / peak_ops(r["dtype"] or "float32", r["op"])
                                 for r in ops) * 1e3}
 
 

@@ -74,7 +74,8 @@ def floor_ms(counted: dict, cat: str, probe: dict) -> float:
     t_bytes = per_call_bytes / rate_at(probe, per_call_bytes)
     t = t_bytes
     if cat.startswith(COMPUTE):
-        t = max(t, counted["flops"] / counted["calls"] / peak_ops(counted["dtype"] or "float32"))
+        t = max(t, counted["flops"] / counted["calls"]
+                / peak_ops(counted["dtype"] or "float32", counted["op"]))
     return calls * t * 1e3
 
 
