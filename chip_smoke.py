@@ -305,6 +305,7 @@ AF_CHECK_T = tuple(AF_LAUNCHES) + (1000, 300)  # + a ragged length, and T_pad ==
 AF_CHECK_HD = (24, 96)  # head dims off the 32/64/128 grid, checked at T=1000
 N_AF_REQUESTS, AF_CONCURRENCY = 256, 32
 N_TIMED_STEPS, N_WARMUP_STEPS, N_BF16_STEPS = 20, 2, 3
+N_ROUTE_STEPS = N_TIMED_STEPS // 4  # the pipeline phase's fed steps, on each of its 8 routes
 # Charades, an odd B, a ragged pair; ANet length; a ragged pair past the
 # kernel's 64-row tiles (TACoS length: long_cases)
 STACK_CHECK_SHAPES = ((B, LV, LT), (3, LV, LT), (2, 13, 5), (B, LV_ANET, LT), (3, 129, 65))
@@ -1370,7 +1371,7 @@ def route_steps(K, S, cfg, derived, dataset, store, card: str, label: str) -> di
 
     zero_counts(K.KERNELS + S.KERNELS)
     out = time_route(  # droprate 0.2: no kernel in a train step, on either route
-        cfg, derived, dataset, store, "cuda", N_WARMUP_STEPS, N_TIMED_STEPS // 2, N_ASSEMBLED,
+        cfg, derived, dataset, store, "cuda", N_WARMUP_STEPS, N_ROUTE_STEPS, N_ASSEMBLED,
         N_PROFILED_STEPS, after_timed=lambda: read_launches(
             f"pipeline {label}", K.KERNELS + S.KERNELS, want_launches(SEQPAN_TRAIN_LAUNCHES, 0)))
     losses = out.pop("losses")

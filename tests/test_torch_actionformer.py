@@ -53,6 +53,7 @@ TINY = {
     "actionformer.pallas_min_len": 256,
 }
 ATOL = 1e-4
+BF16_STEPS = 12  # test_bf16_module_path_follows_jax's bar (9.5 measured)
 
 
 def _t(x):
@@ -412,6 +413,62 @@ def test_bf16_policy_on_the_actionformer_tree(world):
     assert torch.isfinite(out16["cls_logits"]).all()
     err = (out16["cls_logits"] - out32["cls_logits"]).abs().max()
     assert err < 0.1 * out32["cls_logits"].abs().max()
+
+
+def test_bf16_module_path_follows_jax(world):
+    """ActionFormer's bf16 eval forward, call by call, against the jitted JAX
+    forward under the same policy (rank >= 2 weights and batch leaves cast to
+    bf16, ``cast_floating``), as ``test_torch_family.py`` holds SeqPAN's:
+    every port module but the dropouts has a JAX module of the same path,
+    each of its calls
+    gives the dtypes the JAX call gives, and each output lies within
+    ``BF16_STEPS`` steps of bf16 at the JAX output's largest magnitude.  An
+    all-bf16 route rounds apart from XLA's fused one, and the banded
+    attention's softmax, the layer norms and the heads' convolutions each
+    add steps; the largest is at ``cls_head.norm_1`` (9.5 measured; 12
+    allowed), wider than SeqPAN's bar of 6, which stays."""
+    from flax import traverse_util
+
+    from vmrframe_tpu.ops.precision import cast_floating
+    from vmrframe_tpu_torch.layers.dropout import Dropout
+    from vmrframe_tpu_torch.ops.precision import cast_batch, cast_module_
+
+    bf = jnp.bfloat16
+    jb = {k: jnp.asarray(v) for k, v in world["jbatches"][0].items() if k != "num_valid"}
+    _, inter = jax.jit(lambda p, b: world["trainer"].model.apply(
+        {"params": p}, b, True, capture_intermediates=True))(cast_floating(world["params"], bf),
+                                                             cast_floating(jb, bf))
+    jcalls = {path.replace("/__call__", "").replace("/", "."): calls for path, calls in
+              traverse_util.flatten_dict(inter["intermediates"], sep="/").items()}
+    model = ActionFormer(world["cfg"], world["der"], world["ds"]["word_vector"]).eval()
+    load_jax_params(model, world["params"], {})
+    cast_module_(model, torch.bfloat16)
+    calls, hooked = {}, set()
+    for name, mod in model.named_modules():
+        if name and not isinstance(mod, Dropout):
+            assert name in jcalls, name
+            hooked.add(name)
+            mod.register_forward_hook(
+                lambda mod, args, out, name=name: calls.setdefault(name, []).append(out))
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in world["batches"][0].items()
+          if k != "num_valid"}
+    with torch.no_grad():
+        model(cast_batch(tb, torch.bfloat16))
+    # a masked convolution's inner conv holds the weights its parent applies
+    assert all(name.endswith(".conv") for name in hooked - set(calls))
+    worst = {}
+    for name, outs in calls.items():
+        assert len(outs) == len(jcalls[name]), name
+        for out, jout in zip(outs, jcalls[name]):
+            outs_t, jouts = jax.tree_util.tree_leaves(out), jax.tree_util.tree_leaves(jout)
+            assert [str(o.dtype).split(".")[-1] for o in outs_t] == \
+                [str(o.dtype) for o in jouts], name
+            for o, jo in zip(outs_t, jouts):
+                got, want = o.detach().float().numpy(), np.asarray(jo, np.float32)
+                step = 2.0 ** (np.floor(np.log2(max(np.abs(want).max(), 1e-30))) - 7)
+                worst[name] = max(worst.get(name, 0.0), np.abs(got - want).max() / step)
+    name = max(worst, key=worst.get)
+    assert worst[name] <= BF16_STEPS, (name, worst[name])
 
 
 def test_serving_actionformer_on_the_cpu(world):

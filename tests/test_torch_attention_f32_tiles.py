@@ -35,45 +35,18 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _tf32 import product, split, tf32
 
 from vmrframe_tpu_torch.kernels import attention as K
 from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 
 CSRC = Path(K.__file__).resolve().parent / "csrc" / "attention.cu"
+HEADER = CSRC.with_name("mma_tf32.cuh")  # the TF32 helpers both f32 tensor-core sources include
 # the kernel's schedule (kTfChunk, kTfRowPad, kTfQRegs, kTfOutTiles,
 # kMaxWarps in the source): keys a chunk; floats after each staged row; Q in
 # registers up to this many 8-column steps; output tiles a pass; warps a block
 CHUNK_KEYS, ROW_PAD, Q_REGS, OUT_TILES, MAX_WARPS = 64, 4, 8, 16, 8
-STEP = 8  # the k of mma.m16n8k8: the width of each product's step
 TOL = 1e-5
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32``: the nearest value with 10 mantissa bits, ties
-    away from zero (adding half of the dropped 13 bits to the magnitude's
-    bits and cutting them)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    big = tf32(x)
-    return big, tf32(x - big)
-
-
-def product(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
-    """a (..., M, K) @ b (..., K, N) as the kernel sums it: in K steps of 8,
-    each step's three TF32 products (or big.big alone with ``passes`` 1)
-    added to an f32 accumulator in the kernel's order."""
-    (ab, as_), (bb, bs) = split(a), split(b)
-    acc = torch.zeros(*a.shape[:-1], b.shape[-1])
-    for k0 in range(0, a.shape[-1], STEP):
-        x = slice(k0, k0 + STEP)
-        if passes == 3:
-            acc = acc + ab[..., x] @ bs[..., x, :]
-            acc = acc + as_[..., x] @ bb[..., x, :]
-        acc = acc + ab[..., x] @ bb[..., x, :]
-    return acc
 
 
 def emulate(q, k, v, mask, passes: int = 3) -> torch.Tensor:
@@ -174,10 +147,12 @@ def test_schedule_constants_are_the_kernels():
         (CHUNK_KEYS, ROW_PAD, Q_REGS, MAX_WARPS)
     modes = re.search(r"constexpr int kTfBoth = (\d+), kTfAlt = (\d+), kTfChunked = (\d+);", src)
     assert modes and [int(x) for x in modes.groups()] == list(range(len(K.F32_MODES)))
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert '#include "mma_tf32.cuh"' in src
+    helpers = HEADER.read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in helpers
     # the kernel's rounding is ``tf32`` here: half of the 13 dropped bits added, then cleared
-    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in src and ~0x1FFF & 0xFFFFFFFF == \
-        0xFFFFE000
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in helpers and \
+        ~0x1FFF & 0xFFFFFFFF == 0xFFFFE000
 
 
 def test_staged_rows_fall_on_distinct_banks():

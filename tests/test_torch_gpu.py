@@ -297,13 +297,17 @@ def _banded_bwd_inputs(g, B, H, T, hd, dtype, device):
     return q, k, v, mask, cot
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("T,window,hd", [
-    (300, 19, 128), (1000, 19, 128), (576, 19, 64), (640, 37, 32), (700, 300, 64),
-    # T_pad == K_WIN == K2, the statistics slice as long as the sequence
-    (384, 9, 128),
-    # head dims the kernels zero-fill up to the next multiple of 16 (bf16) or 32 (f32)
-    (1000, 19, 96), (576, 19, 24), (640, 37, 16), (1000, 19, 1), (640, 19, 8)])
+@pytest.mark.parametrize("dtype,T,window,hd", _f32_cases(
+    [(300, 19, 128), (1000, 19, 128), (576, 19, 64), (640, 37, 32), (700, 300, 64),
+     # T_pad == K_WIN == K2, the statistics slice as long as the sequence
+     (384, 9, 128),
+     # head dims the kernels zero-fill up to the next multiple of 16 (bf16) or 8 (f32)
+     (1000, 19, 96), (576, 19, 24), (640, 37, 16), (1000, 19, 1), (640, 19, 8)],
+    # f32 (3xTF32 on the tensor cores): spans past 64 keys (two walks of
+    # dq), key and row unions streamed in parts at head dim 128 (window 75:
+    # 224 rows, window 300: 448), head dims inside a bucket (5, 40, 72, 100)
+    [(700, 300, 128), (1000, 75, 128), (640, 37, 5), (576, 19, 40), (1000, 19, 72),
+     (1000, 19, 100)]))
 def test_banded_backward_kernels_on_strided_views(cuda, dtype, T, window, hd):
     """#6 and #7 against their plain versions with a random cotangent on
     every row, padding rows included: sample 0 wholly masked (every row of

@@ -87,18 +87,21 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"  // bf16, quad reductions, cp.async, ldmatrix, mma_bf16, stage
+#include "mma_tf32.cuh"  // to_tf32, split_tf32, mma_tf32, mma_3xtf32
 
 namespace {
 
 constexpr float kMask = -1e30f;
 constexpr int kTile = 128;                          // query rows per block (the TPU tile)
-constexpr int kChunk = 32;                          // f32 bodies: keys per chunk, one per lane
-constexpr int kWarps = 16;                          // f32 bodies
-constexpr int kRows = kTile / kWarps;               // f32 bodies: query rows per warp
+constexpr int kChunk = 32;                          // banded_f32: keys per chunk, one per lane
+constexpr int kWarps = 16;                          // banded_f32
+constexpr int kRows = kTile / kWarps;               // banded_f32: query rows per warp
 constexpr int kMmaWarps = kTile / 16;               // banded_mma: a warp per 16 rows
 constexpr int kMmaChunk = 64;                       // banded_mma: keys per score chunk (8 n-tiles)
 constexpr int kTwoBlockBytes = 113 * 1024;          // shared memory of one of two blocks per SM
 constexpr int kColSumFloats = 2048;                 // slice_colsum: 16 bytes a thread
+constexpr int kTfChunk = 48;   // dq_tf32, dkv_tf32: keys of a warp's score step, 6 n-tiles
+constexpr int kTfRowPad = 4;   // dq_tf32, dkv_tf32: floats after each staged f32 row
 static_assert(kColSumFloats >= kMmaWarps * 32 * 8 && kColSumFloats >= kWarps * 32 * 4,
               "slice_colsum's partial sums");
 
@@ -640,9 +643,10 @@ int launch_forward(int dtype, View q, View k, View v, const void* mask, View o, 
 //
 // Each kernel marks such rows from the mask (mark_padding_rows) and gives
 // them a pass of their own, over their whole slice (dq) or every own key
-// (dk/dv), only in blocks that hold one; the span walk skips them.  Their
-// dv terms, the same round(1/K2) g on every own key, come from one sum of
-// g over the window's padding rows.  Rows at or past T add nothing to dk/dv
+// (dk/dv), only in blocks that hold one; the span walk skips them (the f32
+// bodies factor the pass through one hd x hd matrix, below).  Their dv
+// terms, the same round(1/K2) g on every own key, come from one sum of g
+// over the window's padding rows.  Rows at or past T add nothing to dk/dv
 // (their q and g are zero) and get no dq.
 //
 // What bounds them on an H100: at the long config's training shapes (batch
@@ -675,16 +679,46 @@ int launch_forward(int dtype, View q, View k, View v, const void* mask, View o, 
 //          and dk += round(ds) Q with G's and Q's B fragments by
 //          ldmatrix.trans.  dk and dv stay in registers (128 a thread at
 //          hd 128): one block per SM.
-// f32 (dq_f32, dkv_f32): exact f32 on the CUDA cores, no TF32; the same
-// tiles, 16 warps of 8 rows or keys, lanes over 32-key (32-row) chunks
-// whose K/V (Q/G) rows are padded to HDP + 1 floats (no bank conflicts), a
-// warp skipping the chunks off its band unless a padding row needs them
-// (and then the scores); dk/dv keeps the union's statistics in shared
-// memory as the bf16 body does, and reads its own K and V rows as float4
-// broadcasts.  One block per SM (~185 KB, ~205 KB at hd 128).  Blocks of 4
-// warps and 32 rows or keys, 2-3 per SM, measured slower: 4x the padding
-// rows' work and 2x the dk/dv statistics.
-// Head dims 1 to 128: columns zero-filled up to HDP (16 HDK or 32 DCH).
+// f32 (dq_tf32, dkv_tf32): the same grid, warps, spans and statistics on
+// the tensor cores, every product (S = Q K^T, dP = G V^T, dq += ds K; S^T =
+// K Q^T, dP^T = V G^T, dv += p^T G, dk += ds^T Q) on mma.sync m16n8k8 TF32
+// in the 3xTF32 split (mma_tf32.cuh: each operand x as big = tf32(x) and
+// small = tf32(x - big), rounded as cvt.rna rounds; big.small + small.big +
+// big.big summed in f32), which keeps ~22 of f32's 24 bits of each operand
+// where one TF32 pass keeps 11: the port's f32 route keeps TF32 out of
+// cuBLAS and cuDNN (device.py), and these bodies hold the plain versions to
+// 1e-4 as the former CUDA-core ones did.  Fragments are split as they are
+// read; the products go in rounds over independent accumulator tiles with
+// no branch between them (a step computes all its tiles, those past the
+// span or head dim re-reading tile 0, never used).  p and ds leave their C
+// layout as the A tiles of the value products as they stand (lane t holds
+// columns 2t, 2t + 1, the k indices t, t + 4), the B rows read from the
+// matching keys (dq) or query rows (dk/dv).  The operands a warp alone
+// reads (its 16 rows' Q and G in dq and in dk/dv's statistics, its 16 own
+// keys' K and V) come from device memory step by step; those that
+// neighbouring warps share (K and V of the key union, Q and G of the query
+// union) are staged once with 16-byte cp.async in f32 rows of 8 hd8 +
+// kTfRowPad floats (both fragment patterns, row g column t and rows 2t,
+// 2t + 1 column g, on 32 distinct banks), in chunks where the union does
+// not fit.  Scores go kTfChunk keys (a window-19 span) a step, and dq keeps
+// a span of at most kTfChunk keys (window <= 33) in registers from walk 1
+// to ds: one walk.
+//   Padding rows: p is a constant on every key they reach, and f32 rounds
+// nothing, so their products factor through one hd x hd matrix a block,
+// taken on the tensor cores a 16-row slab a warp and kept in shared memory
+// already split: dq = (scale / K_WIN) g N with N = sum over the slice of
+// (v - cs / K_WIN) k^T (cs: V summed over the slice), written before the
+// walks, which give these rows nothing; dk += (scale / K2) M (v - cs / K2)
+// on every own key with M = sum over the window's padding rows of q g^T
+// (cs over the K2 slice).  Their row sums of dp p are then not needed.  The
+// span walks the CUDA-core bodies took for these rows walked the whole
+// slice or window per warp, and set the bodies' time in blocks that hold
+// one.
+//   Registers, not shared memory, bound them: dk and dv hold 128 floats a
+// thread at head dim 128, so one block of 8 warps an SM (~179 KB, ~172 KB
+// at hd 128, window 19).  Head dims 1 to 128 in buckets of 32, 64 and 128
+// columns (HD8 4, 8, 16), the call's own 8 hd8 columns staged, zero-filled
+// up to the next multiple of 8.
 // Every dk/dv row has one owner block: no atomics, the same bits every run.
 
 
@@ -1183,423 +1217,677 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1)
   store_c<HDK>(o, dqv, b, h, r0, hd, sh.T, lane);
 }
 
-// --------------------------------------------------- f32 dq (#6), dk/dv (#7)
+// ------------------------------------------- f32 products on the tensor cores
 
-// Rows [r0, r0 + n) x columns [0, HDP) of x into x_s in f32, rows padded to
-// `ld` floats; zero past T and from column hd.
-template <int HDP>
-__device__ __forceinline__ void load_rows(const float* x, long long sl, int r0, int n, int T_len,
-                                          int hd, int ld, float* x_s) {
-  for (int idx = threadIdx.x; idx < n * HDP; idx += blockDim.x) {
-    const int r = idx / HDP, d = idx % HDP, i = r0 + r;
-    x_s[r * ld + d] = (i < T_len && d < hd) ? x[i * sl + d] : 0.f;
-  }
-}
-
-// The warp's kRows rows of rows_s (HDP floats each) against one key row:
-// out[r] = rows[row0 + r] . key.
-template <int HDP>
-__device__ __forceinline__ void rows_dot(const float* rows_s, int row0, const float* key,
-                                         float (&out)[kRows]) {
+// Rows [0, rows) x columns [0, hd) of a strided f32 matrix into a (rows_pad,
+// hdp) tile of row stride rs floats, zero beyond (hdp a multiple of 4);
+// threads tid, tid + nthr, ... each take 16-byte pieces, by cp.async where
+// the source rows are 16-byte aligned.  The caller waits.
+__device__ __forceinline__ void stage_f32(float* dst, int rs, const float* src, long long sl,
+                                          int rows, int rows_pad, int hd, int hdp, int tid,
+                                          int nthr) {
+  const bool aligned = hd % 4 == 0 && sl % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  const int pieces = hdp / 4;
+  for (int idx = tid; idx < rows_pad * pieces; idx += nthr) {
+    const int r = idx / pieces, c = (idx % pieces) * 4;
+    float* d = dst + r * rs + c;
+    if (aligned && r < rows && c < hd) {
+      cp_async16(d, src + r * sl + c);
+    } else {
+      float x[4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) out[r] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HDP; d += 4) {
-    const float k0 = key[d], k1 = key[d + 1], k2 = key[d + 2], k3 = key[d + 3];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 q4 = *reinterpret_cast<const float4*>(rows_s + (row0 + r) * HDP + d);
-      out[r] = fmaf(q4.x, k0, out[r]);
-      out[r] = fmaf(q4.y, k1, out[r]);
-      out[r] = fmaf(q4.z, k2, out[r]);
-      out[r] = fmaf(q4.w, k3, out[r]);
+      for (int e = 0; e < 4; ++e) x[e] = (r < rows && c + e < hd) ? src[r * sl + c + e] : 0.f;
+      *reinterpret_cast<float4*>(d) = make_float4(x[0], x[1], x[2], x[3]);
     }
   }
 }
 
-// Statistics of the n_rows rows from r0 held in q_s/g_s (HDP floats each):
-// the max m of the band-masked scores, l = sum exp(s - m) and row = sum p dp,
-// over keys [s0, s1) that pass through k_s/v_s in 32-key chunks (rows padded
-// to HDP + 1); a warp takes only the chunks that meet its rows' band.  ok_s
-// holds the validity of the keys from ok0.  Written to m_o/l_o/row_o at the
-// row's index from r0; a warp whose rows are all padding rows (pad_o, at
-// the same index) has none to take.  Starts with a barrier; ends with none.
-template <int HDP>
-__device__ void span_stats_f32(const float* q_s, const float* g_s, float* k_s, float* v_s,
-                               const float* k, long long k_sl, const float* v, long long v_sl,
-                               const float* ok_s, int ok0, int r0, int n_rows, int s0, int s1,
-                               int hd, const Shape& sh, const float* pad_o, float* m_o,
-                               float* l_o, float* row_o) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * kRows, i0 = r0 + row0;
-  bool idle = true;  // no rows of the pass, or only padding rows
-  for (int r = 0; r < kRows && row0 + r < n_rows; ++r) idle &= pad_o[row0 + r] != 0.f;
-  float mx[kRows], sum[kRows], acc[kRows], s[kRows], dp[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    mx[r] = kMask;
-    sum[r] = 0.f;
-    acc[r] = 0.f;
-  }
-  for (int c = s0; c < s1; c += kChunk) {
-    __syncthreads();
-    load_rows<HDP>(k, k_sl, c, kChunk, sh.T, hd, HDP + 1, k_s);
-    load_rows<HDP>(v, v_sl, c, kChunk, sh.T, hd, HDP + 1, v_s);
-    __syncthreads();
-    if (idle || c > i0 + kRows - 1 + sh.half || c + kChunk - 1 < i0 - sh.half)
-      continue;  // off the band of the warp's rows
-    rows_dot<HDP>(q_s, row0, k_s + lane * (HDP + 1), s);
-    rows_dot<HDP>(g_s, row0, v_s + lane * (HDP + 1), dp);
-    const int j = c + lane;
-    const bool key_ok = j < s1 && ok_s[j - ok0] > 0.f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float sc = (key_ok && abs(i0 + r - j) <= sh.half) ? s[r] * sh.scale : kMask;
-      const float mn = fmaxf(mx[r], sc);
-      const float a = expf(mx[r] - mn), e = expf(sc - mn);
-      sum[r] = sum[r] * a + e;
-      acc[r] = acc[r] * a + e * dp[r];
-      mx[r] = mn;
-    }
-  }
-  if (idle) return;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float row_max = warp_max(mx[r]);
-    const float f = expf(mx[r] - row_max);
-    const float l = warp_sum(sum[r] * f);
-    const float a = warp_sum(acc[r] * f);
-    if (lane == 0 && row0 + r < n_rows) {
-      m_o[row0 + r] = row_max;
-      l_o[row0 + r] = l;
-      row_o[row0 + r] = a / l;
-    }
-  }
+// The split A fragment of two rows of a strided f32 matrix in device memory
+// (row g of the tile at xa, row g + 8 at xb; null past T), columns c and
+// c + 4, zero from column hd.
+__device__ __forceinline__ void load_a_tf32(uint32_t (&ab)[4], uint32_t (&as)[4], const float* xa,
+                                            const float* xb, int c, int hd) {
+  split_tf32(xa && c < hd ? __ldg(xa + c) : 0.f, ab[0], as[0]);
+  split_tf32(xb && c < hd ? __ldg(xb + c) : 0.f, ab[1], as[1]);
+  split_tf32(xa && c + 4 < hd ? __ldg(xa + c + 4) : 0.f, ab[2], as[2]);
+  split_tf32(xb && c + 4 < hd ? __ldg(xb + c + 4) : 0.f, ab[3], as[3]);
 }
 
-// x . the kRows rows of o_s (HDP floats each, read as float4 broadcasts:
-// every lane reads the same row), x the lane's row (padded, read by floats).
-template <int HDP>
-__device__ __forceinline__ void own_dots(const float* x, const float* o_s, float (&out)[kRows]) {
+// acc[x][j] += X_x Y_x^T for x = 0, 1 and the n-tiles j < NT (8 staged
+// rows each), summed over the head dim's 8-column steps in 3xTF32: X_x the
+// 16 rows of a warp in device memory (rows at xa[x], xb[x]: load_a_tf32),
+// Y_x the rows y_s[x] + 8j + g (row stride rs, hd8 * 8 columns).  Each
+// step's products go in rounds over independent accumulators: all 2 NT at
+// once for NT <= 2, else the NT of one x at a time (half the B fragments
+// live).  Every tile to NT is computed, those from nt re-reading tile 0
+// (their keys are masked out after); past the call's hd8 the A fragments
+// are zero and the B fragments re-read step 0: no branch between the
+// products, no uninitialised shared memory read.
+template <int HD8, int NT>
+__device__ __forceinline__ void tf32_xyt(float (&acc)[2][NT][4], const float* const (&xa)[2],
+                                         const float* const (&xb)[2], const float* const (&y_s)[2],
+                                         int rs, int hd, int nt, int lane) {
+  constexpr int NX = NT <= 2 ? 2 : 1;  // both x in one round
+  const int g = lane >> 2, t = lane & 3, hd8 = (hd + 7) >> 3;
+#pragma unroll 2  // a whole unrolled walk hoisted every step's loads and spilled
+  for (int kk = 0; kk < HD8; ++kk) {
+    const int c = 8 * kk + t, cy = 8 * (kk < hd8 ? kk : 0) + t;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) out[r] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < HDP; d += 4) {
-    const float x0 = x[d], x1 = x[d + 1], x2 = x[d + 2], x3 = x[d + 3];
+    for (int x0 = 0; x0 < 2; x0 += NX) {
+      uint32_t ab[NX][4], as[NX][4], bb[NX][NT][2], bs[NX][NT][2];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 o4 = *reinterpret_cast<const float4*>(o_s + r * HDP + d);
-      out[r] = fmaf(x0, o4.x, out[r]);
-      out[r] = fmaf(x1, o4.y, out[r]);
-      out[r] = fmaf(x2, o4.z, out[r]);
-      out[r] = fmaf(x3, o4.w, out[r]);
-    }
-  }
-}
-
-template <int HDP>
-constexpr size_t dq_f32_floats_fixed() {
-  return 2 * (size_t)kTile * HDP               // Q and G tiles
-         + 2 * (size_t)kChunk * (HDP + 1)      // K and V chunks, padded rows
-         + (size_t)kWarps * kRows * kChunk     // ds of each warp's rows
-         + 5 * (size_t)kTile                   // m, l, row, padding flags, padding rows' row
-         + HDP;                                // V summed over the slice
-}
-
-// Kernel #6 in f32 on the CUDA cores.  DCH = head dim rounded up to 32, over
-// 32: the dq columns a lane holds.
-template <int DCH>
-__global__ void __launch_bounds__(kWarps * 32)
-    dq_f32(View qv, View kv, View vv, const float* mask, View gv, View dqv, Shape sh, int hd) {
-  constexpr int HDP = 32 * DCH;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;
-  float* g_s = q_s + kTile * HDP;
-  float* k_s = g_s + kTile * HDP;
-  float* v_s = k_s + kChunk * (HDP + 1);
-  float* ds_s = v_s + kChunk * (HDP + 1);
-  float* m_s = ds_s + kWarps * kRows * kChunk;
-  float* l_s = m_s + kTile;
-  float* r_s = l_s + kTile;
-  float* pad_s = r_s + kTile;
-  float* rp_s = pad_s + kTile;
-  float* cs_s = rp_s + kTile;
-  float* ok_s = cs_s + HDP;   // (K_WIN,) the slice's key validity
-  float* part_s = k_s;        // slice_colsum's, between the walks
-
-  const int tile = blockIdx.x, bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = tile * kTile, row0 = warp * kRows, i0 = q0 + row0;
-  const int start = slice_start(q0, sh);
-  const int u0 = warp_key_span(q0, sh).x, u1 = warp_key_span(q0 + kTile - 16, sh).y;
-  const float* q = at<float>(qv, b, h);
-  const float* k = at<float>(kv, b, h);
-  const float* v = at<float>(vv, b, h);
-  const float* g = at<float>(gv, b, h);
-  const float* m = mask + (long long)b * sh.T;
-
-  load_rows<HDP>(q, qv.sl, q0, kTile, sh.T, hd, HDP, q_s);
-  load_rows<HDP>(g, gv.sl, q0, kTile, sh.T, hd, HDP, g_s);
-  stage_valid(m, start, sh.k_win, sh.T, ok_s);
-  __syncthreads();
-  const bool any_pad = mark_padding_rows(q0, kTile, ok_s, start, sh.k_win, sh, pad_s);
-  span_stats_f32<HDP>(q_s, g_s, k_s, v_s, k, kv.sl, v, vv.sl, ok_s, start, q0, kTile, u0, u1, hd,
-                      sh, pad_s, m_s, l_s, r_s);
-  if (any_pad) {
-    __syncthreads();
-    slice_colsum<float, HDP>(v, vv.sl, start, min(start + sh.k_win, sh.T), hd, part_s, cs_s);
-    padding_row_sums(g, gv.sl, q0, kTile, hd, pad_s, cs_s, 1.f / sh.k_win, rp_s);
-  }
-  __syncthreads();
-
-  bool warp_pad = false;
+      for (int u = 0; u < NX; ++u) {
+        const int x = x0 + u;
+        load_a_tf32(ab[u], as[u], xa[x], xb[x], c, hd);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) warp_pad |= pad_s[row0 + r] != 0.f;
-  const float inv_kwin = 1.f / sh.k_win;
-  float acc[kRows][DCH];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < DCH; ++c) acc[r][c] = 0.f;
-  float* ds_w = ds_s + warp * kRows * kChunk;
-  float s[kRows], dp[kRows];
-  const int w0 = any_pad ? start : u0, w1 = any_pad ? start + sh.k_win : u1;
-  for (int c0 = w0; c0 < w1; c0 += kChunk) {
-    __syncthreads();
-    load_rows<HDP>(k, kv.sl, c0, kChunk, sh.T, hd, HDP + 1, k_s);
-    load_rows<HDP>(v, vv.sl, c0, kChunk, sh.T, hd, HDP + 1, v_s);
-    __syncthreads();
-    const bool band = !(c0 > i0 + kRows - 1 + sh.half || c0 + kChunk - 1 < i0 - sh.half);
-    if (!band && !warp_pad) continue;
-    if (band) rows_dot<HDP>(q_s, row0, k_s + lane * (HDP + 1), s);  // no scores for padding rows
-    rows_dot<HDP>(g_s, row0, v_s + lane * (HDP + 1), dp);
-    const int j = c0 + lane;
-    const bool key_in = j < w1, key_ok = band && key_in && ok_s[j - start] > 0.f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float d;
-      if (pad_s[row0 + r] != 0.f) {
-        d = key_in ? inv_kwin * (dp[r] - rp_s[row0 + r]) * sh.scale : 0.f;
-      } else {
-        const bool ok = key_ok && abs(i0 + r - j) <= sh.half;
-        const float p = ok ? expf(s[r] * sh.scale - m_s[row0 + r]) / l_s[row0 + r] : 0.f;
-        d = p * (dp[r] - r_s[row0 + r]) * sh.scale;
-      }
-      ds_w[r * kChunk + lane] = d;
-    }
-    __syncwarp();
-#pragma unroll 2
-    for (int jj = 0; jj < kChunk; jj += 4) {
-      float kk[4][DCH];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int c = 0; c < DCH; ++c) kk[u][c] = k_s[(jj + u) * (HDP + 1) + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 d4 = *reinterpret_cast<const float4*>(ds_w + r * kChunk + jj);
-#pragma unroll
-        for (int c = 0; c < DCH; ++c) {
-          acc[r][c] = fmaf(d4.x, kk[0][c], acc[r][c]);
-          acc[r][c] = fmaf(d4.y, kk[1][c], acc[r][c]);
-          acc[r][c] = fmaf(d4.z, kk[2][c], acc[r][c]);
-          acc[r][c] = fmaf(d4.w, kk[3][c], acc[r][c]);
+        for (int j = 0; j < NT; ++j) {
+          const float* yr = y_s[x] + (8 * (j < nt ? j : 0) + g) * rs + cy;
+          split_tf32(yr[0], bb[u][j][0], bs[u][j][0]);
+          split_tf32(yr[4], bb[u][j][1], bs[u][j][1]);
         }
       }
-    }
-    __syncwarp();
-  }
-
-  float* dq = static_cast<float*>(const_cast<void*>(dqv.p)) + b * dqv.sb + h * dqv.sh;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = i0 + r;
-    if (i >= sh.T) continue;
+      for (int u = 0; u < NX; ++u)
 #pragma unroll
-    for (int c = 0; c < DCH; ++c) {
-      const int d = lane + 32 * c;
-      if (d < hd) dq[i * dqv.sl + d] = acc[r][c];
+        for (int j = 0; j < NT; ++j) mma_tf32(acc[x0 + u][j], ab[u], bs[u][j][0], bs[u][j][1]);
+#pragma unroll
+      for (int u = 0; u < NX; ++u)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(acc[x0 + u][j], as[u], bb[u][j][0], bb[u][j][1]);
+#pragma unroll
+      for (int u = 0; u < NX; ++u)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(acc[x0 + u][j], ab[u], bb[u][j][0], bb[u][j][1]);
     }
   }
 }
 
-// dkv_f32's shared memory: one region used by phase A (Q/G pass of 128
-// rows, K/V chunk of 32 keys) and phase B (own K and V, Q/G chunk of 32
-// rows, each warp's p and ds), then the query window's m, l, row and
-// padding flags (K_WIN each), V summed over the K2 slice and g over the
-// padding rows (HDP each) and the K2 slice's key validity.
-template <int HDP>
-__host__ __device__ constexpr size_t dkv_f32_work_floats() {
-  constexpr size_t a = 2 * (size_t)kTile * HDP + 2 * (size_t)kChunk * (HDP + 1);
-  constexpr size_t b = 2 * (size_t)kTile * HDP + 2 * (size_t)kChunk * (HDP + 1)
-                       + 2 * (size_t)kWarps * kRows * kChunk;
-  return a > b ? a : b;
+// o[d] += C Y for the output tiles d < hd8 (8 columns each) in 3xTF32: C a
+// 16 x 8 tile in the mma's C layout, which is the A tile as it stands (its
+// columns 2t, 2t + 1 are the k indices t, t + 4; mma_tf32.cuh), Y the 8
+// staged rows from y_s (row stride rs) in the same order: b[0] = row 2t,
+// b[1] = row 2t + 1, column 8d + g.  In rounds of G independent tiles,
+// every tile to HD8 (past hd8 they re-read tile 0 and are never stored).
+template <int HD8>
+__device__ __forceinline__ void tf32_cy(float (&o)[HD8][4], const float (&c)[4], const float* y_s,
+                                        int rs, int hd8, int lane) {
+  constexpr int G = HD8 < 8 ? HD8 : 8;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t ab[4], as[4];
+  split_tf32(c[0], ab[0], as[0]);
+  split_tf32(c[2], ab[1], as[1]);
+  split_tf32(c[1], ab[2], as[2]);
+  split_tf32(c[3], ab[3], as[3]);
+  const float* yr = y_s + 2 * t * rs + g;
+#pragma unroll
+  for (int d0 = 0; d0 < HD8; d0 += G) {
+    uint32_t bb[G][2], bs[G][2];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int d = d0 + u < hd8 ? d0 + u : 0;
+      split_tf32(yr[8 * d], bb[u][0], bs[u][0]);
+      split_tf32(yr[rs + 8 * d], bb[u][1], bs[u][1]);
+    }
+    mma_3xtf32<G>(o, d0, ab, as, bb, bs, G);
+  }
 }
 
-// Kernel #7 in f32 on the CUDA cores.  DCH = head dim rounded up to 32, over
-// 32: the dk/dv columns a lane holds.
-template <int DCH>
-__global__ void __launch_bounds__(kWarps * 32)
-    dkv_f32(View qv, View kv, View vv, const float* mask, View gv, View dkv, View dvv, Shape sh,
-            int hd) {
-  constexpr int HDP = 32 * DCH;
-  extern __shared__ __align__(16) float smem[];
+// s[n] (16 x 8, n < HD8) += A^T B over rows [0, nrows) (a multiple of 8) of
+// two staged f32 tiles (row stride rs) in 3xTF32: A^T's 16 rows are the
+// columns c0 .. c0 + 15 of a_s (zero from column hdp; less shift_k *
+// shift[c] where shift is given; zero on rows whose keep is 0 where keep is
+// given), B the columns of b_s.  The row index runs in steps of 8, each
+// step's rows 2t and 2t + 1 in both operands (the order the A tile reads
+// them: mma_tf32.cuh); a step whose 8 rows are all kept out is skipped.
+// Every n-tile to HD8 is computed (those past hdp re-read tile 0 and are
+// never stored), so that no branch stands between the products.
+template <int HD8>
+__device__ __forceinline__ void tf32_atb(float (&s)[HD8][4], const float* a_s, const float* b_s,
+                                         int rs, int nrows, int c0, int hdp, const float* keep,
+                                         const float* shift, float shift_k, int lane) {
+  constexpr int G = HD8 < 8 ? HD8 : 8;
+  const int g = lane >> 2, t = lane & 3, hd8 = hdp >> 3;
+  const int ca = c0 + g, cb = ca + 8;
+  const float sa = shift && ca < hdp ? shift_k * shift[ca] : 0.f;
+  const float sb = shift && cb < hdp ? shift_k * shift[cb] : 0.f;
+#pragma unroll 2
+  for (int r8 = 0; r8 < nrows; r8 += 8) {
+    if (keep && !__any_sync(0xffffffffu, keep[r8 + (lane & 7)] != 0.f)) continue;
+    const float* ar = a_s + (r8 + 2 * t) * rs;
+    const float k0 = keep ? keep[r8 + 2 * t] : 1.f, k1 = keep ? keep[r8 + 2 * t + 1] : 1.f;
+    uint32_t ab[4], as[4];
+    split_tf32(ca < hdp ? (ar[ca] - sa) * k0 : 0.f, ab[0], as[0]);
+    split_tf32(cb < hdp ? (ar[cb] - sb) * k0 : 0.f, ab[1], as[1]);
+    split_tf32(ca < hdp ? (ar[rs + ca] - sa) * k1 : 0.f, ab[2], as[2]);
+    split_tf32(cb < hdp ? (ar[rs + cb] - sb) * k1 : 0.f, ab[3], as[3]);
+    const float* br = b_s + (r8 + 2 * t) * rs + g;
+#pragma unroll
+    for (int n0 = 0; n0 < HD8; n0 += G) {
+      uint32_t bb[G][2], bs[G][2];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int n = n0 + u < hd8 ? n0 + u : 0;
+        split_tf32(br[8 * n], bb[u][0], bs[u][0]);
+        split_tf32(br[rs + 8 * n], bb[u][1], bs[u][1]);
+      }
+      mma_3xtf32<G>(s, n0, ab, as, bb, bs, G);
+    }
+  }
+}
+
+// Writes k * s (tf32_atb's slab of rows c0 .. c0 + 15) split into TF32 big
+// and small parts, m_s and ms_s (row stride rs): [row][col] for each slab
+// row and column below hdp, or with `transpose` [col][row].
+template <int HD8>
+__device__ __forceinline__ void store_slab(float* m_s, float* ms_s, int rs, const float (&s)[HD8][4],
+                                           int c0, int hdp, float k, bool transpose, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < HD8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = c0 + g + 4 * (e & 2), col = 8 * n + 2 * t + (e & 1);
+      if (row < hdp && col < hdp) {
+        uint32_t big, small;
+        split_tf32(k * s[n][e], big, small);
+        const int i = transpose ? col * rs + row : row * rs + col;
+        m_s[i] = __uint_as_float(big);
+        ms_s[i] = __uint_as_float(small);
+      }
+    }
+}
+
+// o[n] (n < hd8) += X Y^T over the head dim in 3xTF32: X the 16 rows of a
+// warp in device memory (rows at xa, xb; null rows zero), less shift[c] on
+// each row where shift is given; Y the rows 8n + g of a staged tile already
+// split (store_slab: big parts in y_s, small parts in ys_s; row stride rs).
+// The next step's X values are loaded before this step's products; rounds
+// of G tiles, every tile to HD8 (past hd8 they re-read tile 0 and are never
+// stored).
+template <int HD8>
+__device__ __forceinline__ void tf32_xy(float (&o)[HD8][4], const float* xa, const float* xb,
+                                        const float* shift, const float* y_s, const float* ys_s,
+                                        int rs, int hd, int lane) {
+  constexpr int G = HD8 < 8 ? HD8 : 8;
+  const int g = lane >> 2, t = lane & 3, hd8 = (hd + 7) >> 3;
+  // the X values of step kk (columns 8 kk + t, + 4 of rows g, g + 8)
+  auto load = [&](int kk, float (&x)[4]) {
+    const int c = 8 * kk + t;
+    x[0] = xa && c < hd ? __ldg(xa + c) : 0.f;
+    x[1] = xb && c < hd ? __ldg(xb + c) : 0.f;
+    x[2] = xa && c + 4 < hd ? __ldg(xa + c + 4) : 0.f;
+    x[3] = xb && c + 4 < hd ? __ldg(xb + c + 4) : 0.f;
+  };
+  float next[4];
+  load(0, next);
+#pragma unroll 1
+  for (int kk = 0; kk < hd8; ++kk) {
+    const int c = 8 * kk + t;
+    float x[4] = {next[0], next[1], next[2], next[3]};
+    if (kk + 1 < hd8) load(kk + 1, next);
+    if (shift) {
+      const float s0 = c < hd ? shift[c] : 0.f, s1 = c + 4 < hd ? shift[c + 4] : 0.f;
+      x[0] = xa && c < hd ? x[0] - s0 : 0.f;
+      x[1] = xb && c < hd ? x[1] - s0 : 0.f;
+      x[2] = xa && c + 4 < hd ? x[2] - s1 : 0.f;
+      x[3] = xb && c + 4 < hd ? x[3] - s1 : 0.f;
+    }
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(x[e], ab[e], as[e]);
+    const int yr = g * rs + c;
+#pragma unroll
+    for (int n0 = 0; n0 < HD8; n0 += G) {
+      uint32_t bb[G][2], bs[G][2];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int i = yr + 8 * (n0 + u < hd8 ? n0 + u : 0) * rs;
+        bb[u][0] = __float_as_uint(y_s[i]);
+        bb[u][1] = __float_as_uint(y_s[i + 4]);
+        bs[u][0] = __float_as_uint(ys_s[i]);
+        bs[u][1] = __float_as_uint(ys_s[i + 4]);
+      }
+      mma_3xtf32<G>(o, n0, ab, as, bb, bs, G);
+    }
+  }
+}
+
+// One step of a running max m, sum l of e = exp(s - m) and sum a of e dp
+// over the NT tiles of s (scaled, masked with -1e30; -inf past the keys) for
+// the rows of c[.][0..1] (x = 0) or c[.][2..3] (x = 2).  m is shared by the
+// 4 lanes of a quad.
+template <int NT>
+__device__ __forceinline__ void online_tiles(const float (&s)[NT][4], const float (&dp)[NT][4],
+                                             int x, float& m, float& l, float& a) {
+  float mx = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][x], s[j][x + 1]));
+  const float n = fmaxf(m, quad_max(mx)), f = expf(m - n);
+  l *= f;
+  a *= f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = x; e < x + 2; ++e) {
+      const float w = expf(s[j][e] - n);
+      l += w;
+      a += w * dp[j][e];
+    }
+  m = n;
+}
+
+// Writes a warp's 16 x hd f32 tile in the C layout (rows r0 + g, r0 + g + 8)
+// through the strides of ov, rows below T only, and of those only row g
+// with put0 and row g + 8 with put1.
+template <int HD8>
+__device__ __forceinline__ void store_c_f32(const float (&o)[HD8][4], const View& ov, int b, int h,
+                                            int r0, int hd, int T_len, int lane, bool put0 = true,
+                                            bool put1 = true) {
+  const int g = lane >> 2, t = lane & 3;
+  float* out = static_cast<float*>(const_cast<void*>(ov.p)) + b * ov.sb + h * ov.sh;
+  const bool pairs = hd % 2 == 0 && ov.sl % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+#pragma unroll
+  for (int d = 0; d < HD8; ++d) {
+    const int col = 8 * d + 2 * t;
+    if (col >= hd) continue;
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int row = r0 + g + 4 * e;
+      if (row >= T_len || !(e ? put1 : put0)) continue;
+      float* dst = out + row * ov.sl + col;
+      if (pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(o[d][e], o[d][e + 1]);
+      } else {
+        dst[0] = o[d][e];
+        if (col + 1 < hd) dst[1] = o[d][e + 1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------- f32 dk/dv (#7)
+
+// Shared memory of dkv_tf32: two planes of cap rows of rs floats (phase 1's
+// K and V key chunks, then phase 2's Q and G row chunks), then as in
+// dkv_mma the query window's m, l, row and padding flags (K_WIN each), the
+// K2 slice's key validity, V summed over it and g over the padding rows
+// (hdp each).
+size_t dkv_tf32_bytes(int rs, int hdp, int k_win, int k2, int cap) {
+  return ((size_t)2 * cap * rs + 4 * k_win + k2 + 2 * hdp) * sizeof(float);
+}
+
+// Kernel #7 in f32 on the tensor cores (3xTF32).  HD8 = the most 8-column
+// steps of the head dim the body is built for (a bucket: 4, 8 or 16), the
+// call's own read at run time; cap: rows of a staged chunk (a multiple of
+// 16).  The A operands, private to a warp (phase 1's Q and G rows, phase
+// 2's own K and V), are read from device memory step by step; the B
+// operands, which neighbouring warps share, from the staged chunks.
+template <int HD8>
+__global__ void __launch_bounds__(kMmaWarps * 32, 1)
+    dkv_tf32(View qv, View kv, View vv, const float* mask, View gv, View dkv, View dvv, Shape sh,
+             int hd, int cap) {
+  constexpr int HDP = 8 * HD8;
+  extern __shared__ __align__(16) float tf_smem[];
+  const int hd8 = (hd + 7) >> 3, hdp = 8 * hd8, rs = hdp + kTfRowPad;
   const int k2 = min(2 * sh.k_win - kTile, sh.T_pad);
-  float* work = smem;
-  float* m_s = work + dkv_f32_work_floats<HDP>();
+  float* x_s = tf_smem;        // (cap, rs): K, then Q
+  float* y_s = x_s + cap * rs;  // (cap, rs): V, then G
+  float* m_s = y_s + cap * rs;
   float* l_s = m_s + sh.k_win;
-  float* r_s = l_s + sh.k_win;
-  float* pad_s = r_s + sh.k_win;
-  float* cs_s = pad_s + sh.k_win;
+  float* row_s = l_s + sh.k_win;
+  float* pad_s = row_s + sh.k_win;
+  float* okk_s = pad_s + sh.k_win;
+  float* cs_s = okk_s + k2;
   float* gp_s = cs_s + HDP;  // (HDP,) g summed over the window's padding rows
-  float* okk_s = gp_s + HDP;
-  // phase A
-  float* q_s = work;
-  float* g_s = q_s + kTile * HDP;
-  float* k_s = g_s + kTile * HDP;
-  float* v_s = k_s + kChunk * (HDP + 1);
-  // phase B
-  float* ko_s = work;
-  float* vo_s = ko_s + kTile * HDP;
-  float* qc_s = vo_s + kTile * HDP;
-  float* gc_s = qc_s + kChunk * (HDP + 1);
-  float* p_s = gc_s + kChunk * (HDP + 1);
-  float* ds_s = p_s + kWarps * kRows * kChunk;
+  float* part_s = x_s;       // slice_colsum's, between the phases
 
   const int tile = blockIdx.x, bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int k0 = tile * kTile, start = slice_start(k0, sh);
   const int n_start = max(0, min(start - (sh.k_win - kTile) / 2, sh.T_pad - k2));
+  // the query union: the spans of the first and last 16 own keys, rows below T
   const int qu0 = warp_key_span(k0, sh).x;
   const int qu1 = min(warp_key_span(k0 + kTile - 16, sh).y, (sh.T + 15) / 16 * 16);
   const float* q = at<float>(qv, b, h);
   const float* k = at<float>(kv, b, h);
   const float* v = at<float>(vv, b, h);
-  const float* g = at<float>(gv, b, h);
+  const float* gr = at<float>(gv, b, h);
   const float* m = mask + (long long)b * sh.T;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  auto row_at = [&](const float* x, long long sl, int r) { return r < sh.T ? x + r * sl : nullptr; };
+  // rows [c0, c1) of x and y into x_s and y_s, zero past T
+  auto stage_pair = [&](const float* x, long long x_sl, const float* y, long long y_sl, int c0,
+                        int c1) {
+    const int rows = max(0, min(c1, sh.T) - c0);
+    __syncthreads();
+    stage_f32(x_s, rs, x + c0 * x_sl, x_sl, rows, c1 - c0, hd, hdp, tid, nthr);
+    stage_f32(y_s, rs, y + c0 * y_sl, y_sl, rows, c1 - c0, hd, hdp, tid, nthr);
+    cp_async_wait_all();
+    __syncthreads();
+  };
 
   stage_valid(m, n_start, k2, sh.T, okk_s);
   __syncthreads();
   const bool any_pad = mark_padding_rows(start, sh.k_win, okk_s, n_start, k2, sh, pad_s);
 
-  // phase A: each union row's statistics over its key span, 128 rows a pass
+  // phase 1: each union row's m, l and row over its key span, 128 rows a
+  // pass, up to kTfChunk keys of a warp's span a step
   for (int p0 = qu0; p0 < qu1; p0 += kTile) {
-    const int p1 = min(p0 + kTile, qu1);
-    __syncthreads();
-    load_rows<HDP>(q, qv.sl, p0, kTile, sh.T, hd, HDP, q_s);
-    load_rows<HDP>(g, gv.sl, p0, kTile, sh.T, hd, HDP, g_s);
-    span_stats_f32<HDP>(q_s, g_s, k_s, v_s, k, kv.sl, v, vv.sl, okk_s, n_start, p0, p1 - p0,
-                        warp_key_span(p0, sh).x, warp_key_span(p1 - 16, sh).y, hd, sh,
-                        pad_s + p0 - start, m_s + p0 - start, l_s + p0 - start,
-                        r_s + p0 - start);
-  }
-  __syncthreads();
-  if (any_pad) {  // padding rows: row = (g . V summed over the K2 slice) / K2;
-                  // their dv terms, g / K2 on every own key, as one sum of g
-    slice_colsum<float, HDP>(v, vv.sl, n_start, min(n_start + k2, sh.T), hd, work, cs_s);
-    slice_colsum<float, HDP>(g, gv.sl, start, min(start + sh.k_win, sh.T), hd, work, gp_s,
-                             pad_s);
-    padding_row_sums(g, gv.sl, start, sh.k_win, hd, pad_s, cs_s, 1.f / k2, r_s);
-    __syncthreads();
-  }
-
-  // phase B: the own keys against the union's rows (every row of the query
-  // window in a block with a padding row), 32 rows at a time
-  load_rows<HDP>(k, kv.sl, k0, kTile, sh.T, hd, HDP, ko_s);
-  load_rows<HDP>(v, vv.sl, k0, kTile, sh.T, hd, HDP, vo_s);
-  const int key0 = warp * kRows, kw = k0 + key0;  // the warp's first own key
-  float ok_own[kRows];
+    const int p1 = min(p0 + kTile, qu1), r0 = p0 + 16 * warp;
+    // a warp takes 16 rows of the pass that are not all padding rows
+    const bool active = r0 < p1 &&
+                        __any_sync(0xffffffffu, lane < 16 && pad_s[r0 - start + lane] == 0.f);
+    if (!__syncthreads_or(active)) continue;  // every row of the pass a padding row
+    const int2 span = warp_key_span(r0, sh);
+    const float* const xa[2] = {row_at(q, qv.sl, r0 + g), row_at(gr, gv.sl, r0 + g)};
+    const float* const xb[2] = {row_at(q, qv.sl, r0 + g + 8), row_at(gr, gv.sl, r0 + g + 8)};
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f, a0 = 0.f, a1 = 0.f;
+    const int kl = warp_key_span(p0, sh).x, kh = warp_key_span(p1 - 16, sh).y;
+    for (int c0 = kl; c0 < kh; c0 += cap) {
+      const int c1 = min(c0 + cap, kh), e1 = min(c1, span.y);
+      stage_pair(k, kv.sl, v, vv.sl, c0, c1);
+      if (!active) continue;
+      for (int j0 = max(c0, span.x); j0 < e1; j0 += kTfChunk) {
+        const int nk = min(kTfChunk, e1 - j0);
+        float acc[2][kTfChunk / 8][4] = {};  // S = Q K^T, dP = G V^T
+        const float* const ys[2] = {x_s + (j0 - c0) * rs, y_s + (j0 - c0) * rs};
+        tf32_xyt<HD8, kTfChunk / 8>(acc, xa, xb, ys, rs, hd, nk >> 3, lane);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) ok_own[r] = okk_s[kw + r - n_start];
-  const float inv_k2 = 1.f / k2;
-  float dk[kRows][DCH], dv[kRows][DCH];
+        for (int j = 0; j < kTfChunk / 8; ++j)
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < DCH; ++c) dk[r][c] = dv[r][c] = 0.f;
-  float* p_w = p_s + warp * kRows * kChunk;
-  float* ds_w = ds_s + warp * kRows * kChunk;
-  const int w0 = any_pad ? start : qu0;
-  const int w1 = any_pad ? min(start + sh.k_win, sh.T) : qu1;
-  for (int rc = w0; rc < w1; rc += kChunk) {
-    bool need = rc < qu1 && rc + kChunk > qu0, chunk_pad = false;
-    for (int i = rc; i < min(rc + kChunk, w1); ++i) chunk_pad |= pad_s[i - start] != 0.f;
-    if (!need && !chunk_pad) continue;  // the same answer in every thread
-    __syncthreads();
-    load_rows<HDP>(q, qv.sl, rc, kChunk, sh.T, hd, HDP + 1, qc_s);
-    load_rows<HDP>(g, gv.sl, rc, kChunk, sh.T, hd, HDP + 1, gc_s);
-    __syncthreads();
-    const bool band = !(rc > kw + kRows - 1 + sh.half || rc + kChunk - 1 < kw - sh.half);
-    if (!band && !chunk_pad) continue;
-    // lane = query row i, against the warp's kRows own keys
-    const float* qrow = qc_s + lane * (HDP + 1);
-    const float* grow = gc_s + lane * (HDP + 1);
-    float s[kRows], dp[kRows];
-    if (band) own_dots<HDP>(qrow, ko_s + key0 * HDP, s);  // no scores for padding rows
-    own_dots<HDP>(grow, vo_s + key0 * HDP, dp);
-    const int i = rc + lane, wi = i - start;
-    const bool live = i < w1 && i < sh.T;
-    const bool pad = live && pad_s[wi] != 0.f;
-    const float mi = live ? m_s[wi] : 0.f, li = live ? l_s[wi] : 1.f, rowi = live ? r_s[wi] : 0.f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float p = 0.f, d = 0.f;
-      if (pad) {  // its p goes to dv through gp_s
-        d = inv_k2 * (dp[r] - rowi) * sh.scale;
-      } else if (band && live && ok_own[r] > 0.f && abs(i - (kw + r)) <= sh.half) {
-        p = expf(s[r] * sh.scale - mi) / li;
-        d = p * (dp[r] - rowi) * sh.scale;
-      }
-      p_w[r * kChunk + lane] = p;
-      ds_w[r * kChunk + lane] = d;
-    }
-    __syncwarp();
-    for (int jj = 0; jj < kChunk; jj += 4) {
-      float gg[4][DCH], qq[4][DCH];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int c = 0; c < DCH; ++c) {
-          gg[u][c] = gc_s[(jj + u) * (HDP + 1) + lane + 32 * c];
-          qq[u][c] = qc_s[(jj + u) * (HDP + 1) + lane + 32 * c];
-        }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(p_w + r * kChunk + jj);
-        const float4 d4 = *reinterpret_cast<const float4*>(ds_w + r * kChunk + jj);
-#pragma unroll
-        for (int c = 0; c < DCH; ++c) {
-          if (band) {
-            dv[r][c] = fmaf(p4.x, gg[0][c], dv[r][c]);
-            dv[r][c] = fmaf(p4.y, gg[1][c], dv[r][c]);
-            dv[r][c] = fmaf(p4.z, gg[2][c], dv[r][c]);
-            dv[r][c] = fmaf(p4.w, gg[3][c], dv[r][c]);
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1), key = j0 + col, row = r0 + g + 4 * (e & 2);
+            acc[0][j][e] = col >= nk ? -CUDART_INF_F
+                           : okk_s[key - n_start] > 0.f && abs(row - key) <= sh.half
+                               ? acc[0][j][e] * sh.scale
+                               : kMask;
           }
-          dk[r][c] = fmaf(d4.x, qq[0][c], dk[r][c]);
-          dk[r][c] = fmaf(d4.y, qq[1][c], dk[r][c]);
-          dk[r][c] = fmaf(d4.z, qq[2][c], dk[r][c]);
-          dk[r][c] = fmaf(d4.w, qq[3][c], dk[r][c]);
-        }
+        online_tiles<kTfChunk / 8>(acc[0], acc[1], 0, m0, l0, a0);
+        online_tiles<kTfChunk / 8>(acc[0], acc[1], 2, m1, l1, a1);
       }
     }
-    __syncwarp();
+    if (active) {
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      a0 = quad_sum(a0);
+      a1 = quad_sum(a1);
+      if (t == 0) {
+        const int i0 = r0 + g - start, i1 = i0 + 8;
+        m_s[i0] = m0, l_s[i0] = l0, row_s[i0] = a0 / l0;
+        m_s[i1] = m1, l_s[i1] = l1, row_s[i1] = a1 / l1;
+      }
+    }
   }
 
-  float* dko = static_cast<float*>(const_cast<void*>(dkv.p)) + b * dkv.sb + h * dkv.sh;
-  float* dvo = static_cast<float*>(const_cast<void*>(dvv.p)) + b * dvv.sb + h * dvv.sh;
+  // the warp's 16 own keys
+  const int kw0 = k0 + 16 * warp;
+  const int2 qspan = warp_key_span(kw0, sh);
+  const float* const ka[2] = {row_at(k, kv.sl, kw0 + g), row_at(v, vv.sl, kw0 + g)};
+  const float* const kb[2] = {row_at(k, kv.sl, kw0 + g + 8), row_at(v, vv.sl, kw0 + g + 8)};
+  const float key_ok0 = okk_s[kw0 + g - n_start], key_ok1 = okk_s[kw0 + g + 8 - n_start];
+  const float inv_k2 = 1.f / k2;
+
+  // padding rows (p = 1/K2 on every own key, row = g . cs / K2 with cs the
+  // V summed over the K2 slice): their ds^T q on a key is (scale / K2)
+  // M (v - cs / K2) with M = sum over the window's padding rows of q g^T,
+  // one hd x hd matrix, a 16-row slab a warp; their dv terms, g / K2 on
+  // every own key, one sum of g
+  __syncthreads();
+  if (any_pad) {
+    slice_colsum<float, HDP>(v, vv.sl, n_start, min(n_start + k2, sh.T), hd, part_s, cs_s);
+    slice_colsum<float, HDP>(gr, gv.sl, start, min(start + sh.k_win, sh.T), hd, part_s, gp_s,
+                             pad_s);
+    const bool slab = 16 * warp < hdp;
+    float m_acc[HD8][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int j = kw + r;
-    if (j >= sh.T) continue;
+    for (int d = 0; d < HD8; ++d) m_acc[d][0] = m_acc[d][1] = m_acc[d][2] = m_acc[d][3] = 0.f;
+    const int pw1 = min(start + sh.k_win, (sh.T + 15) / 16 * 16);
+    for (int c0 = start; c0 < pw1; c0 += cap) {
+      const int c1 = min(c0 + cap, pw1);
+      bool need = false;
+      for (int i = c0; !need && i < c1; ++i) need = pad_s[i - start] != 0.f;
+      if (!need) continue;  // the same answer in every thread
+      stage_pair(q, qv.sl, gr, gv.sl, c0, c1);
+      if (slab)
+        tf32_atb<HD8>(m_acc, x_s, y_s, rs, c1 - c0, 16 * warp, hdp, pad_s + c0 - start, nullptr,
+                      0.f, lane);
+    }
+    __syncthreads();
+    if (slab)
+      store_slab<HD8>(x_s, y_s, rs, m_acc, 16 * warp, hdp, sh.scale / k2, false, lane);
+    for (int c = tid; c < HDP; c += nthr) cs_s[c] *= inv_k2;
+    __syncthreads();
+  }
+  float dk[HD8][4], dv[HD8][4];
 #pragma unroll
-    for (int c = 0; c < DCH; ++c) {
-      const int d = lane + 32 * c;
-      if (d < hd) {
-        dko[j * dkv.sl + d] = dk[r][c];
-        dvo[j * dvv.sl + d] = any_pad ? dv[r][c] + inv_k2 * gp_s[d] : dv[r][c];
+  for (int d = 0; d < HD8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+  if (any_pad) tf32_xy<HD8>(dk, ka[1], kb[1], cs_s, x_s, y_s, rs, hd, lane);
+
+  // phase 2: the warp's 16 own keys against the rows of the union, 16 rows
+  // a step over its span: S^T = K Q^T and dP^T = V G^T, then dv += p^T G and
+  // dk += ds^T Q with p and ds in their C layout as the A tiles
+  for (int c0 = qu0; c0 < qu1; c0 += cap) {
+    const int c1 = min(c0 + cap, qu1);
+    bool need = false;  // a row below T that is not a padding row
+    for (int i = c0; !need && i < min(c1, sh.T); ++i) need = pad_s[i - start] == 0.f;
+    if (!need) continue;  // the same answer in every thread
+    stage_pair(q, qv.sl, gr, gv.sl, c0, c1);
+    for (int r0 = max(c0, qspan.x); r0 < min(c1, qspan.y); r0 += 16) {
+      float acc[2][2][4] = {};  // S^T, dP^T; then p, ds
+      const float* const ys[2] = {x_s + (r0 - c0) * rs, y_s + (r0 - c0) * rs};
+      tf32_xyt<HD8, 2>(acc, ka, kb, ys, rs, hd, 2, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kw0 + g + 4 * (e & 2), row = r0 + 8 * j + 2 * t + (e & 1);
+          const int wi = row - start;
+          float pe = 0.f, de = 0.f;
+          if (row < sh.T && pad_s[wi] == 0.f && (e & 2 ? key_ok1 : key_ok0) > 0.f &&
+              abs(row - key) <= sh.half) {
+            pe = expf(acc[0][j][e] * sh.scale - m_s[wi]) / l_s[wi];
+            de = pe * (acc[1][j][e] - row_s[wi]) * sh.scale;
+          }
+          acc[0][j][e] = pe;
+          acc[1][j][e] = de;
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        tf32_cy<HD8>(dv, acc[0][j], y_s + (r0 - c0 + 8 * j) * rs, rs, hd8, lane);
+        tf32_cy<HD8>(dk, acc[1][j], x_s + (r0 - c0 + 8 * j) * rs, rs, hd8, lane);
       }
     }
   }
+  if (any_pad) {
+#pragma unroll
+    for (int d = 0; d < HD8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[d][e] += inv_k2 * gp_s[8 * d + 2 * t + (e & 1)];
+  }
+  store_c_f32<HD8>(dk, dkv, b, h, kw0, hd, sh.T, lane);
+  store_c_f32<HD8>(dv, dvv, b, h, kw0, hd, sh.T, lane);
+}
+
+// ------------------------------------------------------------- f32 dq (#6)
+
+// Shared memory of dq_tf32: two planes of cap rows of rs floats (the K and V
+// of a key chunk; first the padding rows' hd x hd matrix), then
+// the slice's key validity (K_WIN), the tile's padding flags (128) and V
+// summed over the slice (hdp).
+size_t dq_tf32_bytes(int rs, int hdp, int k_win, int cap) {
+  return ((size_t)2 * cap * rs + k_win + kTile + hdp) * sizeof(float);
+}
+
+// Kernel #6 in f32 on the tensor cores (3xTF32).  HD8 as in dkv_tf32; cap:
+// keys of a staged chunk (a multiple of 16).  ONE: every warp's span is at
+// most kTfChunk keys and the key union is staged whole, so walk 1's scores
+// and dp stay in registers for ds (one walk).  The warp's Q and G rows (A operands) are read from device memory
+// step by step; K and V (B operands) from the staged chunk.
+template <int HD8, bool ONE>
+__global__ void __launch_bounds__(kMmaWarps * 32, 1)
+    dq_tf32(View qv, View kv, View vv, const float* mask, View gv, View dqv, Shape sh, int hd,
+            int cap) {
+  constexpr int HDP = 8 * HD8;
+  extern __shared__ __align__(16) float tf_smem[];
+  const int hd8 = (hd + 7) >> 3, hdp = 8 * hd8, rs = hdp + kTfRowPad;
+  float* x_s = tf_smem;         // (cap, rs): K
+  float* y_s = x_s + cap * rs;  // (cap, rs): V
+  float* ok_s = y_s + cap * rs;
+  float* pad_s = ok_s + sh.k_win;
+  float* cs_s = pad_s + kTile;
+  float* part_s = x_s;  // slice_colsum's, before the walks
+
+  const int tile = blockIdx.x, bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int q0 = tile * kTile, r0 = q0 + 16 * warp, ra = r0 + g, rb = ra + 8;
+  const int start = slice_start(q0, sh);
+  const int u0 = warp_key_span(q0, sh).x, u1 = warp_key_span(q0 + kTile - 16, sh).y;
+  const int2 span = warp_key_span(r0, sh);
+  const float* q = at<float>(qv, b, h);
+  const float* k = at<float>(kv, b, h);
+  const float* v = at<float>(vv, b, h);
+  const float* gr = at<float>(gv, b, h);
+  const float* m = mask + (long long)b * sh.T;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const float* const xa[2] = {ra < sh.T ? q + ra * qv.sl : nullptr,
+                              ra < sh.T ? gr + ra * gv.sl : nullptr};
+  const float* const xb[2] = {rb < sh.T ? q + rb * qv.sl : nullptr,
+                              rb < sh.T ? gr + rb * gv.sl : nullptr};
+
+  // the slice's key validity; padding rows
+  stage_valid(m, start, sh.k_win, sh.T, ok_s);
+  __syncthreads();
+  const bool any_pad = mark_padding_rows(q0, kTile, ok_s, start, sh.k_win, sh, pad_s);
+  const bool pad0 = pad_s[16 * warp + g] != 0.f, pad1 = pad_s[16 * warp + g + 8] != 0.f;
+  const bool warp_pad = __any_sync(0xffffffffu, pad0 || pad1);
+
+  // K and V of keys [c0, c1) into x_s and y_s, zero past T
+  auto stage_kv = [&](int c0, int c1) {
+    const int rows = max(0, min(c1, sh.T) - c0);
+    __syncthreads();
+    stage_f32(x_s, rs, k + c0 * kv.sl, kv.sl, rows, c1 - c0, hd, hdp, tid, nthr);
+    stage_f32(y_s, rs, v + c0 * vv.sl, vv.sl, rows, c1 - c0, hd, hdp, tid, nthr);
+    cp_async_wait_all();
+    __syncthreads();
+  };
+  // the warp's masked, scaled scores (acc[0]) and dp (acc[1]) of the nk
+  // keys from j0 (a chunk staged from c0), NT 8-key tiles at most
+  auto products = [&](auto& acc, int j0, int c0, int nk) {
+    constexpr int NT = sizeof(acc[0]) / sizeof(acc[0][0]);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) acc[x][j][0] = acc[x][j][1] = acc[x][j][2] = acc[x][j][3] = 0.f;
+    const float* const ys[2] = {x_s + (j0 - c0) * rs, y_s + (j0 - c0) * rs};
+    tf32_xyt<HD8, NT>(acc, xa, xb, ys, rs, hd, nk >> 3, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1), key = j0 + col, row = e & 2 ? rb : ra;
+        acc[0][j][e] = col >= nk ? -CUDART_INF_F
+                       : ok_s[key - start] > 0.f && abs(row - key) <= sh.half
+                           ? acc[0][j][e] * sh.scale
+                           : kMask;
+      }
+  };
+
+  // padding rows first (p = 1/K_WIN on every key of the slice, row = g .
+  // cs / K_WIN with cs the V summed over the slice): their dq is (scale /
+  // K_WIN) g N with N = sum over the slice's keys of (v - cs / K_WIN) k^T,
+  // one hd x hd matrix, a 16-row slab a warp; written here, as the walks
+  // below give them nothing
+  if (any_pad) {
+    slice_colsum<float, HDP>(v, vv.sl, start, min(start + sh.k_win, sh.T), hd, part_s, cs_s);
+    const bool slab = 16 * warp < hdp;
+    float n_acc[HD8][4];
+#pragma unroll
+    for (int d = 0; d < HD8; ++d) n_acc[d][0] = n_acc[d][1] = n_acc[d][2] = n_acc[d][3] = 0.f;
+    for (int c0 = start; c0 < start + sh.k_win; c0 += cap) {
+      const int c1 = min(c0 + cap, start + sh.k_win);
+      stage_kv(c0, c1);
+      if (slab)
+        tf32_atb<HD8>(n_acc, y_s, x_s, rs, c1 - c0, 16 * warp, hdp, nullptr, cs_s,
+                      1.f / sh.k_win, lane);
+    }
+    __syncthreads();
+    if (slab)
+      store_slab<HD8>(x_s, y_s, rs, n_acc, 16 * warp, hdp, sh.scale / sh.k_win, true, lane);
+    __syncthreads();
+    if (warp_pad) {
+      float o[HD8][4];
+#pragma unroll
+      for (int d = 0; d < HD8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+      tf32_xy<HD8>(o, pad0 ? xa[1] : nullptr, pad1 ? xb[1] : nullptr, nullptr, x_s, y_s, rs, hd,
+                   lane);
+      store_c_f32<HD8>(o, dqv, b, h, r0, hd, sh.T, lane, pad0, pad1);
+    }
+  }
+
+  // walk 1: m, l and sum(e dp) of rows ra and rb over the warp's span (a
+  // warp of padding rows only has none to take)
+  const bool stats = __any_sync(0xffffffffu, !pad0 || !pad1);
+  const bool any_stats = __syncthreads_or(stats);  // else no walk has work
+  float acc[2][kTfChunk / 8][4];  // S, dP; then ds in acc[1]
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f, a0 = 0.f, a1 = 0.f;
+  for (int c0 = u0; any_stats && c0 < u1; c0 += cap) {
+    const int c1 = min(c0 + cap, u1), e1 = min(c1, span.y);
+    stage_kv(c0, c1);
+    for (int j0 = max(c0, span.x); stats && j0 < e1; j0 += kTfChunk) {
+      products(acc, j0, c0, min(kTfChunk, e1 - j0));
+      online_tiles<kTfChunk / 8>(acc[0], acc[1], 0, m0, l0, a0);
+      online_tiles<kTfChunk / 8>(acc[0], acc[1], 2, m1, l1, a1);
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float row0 = quad_sum(a0) / l0, row1 = quad_sum(a1) / l1;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  float o[HD8][4];
+#pragma unroll
+  for (int d = 0; d < HD8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+
+  // the other rows: ds = p (dp - row) scale in acc[1], then dq += ds K with
+  // ds in its C layout as the A tiles
+  auto accumulate = [&](auto& acc, int j0, int c0, int nk) {
+    constexpr int NT = sizeof(acc[0]) / sizeof(acc[0][0]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool second = e & 2;
+        const float p = expf(acc[0][j][e] - (second ? m1 : m0)) * (second ? inv1 : inv0);
+        acc[1][j][e] = (second ? pad1 : pad0)
+                           ? 0.f
+                           : p * (acc[1][j][e] - (second ? row1 : row0)) * sh.scale;
+      }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (8 * j < nk) tf32_cy<HD8>(o, acc[1][j], x_s + (j0 - c0 + 8 * j) * rs, rs, hd8, lane);
+  };
+  if (ONE) {
+    // walk 1 took the span in one step from the resident union: its scores
+    // and dp are still in acc
+    if (stats) accumulate(acc, span.x, u0, span.y - span.x);
+  } else {
+    // walk 2 over the span in steps of half as many keys (dq's accumulators
+    // are live now), the scores recomputed; a union staged whole in walk 1
+    // stays
+    const bool resident = u1 - u0 <= cap;
+    float acc2[2][kTfChunk / 16][4];
+    for (int c0 = u0; any_stats && c0 < u1; c0 += cap) {
+      const int c1 = min(c0 + cap, u1), e1 = min(c1, span.y);
+      if (!resident) stage_kv(c0, c1);
+      for (int j0 = max(c0, span.x); stats && j0 < e1; j0 += kTfChunk / 2) {
+        const int nk = min(kTfChunk / 2, e1 - j0);
+        products(acc2, j0, c0, nk);
+        accumulate(acc2, j0, c0, nk);
+      }
+    }
+  }
+  store_c_f32<HD8>(o, dqv, b, h, r0, hd, sh.T, lane, !pad0, !pad1);
 }
 
 // ---------------------------------------------------------- backward launch
@@ -1629,13 +1917,26 @@ int launch_dq_mma(View q, View k, View v, const void* mask, View g, View dq, int
   return (int)cudaGetLastError();
 }
 
-template <int DCH>
-int launch_dq_f32(View q, View k, View v, const void* mask, View g, View dq, int B, int hd,
-                  Shape sh, cudaStream_t stream) {
-  const size_t bytes = (dq_f32_floats_fixed<32 * DCH>() + sh.k_win) * sizeof(float);
-  if (int err = prepare(dq_f32<DCH>, bytes)) return err;
-  dq_f32<DCH><<<dim3(sh.T_pad / kTile, B * sh.H), kWarps * 32, bytes, stream>>>(
-      q, k, v, static_cast<const float*>(mask), g, dq, sh, hd);
+template <int HD8>
+int launch_dq_tf32(View q, View k, View v, const void* mask, View g, View dq, int B, int hd,
+                   Shape sh, cudaStream_t stream) {
+  // chunks of up to the key union (160 keys at window 19), which one chunk
+  // holds at every head dim up to 128 for windows up to 65; one walk where
+  // every warp's span is one step of kTfChunk keys
+  const int rs = 8 * ((hd + 7) / 8) + kTfRowPad, reach = (sh.half + 15) / 16 * 16;
+  const int need = min(sh.k_win, kTile + 2 * reach), span = 16 + 2 * reach;
+  const int fixed = (int)dq_tf32_bytes(rs, 8 * HD8, sh.k_win, 0);
+  const int cap = min(need, (kMaxSharedBytes - fixed) / (2 * rs * (int)sizeof(float)) / 16 * 16);
+  const size_t bytes = dq_tf32_bytes(rs, 8 * HD8, sh.k_win, cap);
+  const dim3 grid(sh.T_pad / kTile, B * sh.H);
+  const float* m = static_cast<const float*>(mask);
+  if (need <= cap && span <= kTfChunk) {
+    if (int err = prepare(dq_tf32<HD8, true>, bytes)) return err;
+    dq_tf32<HD8, true><<<grid, kMmaWarps * 32, bytes, stream>>>(q, k, v, m, g, dq, sh, hd, cap);
+  } else {
+    if (int err = prepare(dq_tf32<HD8, false>, bytes)) return err;
+    dq_tf32<HD8, false><<<grid, kMmaWarps * 32, bytes, stream>>>(q, k, v, m, g, dq, sh, hd, cap);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1656,15 +1957,20 @@ int launch_dkv_mma(View q, View k, View v, const void* mask, View g, View dk, Vi
   return (int)cudaGetLastError();
 }
 
-template <int DCH>
-int launch_dkv_f32(View q, View k, View v, const void* mask, View g, View dk, View dv, int B,
-                   int hd, Shape sh, cudaStream_t stream) {
+template <int HD8>
+int launch_dkv_tf32(View q, View k, View v, const void* mask, View g, View dk, View dv, int B,
+                    int hd, Shape sh, cudaStream_t stream) {
+  // chunks of up to the query union's rows (160 at window 19), which one
+  // chunk holds at every head dim up to 128 for windows up to 65
   const int k2 = min(2 * sh.k_win - kTile, sh.T_pad);
-  const size_t bytes =
-      (dkv_f32_work_floats<32 * DCH>() + 4 * (size_t)sh.k_win + 64 * DCH + k2) * sizeof(float);
-  if (int err = prepare(dkv_f32<DCH>, bytes)) return err;
-  dkv_f32<DCH><<<dim3(sh.T_pad / kTile, B * sh.H), kWarps * 32, bytes, stream>>>(
-      q, k, v, static_cast<const float*>(mask), g, dk, dv, sh, hd);
+  const int rs = 8 * ((hd + 7) / 8) + kTfRowPad, reach = (sh.half + 15) / 16 * 16;
+  const int need = min(sh.k_win, kTile + 2 * reach);
+  const int fixed = (int)dkv_tf32_bytes(rs, 8 * HD8, sh.k_win, k2, 0);
+  const int cap = min(need, (kMaxSharedBytes - fixed) / (2 * rs * (int)sizeof(float)) / 16 * 16);
+  const size_t bytes = dkv_tf32_bytes(rs, 8 * HD8, sh.k_win, k2, cap);
+  if (int err = prepare(dkv_tf32<HD8>, bytes)) return err;
+  dkv_tf32<HD8><<<dim3(sh.T_pad / kTile, B * sh.H), kMmaWarps * 32, bytes, stream>>>(
+      q, k, v, static_cast<const float*>(mask), g, dk, dv, sh, hd, cap);
   return (int)cudaGetLastError();
 }
 
@@ -1672,10 +1978,10 @@ int launch_dq(int dtype, View q, View k, View v, const void* mask, View g, View 
               Shape sh, cudaStream_t s) {
   if (dtype == 0) {
     switch ((hd + 31) / 32) {
-      case 1: return launch_dq_f32<1>(q, k, v, mask, g, dq, B, hd, sh, s);
-      case 2: return launch_dq_f32<2>(q, k, v, mask, g, dq, B, hd, sh, s);
-      case 3: return launch_dq_f32<3>(q, k, v, mask, g, dq, B, hd, sh, s);
-      case 4: return launch_dq_f32<4>(q, k, v, mask, g, dq, B, hd, sh, s);
+      case 1: return launch_dq_tf32<4>(q, k, v, mask, g, dq, B, hd, sh, s);
+      case 2: return launch_dq_tf32<8>(q, k, v, mask, g, dq, B, hd, sh, s);
+      case 3:
+      case 4: return launch_dq_tf32<16>(q, k, v, mask, g, dq, B, hd, sh, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1696,10 +2002,10 @@ int launch_dkv(int dtype, View q, View k, View v, const void* mask, View g, View
                int B, int hd, Shape sh, cudaStream_t s) {
   if (dtype == 0) {
     switch ((hd + 31) / 32) {
-      case 1: return launch_dkv_f32<1>(q, k, v, mask, g, dk, dv, B, hd, sh, s);
-      case 2: return launch_dkv_f32<2>(q, k, v, mask, g, dk, dv, B, hd, sh, s);
-      case 3: return launch_dkv_f32<3>(q, k, v, mask, g, dk, dv, B, hd, sh, s);
-      case 4: return launch_dkv_f32<4>(q, k, v, mask, g, dk, dv, B, hd, sh, s);
+      case 1: return launch_dkv_tf32<4>(q, k, v, mask, g, dk, dv, B, hd, sh, s);
+      case 2: return launch_dkv_tf32<8>(q, k, v, mask, g, dk, dv, B, hd, sh, s);
+      case 3:
+      case 4: return launch_dkv_tf32<16>(q, k, v, mask, g, dk, dv, B, hd, sh, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -3,8 +3,9 @@
 An NVIDIA H100 SXM5 (80 GB HBM3): 989 TFLOP/s of dense bf16 tensor-core
 work, 67 TFLOP/s of f32 on the CUDA cores (the port's f32 route: no TF32
 in cuBLAS), 495 TFLOP/s of dense TF32, 3.35 TB/s of device memory.  The
-f32 body of #1/#2 runs its products on the tensor cores as three TF32
-products each (the 3xTF32 split), so its peak is a third of TF32's.
+f32 bodies of #1/#2 and #6/#7 run their products on the tensor cores as
+three TF32 products each (the 3xTF32 split), so their peak is a third of
+TF32's.
 ``bench_kernels``' bounds, ``bench_zoo``'s MFU and the roofline tools'
 floors divide by them; the rates the card reaches in practice are
 ``tools/roofline.py``'s probes.
@@ -21,7 +22,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
 PEAK_FLOPS = {str(dtype).split(".")[-1]: ops for dtype, ops in PEAK_OPS.items()}
 TF32X3_OPS = 495e12 / 3  # f32 products as three dense TF32 products each
 # the hand-written kernels whose f32 products run in 3xTF32
-TF32X3_KERNELS = ("fused_masked_attention", "fused_dual_attention")
+TF32X3_KERNELS = ("fused_masked_attention", "fused_dual_attention", "banded_attention_dq",
+                  "banded_attention_dkv")
 
 
 def peak_ops(dtype: Union[torch.dtype, str], kernel: Optional[str] = None) -> float:
