@@ -1,14 +1,18 @@
-"""The f32 bodies of #6 and #7 (``dq_tf32``, ``dkv_tf32`` in
-``csrc/window_attention.cu``) emulated in torch on the CPU against the plain
-versions (``banded_attention_dq_plain``, ``banded_attention_dkv_plain``).
+"""The f32 bodies of #5, #6 and #7 (``banded_tf32``, ``dq_tf32``,
+``dkv_tf32`` in ``csrc/window_attention.cu``) emulated in torch on the CPU
+against the plain versions (``banded_attention_plain``,
+``banded_attention_dq_plain``, ``banded_attention_dkv_plain``).
 
-The CUDA bodies cannot run here.  ``emulate_dq`` and ``emulate_dkv`` repeat
-their schedule with its rounding points: every product on TF32 operands in
-the 3xTF32 split, summed in 8-wide steps in the kernels' order
-(``tests/_tf32.py``); the statistics of each 16 rows (m, l and sum(e dp))
-taken over their key span, ``warp_key_span``, in steps of ``CHUNK_KEYS``
-keys with a running max; dq's 16 rows walking their span, dk/dv's 16 own
-keys walking their query span in 16-row steps.  A padding row's p is the
+The CUDA bodies cannot run here.  ``emulate_fwd``, ``emulate_dq`` and
+``emulate_dkv`` repeat their schedule with its rounding points: every
+product on TF32 operands in the 3xTF32 split, summed in 8-wide steps in the
+kernels' order (``tests/_tf32.py``); the forward's 16 rows walking their
+key span, ``warp_key_span``, in steps of ``CHUNK_KEYS`` keys with a running
+max and sum and O rescaled each step, p unrounded, a padding row's output V
+summed over its 128-row tile's K_WIN slice over K_WIN; the statistics of
+each 16 rows (m, l and sum(e dp)) taken over their key span in the same
+steps; dq's 16 rows walking their span, dk/dv's 16 own keys walking their
+query span in 16-row steps.  A padding row's p is the
 constant 1/K_WIN (dq, every key of the slice) or 1/K2 (dk/dv, every own
 key), so its products go through one hd x hd matrix a 128-row tile: its dq
 is (scale / K_WIN) g N with N the sum over the slice of (v - cs / K_WIN)
@@ -20,11 +24,11 @@ Cases: B 2, 2 heads, T 300-640, windows 9, 19 and 37, head dims 1, 24 and
 128, sample 0 wholly masked and sample 1 with a hole wider than the band.
 Inputs are made with numpy from a seed.  Tolerance ``ATOL`` of the compared
 tensor's largest magnitude (at least 1): the split keeps ~22 of f32's 24
-bits of each operand and the sums run in another order (4.1e-7 measured at
-most, against 1.7e-6 for #1/#2's emulation); the same schedule with one
-TF32 pass (big.big alone) misses it by far (1.7e-4 to 1.3e-3 at these
-cases), which is why the kernels split.  Also: the schedule's constants
-read back from the CUDA source.
+bits of each operand and the sums run in another order (4.9e-7 measured at
+most for the forward, 4.1e-7 for the backward, against 1.7e-6 for #1/#2's
+emulation); the same schedule with one TF32 pass (big.big alone) misses it
+by far (3.1e-4 to 1.3e-3 at these cases), which is why the kernels split.
+Also: the schedule's constants read back from the CUDA source.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -44,7 +48,7 @@ from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 CSRC = Path(W.__file__).resolve().parent / "csrc" / "window_attention.cu"
 # the schedule (kTfChunk, kTfRowPad, kMmaWarps in the source): keys of a
 # warp's score step; floats after each staged row; warps of 16 rows (or own
-# keys) a 128-row block
+# keys) a 128-row block, in all three f32 bodies
 CHUNK_KEYS, ROW_PAD, WARPS = 48, 4, 8
 ATOL = 2e-6
 
@@ -81,7 +85,8 @@ class _Sample:
         self.k_win, self.T_pad = W.key_window(window), W.padded_len(self.T)
         self.scale = 1.0 / math.sqrt(self.hd)
         pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, self.T_pad - self.T))  # noqa: E731
-        self.q, self.k, self.v, self.g = pad(q), pad(k), pad(v), pad(g)  # (H, T_pad, hd)
+        self.q, self.k, self.v = pad(q), pad(k), pad(v)  # (H, T_pad, hd)
+        self.g = None if g is None else pad(g)  # the forward has none
         self.valid = torch.nn.functional.pad(mask > 0, (0, self.T_pad - self.T))
         self.pad_rows = torch.nn.functional.pad(_padding_rows(mask > 0, self.half),
                                                 (0, self.T_pad - self.T))
@@ -113,6 +118,30 @@ class _Sample:
     def colsum_v(self, j0, j1):
         """V summed over the keys [j0, j1) below T, (H, 1, hd)."""
         return self.v[:, j0:min(j1, self.T)].sum(1, keepdim=True)
+
+
+def emulate_fwd(q, k, v, mask, window, passes=3):
+    out = torch.zeros_like(q)
+    for b in range(q.shape[0]):
+        x = _Sample(q[b], k[b], v[b], None, mask[b], window)
+        o_all = torch.zeros_like(x.q)
+        for r0 in range(0, x.T_pad, 16):
+            rows, (lo, hi) = torch.arange(r0, r0 + 16), x.span(r0)
+            m = torch.full((x.q.shape[0], 16, 1), -math.inf)
+            l, o = torch.zeros_like(m), torch.zeros_like(x.q[:, rows])
+            for j0 in range(lo, hi, CHUNK_KEYS):
+                keys = torch.arange(j0, min(j0 + CHUNK_KEYS, hi))
+                s = x.scores(rows, keys, passes)
+                n = torch.maximum(m, s.amax(-1, keepdim=True))
+                f, e = torch.exp(m - n), torch.exp(s - n)  # p unrounded
+                l = l * f + e.sum(-1, keepdim=True)
+                o, m = o * f + product(e, x.v[:, keys], passes), n
+            start = W.slice_start(r0 // W.TILE * W.TILE, x.T, window)
+            pad = x.pad_rows[rows][None, :, None]
+            o_all[:, rows] = torch.where(pad, x.colsum_v(start, start + x.k_win) / x.k_win,
+                                         o / l)
+        out[b] = o_all[:, :x.T]
+    return out
 
 
 def emulate_dq(q, k, v, mask, g, window, passes=3):
@@ -198,6 +227,13 @@ CASES = [(300, 9, 24), (513, 19, 128), (640, 37, 1), (384, 19, 24), (640, 37, 12
 
 
 @pytest.mark.parametrize("T,window,hd", CASES)
+def test_emulated_fwd_schedule_matches_plain(T, window, hd):
+    q, k, v, mask, _ = _inputs(T + window + hd, T, window, hd)
+    assert _err(emulate_fwd(q, k, v, mask, window),
+                W.banded_attention_plain(q, k, v, mask, window)) <= ATOL
+
+
+@pytest.mark.parametrize("T,window,hd", CASES)
 def test_emulated_dq_schedule_matches_dq_plain(T, window, hd):
     q, k, v, mask, g = _inputs(T + window + hd, T, window, hd)
     want = W.banded_attention_dq_plain(q, k, v, mask, g, window)
@@ -225,6 +261,15 @@ def test_one_tf32_pass_misses_the_tolerance(T, window, hd):
         assert _err(got, want) > 20 * ATOL
 
 
+@pytest.mark.parametrize("T,window,hd", [(300, 19, 24), (384, 19, 128)])
+def test_one_tf32_pass_misses_the_tolerance_in_the_forward(T, window, hd):
+    """big.big alone keeps 11 bits of each operand: the output moves by far
+    more than ``ATOL``."""
+    q, k, v, mask, _ = _inputs(T + hd, T, window, hd)
+    assert _err(emulate_fwd(q, k, v, mask, window, passes=1),
+                W.banded_attention_plain(q, k, v, mask, window)) > 20 * ATOL
+
+
 def test_schedule_constants_are_the_kernels():
     src = CSRC.read_text()
     for name, value in (("kTfChunk", CHUNK_KEYS), ("kTfRowPad", ROW_PAD), ("kTile", W.TILE)):
@@ -233,7 +278,7 @@ def test_schedule_constants_are_the_kernels():
     assert re.search(r"constexpr int kMmaWarps = kTile / 16;", src) and W.TILE // 16 == WARPS
     assert '#include "mma_tf32.cuh"' in src
     # the f32 entries launch the tensor-core bodies, one per head-dim bucket
-    for body in ("dq_tf32", "dkv_tf32"):
+    for body in ("banded_tf32", "dq_tf32", "dkv_tf32"):
         buckets = re.findall(rf"launch_{body}<(\d+)>\(", src)
         assert sorted(set(map(int, buckets))) == [4, 8, 16], body
-    assert "dq_f32" not in src and "dkv_f32" not in src
+    assert "banded_f32" not in src and "dq_f32" not in src and "dkv_f32" not in src

@@ -247,8 +247,10 @@ def test_seqpan_forward_on_kernels_matches_plain_on_cpu(cuda):
 @pytest.mark.parametrize("T,window,hd", [
     (300, 19, 128), (1000, 19, 128), (513, 9, 64), (640, 37, 32), (700, 300, 64),
     # head dims off the 32/64/128 grid; window 300 takes two walks, and at
-    # hd 64 and 128 its key union is staged in parts (two, three)
-    (1000, 19, 96), (513, 19, 24), (640, 37, 16), (700, 300, 24), (700, 300, 128)])
+    # hd 64 and 128 its key union is staged in parts (two, three); window 75
+    # at hd 128 streams the f32 body's union in chunks
+    (1000, 19, 96), (513, 19, 24), (640, 37, 16), (700, 300, 24), (700, 300, 128),
+    (1000, 75, 128)])
 def test_banded_attention_kernel_on_strided_views(cuda, dtype, T, window, hd):
     """Head-split views of one (B, T, 3C) projection, ragged lengths, a
     wholly masked sample; every row is compared, padding rows included."""

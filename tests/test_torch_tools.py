@@ -191,6 +191,27 @@ def test_f32_attention_bound_counts_the_3xtf32_rate():
     assert ops / h100.TF32X3_OPS < nbytes / h100.HBM_BYTES_PER_S < ops / h100.PEAK_OPS[f32]
 
 
+def test_banded_f32_bound_counts_the_3xtf32_rate():
+    """#5-#7's f32 products run in 3xTF32 too; at the long config's training
+    shapes (B 2, 4 heads of 128, window 19) bytes bound the forward all the
+    same: 0.00775 ms launch-weighted over T 2304 x2, 1152, 576."""
+    from vmrframe_tpu_torch.tools import bench_kernels, h100
+
+    for name in ("banded_attention", "banded_attention_dq", "banded_attention_dkv"):
+        assert h100.peak_ops(torch.float32, name) == h100.TF32X3_OPS
+    assert h100.peak_ops(torch.bfloat16, "banded_attention") == h100.PEAK_OPS[torch.bfloat16]
+    rows = []
+    for T, launches in bench_kernels.AF_LAUNCHES.items():
+        qkv = torch.empty(bench_kernels.B_TRAIN, T, 3 * 4 * 128, device="meta")
+        mask = torch.empty(bench_kernels.B_TRAIN, T, device="meta")
+        ms, by = bench_kernels.bound_ms("banded_attention", (qkv, mask))
+        nbytes, ops = bench_kernels.work("banded_attention", (qkv, mask))
+        assert by == "bytes" and ops / h100.TF32X3_OPS < nbytes / h100.HBM_BYTES_PER_S
+        rows.append((launches, ms))
+    weighted = sum(n * ms for n, ms in rows) / sum(n for n, _ in rows)
+    assert abs(weighted - 0.00775) < 5e-6
+
+
 def test_bench_pipeline_writes_a_case(tmp_path):
     from vmrframe_tpu_torch.tools import bench_pipeline
 

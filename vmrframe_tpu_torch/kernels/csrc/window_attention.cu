@@ -33,8 +33,9 @@
 // than the band, rows past T) has every slice score at -1e30 on the TPU, so
 // p = 1/K_WIN on each slice key: its output is round(1/K_WIN) times the sum
 // of V over the slice's keys below T.  A row whose maximum over its span is
-// still -1e30 is such a row (the span holds its band); only a block that
-// has one sums V over its slice, once, on the CUDA cores (slice_colsum).
+// still -1e30 is such a row (the span holds its band; the f32 body marks
+// them from the mask instead); only a block that has one sums V over its
+// slice, once, on the CUDA cores (slice_colsum).
 //
 // Numerics: scores q.k * 1/sqrt(hd) in f32 (hd the real head dim, passed
 // in), a stable softmax in f32, p = e / sum rounded to the input type before
@@ -58,19 +59,37 @@
 // windows) is staged in parts, K alone for the first walk, K and V for the
 // second.  ~94 KB at hd 128, window 19.
 //
-// f32, banded_f32 (the training type): exact f32 on the CUDA cores, no
-// TF32.  One block of 16 warps per tile, 8 rows a warp; the Q tile in shared
-// memory; the union passes through in 32-key chunks of K (rows padded to
-// HDP + 1 floats: a lane per key, no bank conflicts) and V, and a warp takes
-// only the chunks that meet its band (at most 2 of 5 at window 19); one walk
-// with a running max and sum, since f32 rounds p nowhere.  ~121 KB at hd 128.
+// f32, banded_tf32 (the training type): both products, S = Q K^T and O +=
+// P.V, on mma.sync m16n8k8 TF32 in the 3xTF32 split (mma_tf32.cuh; the
+// backward's note below says why one TF32 pass is not enough), p kept in f32
+// and never rounded (the TPU's p.astype(v.dtype) is a no-op in f32).  The
+// grid and warps are banded_mma's, a warp per 16 rows over its span: one
+// block of 8 warps per 128-row tile, one block an SM (~169 KB at hd 128,
+// window 19), which ran 3-8% faster on an H100 than blocks of 4 warps over
+// 64-row half tiles at two an SM (~101 KB; their unions re-read more keys,
+// and both halves sum V over the same slice).  K and V of the block's key
+// union (160 rows at window 19) are staged once with 16-byte cp.async in f32
+// rows of 8 hd8 + kTfRowPad floats, in chunks where the union does not fit
+// (wide windows); the warp's Q rows, an A operand no other warp reads, come
+// from device memory step by step.  Scores go kTfChunk keys (a window-19
+// span) a step with a running max and sum, O rescaled once a step: f32
+// rounds p nowhere, so this is one walk, exact up to the order of the sums.
+// p leaves its C layout as the A tile of P.V as it stands (V's B rows read
+// from keys 2t, 2t + 1).  Padding rows are marked from the mask before the
+// walk (mark_padding_rows), a block that has one sums V over its slice first
+// (slice_colsum), and a warp whose rows are all padding rows or past T skips
+// the walk.  Head dims 1 to 128 in buckets of 32, 64 and 128 columns (HD8 4,
+// 8, 16), the call's own 8 hd8 columns staged, zero-filled up to the next
+// multiple of 8.
 //
 // What bounds it on an H100: at the long config (T up to 2304, hd 128,
 // window 19) the band needs 2*2*T*19*hd FLOPs per (batch, head) and reads
 // q, k, v once, so the least time is set by bytes (~22 us at T = 2304, batch
-// 8, 4 heads, bf16).  The bf16 body reads K and V 160/128 times (the union)
+// 8, 4 heads, bf16; the f32 products at 3xTF32's third of TF32's rate do not
+// change that).  The bf16 body reads K and V 160/128 times (the union)
 // and Q once, and at window 19 issues 6 + 6 mma per 16 rows and 16 head
-// columns (the scores of a 48-key span, then P.V).
+// columns (the scores of a 48-key span, then P.V); the f32 body 3 x (6 + 6)
+// per 8 head columns.
 //
 // Layout: q, k, v are (B, H, T, hd) through their strides (unit stride on
 // hd), so head-split views of (B, T, C) projections are read in place; the
@@ -93,17 +112,13 @@ namespace {
 
 constexpr float kMask = -1e30f;
 constexpr int kTile = 128;                          // query rows per block (the TPU tile)
-constexpr int kChunk = 32;                          // banded_f32: keys per chunk, one per lane
-constexpr int kWarps = 16;                          // banded_f32
-constexpr int kRows = kTile / kWarps;               // banded_f32: query rows per warp
-constexpr int kMmaWarps = kTile / 16;               // banded_mma: a warp per 16 rows
+constexpr int kMmaWarps = kTile / 16;               // a warp per 16 rows (or own keys)
 constexpr int kMmaChunk = 64;                       // banded_mma: keys per score chunk (8 n-tiles)
 constexpr int kTwoBlockBytes = 113 * 1024;          // shared memory of one of two blocks per SM
 constexpr int kColSumFloats = 2048;                 // slice_colsum: 16 bytes a thread
-constexpr int kTfChunk = 48;   // dq_tf32, dkv_tf32: keys of a warp's score step, 6 n-tiles
-constexpr int kTfRowPad = 4;   // dq_tf32, dkv_tf32: floats after each staged f32 row
-static_assert(kColSumFloats >= kMmaWarps * 32 * 8 && kColSumFloats >= kWarps * 32 * 4,
-              "slice_colsum's partial sums");
+constexpr int kTfChunk = 48;   // the f32 bodies: keys of a warp's score step, 6 n-tiles
+constexpr int kTfRowPad = 4;   // the f32 bodies: floats after each staged f32 row
+static_assert(kColSumFloats >= kMmaWarps * 32 * 8, "slice_colsum's partial sums");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -403,160 +418,6 @@ __global__ void __launch_bounds__(kMmaWarps * 32, ONE ? 2 : 1)
   }
 }
 
-// ------------------------------------------------------------- f32 forward
-
-template <int DCH>
-constexpr size_t f32_smem_floats() {
-  constexpr int HDP = 32 * DCH;
-  return (size_t)kTile * HDP                  // Q tile
-         + (size_t)kChunk * (HDP + 1)         // K chunk, padded rows
-         + (size_t)kChunk * HDP               // V chunk
-         + (size_t)kWarps * kRows * kChunk    // e of each warp's rows
-         + kChunk                             // key validity of the chunk
-         + kTile + kColSumFloats;             // V summed over the slice, and its partial sums
-}
-
-// Kernel #5 in f32 on the CUDA cores.  DCH = head dim rounded up to 32, over
-// 32: the output columns a lane holds.
-template <int DCH>
-__global__ void __launch_bounds__(kWarps * 32)
-    banded_f32(View qv, View kv, View vv, const float* mask, View ov, Shape sh, int hd) {
-  constexpr int HDP = 32 * DCH;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + kTile * HDP;
-  float* v_s = k_s + kChunk * (HDP + 1);
-  float* p_s = v_s + kChunk * HDP;
-  float* ok_s = p_s + kWarps * kRows * kChunk;
-  float* cs_s = ok_s + kChunk;
-  float* part_s = cs_s + kTile;
-
-  const int tile = blockIdx.x, bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = tile * kTile, row0 = warp * kRows, i0 = q0 + row0;
-  const int start = slice_start(q0, sh);
-  const int u0 = warp_key_span(q0, sh).x, u1 = warp_key_span(q0 + kTile - 16, sh).y;
-  const float* q = at<float>(qv, b, h);
-  const float* k = at<float>(kv, b, h);
-  const float* v = at<float>(vv, b, h);
-  const float* m = mask + (long long)b * sh.T;
-
-  for (int idx = threadIdx.x; idx < kTile * HDP; idx += blockDim.x) {
-    const int rr = idx / HDP, d = idx % HDP, i = q0 + rr;
-    q_s[idx] = (i < sh.T && d < hd) ? q[i * qv.sl + d] : 0.f;
-  }
-
-  float mx[kRows], sum[kRows], acc[kRows][DCH];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    mx[rr] = -CUDART_INF_F;
-    sum[rr] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DCH; ++c) acc[rr][c] = 0.f;
-  }
-  float* p_w = p_s + warp * kRows * kChunk;
-  for (int j0 = u0; j0 < u1; j0 += kChunk) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kChunk * HDP; idx += blockDim.x) {
-      const int jj = idx / HDP, d = idx % HDP, j = j0 + jj;
-      const bool in = j < sh.T && d < hd;
-      k_s[jj * (HDP + 1) + d] = in ? k[j * kv.sl + d] : 0.f;
-      v_s[idx] = in ? v[j * vv.sl + d] : 0.f;
-    }
-    if (threadIdx.x < kChunk) {
-      const int j = j0 + threadIdx.x;
-      ok_s[threadIdx.x] = (j < sh.T && m[j] > 0.f) ? 1.f : 0.f;
-    }
-    __syncthreads();
-    if (j0 > i0 + kRows - 1 + sh.half || j0 + kChunk - 1 < i0 - sh.half) continue;  // off the band
-
-    // the lane's key against the warp's rows, then a running max and sum
-    const float* krow = k_s + lane * (HDP + 1);
-    float s[kRows];
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) s[rr] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HDP; d += 4) {
-      const float k0 = krow[d], k1 = krow[d + 1], k2 = krow[d + 2], k3 = krow[d + 3];
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-        const float4 q4 = *reinterpret_cast<const float4*>(q_s + (row0 + rr) * HDP + d);
-        s[rr] = fmaf(q4.x, k0, s[rr]);
-        s[rr] = fmaf(q4.y, k1, s[rr]);
-        s[rr] = fmaf(q4.z, k2, s[rr]);
-        s[rr] = fmaf(q4.w, k3, s[rr]);
-      }
-    }
-    const int j = j0 + lane;
-    const bool key_ok = ok_s[lane] > 0.f;
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const float sc = (key_ok && abs(i0 + rr - j) <= sh.half) ? s[rr] * sh.scale : kMask;
-      const float mn = fmaxf(mx[rr], warp_max(sc));
-      const float a = expf(mx[rr] - mn), e = expf(sc - mn);
-      sum[rr] = sum[rr] * a + warp_sum(e);
-      mx[rr] = mn;
-      p_w[rr * kChunk + lane] = e;
-#pragma unroll
-      for (int c = 0; c < DCH; ++c) acc[rr][c] *= a;
-    }
-    __syncwarp();
-#pragma unroll 2
-    for (int jj = 0; jj < kChunk; jj += 4) {
-      float vk[4][DCH];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int c = 0; c < DCH; ++c) vk[u][c] = v_s[(jj + u) * HDP + lane + 32 * c];
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-        const float4 p4 = *reinterpret_cast<const float4*>(p_w + rr * kChunk + jj);
-#pragma unroll
-        for (int c = 0; c < DCH; ++c) {
-          acc[rr][c] = fmaf(p4.x, vk[0][c], acc[rr][c]);
-          acc[rr][c] = fmaf(p4.y, vk[1][c], acc[rr][c]);
-          acc[rr][c] = fmaf(p4.z, vk[2][c], acc[rr][c]);
-          acc[rr][c] = fmaf(p4.w, vk[3][c], acc[rr][c]);
-        }
-      }
-    }
-    __syncwarp();  // p_w is read before the next chunk writes it
-  }
-
-  bool pad_any = false;
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) pad_any |= mx[rr] == kMask && i0 + rr < sh.T;
-  if (__syncthreads_or(pad_any))
-    slice_colsum<float, HDP>(v, vv.sl, start, min(start + sh.k_win, sh.T), hd, part_s, cs_s);
-
-  float* o = static_cast<float*>(const_cast<void*>(ov.p)) + b * ov.sb + h * ov.sh;
-  const float pad_p = 1.f / sh.k_win;
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int i = i0 + rr;
-    if (i >= sh.T) continue;
-    const bool pad = mx[rr] == kMask;
-#pragma unroll
-    for (int c = 0; c < DCH; ++c) {
-      const int d = lane + 32 * c;
-      if (d < hd) o[i * ov.sl + d] = pad ? pad_p * cs_s[d] : acc[rr][c] / sum[rr];
-    }
-  }
-}
-
-template <int DCH>
-int launch_f32(View q, View k, View v, const void* mask, View o, int B, int hd, Shape sh,
-               cudaStream_t stream) {
-  const size_t bytes = f32_smem_floats<DCH>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(banded_f32<DCH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(sh.T_pad / kTile, B * sh.H);
-  banded_f32<DCH><<<grid, kWarps * 32, bytes, stream>>>(
-      q, k, v, static_cast<const float*>(mask), o, sh, hd);
-  return (int)cudaGetLastError();
-}
-
 template <int HDK, bool ONE>
 int launch_mma(View q, View k, View v, const void* mask, View o, int B, int hd, Shape sh,
                int cap, size_t bytes, cudaStream_t stream) {
@@ -583,30 +444,6 @@ int launch_mma_walks(View q, View k, View v, const void* mask, View o, int B, in
   if (need <= cap && span <= kMmaChunk)
     return launch_mma<HDK, true>(q, k, v, mask, o, B, hd, sh, cap, bytes, stream);
   return launch_mma<HDK, false>(q, k, v, mask, o, B, hd, sh, cap, bytes, stream);
-}
-
-int launch_forward(int dtype, View q, View k, View v, const void* mask, View o, int B, int hd,
-                   Shape sh, cudaStream_t stream) {
-  if (dtype == 0) {
-    switch ((hd + 31) / 32) {
-      case 1: return launch_f32<1>(q, k, v, mask, o, B, hd, sh, stream);
-      case 2: return launch_f32<2>(q, k, v, mask, o, B, hd, sh, stream);
-      case 3: return launch_f32<3>(q, k, v, mask, o, B, hd, sh, stream);
-      case 4: return launch_f32<4>(q, k, v, mask, o, B, hd, sh, stream);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch ((hd + 15) / 16) {
-    case 1: return launch_mma_walks<1>(q, k, v, mask, o, B, hd, sh, stream);
-    case 2: return launch_mma_walks<2>(q, k, v, mask, o, B, hd, sh, stream);
-    case 3: return launch_mma_walks<3>(q, k, v, mask, o, B, hd, sh, stream);
-    case 4: return launch_mma_walks<4>(q, k, v, mask, o, B, hd, sh, stream);
-    case 5: return launch_mma_walks<5>(q, k, v, mask, o, B, hd, sh, stream);
-    case 6: return launch_mma_walks<6>(q, k, v, mask, o, B, hd, sh, stream);
-    case 7: return launch_mma_walks<7>(q, k, v, mask, o, B, hd, sh, stream);
-    case 8: return launch_mma_walks<8>(q, k, v, mask, o, B, hd, sh, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------- backward
@@ -1253,27 +1090,28 @@ __device__ __forceinline__ void load_a_tf32(uint32_t (&ab)[4], uint32_t (&as)[4]
   split_tf32(xb && c + 4 < hd ? __ldg(xb + c + 4) : 0.f, ab[3], as[3]);
 }
 
-// acc[x][j] += X_x Y_x^T for x = 0, 1 and the n-tiles j < NT (8 staged
-// rows each), summed over the head dim's 8-column steps in 3xTF32: X_x the
-// 16 rows of a warp in device memory (rows at xa[x], xb[x]: load_a_tf32),
-// Y_x the rows y_s[x] + 8j + g (row stride rs, hd8 * 8 columns).  Each
-// step's products go in rounds over independent accumulators: all 2 NT at
-// once for NT <= 2, else the NT of one x at a time (half the B fragments
-// live).  Every tile to NT is computed, those from nt re-reading tile 0
-// (their keys are masked out after); past the call's hd8 the A fragments
-// are zero and the B fragments re-read step 0: no branch between the
-// products, no uninitialised shared memory read.
-template <int HD8, int NT>
-__device__ __forceinline__ void tf32_xyt(float (&acc)[2][NT][4], const float* const (&xa)[2],
-                                         const float* const (&xb)[2], const float* const (&y_s)[2],
+// acc[x][j] += X_x Y_x^T for the X (1 or 2) operand pairs x and the n-tiles
+// j < NT (8 staged rows each), summed over the head dim's 8-column steps in
+// 3xTF32: X_x the 16 rows of a warp in device memory (rows at xa[x], xb[x]:
+// load_a_tf32), Y_x the rows y_s[x] + 8j + g (row stride rs, hd8 * 8
+// columns).  Each step's products go in rounds over independent
+// accumulators: all 2 NT at once for two pairs and NT <= 2, else the NT of
+// one x at a time (half the B fragments live).  Every tile to NT is
+// computed, those from nt re-reading tile 0 (their keys are masked out
+// after); past the call's hd8 the A fragments are zero and the B fragments
+// re-read step 0: no branch between the products, no uninitialised shared
+// memory read.
+template <int HD8, int NT, int X>
+__device__ __forceinline__ void tf32_xyt(float (&acc)[X][NT][4], const float* const (&xa)[X],
+                                         const float* const (&xb)[X], const float* const (&y_s)[X],
                                          int rs, int hd, int nt, int lane) {
-  constexpr int NX = NT <= 2 ? 2 : 1;  // both x in one round
+  constexpr int NX = X == 2 && NT <= 2 ? 2 : 1;  // both x in one round
   const int g = lane >> 2, t = lane & 3, hd8 = (hd + 7) >> 3;
 #pragma unroll 2  // a whole unrolled walk hoisted every step's loads and spilled
   for (int kk = 0; kk < HD8; ++kk) {
     const int c = 8 * kk + t, cy = 8 * (kk < hd8 ? kk : 0) + t;
 #pragma unroll
-    for (int x0 = 0; x0 < 2; x0 += NX) {
+    for (int x0 = 0; x0 < X; x0 += NX) {
       uint32_t ab[NX][4], as[NX][4], bb[NX][NT][2], bs[NX][NT][2];
 #pragma unroll
       for (int u = 0; u < NX; ++u) {
@@ -1712,11 +1550,12 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1)
 
 // ------------------------------------------------------------- f32 dq (#6)
 
-// Shared memory of dq_tf32: two planes of cap rows of rs floats (the K and V
-// of a key chunk; first the padding rows' hd x hd matrix), then
-// the slice's key validity (K_WIN), the tile's padding flags (128) and V
-// summed over the slice (hdp).
-size_t dq_tf32_bytes(int rs, int hdp, int k_win, int cap) {
+// Shared memory of dq_tf32 and banded_tf32: two planes of cap rows of rs
+// floats (the K and V of a key chunk; first dq's padding rows' hd x hd
+// matrix, or the forward's slice_colsum partial sums), then the slice's key
+// validity (K_WIN), the tile's padding flags (128) and V summed over the
+// slice (hdp).
+size_t tf32_tile_bytes(int rs, int hdp, int k_win, int cap) {
   return ((size_t)2 * cap * rs + k_win + kTile + hdp) * sizeof(float);
 }
 
@@ -1890,7 +1729,131 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1)
   store_c_f32<HD8>(o, dqv, b, h, r0, hd, sh.T, lane, !pad0, !pad1);
 }
 
-// ---------------------------------------------------------- backward launch
+// ------------------------------------------------------------ f32 forward (#5)
+
+// Kernel #5 in f32 on the tensor cores (3xTF32).  HD8 as in dkv_tf32; cap:
+// keys of a staged chunk (a multiple of 16).  The warp's Q rows (A operand)
+// are read from device memory step by step; K and V (B operands) from the
+// staged chunk.
+template <int HD8>
+__global__ void __launch_bounds__(kMmaWarps * 32, 1)
+    banded_tf32(View qv, View kv, View vv, const float* mask, View ov, Shape sh, int hd, int cap) {
+  constexpr int HDP = 8 * HD8, NT = kTfChunk / 8;
+  extern __shared__ __align__(16) float tf_smem[];
+  const int hd8 = (hd + 7) >> 3, hdp = 8 * hd8, rs = hdp + kTfRowPad;
+  float* k_s = tf_smem;              // (cap, rs): K
+  float* v_s = k_s + cap * rs;       // (cap, rs): V
+  float* ok_s = v_s + cap * rs;      // (K_WIN,)
+  float* pad_s = ok_s + sh.k_win;    // (128,)
+  float* cs_s = pad_s + kTile;       // (HDP,)
+  float* part_s = k_s;               // slice_colsum's, before the walk
+
+  const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile, r0 = q0 + 16 * warp, ra = r0 + g, rb = ra + 8;
+  const int start = slice_start(q0, sh);
+  const int u0 = warp_key_span(q0, sh).x, u1 = warp_key_span(q0 + kTile - 16, sh).y;
+  const int2 span = warp_key_span(r0, sh);
+  const float* q = at<float>(qv, b, h);
+  const float* k = at<float>(kv, b, h);
+  const float* v = at<float>(vv, b, h);
+  const float* m = mask + (long long)b * sh.T;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const float* const xa[1] = {ra < sh.T ? q + ra * qv.sl : nullptr};
+  const float* const xb[1] = {rb < sh.T ? q + rb * qv.sl : nullptr};
+
+  // the slice's key validity; padding rows, whose output is V summed over
+  // the slice over K_WIN
+  stage_valid(m, start, sh.k_win, sh.T, ok_s);
+  __syncthreads();
+  if (mark_padding_rows(q0, kTile, ok_s, start, sh.k_win, sh, pad_s))
+    slice_colsum<float, HDP>(v, vv.sl, start, min(start + sh.k_win, sh.T), hd, part_s, cs_s);
+  const bool pad0 = pad_s[16 * warp + g] != 0.f, pad1 = pad_s[16 * warp + g + 8] != 0.f;
+  // the walk serves rows below T that are not padding rows
+  const bool walk = __any_sync(0xffffffffu, (ra < sh.T && !pad0) || (rb < sh.T && !pad1));
+  const bool any_walk = __syncthreads_or(walk);
+
+  // one walk over the warp's span, kTfChunk keys a step: S = Q K^T, the
+  // running max and sum, O rescaled, then O += P V with p in its C layout as
+  // the A tiles
+  float o[HD8][4], s[1][NT][4];
+#pragma unroll
+  for (int d = 0; d < HD8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  for (int c0 = u0; any_walk && c0 < u1; c0 += cap) {
+    const int c1 = min(c0 + cap, u1), e1 = min(c1, span.y);
+    const int rows = max(0, min(c1, sh.T) - c0);
+    __syncthreads();
+    stage_f32(k_s, rs, k + c0 * kv.sl, kv.sl, rows, c1 - c0, hd, hdp, tid, nthr);
+    stage_f32(v_s, rs, v + c0 * vv.sl, vv.sl, rows, c1 - c0, hd, hdp, tid, nthr);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int j0 = max(c0, span.x); walk && j0 < e1; j0 += kTfChunk) {
+      const int nk = min(kTfChunk, e1 - j0);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) s[0][j][0] = s[0][j][1] = s[0][j][2] = s[0][j][3] = 0.f;
+      const float* const ys[1] = {k_s + (j0 - c0) * rs};
+      tf32_xyt<HD8, NT>(s, xa, xb, ys, rs, hd, nk >> 3, lane);
+      // scaled; -1e30 outside the band or on an invalid key, -inf past nk
+      float x0 = -CUDART_INF_F, x1 = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1), key = j0 + col, row = e & 2 ? rb : ra;
+          s[0][j][e] = col >= nk ? -CUDART_INF_F
+                       : ok_s[key - start] > 0.f && abs(row - key) <= sh.half
+                           ? s[0][j][e] * sh.scale
+                           : kMask;
+          if (e & 2)
+            x1 = fmaxf(x1, s[0][j][e]);
+          else
+            x0 = fmaxf(x0, s[0][j][e]);
+        }
+      const float n0 = fmaxf(m0, quad_max(x0)), n1 = fmaxf(m1, quad_max(x1));
+      const float f0 = expf(m0 - n0), f1 = expf(m1 - n1);
+      l0 *= f0;
+      l1 *= f1;
+#pragma unroll
+      for (int d = 0; d < HD8; ++d) {
+        o[d][0] *= f0;
+        o[d][1] *= f0;
+        o[d][2] *= f1;
+        o[d][3] *= f1;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[0][j][e] - (e & 2 ? n1 : n0));
+          s[0][j][e] = p;
+          if (e & 2)
+            l1 += p;
+          else
+            l0 += p;
+        }
+      m0 = n0;
+      m1 = n1;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (8 * j < nk) tf32_cy<HD8>(o, s[0][j], v_s + (j0 - c0 + 8 * j) * rs, rs, hd8, lane);
+    }
+  }
+
+  // out: O / l, or on a padding row (V summed over the slice) / K_WIN
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1), pad_p = 1.f / sh.k_win;
+#pragma unroll
+  for (int d = 0; d < HD8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool second = e & 2;
+      o[d][e] = (second ? pad1 : pad0) ? pad_p * cs_s[8 * d + 2 * t + (e & 1)]
+                                       : o[d][e] * (second ? inv1 : inv0);
+    }
+  store_c_f32<HD8>(o, ov, b, h, r0, hd, sh.T, lane);
+}
+
+// ------------------------------------------------------------------- launch
 
 constexpr int kMaxSharedBytes = 232448;  // what one block of an H100 can have
 
@@ -1925,9 +1888,9 @@ int launch_dq_tf32(View q, View k, View v, const void* mask, View g, View dq, in
   // every warp's span is one step of kTfChunk keys
   const int rs = 8 * ((hd + 7) / 8) + kTfRowPad, reach = (sh.half + 15) / 16 * 16;
   const int need = min(sh.k_win, kTile + 2 * reach), span = 16 + 2 * reach;
-  const int fixed = (int)dq_tf32_bytes(rs, 8 * HD8, sh.k_win, 0);
+  const int fixed = (int)tf32_tile_bytes(rs, 8 * HD8, sh.k_win, 0);
   const int cap = min(need, (kMaxSharedBytes - fixed) / (2 * rs * (int)sizeof(float)) / 16 * 16);
-  const size_t bytes = dq_tf32_bytes(rs, 8 * HD8, sh.k_win, cap);
+  const size_t bytes = tf32_tile_bytes(rs, 8 * HD8, sh.k_win, cap);
   const dim3 grid(sh.T_pad / kTile, B * sh.H);
   const float* m = static_cast<const float*>(mask);
   if (need <= cap && span <= kTfChunk) {
@@ -1972,6 +1935,46 @@ int launch_dkv_tf32(View q, View k, View v, const void* mask, View g, View dk, V
   dkv_tf32<HD8><<<dim3(sh.T_pad / kTile, B * sh.H), kMmaWarps * 32, bytes, stream>>>(
       q, k, v, static_cast<const float*>(mask), g, dk, dv, sh, hd, cap);
   return (int)cudaGetLastError();
+}
+
+template <int HD8>
+int launch_banded_tf32(View q, View k, View v, const void* mask, View o, int B, int hd, Shape sh,
+                       cudaStream_t stream) {
+  // chunks of up to the key union (160 keys at window 19), which one chunk
+  // holds at every head dim up to 128 for windows up to 65
+  const int rs = 8 * ((hd + 7) / 8) + kTfRowPad, reach = (sh.half + 15) / 16 * 16;
+  const int need = min(sh.k_win, kTile + 2 * reach);
+  const int fixed = (int)tf32_tile_bytes(rs, 8 * HD8, sh.k_win, 0);
+  const int cap = min(need, (kMaxSharedBytes - fixed) / (2 * rs * (int)sizeof(float)) / 16 * 16);
+  const size_t bytes = tf32_tile_bytes(rs, 8 * HD8, sh.k_win, cap);
+  if (int err = prepare(banded_tf32<HD8>, bytes)) return err;
+  banded_tf32<HD8><<<dim3(sh.T_pad / kTile, B * sh.H), kMmaWarps * 32, bytes, stream>>>(
+      q, k, v, static_cast<const float*>(mask), o, sh, hd, cap);
+  return (int)cudaGetLastError();
+}
+
+int launch_forward(int dtype, View q, View k, View v, const void* mask, View o, int B, int hd,
+                   Shape sh, cudaStream_t stream) {
+  if (dtype == 0) {
+    switch ((hd + 31) / 32) {
+      case 1: return launch_banded_tf32<4>(q, k, v, mask, o, B, hd, sh, stream);
+      case 2: return launch_banded_tf32<8>(q, k, v, mask, o, B, hd, sh, stream);
+      case 3:
+      case 4: return launch_banded_tf32<16>(q, k, v, mask, o, B, hd, sh, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch ((hd + 15) / 16) {
+    case 1: return launch_mma_walks<1>(q, k, v, mask, o, B, hd, sh, stream);
+    case 2: return launch_mma_walks<2>(q, k, v, mask, o, B, hd, sh, stream);
+    case 3: return launch_mma_walks<3>(q, k, v, mask, o, B, hd, sh, stream);
+    case 4: return launch_mma_walks<4>(q, k, v, mask, o, B, hd, sh, stream);
+    case 5: return launch_mma_walks<5>(q, k, v, mask, o, B, hd, sh, stream);
+    case 6: return launch_mma_walks<6>(q, k, v, mask, o, B, hd, sh, stream);
+    case 7: return launch_mma_walks<7>(q, k, v, mask, o, B, hd, sh, stream);
+    case 8: return launch_mma_walks<8>(q, k, v, mask, o, B, hd, sh, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int launch_dq(int dtype, View q, View k, View v, const void* mask, View g, View dq, int B, int hd,

@@ -40,8 +40,8 @@ launches the kernel or raises, and counts the launch in ``<wrapper>.launches``
 output is (B, H, T, hd) over (B, T, H, hd) memory, ready for the head merge
 (and, for the gradients, for the head-split projections' backward).  Every
 kernel takes each head dim from 1 to 128, zero-filling the columns it stages
-up to the next multiple of 16 (bf16), 32 (the f32 forward) or 8 (the f32
-backward, on the tensor cores in 3xTF32).
+up to the next multiple of 16 (bf16) or 8 (f32, on the tensor cores in
+3xTF32).
 """
 
 from __future__ import annotations

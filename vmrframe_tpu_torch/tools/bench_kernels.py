@@ -10,11 +10,11 @@ widths, at the sentence variants' shapes and at the JAX tool's own shapes
 version's, one PyTorch call computing the same function where there is one
 (SDPA for #1, #2 and #5-#7; none for #3 and #4), and the least time the
 card could take (``bound_ms``: the larger of the bytes over 3.35 TB/s and
-the matrix products over the dense peak of their type, f32 #1/#2 at the
-3xTF32 rate their body runs at: ``tools/h100.py``).  Device times are
-CUDA events around calls queued behind a sleep kernel, median of 5; on the
-CPU (``--device cpu``, where a wrapper runs its plain version) the host
-clock.  ``chip_smoke.py``'s time phase calls ``time_kernels``.
+the matrix products over the dense peak of their type, f32 #1/#2 and
+#5-#7 at the 3xTF32 rate their bodies run at: ``tools/h100.py``).  Device
+times are CUDA events around calls queued behind a sleep kernel, median of
+5; on the CPU (``--device cpu``, where a wrapper runs its plain version)
+the host clock.  ``chip_smoke.py``'s time phase calls ``time_kernels``.
 
 The per-kernel tools ``bench_banded``, ``bench_cq`` and ``bench_stack``
 time a parent against a change; this one writes the whole table, or some

@@ -3,7 +3,7 @@
 An NVIDIA H100 SXM5 (80 GB HBM3): 989 TFLOP/s of dense bf16 tensor-core
 work, 67 TFLOP/s of f32 on the CUDA cores (the port's f32 route: no TF32
 in cuBLAS), 495 TFLOP/s of dense TF32, 3.35 TB/s of device memory.  The
-f32 bodies of #1/#2 and #6/#7 run their products on the tensor cores as
+f32 bodies of #1/#2 and #5-#7 run their products on the tensor cores as
 three TF32 products each (the 3xTF32 split), so their peak is a third of
 TF32's.
 ``bench_kernels``' bounds, ``bench_zoo``'s MFU and the roofline tools'
@@ -22,8 +22,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
 PEAK_FLOPS = {str(dtype).split(".")[-1]: ops for dtype, ops in PEAK_OPS.items()}
 TF32X3_OPS = 495e12 / 3  # f32 products as three dense TF32 products each
 # the hand-written kernels whose f32 products run in 3xTF32
-TF32X3_KERNELS = ("fused_masked_attention", "fused_dual_attention", "banded_attention_dq",
-                  "banded_attention_dkv")
+TF32X3_KERNELS = ("fused_masked_attention", "fused_dual_attention", "banded_attention",
+                  "banded_attention_dq", "banded_attention_dkv")
 
 
 def peak_ops(dtype: Union[torch.dtype, str], kernel: Optional[str] = None) -> float:
