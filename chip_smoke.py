@@ -14,9 +14,10 @@ Phases, in order; any failure exits non-zero:
    (B=128, 4 heads of 32, L=64 video and 30 text positions, D=128); the
    whole-stack kernel (#4) at those shapes, at an odd batch (3), on a
    short ragged pair (13 video, 5 text positions), at ANet and TACoS video
-   lengths (100 and 256 against 30 text positions, batch 128) and on a
-   ragged pair past its 64-row tiles (3, 129 video, 65 text), every leaf of
-   its weight stacks random; the
+   lengths (100 and 256 against 30 text positions, batch 128), on a
+   ragged pair past its 64-row tiles (3, 129 video, 65 text) and with 8
+   heads of 16 (3, 64 video, 30 text), every leaf of its weight stacks
+   random; the
    banded kernel at the shapes ActionFormer's long config gives it (B=8, 4
    heads of 128, window 19, T = 2304, 1152, 576), a ragged T=1000 and T=300
    (padded length equal to its key window), on head-split views of one
@@ -309,6 +310,7 @@ N_ROUTE_STEPS = N_TIMED_STEPS // 4  # the pipeline phase's fed steps, on each of
 # Charades, an odd B, a ragged pair; ANet length; a ragged pair past the
 # kernel's 64-row tiles (TACoS length: long_cases)
 STACK_CHECK_SHAPES = ((B, LV, LT), (3, LV, LT), (2, 13, 5), (B, LV_ANET, LT), (3, 129, 65))
+STACK_CHECK_HEADS = 8  # one more check case at Charades lengths: 8 heads of 16
 # calls queued per timed repetition of the stack's plain version and module
 # path: each is hundreds of small launches, and more than the host can queue
 # during the sleep kernel would time the host, not the card
@@ -2985,7 +2987,8 @@ def main() -> int:
                    "banded_attention": banded_cases(g, AF_CHECK_T)
                    + odd_hd(lambda hd: banded_cases(g, (1000,), hd=hd)),
                    STACK: cases[STACK] + stack_cases(g, blocks, STACK_CHECK_SHAPES[1:])
-                   + long_cases[STACK]}
+                   + long_cases[STACK] + [case + (STACK_CHECK_HEADS,) for case in stack_cases(
+                       g, blocks, ((3, LV, LT),))]}
     bwd_check = banded_bwd_cases(g, AF_CHECK_T) + odd_hd(
         lambda hd: banded_bwd_cases(g, (1000,), hd))
     for name in BWD_KERNELS:  # the two backward kernels share their cases

@@ -478,15 +478,21 @@ def _stack_inputs(g, B, Lv, Lt, dtype, device, D=128, H=4):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,Lv,Lt", [(5, 64, 30), (3, 30, 64), (2, 13, 5), (1, 1, 1),
-                                     (3, 256, 30), (3, 30, 256), (2, 100, 100), (2, 65, 129)])
-def test_dual_stack_kernel(cuda, dtype, B, Lv, Lt):
+@pytest.mark.parametrize("B,Lv,Lt,H", [(5, 64, 30, 4), (3, 30, 64, 4), (2, 13, 5, 4), (1, 1, 1, 4),
+                                       (3, 256, 30, 4), (3, 30, 256, 4), (2, 100, 100, 4),
+                                       (2, 65, 129, 4), (3, 64, 30, 16), (2, 129, 65, 16),
+                                       (3, 64, 30, 32), (2, 30, 256, 32), (2, 100, 100, 8),
+                                       (2, 65, 129, 2), (2, 64, 30, 1)])
+def test_dual_stack_kernel(cuda, dtype, B, Lv, Lt, H):
     """#4 against its plain version on every row: random lengths, a wholly
     masked sample, an odd batch, a short ragged pair, one position; SeqPAN's
     TACoS (256) and ANet (100) lengths on either side, and lengths one past
-    a 64-row tile (65) and past two tiles and a 32-key chunk (129)."""
+    a 64-row tile (65) and past two tiles and a 32-key chunk (129); 4 heads
+    of 32, and every other head count the kernel takes: 16 and 32 heads
+    (head dims 8 and 4, padded to the mma's k and n in registers) one stage
+    and past it, 8 heads of 16, 2 and 1 of 64 and 128."""
     g = torch.Generator().manual_seed(6)
-    args = _stack_inputs(g, B, Lv, Lt, dtype, cuda)
+    args = _stack_inputs(g, B, Lv, Lt, dtype, cuda, H=H)
     before = S.dual_attention_stack.launches
     got = S.dual_attention_stack(*args)
     torch.cuda.synchronize()
@@ -504,6 +510,18 @@ def test_dual_stack_kernel_with_an_empty_to_side_and_8_heads(cuda):
     got = S.dual_attention_stack(v, t, vm, tm, p1, p2, 8)
     torch.cuda.synchronize()
     _close(got, S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, 8), torch.float32)
+
+
+def test_dual_stack_attention_is_on_the_tensor_cores():
+    """#4's attention runs on mma.sync in both bodies: the CUDA-core
+    routines it replaced are gone from the source (no card needed)."""
+    from pathlib import Path
+
+    src = (Path(S.__file__).parent / "csrc" / "dual_stack.cu").read_text()
+    for gone in ("attention_one", "attention_chunked", "task_scores", "task_pv"):
+        assert gone not in src, gone
+    for used in ("scores_bf16", "scores_tf32", "mma_bf16(", "mma_3xtf32<"):
+        assert used in src, used
 
 
 def test_dual_stack_wrapper_raises_on_what_the_kernel_does_not_take(cuda):

@@ -1,21 +1,34 @@
-"""Kernel #4's schedule on long sides, emulated in torch on the CPU against
-the plain version (``dual_attention_stack_plain``).
+"""Kernel #4's schedule, emulated in torch on the CPU against the plain
+version (``dual_attention_stack_plain``).
 
 ``csrc/dual_stack.cu`` cannot run here.  ``emulate_stack`` repeats its
 schedule with the kernel's rounding points: every call first projects both
 sides' keys and values ``TILE_ROWS`` rows at a time and keeps them in the
-compute type, then walks the from-rows in tiles of ``TILE_ROWS``; a side of
-at most ``STAGE_KEYS`` keys is attended in one walk, a longer one in
-chunks of ``CHUNK_KEYS`` keys and two walks (running max and sum with
-rescaling first, then p = exp(s - max) / sum rounded to the compute type and
-p v accumulated in f32, rounded after the last chunk).  Cases: lengths at
-and past tile and chunk edges (65, 129, 256 video rows; 30 and 257 text
-rows), a wholly masked sample, a valid video facing an empty text side, 8
-heads of 16.  Inputs and weights are made with numpy from a seed.
-Tolerances: f32 1e-5 (the same products, summed in another order); bf16
-2**-6 of the largest output (a few bf16 ulps: a p rounded on either side of
-a bf16 boundary where the two sums differ in their last bit).  The
-schedule's constants are read back from the CUDA source.
+compute type, then walks the from-rows in tiles of ``TILE_ROWS``.  Its
+attention (``_attend``) is the kernel's mma tasks: ``TASK_ROWS`` query rows
+and one head (rows past the tile's length invalid, computed and dropped),
+the head dim padded with zeros to the instruction's k (16 for bf16's
+m16n8k16, 8 for f32's m16n8k8) and P.V's n to 8.  A side of at most
+``STAGE_KEYS`` keys is one stage of 32 or 64 keys (-inf past the side) and
+one walk; a longer one goes in chunks: bf16 walks twice (the max and sum
+over ``STAGE_KEYS``-key chunks with rescaling, then p = exp(s - max) (1 /
+sum) rounded to bf16 and P.V over ``CHUNK_KEYS``-key chunks, summed in f32
+and rounded after the last), f32 once (``CHUNK_KEYS``-key chunks, the max
+and sum rescaled as they grow and the context with them, times 1 / sum
+after the last).  bf16 products are exact in f32 (bf16 operands, f32 sums);
+f32 products are 3xTF32 in steps of 8 (``tests/_tf32.py``).  A planted
+fault (``quad_max=False``: each lane's row max over its own columns, not
+reduced over the quad of lanes that holds the row) must fail.
+
+Cases: lengths at and past tile and chunk edges (65, 129, 256 video rows;
+30 and 257 text rows), a wholly masked sample, a valid video facing an empty
+text side, 8 heads of 16, 16 heads of 8 and 32 heads of 4 (head dims padded
+to the instruction's k and n).  Inputs and weights are made with numpy from
+a seed.  Tolerances: f32 1e-5 (the same products, summed in another order,
+3xTF32 within ~2^-22 of each); bf16 2**-6 of the largest output (a few bf16
+ulps: a p rounded on either side of a bf16 boundary where the two sums
+differ in their last bit).  The schedule's constants are read back from the
+CUDA source.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -24,53 +37,98 @@ import math
 import re
 from pathlib import Path
 
+import _tf32
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vmrframe_tpu_torch.kernels import dual_stack as S
 from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 
 D = 128
 CSRC = Path(S.__file__).resolve().parent / "csrc" / "dual_stack.cu"
-# the kernel's schedule (kTile, kStage, kKeys in the source): rows per tile;
-# the most keys one attention stage holds; keys per chunk of the two walks
-TILE_ROWS, STAGE_KEYS, CHUNK_KEYS = 64, 64, 32
+# the kernel's schedule (kTile, kStage, kKeys, kRows in the source): rows
+# per tile; the most keys one stage holds; keys per chunk of a longer side
+# with K and V staged together; query rows per warp task
+TILE_ROWS, STAGE_KEYS, CHUNK_KEYS, TASK_ROWS = 64, 64, 32, 16
+MMA_K = {torch.bfloat16: 16, torch.float32: 8}  # m16n8k16 bf16, m16n8k8 tf32
+MMA_N = 8
 
 
-def _attend(q, k, v, fm, km, H, cd):
+def _up(n, m):
+    return -(-n // m) * m
+
+
+def _attend(q, k, v, fm, km, H, cd, quad_max=True):
     """The kernel's attention of q (B, M, D) over k, v (B, T, D), all in
     cd; fm (B, M) and km (B, T) validities; the context (B, M, D) in cd."""
     B, M, _ = q.shape
     T, hd = k.shape[1], D // H
-    heads = lambda x: x.float().unflatten(-1, (H, hd)).transpose(1, 2)  # noqa: E731
-    qh, kh, vh = heads(q), heads(k), heads(v)
+    Mp = _up(M, TASK_ROWS)  # whole tasks: the rows past M invalid
+    f32 = cd == torch.float32
+    prod = _tf32.product if f32 else torch.matmul
 
-    def scores(c0, c1):
-        s = qh @ kh[:, :, c0:c1].transpose(-1, -2) * (1.0 / math.sqrt(hd))
-        return s + MASK_VALUE * (1.0 - fm[:, None, :, None] * km[:, None, None, c0:c1])
+    def heads(x, rows, cols):  # (B, H, rows, cols): zero rows and head columns past x's
+        x = x.float().unflatten(-1, (H, hd))
+        return F.pad(x, (0, cols - hd, 0, 0, 0, rows - x.shape[1])).transpose(1, 2)
+
+    Tp = _up(T, CHUNK_KEYS if T <= CHUNK_KEYS else STAGE_KEYS)  # the stages' keys
+    qh = heads(q, Mp, _up(hd, MMA_K[cd]))
+    kh = heads(k, Tp, _up(hd, MMA_K[cd]))
+    vh = heads(v, Tp, _up(hd, MMA_N))
+    fmp = F.pad(fm.float(), (0, Mp - M))[:, None, :, None]
+    kmp = F.pad(km.float(), (0, Tp - T))[:, None, None, :]
+
+    def scores(c0, c1):  # keys [c0, c1) of the side: scaled, masked, -inf past T
+        s = prod(qh, kh[:, :, c0:c1].transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        s = s + MASK_VALUE * (1.0 - fmp * kmp[..., c0:c1])
+        return s.masked_fill(torch.arange(c0, c1) >= T, -math.inf)
+
+    def row_max(s):  # over the quad: lane t of a row holds columns 8 j + 2 t, + 1
+        if quad_max:
+            return s.amax(-1, keepdim=True)
+        lane = torch.arange(s.shape[-1]) % MMA_N // 2
+        m = torch.empty_like(s)
+        for t in range(4):
+            m[..., lane == t] = s[..., lane == t].amax(-1, keepdim=True)
+        return m
 
     if T <= STAGE_KEYS:  # one stage, one walk
-        s = scores(0, T)
-        e = torch.exp(s - s.amax(-1, keepdim=True))
-        ctx = (e / e.sum(-1, keepdim=True)).to(cd).float() @ vh
-    else:  # chunks, two walks
-        chunks = [(c0, min(T, c0 + CHUNK_KEYS)) for c0 in range(0, T, CHUNK_KEYS)]
-        m = torch.full((B, H, M, 1), -math.inf)
-        l = torch.zeros(B, H, M, 1)
-        for c0, c1 in chunks:
-            s = scores(c0, c1)
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        s = scores(0, Tp)
+        e = torch.exp(s - row_max(s))
+        p = (e * (1.0 / e.sum(-1, keepdim=True))).to(cd).float()
+        ctx = prod(p, vh)
+    elif f32:  # one walk, the max and sum rescaled as they grow
+        m = torch.full((B, H, Mp, 1), -math.inf)
+        l = torch.zeros(B, H, Mp, 1)
+        ctx = torch.zeros(B, H, Mp, vh.shape[-1])
+        for c0 in range(0, T, CHUNK_KEYS):
+            s = scores(c0, c0 + CHUNK_KEYS)
+            m_new = torch.maximum(m, row_max(s))
+            f = torch.exp(m - m_new)
+            e = torch.exp(s - m_new)
+            l = l * f + e.sum(-1, keepdim=True)
+            ctx = ctx * f + prod(e, vh[:, :, c0:c0 + CHUNK_KEYS])
+            m = m_new
+        ctx = ctx * (1.0 / l)
+    else:  # bf16: max and sum first, then p rounded and P.V
+        m = torch.full((B, H, Mp, 1), -math.inf)
+        l = torch.zeros(B, H, Mp, 1)
+        for c0 in range(0, T, STAGE_KEYS):
+            s = scores(c0, c0 + STAGE_KEYS)
+            m_new = torch.maximum(m, row_max(s))
             l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(-1, keepdim=True)
             m = m_new
-        ctx = torch.zeros(B, H, M, hd)
-        for c0, c1 in chunks:
-            p = (torch.exp(scores(c0, c1) - m) / l).to(cd).float()
-            ctx = ctx + p @ vh[:, :, c0:c1]
-    return ctx.transpose(1, 2).reshape(B, M, D).to(cd)
+        ctx = torch.zeros(B, H, Mp, vh.shape[-1])
+        inv = 1.0 / l
+        for c0 in range(0, T, CHUNK_KEYS):
+            p = (torch.exp(scores(c0, c0 + CHUNK_KEYS) - m) * inv).to(cd).float()
+            ctx = ctx + p @ vh[:, :, c0:c0 + CHUNK_KEYS]
+    return ctx[:, :, :M, :hd].transpose(1, 2).reshape(B, M, D).to(cd)
 
 
-def _dab_tiles(x, y, fm, tm, W, b, ln, xb, H, cd):
+def _dab_tiles(x, y, fm, tm, W, b, ln, xb, H, cd, quad_max=True):
     """One DualAttentionBlock call in the kernel's schedule; (B, F, D) f32."""
     dot = S._dot
 
@@ -89,8 +147,8 @@ def _dab_tiles(x, y, fm, tm, W, b, ln, xb, H, cd):
         xt, fmt = x[:, r0:r0 + TILE_ROWS].float(), fm[:, r0:r0 + TILE_ROWS]
         fn = S._ln(xt, ln[S.LN1_S], ln[S.LN1_B]).to(cd)
         q = (dot(fn, W[S.W_Q]) + b[S.W_Q]).to(cd)
-        x_att = _attend(q, tk, tv, fmt, tm, H, cd)
-        s_att = _attend(q, fk, fv, fmt, fm, H, cd)
+        x_att = _attend(q, tk, tv, fmt, tm, H, cd, quad_max)
+        s_att = _attend(q, fk, fv, fmt, fm, H, cd, quad_max)
         x_value = dot(x_att, W[S.W_XD]) + b[S.W_XD]
         s_value = dot(s_att, W[S.W_SD]) + b[S.W_SD]
         x_score = dot(x_value.to(cd), W[S.W_XG]) + b[S.W_XG]
@@ -105,14 +163,16 @@ def _dab_tiles(x, y, fm, tm, W, b, ln, xb, H, cd):
     return torch.cat(out, 1)
 
 
-def emulate_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads):
+def emulate_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads, quad_max=True):
     """The 2-layer stack in the kernel's schedule (nothing rounded between
-    the layers)."""
+    the layers); ``quad_max=False`` plants the fault of a row max not
+    reduced over the quad."""
     cd = p1["W"].dtype
     vm, tm = vmask.float(), tmask.float()
     v, t = vfeat, tfeat
     for p in (p1, p2):
-        args = (p["W"], p["b"].float(), p["ln"].float(), p["xb"].float(), num_heads, cd)
+        args = (p["W"], p["b"].float(), p["ln"].float(), p["xb"].float(), num_heads, cd,
+                quad_max)
         v, t = _dab_tiles(v, t, vm, tm, *args), _dab_tiles(t, v, tm, vm, *args)
     return v.to(vfeat.dtype), t.to(tfeat.dtype)
 
@@ -152,7 +212,10 @@ CASES = [  # B, Lv, Lt, heads, empty_to_side
     (2, 30, 257, 4, False),   # the text side walks 257 video keys
     (3, 129, 257, 8, False),  # 8 heads of 16, both sides long
     (2, 256, 30, 4, True),    # a valid video facing an empty text side
+    (2, 64, 30, 16, False),   # 16 heads of 8, one stage each way (8 and 4 key tiles)
+    (2, 30, 100, 32, False),  # 32 heads of 4, one stage and chunks
 ]
+HEAD_CASES = CASES[-2:]  # head dims 8 and 4: k and n padded in registers
 
 
 @pytest.mark.parametrize("B,Lv,Lt,H,empty", CASES)
@@ -166,7 +229,8 @@ def test_emulated_schedule_matches_plain_f32(B, Lv, Lt, H, empty):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("B,Lv,Lt,H,empty", [c for c in CASES if c[1] > 64 or c[2] > 64][:4])
+@pytest.mark.parametrize("B,Lv,Lt,H,empty",
+                         [c for c in CASES if c[1] > 64 or c[2] > 64][:4] + HEAD_CASES)
 def test_emulated_schedule_matches_plain_bf16(B, Lv, Lt, H, empty):
     v, t, vm, tm, p1, p2 = _case(7 + B * Lv + Lt, B, Lv, Lt, torch.bfloat16, empty)
     with torch.no_grad():
@@ -179,8 +243,9 @@ def test_emulated_schedule_matches_plain_bf16(B, Lv, Lt, H, empty):
 
 
 def test_chunked_softmax_walks_differ_from_one_softmax_only_in_rounding():
-    """The two walks' max and sum over chunks give the one-pass softmax: at
-    257 keys with -1e30 masks in the middle of a chunk, in f32 at 1e-6."""
+    """The f32 walk over chunks, its max and sum and context rescaled as
+    they grow, gives the one-pass softmax over the same 3xTF32 products: at
+    257 keys with -1e30 masks in the middle of a chunk, at 1e-6."""
     g = np.random.default_rng(3)
     B, M, T, H = 2, 5, 257, 4
     q, k, v = (torch.from_numpy(g.standard_normal((B, n, D)).astype(np.float32))
@@ -190,14 +255,32 @@ def test_chunked_softmax_walks_differ_from_one_softmax_only_in_rounding():
     km[1, 40:100] = 0.0
     got = _attend(q, k, v, fm, km, H, torch.float32)
     qh, kh, vh = (x.unflatten(-1, (H, D // H)).transpose(1, 2) for x in (q, k, v))
-    s = qh @ kh.transpose(-1, -2) / math.sqrt(D // H) + MASK_VALUE * (1 - km[:, None, None])
-    want = (torch.softmax(s, -1) @ vh).transpose(1, 2).reshape(B, M, D)
+    s = _tf32.product(qh, kh.transpose(-1, -2)) * (1.0 / math.sqrt(D // H))
+    s = s + MASK_VALUE * (1 - km[:, None, None])
+    want = _tf32.product(torch.softmax(s, -1), vh).transpose(1, 2).reshape(B, M, D)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_a_row_max_not_reduced_over_the_quad_fails(dtype):
+    """The planted fault: each lane's row max taken over its own columns
+    only, not over the quad of lanes that holds the row, breaks the softmax,
+    and the comparison with the plain version at the stated tolerance
+    catches it; the same case without the fault passes it."""
+    v, t, vm, tm, p1, p2 = _case(11, 3, 64, 30, dtype)
+    with torch.no_grad():
+        want = S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, 4)
+        errs = [max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+                for got in (emulate_stack(v, t, vm, tm, p1, p2, 4, quad_max=quad_max)
+                            for quad_max in (True, False))]
+    scale = max(w.float().abs().max().item() for w in want)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * max(1.0, scale)
+    assert errs[0] <= tol < errs[1], (errs, tol)
 
 
 def test_schedule_constants_are_the_kernels():
     src = CSRC.read_text()
     for name, value in (("kTile", TILE_ROWS), ("kStage", STAGE_KEYS), ("kKeys", CHUNK_KEYS),
-                        ("kD", S.KERNEL_D)):
+                        ("kRows", TASK_ROWS), ("kD", S.KERNEL_D)):
         found = re.search(rf"constexpr int {name} = (\d+);", src)
         assert found and int(found.group(1)) == value, name

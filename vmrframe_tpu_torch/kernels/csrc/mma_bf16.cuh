@@ -1,7 +1,7 @@
 // bf16 tensor-core fragment helpers for Hopper (sm_90a), shared by the
 // bodies that run mma.sync m16n8k16: attention.cu (attention_mma, kernels
 // #1/#2; cq_kernel, #3), window_attention.cu (banded_mma, dq_mma, dkv_mma, kernels #5-#7)
-// and dual_stack.cu (gemm_mma, kernel #4's projections).  Each source is its own library, so every
+// and dual_stack.cu (gemm_mma and attention, kernel #4).  Each source is its own library, so every
 // function here is inline.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 g + t; the
@@ -57,6 +57,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the first two matrices of ldmatrix_x4_trans (threads 0-15 give the rows)
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 

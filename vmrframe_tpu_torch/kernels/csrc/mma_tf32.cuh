@@ -1,8 +1,8 @@
 // TF32 tensor-core fragment helpers for Hopper (sm_90a), shared by the f32
 // bodies that run mma.sync m16n8k8 in the 3xTF32 split: attention.cu
-// (attention_tf32, kernels #1/#2) and window_attention.cu (banded_tf32,
-// dq_tf32, dkv_tf32, kernels #5-#7).  Each source is its own library, so
-// every function here is inline.
+// (attention_tf32, kernels #1/#2), window_attention.cu (banded_tf32,
+// dq_tf32, dkv_tf32, kernels #5-#7) and dual_stack.cu (attention, kernel
+// #4).  Each source is its own library, so every function here is inline.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k8 with .tf32): lane = 4 g + t; the
 // A tile (16 x 8, row) is a[0] = row g, col t; a[1] = row g + 8, col t;

@@ -31,6 +31,16 @@ per program, spreads it over the pair's ``2 Lt`` columns instead.  The
 service's padding samples have no valid from-row either, so they are the
 same on every route.
 
+On the card every product runs on the tensor cores but the f32
+projections: the bf16 projections and both types' attention on
+``mma.sync`` (f32 attention in 3xTF32).  Attention is a warp task of 16
+query rows and one head (head dims 4-128 padded to the instruction's k and
+n with zeros in registers), a side of up to 64 keys in one stage and one
+walk, a longer one in 32-key chunks: bf16 twice (the max and sum, then p
+rounded to bf16 and P.V), f32 once with the max and sum rescaled.  4 heads
+(every config that sets ``model.fused_dual_stack``) have a kernel of their
+own.  ``tests/test_torch_stack_tiles.py`` emulates this schedule on the CPU.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises (the kernel takes D = 128 and heads dividing D
 with a head dim that is a multiple of 4, at any lengths Lv, Lt >= 1), and

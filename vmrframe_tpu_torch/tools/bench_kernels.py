@@ -226,10 +226,12 @@ def stack_cases(g: torch.Generator, blocks, shapes):
 
 
 def stack_call(fn):
-    """``fn`` of the stack module on one case's flat arguments."""
+    """``fn`` of the stack module on one case's flat arguments: the two
+    layers' stacks, then the number of heads where the case gives one (else
+    ``H``)."""
     def call(v, t, vm, tm, *stacks):
         p1, p2 = (dict(zip(("W", "b", "ln", "xb"), stacks[i:i + 4])) for i in (0, 4))
-        return fn(v, t, vm, tm, p1, p2, H)
+        return fn(v, t, vm, tm, p1, p2, stacks[8] if len(stacks) > 8 else H)
     return call
 
 

@@ -21,7 +21,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
 PEAK_FLOPS = {str(dtype).split(".")[-1]: ops for dtype, ops in PEAK_OPS.items()}
 TF32X3_OPS = 495e12 / 3  # f32 products as three dense TF32 products each
-# the hand-written kernels whose f32 products run in 3xTF32
+# the hand-written kernels whose f32 products run in 3xTF32; not
+# dual_attention_stack: its f32 attention does, but its f32 projections, most
+# of its operations, run on the CUDA cores, so the f32 rate bounds it
 TF32X3_KERNELS = ("fused_masked_attention", "fused_dual_attention", "banded_attention",
                   "banded_attention_dq", "banded_attention_dkv")
 
