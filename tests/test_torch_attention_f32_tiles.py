@@ -43,7 +43,7 @@ from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 CSRC = Path(K.__file__).resolve().parent / "csrc" / "attention.cu"
 HEADER = CSRC.with_name("mma_tf32.cuh")  # the TF32 helpers both f32 tensor-core sources include
 # the kernel's schedule (kTfChunk, kTfRowPad, kTfQRegs, kTfOutTiles,
-# kMaxWarps in the source): keys a chunk; floats after each staged row; Q in
+# kTfWarps in the source): keys a chunk; floats after each staged row; Q in
 # registers up to this many 8-column steps; output tiles a pass; warps a block
 CHUNK_KEYS, ROW_PAD, Q_REGS, OUT_TILES, MAX_WARPS = 64, 4, 8, 16, 8
 TOL = 1e-5
@@ -139,11 +139,11 @@ def test_tf32_rounds_to_nearest_ties_away():
 def test_schedule_constants_are_the_kernels():
     src = CSRC.read_text()
     for name, value in (("kTfChunk", CHUNK_KEYS), ("kTfRowPad", ROW_PAD), ("kTfQRegs", Q_REGS),
-                        ("kTfOutTiles", OUT_TILES), ("kMaxWarps", MAX_WARPS),
+                        ("kTfOutTiles", OUT_TILES), ("kTfWarps", MAX_WARPS),
                         ("kSharedBytes", K.SHARED_BYTES)):
         found = re.search(rf"constexpr (?:int|size_t) {name} = (\d+);", src)
         assert found and int(found.group(1)) == value, name
-    assert (K.F32_CHUNK, K.F32_ROW_PAD, K.F32_Q_REGS, K.MMA_MAX_WARPS) == \
+    assert (K.F32_CHUNK, K.F32_ROW_PAD, K.F32_Q_REGS, K.F32_MAX_WARPS) == \
         (CHUNK_KEYS, ROW_PAD, Q_REGS, MAX_WARPS)
     modes = re.search(r"constexpr int kTfBoth = (\d+), kTfAlt = (\d+), kTfChunked = (\d+);", src)
     assert modes and [int(x) for x in modes.groups()] == list(range(len(K.F32_MODES)))
@@ -214,10 +214,13 @@ def test_entries_take_the_plan_the_wrapper_computes(entry):
 def test_plan_args_follow_the_staged_modes(monkeypatch):
     """At head dim 192 (SeqPAN's sentence variants, L 64 and M 30) K and V
     whole leave one block an SM: the plan shares one buffer ("alt");
-    narrowed to "both" it keeps K and V whole.  bf16 passes no plan."""
+    narrowed to "both" it keeps K and V whole.  bf16 passes its own plan
+    (``attention_bf16_plan``) in the same five numbers."""
     alt = K._plan_args(torch.float32, 64, (64, 30), 192)
     assert K.F32_MODES[alt[0]] == "alt" and alt[4] <= K.SHARED_BYTES // 2
     monkeypatch.setattr(K, "F32_STAGED_MODES", ("both",))
     both = K._plan_args(torch.float32, 64, (64, 30), 192)
     assert K.F32_MODES[both[0]] == "both" and K.SHARED_BYTES // 2 < both[4] <= K.SHARED_BYTES
-    assert K._plan_args(torch.bfloat16, 64, (64, 30), 192) == (0, 0, 0, 0, 0)
+    bf16 = K.attention_bf16_plan(64, (64, 30), 192)
+    assert K._plan_args(torch.bfloat16, 64, (64, 30), 192) == \
+        (0, bf16["warps"], bf16["round_rows"], 0, bf16["shared_bytes"])

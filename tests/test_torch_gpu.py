@@ -195,6 +195,55 @@ def test_attention_kernels_past_head_dim_128_and_at_one_key(cuda, dtype, L, M, h
         (before[0] + 2, before[1] + 1)
 
 
+@pytest.mark.parametrize("L,M,hd", [
+    # past head dim 128 with query rows off the 16-row grid: each output
+    # half a work item of its own, the branches on warps of their own
+    (45, 30, 200), (23, 64, 256), (77, 1, 144),
+    # more items than warps (19 tiles, two branches), one cross key
+    (300, 1, 32), (300, 30, 16),
+    # head dims off the 4-column grid: outputs stored an element at a time
+    (37, 65, 33), (30, 129, 1), (40, 30, 18),
+    # 65, 129 and 256 keys: several 64-bit mask words a row
+    (65, 129, 32), (129, 65, 64), (256, 256, 32)])
+def test_bf16_work_items_against_plain(cuda, L, M, hd):
+    """The bf16 body's work items (branch, output half, 16-row tile) and
+    mask bits, on strided views with wholly masked rows and samples: #2,
+    and #1 over each of its branches."""
+    g = torch.Generator().manual_seed(11)
+    dtype = torch.bfloat16
+    q, fk, fv, tk, tv, s_mask, x_mask = _long_attention_inputs(g, 3, 4, L, M, hd, dtype, cuda)
+    assert K.attention_bf16_plan(L, (L, M), hd)["round_rows"] >= L  # one round
+    before = (K.fused_masked_attention.launches, K.fused_dual_attention.launches)
+    got = K.fused_dual_attention(q, fk, fv, tk, tv, s_mask, x_mask)
+    torch.cuda.synchronize()
+    _close(got, K.dual_attention_plain(q, fk, fv, tk, tv, s_mask, x_mask), dtype)
+    _close(K.fused_masked_attention(q, fk, fv, s_mask),
+           K.masked_attention_plain(q, fk, fv, s_mask), dtype)
+    _close(K.fused_masked_attention(q, tk, tv, x_mask),
+           K.masked_attention_plain(q, tk, tv, x_mask), dtype)
+    assert (K.fused_masked_attention.launches, K.fused_dual_attention.launches) == \
+        (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,hd,rounds", [
+    (2, 80, 256, 192, 2),  # K and V of 256 keys at 192 columns: 4 tiles fit, 3 a round
+    (1, 2048, 1001, 16, 3),  # 128 tiles in three rounds; rows of 1001 keys unaligned
+    (2, 1100, 1024, 32, 4),
+    (2, 400, 60, 256, 2)])  # 60 keys: each block makes its own bits, a round at a time
+def test_bf16_query_rows_in_rounds(cuda, B, Lq, Lk, hd, rounds):
+    """#1 where K and V leave room for only part of the query rows: the
+    block stages the rows and their mask bits (copied from the mask-bits
+    pass past 64 keys, made by the block to 64) a round at a time."""
+    g = torch.Generator().manual_seed(12)
+    dtype = torch.bfloat16
+    q, k, v = (_heads(g, B, 2, L, hd, dtype, cuda) for L in (Lq, Lk, Lk))
+    mask = _mask(g, B, Lq, cuda)[:, :, None] * _mask(g, B, Lk, cuda)[:, None, :]
+    assert -(-Lq // K.attention_bf16_plan(Lq, (Lk,), hd)["round_rows"]) == rounds
+    got = K.fused_masked_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    _close(got, K.masked_attention_plain(q, k, v, mask), dtype)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.randn(2, 2, 5, 8, device=cuda, dtype=torch.float16)
     mask = torch.ones(2, 5, 5, device=cuda)

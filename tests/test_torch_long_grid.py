@@ -8,8 +8,8 @@ against the JAX package, on the CPU.
   against the JAX forward on carried-over weights (1e-4, spans equal);
 - the launch plans of the CUDA wrappers: #3's fits one block's shared
   memory for every grid of 1 to 1024 positions a side in both types, with
-  no scratch at SeqPAN's grids, and the bf16
-  attention kernel's staging is sized and checked as the kernel needs.
+  no scratch at SeqPAN's grids, and #1/#2's staging is sized and checked
+  as their plans (``attention_f32_plan``, ``attention_bf16_plan``) lay it out.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -181,25 +181,31 @@ def test_attention_staging_fits_at_the_grids_the_tests_use(Lq, Lks, hd):
     for dtype in (torch.bfloat16, torch.float32):
         assert K.attention_shared_bytes(dtype, Lq, Lks, hd) <= K.SHARED_BYTES
         K._check_attention(dtype, Lq, Lks, hd, "test")
+    # bf16: the plan the wrapper passes; one round of query rows to 256
+    # rows at head dim 32 (512 over 512 keys at 64 go in two)
+    plan = K.attention_bf16_plan(Lq, Lks, hd)
+    assert plan["shared_bytes"] == K.attention_shared_bytes(torch.bfloat16, Lq, Lks, hd)
+    assert plan["round_rows"] >= (Lq if hd <= 32 or Lq <= 64 else 16)
 
 
 def test_attention_limits_name_what_the_kernel_takes():
-    # Charades: 4 warps, each a 16-row Q tile (32 + 8 columns) and a (16, 64 + 8) mask
-    # tile; K and V of 64 and 32 (30 padded) keys
+    # Charades: K and V of 64 and 32 (30 padded) keys, rows of 32 + 8
+    # columns; then the 64 query rows, each with a 64-bit mask word a branch
     assert K.attention_shared_bytes(torch.bfloat16, 64, (64, 30), 32) == \
-        2 * (4 * 16 * (40 + 72) + 40 * (2 * 64 + 2 * 32))
+        2 * 40 * (2 * 64 + 2 * 32) + 64 * (2 * 40 + 8 * 2)
     # f32: the branches in turn through one K and one V buffer of the longer
     # branch's 64 keys, rows of 32 + 4 floats; Q in registers
     assert K.attention_shared_bytes(torch.float32, 64, (64, 30), 32) == 4 * 36 * 2 * 64
-    # both types take head dims to 256 (bf16 past 128: Q read from its tile)
+    # both types take head dims to 256 (bf16 past 128: Q read from its rows)
     for dtype in (torch.bfloat16, torch.float32):
         K._check_attention(dtype, 8, (8,), 144, "test")
         with pytest.raises(ValueError, match="head dims up to 256"):
             K._check_attention(dtype, 8, (8,), 264, "test")
-    # AlignFeature's dual attention at D = 768, 4 heads: 4 warps, Q tiles of
-    # 192 + 8 columns, K and V of 64 and 32 (30 padded) keys; about 112 KB
+    # AlignFeature's dual attention at D = 768, 4 heads: K and V of 64 and 32
+    # (30 padded) keys at 192 + 8 columns, 64 query rows and their mask bits;
+    # about 101 KB (the former body's per-warp tiles took 111,616 bytes)
     assert K.attention_shared_bytes(torch.bfloat16, 64, (64, 30), 192) == \
-        2 * (4 * 16 * (200 + 72) + 200 * (2 * 64 + 2 * 32)) == 111_616
+        2 * 200 * (2 * 64 + 2 * 32) + 64 * (2 * 200 + 8 * 2) == 103_424
     with pytest.raises(ValueError, match="shared memory"):
         K._check_attention(torch.bfloat16, 512, (512, 512), 128, "test")
     with pytest.raises(ValueError, match="at least 1"):

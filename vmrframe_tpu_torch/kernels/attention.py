@@ -36,6 +36,7 @@ memory, ready for the head merge.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -49,9 +50,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _VIEW = [_P, _L, _L, _L]
 _ARGTYPES = {
-    "vmr_masked_attention": [_I] + _VIEW * 3 + [_P] + _VIEW + [_I] * 5 + [_F] + [_I] * 4
+    "vmr_masked_attention": [_I] + _VIEW * 3 + [_P, _P] + _VIEW + [_I] * 5 + [_F] + [_I] * 4
     + [_L, _P],
-    "vmr_dual_attention": [_I] + _VIEW * 5 + [_P, _P] + _VIEW * 2 + [_I] * 5 + [_F] + [_I] * 4
+    "vmr_dual_attention": [_I] + _VIEW * 5 + [_P] * 4 + _VIEW * 2 + [_I] * 5 + [_F] + [_I] * 4
     + [_L, _P],
     "vmr_cq_attention": [_I] + [_P] * 10 + [_I] * 7 + [_L, _P],
     "vmr_cq_attention_clocked": [_I] + [_P] * 10 + [_I] * 7 + [_L, _P, _P],
@@ -59,17 +60,22 @@ _ARGTYPES = {
 _lib = None
 SHARED_BYTES = 232_448  # what one block may hold in shared memory on an H100
 # bf16 attention: head dims to 128 hold a tile's Q fragments and outputs in
-# registers; 129-256 read Q from its shared tile and run P.V in two halves
+# registers; 129-256 read Q from its staged rows and split the output
+# columns into two groups, each a work item of its own
 MMA_MAX_HEAD_DIM = 256
 # f32 attention: head dims to 256 (Q's fragments in registers to 64, from
 # the warp's staged Q tile past it; outputs in two passes past 128)
 F32_MAX_HEAD_DIM = 256
-# mirror attention.cu: kMaxWarps, the 8-column row pad, kChunk + 8 (a warp's mask tile row)
-MMA_MAX_WARPS, MMA_ROW_PAD, MMA_MASK_ROW = 8, 8, 72
+# mirror attention.cu: kTfWarps (the f32 body's most warps a block), the bf16
+# body's 8-column row pad and kChunk (keys a score chunk and a mask word)
+F32_MAX_WARPS, MMA_ROW_PAD, MMA_CHUNK = 8, 8, 64
 # mirror attention.cu: kTfChunk (keys a chunk), kTfRowPad (floats after each
 # staged row), kTfQRegs (Q in registers up to this many 8-column steps)
 F32_CHUNK, F32_ROW_PAD, F32_Q_REGS = 64, 4, 8
 F32_MODES = ("both", "alt", "chunked")  # mirror kTfBoth, kTfAlt, kTfChunked
+# an H100 SXM's streaming multiprocessors and each one's shared memory, of
+# which every resident block reserves 1 KB beside its own
+SM_COUNT, SM_SHARED_BYTES, BLOCK_RESERVED_BYTES = 132, 233_472, 1_024
 # the modes ``attention_f32_plan`` tries before "chunked", in order
 # (``tools/bench_kernels.py --f32-modes`` narrows them to compare modes)
 F32_STAGED_MODES = ("both", "alt")
@@ -218,7 +224,7 @@ def attention_f32_plan(Lq: int, Lks: Sequence[int], hd: int) -> dict:
     out one (batch, head); the wrappers pass it to the C entries, which
     compute no plan of their own.  Rows of K, V and Q
     are the head dim rounded up to 8 plus ``F32_ROW_PAD`` floats; up to
-    ``MMA_MAX_WARPS`` warps of 16 query rows, each with a staged 16-row Q
+    ``F32_MAX_WARPS`` warps of 16 query rows, each with a staged 16-row Q
     tile past head dim ``8 * F32_Q_REGS`` and, where a branch has several
     ``F32_CHUNK``-key chunks, a score tile of 16 rows of ``score_row``
     floats (walk 1's masked scores, which walk 2 reads back).  The branches
@@ -231,7 +237,7 @@ def attention_f32_plan(Lq: int, Lks: Sequence[int], hd: int) -> dict:
     {"mode", "warps", "kv_rows", "score_row", "shared_bytes"}."""
     row = 4 * (-(-hd // 8) * 8 + F32_ROW_PAD)
     qtile = 0 if hd <= 8 * F32_Q_REGS else 16 * row
-    warps = min(MMA_MAX_WARPS, -(-Lq // 16))
+    warps = min(F32_MAX_WARPS, -(-Lq // 16))
     lk = max(Lks)
     rows, nchunk = -(-lk // 8) * 8, -(-lk // F32_CHUNK)
     score_row = nchunk * F32_CHUNK + 8 if nchunk > 1 else 0
@@ -249,29 +255,107 @@ def attention_f32_plan(Lq: int, Lks: Sequence[int], hd: int) -> dict:
             "shared_bytes": 2 * F32_CHUNK * row + warps * qtile}
 
 
-def _plan_args(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int) -> tuple:
-    """The f32 plan as the C entries take it (mode, warps, kv_rows,
-    score_row, shared_bytes); zeros for bf16, whose body sizes itself."""
+def mma_shape(hd: int) -> Tuple[int, int]:
+    """(output column groups, most warps a block) of the bf16 body at head
+    dim ``hd``: ``MmaBody<HDK>``'s kHalves and kWarps in ``csrc/attention.cu``.
+    Past 128 the output columns split in two; 16 warps where a thread fits
+    128 registers (head dims to 64, 129-192), 8 elsewhere."""
+    hdk = -(-hd // 16)
+    return (2 if hdk > 8 else 1), (16 if hdk <= 4 or 8 < hdk <= 12 else 8)
+
+
+def _bf16_bytes(Lks: Sequence[int], hd: int) -> Tuple[int, int]:
+    """(K and V of every branch, one 16-row tile of a round) in bytes of the
+    bf16 body's shared memory."""
+    row = 2 * (-(-hd // 16) * 16 + MMA_ROW_PAD)
+    kv = row * sum(2 * (-(-Lk // 16) * 16) for Lk in Lks)
+    return kv, 16 * (row + 8 * sum(-(-Lk // MMA_CHUNK) for Lk in Lks))
+
+
+def attention_bf16_plan(Lq: int, Lks: Sequence[int], hd: int, blocks: int = None):
+    """How the bf16 kernel (``attention_mma`` in ``csrc/attention.cu``) lays
+    out one (batch, head); the wrappers pass it to the C entries, which
+    compute no plan of their own.  K and V of every branch whole (rows
+    padded to 16 keys, columns to 16 plus ``MMA_ROW_PAD``), then a round of
+    query rows: their Q rows (the same stride) and, per branch, their mask
+    as bits (a 64-bit word for each ``MMA_CHUNK`` keys of a row).  Every
+    query row in one round where the rows fit, else the fewest even rounds
+    of 16-row tiles.  A round's work items are (branch, output group, tile);
+    the block has one warp an item, up to ``mma_shape``'s most, which is
+    also what an SM's registers hold.  Given the grid's ``blocks`` (B H),
+    the warps are those that finish the grid in the fewest waves of blocks
+    times turns of items a warp (an SM holds as many blocks as its shared
+    memory and registers allow), on a tie the most blocks an SM, so that
+    one block's staging overlaps another's products.  A branch of more than
+    ``MMA_CHUNK`` keys has its mask made into bits once for all heads by a
+    pass of its own (``prebits``), which the blocks copy; a shorter one's
+    blocks make their own.  {"warps", "round_rows", "items", "prebits",
+    "shared_bytes"}, or None when K and V leave no room for one tile.
+    Memoized: every call with the same arguments returns the same dict,
+    which the caller must not change."""
+    return _bf16_plan(Lq, tuple(Lks), hd, blocks)
+
+
+@functools.lru_cache(maxsize=1024)
+def _bf16_plan(Lq: int, Lks: Tuple[int, ...], hd: int, blocks) -> dict:
+    halves, most = mma_shape(hd)
+    kv, per_tile = _bf16_bytes(Lks, hd)
+    tiles, fit = -(-Lq // 16), (SHARED_BYTES - kv) // per_tile
+    if fit < 1:
+        return None
+    round_tiles = -(-tiles // -(-tiles // fit))
+    items = round_tiles * halves * len(Lks)
+    shared = kv + round_tiles * per_tile
+    warps = min(items, most)
+    if blocks is not None:
+        by_shared = SM_SHARED_BYTES // (shared + BLOCK_RESERVED_BYTES)
+
+        def cost(w):
+            per_sm = min(by_shared, most // w)
+            return -(-blocks // (SM_COUNT * per_sm)) * -(-items // w), -per_sm
+
+        warps = min(range(1, warps + 1), key=cost)
+    return {"warps": warps, "round_rows": 16 * round_tiles, "items": items,
+            "prebits": tuple(Lk > MMA_CHUNK for Lk in Lks), "shared_bytes": shared}
+
+
+def _plan_args(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int,
+               blocks: int = None) -> tuple:
+    """The plan as the C entries take it (mode, warps, kv_rows, score_row,
+    shared_bytes): the f32 plan's, or the bf16 plan's for a grid of
+    ``blocks`` (warps, query rows a round, shared memory; mode and
+    score_row 0)."""
     if dtype != torch.float32:
-        return 0, 0, 0, 0, 0
+        plan = attention_bf16_plan(Lq, Lks, hd, blocks)
+        return 0, plan["warps"], plan["round_rows"], 0, plan["shared_bytes"]
     plan = attention_f32_plan(Lq, Lks, hd)
     return (F32_MODES.index(plan["mode"]), plan["warps"], plan["kv_rows"], plan["score_row"],
             plan["shared_bytes"])
 
 
+def _bits_scratch(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int, B: int,
+                  device) -> list:
+    """Per branch, the pointer to the scratch the bf16 plan's mask-bits pass
+    writes (B Lq ceil(Lk / ``MMA_CHUNK``) 64-bit words), or None, and the
+    tensors that hold them."""
+    held = [None] * len(Lks)
+    if dtype == torch.bfloat16:
+        for n, (Lk, pre) in enumerate(zip(Lks, attention_bf16_plan(Lq, Lks, hd)["prebits"])):
+            if pre:
+                held[n] = torch.empty(B * Lq * -(-Lk // MMA_CHUNK), dtype=torch.int64,
+                                      device=device)
+    return [t if t is None else t.data_ptr() for t in held], held
+
+
 def attention_shared_bytes(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int) -> int:
-    """Shared memory of the attention kernels.  bf16: K and V of every
-    branch (rows padded to 16 keys, columns to 16 plus 8) and, per warp, a
-    16-row Q tile and its (16, 64) mask tile (past head dim 128 the Q
-    fragments are read from that tile, so the head dim adds no more).  f32:
-    ``attention_f32_plan``'s, which fits one block at every length and head
-    dims to 256."""
+    """Shared memory of the attention kernels: the plan's (``attention_f32_plan``,
+    which fits one block at every length and head dims to 256;
+    ``attention_bf16_plan``), or for a bf16 shape with no plan what one
+    16-row tile would need beside K and V."""
     if dtype == torch.float32:
         return attention_f32_plan(Lq, Lks, hd)["shared_bytes"]
-    stride = -(-hd // 16) * 16 + MMA_ROW_PAD
-    warps = min(MMA_MAX_WARPS, -(-Lq // 16))
-    return 2 * (16 * warps * (stride + MMA_MASK_ROW)
-                + stride * sum(2 * (-(-Lk // 16) * 16) for Lk in Lks))
+    plan = attention_bf16_plan(Lq, Lks, hd)
+    return plan["shared_bytes"] if plan is not None else sum(_bf16_bytes(Lks, hd))
 
 
 def attention_refusal(dtype: torch.dtype, Lq: int, Lks: Sequence[int], hd: int):
@@ -402,10 +486,12 @@ def fused_masked_attention(q, k, v, mask):
     _check_attention(dtype, Lq, (Lk,), hd, "fused_masked_attention")
     mask = _as(mask, q, (B, Lq, Lk))
     out = _head_major_out(q, Lq)
+    bits, _held = _bits_scratch(dtype, Lq, (Lk,), hd, B, q.device)
     with launch_range("fused_masked_attention"):
         err = load_kernels().vmr_masked_attention(
-            _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *_view(out),
-            B, H, Lq, Lk, hd, 1.0 / math.sqrt(hd), *_plan_args(dtype, Lq, (Lk,), hd),
+            _DTYPE_CODE[dtype], *_view(q), *_view(k), *_view(v), mask.data_ptr(), *bits,
+            *_view(out), B, H, Lq, Lk, hd, 1.0 / math.sqrt(hd),
+            *_plan_args(dtype, Lq, (Lk,), hd, B * H),
             _stream(q))
     _raise_on(err, "vmr_masked_attention")
     fused_masked_attention.launches += 1
@@ -434,11 +520,12 @@ def fused_dual_attention(q, f_k, f_v, t_k, t_v, s_mask, x_mask):
     s_mask = _as(s_mask, q, (B, L, L))
     x_mask = _as(x_mask, q, (B, L, M))
     s_out, x_out = _head_major_out(q, L), _head_major_out(q, L)
+    bits, _held = _bits_scratch(dtype, L, (L, M), hd, B, q.device)
     with launch_range("fused_dual_attention"):
         err = load_kernels().vmr_dual_attention(
             _DTYPE_CODE[dtype], *_view(q), *_view(f_k), *_view(f_v), *_view(t_k), *_view(t_v),
-            s_mask.data_ptr(), x_mask.data_ptr(), *_view(s_out), *_view(x_out),
-            B, H, L, M, hd, 1.0 / math.sqrt(hd), *_plan_args(dtype, L, (L, M), hd),
+            s_mask.data_ptr(), x_mask.data_ptr(), *bits, *_view(s_out), *_view(x_out),
+            B, H, L, M, hd, 1.0 / math.sqrt(hd), *_plan_args(dtype, L, (L, M), hd, B * H),
             _stream(q))
     _raise_on(err, "vmr_dual_attention")
     fused_dual_attention.launches += 1

@@ -13,25 +13,38 @@
 // real time is latency: how many dependent steps a warp takes per row.
 //
 // #1/#2, bf16: attention_mma.  One block per (batch, head); K and V of each
-// branch go to shared memory once with 16-byte cp.async copies (rows padded
-// to 16 keys and to a multiple of 16 head columns with zeros, and 8 more
-// columns so that ldmatrix rows fall on distinct banks).  Each warp owns a
-// 16-row query tile whose Q fragments stay in registers (ldmatrix), and
-// copies the tile's mask 64 keys at a time into shared memory; scores
-// come from mma.sync m16n8k16 (bf16 in, f32 out) 64 keys at a time and stay
-// in registers; row max and sum use quad shuffles.  Over the key chunks the
-// warp walks twice: max and sum first, then the normalised probability,
-// rounded to bf16 in registers, is the A operand of the P.V mma (V's B
-// fragments by ldmatrix.trans).  That is where the TPU kernel and the plain
-// version round, so the numbers are theirs, not an online softmax's.  With
-// one chunk (Lk <= 64) the scores of the first walk are kept.  #2 runs the
-// same tile over two branches with the Q fragments loaded once.  Past head
-// dim 128 (to 256) a warp holding every Q fragment and every output
-// accumulator would spill: there the Q fragments are read from the warp's
-// staged Q tile at each 16-column step of the scores, and walk 2 runs twice,
-// over each half of the output columns (at most 128 each; the scores are
-// kept across the halves when there is one chunk, recomputed otherwise).
-// P is the same bf16 value in both halves.  The fragment helpers are in
+// branch go to shared memory once with 16-byte cp.async copies (rows padded to
+// 16 keys and to a multiple of 16 head columns with zeros, and 8 more columns
+// so that ldmatrix rows fall on distinct banks).  Then the block's query rows,
+// all of them in one round where they fit (else the fewest even rounds of
+// 16-row tiles), are staged by the whole block at once: Q's rows, and each
+// branch's (B, Lq, Lk) mask as bits, a 64-bit word for each 64 keys of a row.
+// A branch of more than 64 keys has its mask made into bits once for all heads
+// by mask_bits_kernel, launched first (the attention follows as a programmatic
+// dependent launch: its blocks stage K and V while the pass ends), and the
+// blocks copy the bits; a shorter branch's blocks make their own (mask_bits).
+// A round's work items, (branch, output column half, 16-row tile), are dealt to
+// the warps, so #2's branches and, past head dim 128, the two halves of the
+// output columns run on warps of their own; the warps a block are the plan's,
+// chosen for the grid's occupancy.  An item takes its Q fragments by ldmatrix
+// (into registers to head dim 128, at each 16-column step past it); scores come
+// from mma.sync m16n8k16 (bf16 in, f32 out) 64 keys at a time, each step's
+// fragments loaded before its products, and stay in registers, masked from the
+// bits; the softmax runs in log2 units (the scale times log2 e, ex2.approx, as
+// __expf does); row max and sum use quad shuffles and trees.  Over the key
+// chunks the item walks twice: max and sum first, then the normalised
+// probability, rounded to bf16 in registers, is the A operand of the P.V mma
+// (V's B fragments by ldmatrix.trans).  That is where the TPU kernel and the
+// plain version round, so the numbers are theirs, not an online softmax's; an
+// item of another output half rebuilds the same bf16 p from the same f32
+// scores.  Walk 1 ends holding 2^(s - max) of its last chunk, whose max is the
+// row's, so walk 2 takes that chunk first and recomputes only the others (with
+// one chunk, Lk <= 64, no second exponential at all).  Outputs leave as 8-byte
+// stores after a swap between lane pairs, so that a store writes whole 32-byte
+// sectors.  The plan (warps, rows a round, which masks go through the pass,
+// shared memory) is kernels/attention.py::attention_bf16_plan's.  What bounds
+// it: bytes at the served shapes (PERF.md); at 256 keys the two exponentials a
+// score on the unit MUFU shares come next.  The fragment helpers are in
 // mma_bf16.cuh, shared with window_attention.cu.
 //
 // #1/#2, f32: attention_tf32, the same grid, walks and masking on the
@@ -107,16 +120,17 @@
 namespace {
 
 constexpr float kMask = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskLog2 = kMask * kLog2e;  // attention_mma: the mask in log2 units
 constexpr size_t kSharedBytes = 232448;  // what one block may hold in shared memory on an H100
-constexpr int kMaxWarps = 8;    // attention_mma, attention_tf32: query tiles of 16 rows a block
+constexpr int kTfWarps = 8;     // attention_tf32: the most query tiles of 16 rows a block
 constexpr int kTfChunk = 64;    // attention_tf32: keys per score chunk (8 n-tiles) and per staging
 constexpr int kTfRowPad = 4;    // attention_tf32: floats after each staged K, V and Q row
 constexpr int kTfQRegs = 8;     // attention_tf32: Q's fragments in registers to 8 column steps
 constexpr int kTfOutTiles = 16;  // attention_tf32: 8-column output tiles a pass holds, at most
 // attention_tf32's modes (kernels/attention.py::F32_MODES)
 constexpr int kTfBoth = 0, kTfAlt = 1, kTfChunked = 2;
-constexpr int kChunk = 64;      // attention_mma: keys per score chunk (8 mma n-tiles)
-constexpr int kMaskRS = kChunk + 8;  // attention_mma: row stride of a warp's mask tile
+constexpr int kChunk = 64;      // attention_mma: keys per score chunk (8 mma n-tiles) and mask word
 constexpr int kCqThreads = 512;  // cq_kernel: 16 warps, one block per batch element
 constexpr int kCqScorePad = 4;   // cq_kernel: score rows are Lq rounded up to 16, plus 4 floats
 constexpr int kCqMmaCols = 16;   // cq_kernel, bf16: chunks of D in 16s (the mma's k; n in pairs)
@@ -146,6 +160,10 @@ struct Branch {
   View k, v, out;
   const void* mask;  // (B, Lq, Lk), contiguous, shared by the heads
   int Lk;
+  // bf16: the mask as bits, (B, Lq, ceil(Lk / 64)) words of mask_bits'
+  // layout, made once for every head by mask_bits_kernel; null: each block
+  // makes its own (mask_bits)
+  uint64_t* bits;
 };
 
 template <typename T>
@@ -153,207 +171,379 @@ __device__ __forceinline__ const T* at(const View& v, int b, int h) {
   return static_cast<const T*>(v.p) + b * v.sb + h * v.sh;
 }
 
-// The scores of one 64-key chunk for a warp's 16-row tile, in the mma's C
-// layout: s[j] holds keys c0 + 8j + 2t, +1 of rows g (s[j][0..1]) and g + 8
-// (s[j][2..3]); scaled, masked with -1e30 by the chunk's mask tile m_s
-// (16 rows of kMaskRS), -inf beyond Lk.  The Q fragments come from qa, or
-// with QS from the warp's Q tile q_s, one 16-column step at a time.
-template <int HDK, int RS, bool QS>
-__device__ __forceinline__ void chunk_scores(float (&s)[8][4],
-                                             const uint32_t (&qa)[QS ? 1 : HDK][4],
-                                             const bf16* q_s, const bf16* k_s, const bf16* m_s,
-                                             int c0, int Lk, int Lkp, float scale, int lane) {
-  const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r = lane & 7;
+// The keep bits of mask values k0 .. k0 + 7 of a row (bit i set where value
+// k0 + i is not 0; 0 at Lk and past it): one 16-byte load where vec (Lk a
+// multiple of 8 and the mask 16-byte aligned), element loads otherwise.
+__device__ __forceinline__ uint4 load8(const bf16* src, bool vec) {
+  return vec ? __ldg(reinterpret_cast<const uint4*>(src)) : make_uint4(0u, 0u, 0u, 0u);
+}
+__device__ __forceinline__ unsigned int keep8(uint4 v, const bf16* src, int k0, int Lk, bool vec) {
+  unsigned int bits = 0u;
+  if (vec) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  if constexpr (QS) {
-    // each product still sums its 16-column steps in order, as below
-#pragma unroll
-    for (int kk = 0; kk < HDK; ++kk) {
-      uint32_t qf[4];
-      ldmatrix_x4(qf, q_s + (r + ((mi & 1) << 3)) * RS + 16 * kk + ((mi >> 1) << 3));
-#pragma unroll
-      for (int j2 = 0; j2 < 4; ++j2) {
-        if (c0 + 16 * j2 < Lkp) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, k_s + (c0 + 16 * j2 + r + ((mi >> 1) << 3)) * RS + ((mi & 1) << 3) +
-                              16 * kk);
-          mma_bf16(s[2 * j2], qf, kb[0], kb[1]);
-          mma_bf16(s[2 * j2 + 1], qf, kb[2], kb[3]);
-        }
-      }
-    }
+    for (int i = 0; i < 4; ++i)
+      bits |= ((w[i] & 0x7fffu) != 0u) << (2 * i) | ((w[i] & 0x7fff0000u) != 0u) << (2 * i + 1);
   } else {
 #pragma unroll
-    for (int j2 = 0; j2 < 4; ++j2) {
-      if (c0 + 16 * j2 < Lkp) {
-        const bf16* krow = k_s + (c0 + 16 * j2 + r + ((mi >> 1) << 3)) * RS + ((mi & 1) << 3);
-#pragma unroll
-        for (int kk = 0; kk < HDK; ++kk) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, krow + 16 * kk);
-          mma_bf16(s[2 * j2], qa[kk], kb[0], kb[1]);
-          mma_bf16(s[2 * j2 + 1], qa[kk], kb[2], kb[3]);
-        }
-      }
-    }
+    for (int e = 0; e < 8; ++e)
+      if (k0 + e < Lk) bits |= ((__bfloat16_as_ushort(src[e]) & 0x7fffu) != 0u) << e;
   }
+  return bits;
+}
+
+// The {0,1} mask rows [r0, r0 + rows) of one sample and branch as bits:
+// byte kb of a row holds keys 8 kb .. 8 kb + 7 (keep8), a row is nch 64-bit
+// words (one a kChunk-key chunk), 0 past Lq and Lk.  Each thread keeps NB
+// 16-byte loads in flight.  The caller syncs.
+template <int NB>
+__device__ __forceinline__ void mask_bits_nb(uint64_t* dst, const bf16* mask, int Lq, int Lk,
+                                             int r0, int rows, int nch, int tid, int nthr) {
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(dst);
+  const int row_bytes = nch * 8, total = rows * row_bytes;
+  const bool vec = Lk % 8 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  for (int base = tid; base < total; base += nthr * NB) {
+    uint4 v[NB];
+    const bf16* src[NB];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+    for (int u = 0; u < NB; ++u) {
+      const int idx = base + u * nthr, row = r0 + idx / row_bytes, k0 = idx % row_bytes * 8;
+      src[u] = idx < total && row < Lq && k0 < Lk ? mask + (long long)row * Lk + k0 : nullptr;
+      v[u] = src[u] ? load8(src[u], vec) : make_uint4(0u, 0u, 0u, 0u);
+    }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * j + 2 * t + (e & 1);
-      if (c0 + col >= Lk) {
-        s[j][e] = -CUDART_INF_F;
-      } else {
-        const float m = __bfloat162float(m_s[(g + (e & 2) * 4) * kMaskRS + col]);
-        s[j][e] = s[j][e] * scale + (1.f - m) * kMask;
-      }
+    for (int u = 0; u < NB; ++u) {
+      const int idx = base + u * nthr;
+      if (idx < total)
+        bytes[idx] = src[u] ? keep8(v[u], src[u], idx % row_bytes * 8, Lk, vec) : 0u;
     }
   }
 }
 
+// mask_bits_nb with 8 loads in flight a thread where each thread has 8 or
+// more to make (256 keys and rows: its latency bounds the staging), else 4.
+__device__ __forceinline__ void mask_bits(uint64_t* dst, const bf16* mask, int Lq, int Lk, int r0,
+                                          int rows, int nch, int tid, int nthr) {
+  if (rows * nch * 8 >= 8 * nthr)
+    mask_bits_nb<8>(dst, mask, Lq, Lk, r0, rows, nch, tid, nthr);
+  else
+    mask_bits_nb<4>(dst, mask, Lq, Lk, r0, rows, nch, tid, nthr);
+}
+
+// A branch's whole mask as bits (mask_bits' layout, rows of nch words, the
+// B Lq rows one after another), once for all the heads that read it: a
+// thread a byte.
+__global__ void mask_bits_kernel(const bf16* mask, uint64_t* bits, long long rows, int Lk,
+                                 int nch) {
+  // the attention launch that reads the bits may start now (it waits for them)
+  asm volatile("griddepcontrol.launch_dependents;");
+  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const int row_bytes = nch * 8;
+  if (idx >= rows * row_bytes) return;
+  const int k0 = idx % row_bytes * 8;
+  const bool vec = Lk % 8 == 0 && (reinterpret_cast<uintptr_t>(mask) & 15) == 0;
+  const bf16* src = mask + idx / row_bytes * Lk + k0;
+  reinterpret_cast<unsigned char*>(bits)[idx] =
+      k0 < Lk ? keep8(load8(src, vec), src, k0, Lk, vec) : 0u;
+}
+
+// Rows [0, rows) of a round's bits from mask_bits_kernel's (nch words a row)
+// with 8-byte cp.async copies, zero to rows_pad.  The caller waits.
+__device__ __forceinline__ void copy_bits(uint64_t* dst, const uint64_t* src, int rows,
+                                          int rows_pad, int nch, int tid, int nthr) {
+  for (int idx = tid; idx < rows_pad * nch; idx += nthr) {
+    if (idx < rows * nch)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst + idx)),
+                   "l"(src + idx));
+    else
+      dst[idx] = 0ull;
+  }
+}
+
+// 2^x on the unit MUFU shares (ex2.approx, as __expf takes e^x: 2^(x log2 e)).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+struct FMax {
+  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
+};
+struct FAdd {
+  __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
+};
+
+// op over 8 values as a tree (3 dependent steps, not 7)
+template <typename Op>
+__device__ __forceinline__ float tree8(const float (&v)[8], Op op) {
+  return op(op(op(v[0], v[1]), op(v[2], v[3])), op(op(v[4], v[5]), op(v[6], v[7])));
+}
+
+// A chunk's products s, in log2 units: s * scale + (key kept ? 0 : kMask
+// log2 e) (scale is the softmax's times log2 e), or -inf for a key at Lk or
+// past it; the keep bit of s[j][e] is bit 8j + (e & 1) of xa (rows g) or xb
+// (rows g + 8).  WHOLE: the chunk's 64 keys all lie below Lk.
+template <bool WHOLE>
+__device__ __forceinline__ void mask_chunk(float (&s)[8][4], uint64_t xa, uint64_t xb, int t,
+                                           int c0, int Lk, float scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool keep = ((e < 2 ? xa : xb) >> (8 * j + (e & 1))) & 1u;
+      const float v = fmaf(s[j][e], scale, keep ? 0.f : kMaskLog2);
+      s[j][e] = WHOLE || c0 + 8 * j + 2 * t + (e & 1) < Lk ? v : -CUDART_INF_F;
+    }
+  }
+}
+
+// The scores of one 64-key chunk for a warp's 16-row tile, in the mma's C
+// layout: s[j] holds keys c0 + 8j + 2t, +1 of rows g (s[j][0..1]) and g + 8
+// (s[j][2..3]); scaled and masked by mask_chunk (in log2 units) from the
+// chunk's mask bits ba (row g) and bb (row g + 8).  The Q fragments come
+// from qa, or with QS from the tile's staged Q rows q_s, one 16-column step
+// at a time.
+template <int HDK, int RS, bool QS>
+__device__ __forceinline__ void chunk_scores(float (&s)[8][4],
+                                             const uint32_t (&qa)[QS ? 1 : HDK][4],
+                                             const bf16* q_s, const bf16* k_s, uint64_t ba,
+                                             uint64_t bb, int c0, int Lk, int Lkp, float scale,
+                                             int lane) {
+  const int t = lane & 3, mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  const bf16* krow = k_s + (c0 + r + ((mi >> 1) << 3)) * RS + ((mi & 1) << 3);
+  // each 16-column step: its fragments are all loaded before its products
+  // (each product sums the steps in order)
+#pragma unroll
+  for (int kk = 0; kk < HDK; ++kk) {
+    uint32_t qf[4], kb[4][4];
+    if constexpr (QS)
+      ldmatrix_x4(qf, q_s + (r + ((mi & 1) << 3)) * RS + 16 * kk + ((mi >> 1) << 3));
+#pragma unroll
+    for (int j2 = 0; j2 < 4; ++j2)
+      if (c0 + 16 * j2 < Lkp) ldmatrix_x4(kb[j2], krow + 16 * j2 * RS + 16 * kk);
+    auto products = [&](const uint32_t (&a)[4]) {
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        if (c0 + 16 * j2 < Lkp) {
+          mma_bf16(s[2 * j2], a, kb[j2][0], kb[j2][1]);
+          mma_bf16(s[2 * j2 + 1], a, kb[j2][2], kb[j2][3]);
+        }
+      }
+    };
+    if constexpr (QS)
+      products(qf);
+    else
+      products(qa[kk]);
+  }
+  // key 8j + 2t + e of the chunk is bit 8j + e of the row's word shifted by 2t
+  const uint64_t xa = ba >> (2 * t), xb = bb >> (2 * t);
+  if (c0 + kChunk <= Lk)
+    mask_chunk<true>(s, xa, xb, t, c0, Lk, scale);
+  else
+    mask_chunk<false>(s, xa, xb, t, c0, Lk, scale);
+}
+
+// attention_mma's shape for a head dim of 16 HDK columns: past 128 the Q
+// fragments are read from the staged rows at each 16-column step and the
+// output columns are split in two groups (kHalves) of kOT 16-column tiles,
+// one a work item; kWarps, the most warps a block, keeps a thread at 128
+// registers where the body fits them (head dims to 64, and 129-192) and at
+// 255 elsewhere (Q's fragments and 64 output registers to 128; 256 columns).
+template <int HDK>
+struct MmaBody {
+  static constexpr bool kQS = HDK > 8;
+  static constexpr int kHalves = kQS ? 2 : 1;
+  static constexpr int kOT = (HDK + kHalves - 1) / kHalves;
+  static constexpr int kWarps = HDK <= 4 || (HDK > 8 && HDK <= 12) ? 16 : 8;
+};
+
 // vmr_masked_attention (nbranch = 1) and vmr_dual_attention (nbranch = 2),
 // bf16, on the tensor cores.  HDK = head dim padded to 16, over 16 (1-16).
+// One block per (batch, head), the warps of kernels/attention.py::
+// attention_bf16_plan.  K and V of each branch are staged once; the query
+// rows go in rounds of round_rows (every row in one round where they fit):
+// Q's rows and each branch's mask bits (mask_bits) are staged by the whole
+// block, then the round's work items, (branch, output group, 16-row tile)
+// with the branch slowest, are dealt to the warps in turn.
 template <int HDK>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-    attention_mma(View qv, Branch b0, Branch b1, int nbranch, int H, int Lq, int hd,
-                  float scale) {
-  constexpr int HDP = 16 * HDK, RS = HDP + 8;
-  // past head dim 128: Q fragments from shared memory, P.V over OT column
-  // tiles of 16 (at most 8) at a time, in NPASS passes
-  constexpr bool QS = HDK > 8;
-  constexpr int OT = QS ? (HDK + 1) / 2 : HDK, NPASS = (HDK + OT - 1) / OT;
+__global__ void __launch_bounds__(MmaBody<HDK>::kWarps * 32)
+    attention_mma(View qv, Branch b0, Branch b1, int nbranch, int H, int Lq, int hd, float scale,
+                  int round_rows) {
+  using Body = MmaBody<HDK>;
+  constexpr bool QS = Body::kQS;
+  constexpr int HDP = 16 * HDK, RS = HDP + 8, OT = Body::kOT, NH = Body::kHalves;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r = lane & 7;
+  const float scale2 = scale * kLog2e;
 
-  Branch br[2] = {b0, b1};
-  bf16* kv_s[2][2];
-  bf16* cur = smem;
-  for (int n = 0; n < nbranch; ++n) {
-    const int Lkp = (br[n].Lk + 15) & ~15;
-    kv_s[n][0] = cur;
-    kv_s[n][1] = cur + Lkp * RS;
-    cur += 2 * Lkp * RS;
-    stage<HDP, RS>(kv_s[n][0], at<bf16>(br[n].k, b, h), br[n].k.sl, br[n].Lk, Lkp, hd,
-                   threadIdx.x, blockDim.x);
-    stage<HDP, RS>(kv_s[n][1], at<bf16>(br[n].v, b, h), br[n].v.sl, br[n].Lk, Lkp, hd,
-                   threadIdx.x, blockDim.x);
+  const int Lk0 = b0.Lk, Lk1 = nbranch == 2 ? b1.Lk : 0;
+  const int Lkp0 = (Lk0 + 15) & ~15, Lkp1 = (Lk1 + 15) & ~15;
+  const int nch0 = (Lk0 + kChunk - 1) / kChunk, nch1 = (Lk1 + kChunk - 1) / kChunk;
+  bf16* const k0_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const v0_s = k0_s + Lkp0 * RS;
+  bf16* const k1_s = v0_s + Lkp0 * RS;
+  bf16* const v1_s = k1_s + Lkp1 * RS;
+  bf16* const q_s = v1_s + Lkp1 * RS;  // the round's query rows
+  uint64_t* const bits0 = reinterpret_cast<uint64_t*>(q_s + round_rows * RS);
+  uint64_t* const bits1 = bits0 + round_rows * nch0;
+  stage<HDP, RS>(k0_s, at<bf16>(b0.k, b, h), b0.k.sl, Lk0, Lkp0, hd, threadIdx.x, blockDim.x);
+  stage<HDP, RS>(v0_s, at<bf16>(b0.v, b, h), b0.v.sl, Lk0, Lkp0, hd, threadIdx.x, blockDim.x);
+  if (nbranch == 2) {
+    stage<HDP, RS>(k1_s, at<bf16>(b1.k, b, h), b1.k.sl, Lk1, Lkp1, hd, threadIdx.x, blockDim.x);
+    stage<HDP, RS>(v1_s, at<bf16>(b1.v, b, h), b1.v.sl, Lk1, Lkp1, hd, threadIdx.x, blockDim.x);
   }
-  cp_async_wait_all();
-  __syncthreads();  // K and V, staged by the whole block
-  bf16* q_s = cur + warp * 16 * (RS + kMaskRS);  // this warp's Q tile, then its mask tile
-  bf16* m_s = q_s + 16 * RS;
+  // launched behind mask_bits_kernel, whose bits are read only from here on
+  if (b0.bits || (nbranch == 2 && b1.bits)) asm volatile("griddepcontrol.wait;" ::: "memory");
   const bf16* q = at<bf16>(qv, b, h);
+  const bf16* mask0 = static_cast<const bf16*>(b0.mask) + (long long)b * Lq * Lk0;
+  const bf16* mask1 = static_cast<const bf16*>(b1.mask) + (long long)b * Lq * Lk1;
 
-  for (int i0 = warp * 16; i0 < Lq; i0 += nwarp * 16) {
-    stage<HDP, RS>(q_s, q + i0 * qv.sl, qv.sl, min(16, Lq - i0), 16, hd, lane, 32);
+  for (int r0 = 0; r0 < Lq; r0 += round_rows) {
+    const int rows = min(round_rows, Lq - r0), nt = (rows + 15) / 16;
+    if (r0 > 0) __syncthreads();  // every warp is done with the last round's rows
+    stage<HDP, RS>(q_s, q + r0 * qv.sl, qv.sl, rows, 16 * nt, hd, threadIdx.x, blockDim.x);
+    if (b0.bits)
+      copy_bits(bits0, b0.bits + ((long long)b * Lq + r0) * nch0, rows, 16 * nt, nch0,
+                threadIdx.x, blockDim.x);
+    else
+      mask_bits(bits0, mask0, Lq, Lk0, r0, 16 * nt, nch0, threadIdx.x, blockDim.x);
+    if (nbranch == 2 && b1.bits)
+      copy_bits(bits1, b1.bits + ((long long)b * Lq + r0) * nch1, rows, 16 * nt, nch1,
+                threadIdx.x, blockDim.x);
+    else if (nbranch == 2)
+      mask_bits(bits1, mask1, Lq, Lk1, r0, 16 * nt, nch1, threadIdx.x, blockDim.x);
     cp_async_wait_all();
-    __syncwarp();
-    uint32_t qa[QS ? 1 : HDK][4];
-    if constexpr (!QS) {
+    __syncthreads();  // K, V, the round's Q rows and mask bits, staged by the whole block
+
+    for (int it = warp; it < nbranch * NH * nt; it += nwarp) {
+      const int n = it / (NH * nt), tile = it % nt, d0 = (it / nt) % NH * OT;
+      const int Lk = n ? Lk1 : Lk0, Lkp = n ? Lkp1 : Lkp0, nch = n ? nch1 : nch0;
+      const bf16* k_s = n ? k1_s : k0_s;
+      const bf16* v_s = n ? v1_s : v0_s;
+      const uint64_t* bits = (n ? bits1 : bits0) + 16 * tile * nch;
+      const bf16* qt_s = q_s + 16 * tile * RS;
+      uint32_t qa[QS ? 1 : HDK][4];
+      if constexpr (!QS) {
 #pragma unroll
-      for (int kk = 0; kk < HDK; ++kk)
-        ldmatrix_x4(qa[kk], q_s + (r + ((mi & 1) << 3)) * RS + 16 * kk + ((mi >> 1) << 3));
-    }
-    const int ra = i0 + g, rb = ra + 8;
+        for (int kk = 0; kk < HDK; ++kk)
+          ldmatrix_x4(qa[kk], qt_s + (r + ((mi & 1) << 3)) * RS + 16 * kk + ((mi >> 1) << 3));
+      }
 
-    for (int n = 0; n < nbranch; ++n) {
-      const Branch& B_ = br[n];
-      const int Lk = B_.Lk, Lkp = (Lk + 15) & ~15, nchunk = (Lk + kChunk - 1) / kChunk;
-      const bf16* k_s = kv_s[n][0];
-      const bf16* v_s = kv_s[n][1];
-      const bf16* mask = static_cast<const bf16*>(B_.mask) + ((long long)b * Lq + i0) * Lk;
-      // the tile's (16, 64) slice of the mask at key c0, with coalesced copies
-      auto stage_mask = [&](int c0) {
-        __syncwarp();  // every lane is done with the last slice
-        stage<kChunk, kMaskRS>(m_s, mask + c0, Lk, min(16, Lq - i0), 16, min(kChunk, Lk - c0),
-                               lane, 32);
-        cp_async_wait_all();
-        __syncwarp();
-      };
-
-      // walk 1: row max and sum (rows g and g + 8 of the tile)
+      // walk 1: row max and sum (rows g and g + 8 of the tile), in log2
+      // units; s ends as 2^(s - max) of the last chunk, whose max is the
+      // row's: walk 2 takes that chunk first, as it stands
       float s[8][4];
       float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
-      for (int c = 0; c < nchunk; ++c) {
-        stage_mask(c * kChunk);
-        chunk_scores<HDK, RS, QS>(s, qa, q_s, k_s, m_s, c * kChunk, Lk, Lkp, scale, lane);
-        float c0 = -CUDART_INF_F, c1 = -CUDART_INF_F;
+      for (int c = 0; c < nch; ++c) {
+        chunk_scores<HDK, RS, QS>(s, qa, qt_s, k_s, bits[g * nch + c], bits[(g + 8) * nch + c],
+                                  c * kChunk, Lk, Lkp, scale2, lane);
+        float a[8], b[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
-          c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
+          a[j] = fmaxf(s[j][0], s[j][1]);
+          b[j] = fmaxf(s[j][2], s[j][3]);
         }
-        const float n0 = fmaxf(m0, quad_max(c0)), n1 = fmaxf(m1, quad_max(c1));
-        l0 *= __expf(m0 - n0);
-        l1 *= __expf(m1 - n1);
+        const float n0 = fmaxf(m0, quad_max(tree8(a, FMax{}))),
+                    n1 = fmaxf(m1, quad_max(tree8(b, FMax{})));
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          l0 += __expf(s[j][0] - n0) + __expf(s[j][1] - n0);
-          l1 += __expf(s[j][2] - n1) + __expf(s[j][3] - n1);
+          s[j][0] = exp2_approx(s[j][0] - n0);
+          s[j][1] = exp2_approx(s[j][1] - n0);
+          s[j][2] = exp2_approx(s[j][2] - n1);
+          s[j][3] = exp2_approx(s[j][3] - n1);
+          a[j] = s[j][0] + s[j][1];
+          b[j] = s[j][2] + s[j][3];
         }
+        l0 = l0 * exp2_approx(m0 - n0) + tree8(a, FAdd{});
+        l1 = l1 * exp2_approx(m1 - n1) + tree8(b, FAdd{});
         m0 = n0;
         m1 = n1;
       }
       const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
 
-      // walk 2: the normalised probabilities, rounded to bf16, times V, over
-      // output column tiles [d0, d0 + OT) in each pass
-      bf16* out = static_cast<bf16*>(const_cast<void*>(B_.out.p)) + b * B_.out.sb + h * B_.out.sh;
+      // walk 2: the normalised probabilities, rounded to bf16, times V over
+      // the item's output tiles [d0, d0 + OT)
+      float o[2 * OT][4];
 #pragma unroll
-      for (int pass = 0; pass < NPASS; ++pass) {
-        const int d0 = pass * OT;
-        float o[2 * OT][4];
+      for (int d = 0; d < 2 * OT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+      for (int i = 0; i < nch; ++i) {
+        const int c = (i + nch - 1) % nch;  // the last chunk, then the others in order
+        if (i > 0) {
+          chunk_scores<HDK, RS, QS>(s, qa, qt_s, k_s, bits[g * nch + c], bits[(g + 8) * nch + c],
+                                    c * kChunk, Lk, Lkp, scale2, lane);
 #pragma unroll
-        for (int d = 0; d < 2 * OT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-        for (int c = 0; c < nchunk; ++c) {
-          if (nchunk > 1) {
-            stage_mask(c * kChunk);
-            chunk_scores<HDK, RS, QS>(s, qa, q_s, k_s, m_s, c * kChunk, Lk, Lkp, scale, lane);
+          for (int j = 0; j < 8; ++j) {
+            s[j][0] = exp2_approx(s[j][0] - m0);
+            s[j][1] = exp2_approx(s[j][1] - m0);
+            s[j][2] = exp2_approx(s[j][2] - m1);
+            s[j][3] = exp2_approx(s[j][3] - m1);
           }
+        }
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const int key0 = c * kChunk + 16 * kk;
-            if (key0 < Lkp) {
-              uint32_t pa[4];
-              pa[0] = pack_bf16(__expf(s[2 * kk][0] - m0) * inv0,
-                                __expf(s[2 * kk][1] - m0) * inv0);
-              pa[1] = pack_bf16(__expf(s[2 * kk][2] - m1) * inv1,
-                                __expf(s[2 * kk][3] - m1) * inv1);
-              pa[2] = pack_bf16(__expf(s[2 * kk + 1][0] - m0) * inv0,
-                                __expf(s[2 * kk + 1][1] - m0) * inv0);
-              pa[3] = pack_bf16(__expf(s[2 * kk + 1][2] - m1) * inv1,
-                                __expf(s[2 * kk + 1][3] - m1) * inv1);
-              const bf16* vrow = v_s + (key0 + r + ((mi & 1) << 3)) * RS + ((mi >> 1) << 3);
+        for (int kk = 0; kk < 4; ++kk) {
+          const int key0 = c * kChunk + 16 * kk;
+          if (key0 < Lkp) {
+            uint32_t pa[4];
+            pa[0] = pack_bf16(s[2 * kk][0] * inv0, s[2 * kk][1] * inv0);
+            pa[1] = pack_bf16(s[2 * kk][2] * inv1, s[2 * kk][3] * inv1);
+            pa[2] = pack_bf16(s[2 * kk + 1][0] * inv0, s[2 * kk + 1][1] * inv0);
+            pa[3] = pack_bf16(s[2 * kk + 1][2] * inv1, s[2 * kk + 1][3] * inv1);
+            const bf16* vrow = v_s + (key0 + r + ((mi & 1) << 3)) * RS + ((mi >> 1) << 3);
+            uint32_t vb[OT][4];  // the step's V fragments, all loaded before its products
 #pragma unroll
-              for (int dp = 0; dp < OT; ++dp) {
-                if (d0 + dp < HDK) {
-                  uint32_t vb[4];
-                  ldmatrix_x4_trans(vb, vrow + 16 * (d0 + dp));
-                  mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-                  mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
-                }
+            for (int dp = 0; dp < OT; ++dp)
+              if (d0 + dp < HDK) ldmatrix_x4_trans(vb[dp], vrow + 16 * (d0 + dp));
+#pragma unroll
+            for (int dp = 0; dp < OT; ++dp) {
+              if (d0 + dp < HDK) {
+                mma_bf16(o[2 * dp], pa, vb[dp][0], vb[dp][1]);
+                mma_bf16(o[2 * dp + 1], pa, vb[dp][2], vb[dp][3]);
               }
             }
           }
         }
+      }
+
+      // rows g and g + 8 of the tile.  Where the head dim, the row stride and
+      // the address allow, lanes t and t ^ 1 swap a pair of bf16 so that each
+      // lane stores 4 columns (8 bytes) of tile d (even t) or d + 1 (odd t),
+      // and a store instruction writes whole 32-byte sectors of every row;
+      // else a lane stores its columns one at a time
+      const View ov = n ? b1.out : b0.out;
+      bf16* out = static_cast<bf16*>(const_cast<void*>(ov.p)) + b * ov.sb + h * ov.sh;
+      const bool quads = ((hd | ov.sl) & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
 #pragma unroll
-        for (int d = 0; d < 2 * OT; ++d) {
-          const int col = 16 * d0 + 8 * d + 2 * t;
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 16 * tile + g + 8 * half;
+        bf16* dst = out + row * ov.sl + 16 * d0;
+        if (quads) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = e < 2 ? ra : rb;
-            if (row < Lq && col + (e & 1) < hd)
-              out[row * B_.out.sl + col + (e & 1)] = __float2bfloat16(o[d][e]);
+          for (int d = 0; d < 2 * OT; d += 2) {
+            const uint32_t a = pack_bf16(o[d][2 * half], o[d][2 * half + 1]);
+            const uint32_t c = pack_bf16(o[d + 1][2 * half], o[d + 1][2 * half + 1]);
+            const uint32_t got = __shfl_xor_sync(0xffffffffu, t & 1 ? a : c, 1);
+            const int col = 8 * d + (t & 1 ? 8 + 2 * (t - 1) : 2 * t);
+            if (row < Lq && 16 * d0 + col < hd)
+              *reinterpret_cast<uint2*>(dst + col) =
+                  t & 1 ? make_uint2(got, c) : make_uint2(a, got);
+          }
+        } else if (row < Lq) {
+#pragma unroll
+          for (int d = 0; d < 2 * OT; ++d) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * d + 2 * t + e;
+              if (16 * d0 + col < hd) dst[col] = __float2bfloat16(o[d][2 * half + e]);
+            }
           }
         }
       }
     }
-    __syncwarp();  // every lane is done with q_s before the next tile overwrites it
   }
 }
 
@@ -473,7 +663,7 @@ __device__ __forceinline__ void tf32_scores(float (&s)[8][4],
 // come from the warp's staged Q tile and the outputs go in NPASS passes of
 // OT 8-column tiles.
 template <int HD8>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kTfWarps * 32)
     attention_tf32(View qv, Branch b0, Branch b1, int nbranch, int H, int Lq, int hd,
                    float scale, int mode, int kv_rows, int ss) {
   constexpr bool QR = HD8 <= kTfQRegs;
@@ -1325,17 +1515,36 @@ int launch_tf32(View q, Branch b0, Branch b1, int nbranch, int B, int H, int Lq,
   return (int)cudaGetLastError();
 }
 
+// attention_mma's plan, computed by kernels/attention.py::attention_bf16_plan:
+// warps a block, query rows a round (a multiple of 16), shared memory.
+struct MmaPlan {
+  int nwarp, round_rows;
+  size_t bytes;
+};
+
 template <int HDK>
 int launch_mma(View q, Branch b0, Branch b1, int nbranch, int B, int H, int Lq, int hd,
-               float scale, cudaStream_t stream) {
-  constexpr int RS = 16 * HDK + 8;
-  const int nwarp = min(kMaxWarps, (Lq + 15) / 16);
-  size_t elems = (size_t)nwarp * 16 * (RS + kMaskRS) + 2 * (size_t)((b0.Lk + 15) & ~15) * RS;
-  if (nbranch == 2) elems += 2 * (size_t)((b1.Lk + 15) & ~15) * RS;
-  const size_t bytes = elems * sizeof(bf16);
-  cudaError_t err = allow_smem(attention_mma<HDK>, bytes);
+               float scale, const MmaPlan& plan, cudaStream_t stream) {
+  if (plan.nwarp < 1 || plan.nwarp > MmaBody<HDK>::kWarps || plan.round_rows < 16 ||
+      plan.round_rows % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(attention_mma<HDK>, plan.bytes);
   if (err != cudaSuccess) return (int)err;
-  attention_mma<HDK><<<B * H, nwarp * 32, bytes, stream>>>(q, b0, b1, nbranch, H, Lq, hd, scale);
+  // behind the mask-bits pass, a programmatic dependent launch: the blocks
+  // stage K and V while the pass ends, and wait for its bits (griddepcontrol)
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(B * H);
+  config.blockDim = dim3(plan.nwarp * 32);
+  config.dynamicSmemBytes = plan.bytes;
+  config.stream = stream;
+  cudaLaunchAttribute after[1];
+  after[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  after[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = after;
+  config.numAttrs = b0.bits || (nbranch == 2 && b1.bits) ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, attention_mma<HDK>, q, b0, b1, nbranch, H, Lq, hd, scale,
+                           plan.round_rows);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -1351,23 +1560,32 @@ int launch_attention(int dtype, View q, Branch b0, Branch b1, int nbranch, int B
                         : launch_tf32<32>;
     return launch(q, b0, b1, nbranch, B, H, Lq, hd, scale, plan, stream);
   }
+  const MmaPlan mma{plan.nwarp, plan.kv_rows, plan.bytes};
+  for (int n = 0; n < nbranch; ++n) {
+    const Branch& br = n ? b1 : b0;
+    if (!br.bits) continue;
+    const long long bytes = (long long)B * Lq * ((br.Lk + kChunk - 1) / kChunk) * 8;
+    mask_bits_kernel<<<(unsigned)((bytes + 255) / 256), 256, 0, stream>>>(
+        static_cast<const bf16*>(br.mask), br.bits, (long long)B * Lq, br.Lk,
+        (br.Lk + kChunk - 1) / kChunk);
+  }
   switch ((hd + 15) / 16) {
-    case 1: return launch_mma<1>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 2: return launch_mma<2>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 3: return launch_mma<3>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 4: return launch_mma<4>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 5: return launch_mma<5>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 6: return launch_mma<6>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 7: return launch_mma<7>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 8: return launch_mma<8>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 9: return launch_mma<9>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 10: return launch_mma<10>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 11: return launch_mma<11>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 12: return launch_mma<12>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 13: return launch_mma<13>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 14: return launch_mma<14>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 15: return launch_mma<15>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
-    case 16: return launch_mma<16>(q, b0, b1, nbranch, B, H, Lq, hd, scale, stream);
+    case 1: return launch_mma<1>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 2: return launch_mma<2>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 3: return launch_mma<3>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 4: return launch_mma<4>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 5: return launch_mma<5>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 6: return launch_mma<6>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 7: return launch_mma<7>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 8: return launch_mma<8>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 9: return launch_mma<9>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 10: return launch_mma<10>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 11: return launch_mma<11>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 12: return launch_mma<12>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 13: return launch_mma<13>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 14: return launch_mma<14>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 15: return launch_mma<15>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
+    case 16: return launch_mma<16>(q, b0, b1, nbranch, B, H, Lq, hd, scale, mma, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1408,18 +1626,21 @@ int launch_cq_plan(const void* c, const void* q, const void* w4c, const void* w4
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  mode, nwarp,
 // kv_rows, ss and shared_bytes are the f32 body's plan
-// (kernels/attention.py::attention_f32_plan); the bf16 body ignores them.
+// (kernels/attention.py::attention_f32_plan); the bf16 body reads nwarp,
+// kv_rows as its query rows a round and shared_bytes
+// (kernels/attention.py::attention_bf16_plan), mode and ss are 0.
 extern "C" int vmr_masked_attention(int dtype, const void* q, long long q_sb, long long q_sh,
                                     long long q_sl, const void* k, long long k_sb,
                                     long long k_sh, long long k_sl, const void* v,
                                     long long v_sb, long long v_sh, long long v_sl,
-                                    const void* mask, void* out, long long o_sb, long long o_sh,
+                                    const void* mask, void* bits, void* out, long long o_sb,
+                                    long long o_sh,
                                     long long o_sl, int B, int H, int Lq, int Lk, int hd,
                                     float scale, int mode, int nwarp, int kv_rows, int ss,
                                     long long shared_bytes, void* stream) {
   const View qv{q, q_sb, q_sh, q_sl};
   const Branch b0{{k, k_sb, k_sh, k_sl}, {v, v_sb, v_sh, v_sl}, {out, o_sb, o_sh, o_sl}, mask,
-                  Lk};
+                  Lk, static_cast<uint64_t*>(bits)};
   return launch_attention(dtype, qv, b0, b0, 1, B, H, Lq, hd, scale,
                           {mode, nwarp, kv_rows, ss, (size_t)shared_bytes},
                           static_cast<cudaStream_t>(stream));
@@ -1432,16 +1653,17 @@ extern "C" int vmr_dual_attention(int dtype, const void* q, long long q_sb, long
                                   const void* tk, long long tk_sb, long long tk_sh,
                                   long long tk_sl, const void* tv, long long tv_sb,
                                   long long tv_sh, long long tv_sl, const void* s_mask,
-                                  const void* x_mask, void* s_out, long long so_sb,
+                                  const void* x_mask, void* s_bits, void* x_bits, void* s_out,
+                                  long long so_sb,
                                   long long so_sh, long long so_sl, void* x_out, long long xo_sb,
                                   long long xo_sh, long long xo_sl, int B, int H, int L, int M,
                                   int hd, float scale, int mode, int nwarp, int kv_rows, int ss,
                                   long long shared_bytes, void* stream) {
   const View qv{q, q_sb, q_sh, q_sl};
   const Branch self{{fk, fk_sb, fk_sh, fk_sl}, {fv, fv_sb, fv_sh, fv_sl},
-                    {s_out, so_sb, so_sh, so_sl}, s_mask, L};
+                    {s_out, so_sb, so_sh, so_sl}, s_mask, L, static_cast<uint64_t*>(s_bits)};
   const Branch cross{{tk, tk_sb, tk_sh, tk_sl}, {tv, tv_sb, tv_sh, tv_sl},
-                     {x_out, xo_sb, xo_sh, xo_sl}, x_mask, M};
+                     {x_out, xo_sb, xo_sh, xo_sl}, x_mask, M, static_cast<uint64_t*>(x_bits)};
   return launch_attention(dtype, qv, self, cross, 2, B, H, L, hd, scale,
                           {mode, nwarp, kv_rows, ss, (size_t)shared_bytes},
                           static_cast<cudaStream_t>(stream));

@@ -80,8 +80,8 @@ def _median_ms(fn, reps: int):
 
 
 # device names of the hand-written kernels' bodies (csrc/*.cu)
-HAND_WRITTEN = ("attention_mma", "attention_tf32", "cq_kernel", "stack_kernel", "banded_",
-                "dq_mma", "dq_tf32", "dkv_mma", "dkv_tf32")
+HAND_WRITTEN = ("attention_mma", "attention_tf32", "mask_bits_kernel", "cq_kernel",
+                "stack_kernel", "banded_", "dq_mma", "dq_tf32", "dkv_mma", "dkv_tf32")
 
 
 def _device_profile(step, steps: int, ops: bool = False, device: str = "cuda") -> dict:
