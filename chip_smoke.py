@@ -16,8 +16,9 @@ Phases, in order; any failure exits non-zero:
    short ragged pair (13 video, 5 text positions), at ANet and TACoS video
    lengths (100 and 256 against 30 text positions, batch 128), on a
    ragged pair past its 64-row tiles (3, 129 video, 65 text) and with 8
-   heads of 16 (3, 64 video, 30 text), every leaf of its weight stacks
-   random; the
+   heads of 16 (3, 64 video, 30 text), and at D 256, 384 and 512 (batch
+   128 with 4 heads, batch 3 with 8: head dims 64, 96, 128 and 32, 48, 64),
+   every leaf of its weight stacks random; the
    banded kernel at the shapes ActionFormer's long config gives it (B=8, 4
    heads of 128, window 19, T = 2304, 1152, 576), a ragged T=1000 and T=300
    (padded length equal to its key window), on head-split views of one
@@ -32,13 +33,16 @@ Phases, in order; any failure exits non-zero:
    outside the means; the
    banded forward (#5) in f32 at the training batch (2) as its f32 time.  The
    whole-stack kernel (#4) in bf16 and f32, and beside it the module path's
-   time for the same stack (4 ``DualAttentionBlock`` calls through kernel #2).
+   time for the same stack (4 ``DualAttentionBlock`` calls through kernel #2);
+   the same at D 256, 384 and 512 as extra rows, beside their bound.
 4b. profile: the profiling and roofline tools at one or two reps on
    SeqPAN at Charades width, before any other phase runs the profiler:
    ``ops/chunked.py`` at B 512 in chunks of 256, f32, against the direct
    call (logits within 1e-4, spans equal);
    ``tools/roofline.py``'s probes (streaming rate at 64 KiB-1 GiB, launch
-   overhead, chain rate) and its measured-over-floor row at B 128;
+   overhead, chain rate; a probe the profiler saw nothing of in its passes
+   is timed by CUDA events and named in ``timed_by_cuda_events``) and its
+   measured-over-floor row at B 128;
    ``tools/trace_profile.py`` of the bf16 eval step at B 128 (2/4/2
    launches of #1/#2/#3 a step; the operations' device times summing to the
    busy time within 5%); ``tools/roofline_trace.py`` on the two (no
@@ -86,6 +90,10 @@ Phases, in order; any failure exits non-zero:
    kernel on the card against its plain version on the CPU).
 12b. verify-stack-long: phase 6b with the flag set: SeqPAN at TACoS width
    (vlen 256), f32, card against CPU; exactly 1 launch of #4 and 0 of #2.
+12c. verify-stack-wide: SeqPAN at D 512 (4 heads of 128; Charades lengths,
+   batch 128) with the flag set: one bf16 eval forward on the card launches
+   1/0/2/2 of stack/dual/CQ/masked, and one f32 forward matches the CPU's
+   plain path (``TOL_MODEL_F32``), 1/0/2/2 too.
 13. serve-router: SeqPAN and BackBone (flag set) and BaseFast at full
    Charades width, bf16, behind one ``ModelRouter`` over real HTTP: a burst
    on each route with that route's launch counts (1/0/2/2, 1/0/2/2, 0/0/2/2
@@ -196,8 +204,10 @@ Phases, in order; any failure exits non-zero:
    CPU within 1e-5.
 28. repairs: the bf16 forward against the f32 forward on the card of
    BackBoneActionFormer and of SeqPAN with the stack's flag off (4 launches
-   of #2 in its bf16 forward), and one case just past each
-   kernel's limit (#4 at D 256, #5 at head dim 192, #3 at Lc 1025, #1 at
+   of #2 in its bf16 forward), a flag-on BackBone at D 640, past #4's
+   limit, whose forward on the card raises the wrapper's ``ValueError``,
+   and one case just past each other
+   kernel's limit (#5 at head dim 192, #3 at Lc 1025, #1 at
    head dim 264): the plain route, no launch, the CPU's values; then BAN's
    long config in bf16 (its LSTMs in the input's type): served (64
    requests), its forward's outputs bf16, 3 bf16 train steps with finite
@@ -290,7 +300,8 @@ from vmrframe_tpu_torch.tools.bench_kernels import (  # the kernel table's input
     AF_LAUNCHES, ATTENTION, B, B_AF, B_TRAIN, BWD_KERNELS, D, H, HBM_BYTES_PER_S, LT, LV,
     LV_ANET, LV_LONG, REPLACES, SOURCE_OF, SOURCES, STACK, WINDOW, as_tuple, band_mask,
     banded_bwd_cases, banded_cases, bound_ms, card_line, cast_args, device_ms, functions,
-    split_heads, stack_cases, table_cases, time_kernels, time_module_path)
+    split_heads, stack_cases, table_cases, time_kernels, time_module_path, time_wide_stack,
+    wide_stack_cases)
 
 TOL_F32 = 1e-4  # f32 sums taken in another order, expf against torch.exp
 BF16_ULPS = 2.0 ** -6  # bf16 check: 2-4 ulps of the output's largest magnitude
@@ -311,6 +322,7 @@ N_ROUTE_STEPS = N_TIMED_STEPS // 4  # the pipeline phase's fed steps, on each of
 # kernel's 64-row tiles (TACoS length: long_cases)
 STACK_CHECK_SHAPES = ((B, LV, LT), (3, LV, LT), (2, 13, 5), (B, LV_ANET, LT), (3, 129, 65))
 STACK_CHECK_HEADS = 8  # one more check case at Charades lengths: 8 heads of 16
+WIDE_DIM = 512  # verify-stack-wide: SeqPAN at the widest D #4 takes, 4 heads of 128
 # calls queued per timed repetition of the stack's plain version and module
 # path: each is hundreds of small launches, and more than the host can queue
 # during the sleep kernel would time the host, not the card
@@ -548,6 +560,40 @@ def phase_verify_long(fused: bool = False) -> dict:
     derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
     return phase_verify(cfg, derived, dataset, store,
                         "verify-stack-long" if fused else "verify-long")
+
+
+def phase_verify_wide() -> dict:
+    """SeqPAN at D ``WIDE_DIM`` (4 heads of 128; Charades lengths, batch
+    ``B``) with the stack's flag set: one bf16 eval forward on the card (the
+    serving policy) launches #4 once, #2 never, #3 and #1 twice, with finite
+    logits; then phase_verify's f32 forward against the CPU's plain path."""
+    from vmrframe_tpu_torch.config import Derived
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.kernels import attention as K
+    from vmrframe_tpu_torch.kernels import dual_stack as S
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+    from vmrframe_tpu_torch.tools.serve import make_cfg
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+
+    phase = "verify-stack-wide"
+    cfg = make_cfg(dim=WIDE_DIM, fused_dual_stack=True)
+    dataset, store = make_synthetic_data(cfg, seed=0, n_train=B, n_test=B)
+    derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
+    batch = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B)))
+    ev = Evaluator(cfg, derived, dataset["word_vector"], device="cuda", seed=0)
+    kernels = K.KERNELS + S.KERNELS
+    zero_counts(kernels)
+    out = ev.forward(ev.to_device(batch))
+    torch.cuda.synchronize()
+    got = {fn.__name__: fn.launches for fn in kernels}
+    log(f"[{phase}] one {cfg.train.compute_dtype} eval forward at D {WIDE_DIM}: launches "
+        f"{json.dumps(got)}")
+    if got != SERVE_LAUNCHES[True]:
+        raise SmokeFailure(f"{phase}: launches {got}, want {SERVE_LAUNCHES[True]}")
+    if not all(torch.isfinite(out[k].float()).all() for k in ("slogits", "elogits")):
+        raise SmokeFailure(f"{phase}: the bf16 logits are not finite")
+    del ev
+    return {**phase_verify(cfg, derived, dataset, store, phase), "bf16_launches": got}
 
 
 def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict,
@@ -2765,13 +2811,16 @@ def phase_repairs(kernels, card: str) -> dict:
     scales lifted (``testing.lift_drop_path``; SeqPAN has none): each
     logit's largest distance beside its largest f32 magnitude and the bf16
     forward's launches, printed, and held to finiteness only.  Then one
-    case just past each kernel's limit (``testing.past_limit_cases``: #4 at
-    D 256, #5 at head dim 192, #3 at a 1025-position context, #1 at head
-    dim 264), f32: no launch of that kernel, and the CPU's values within
-    ``TOL_F32``."""
+    case just past each kernel's limit (``testing.past_limit_cases``: #5 at
+    head dim 192, #3 at a 1025-position context, #1 at head dim 264), f32:
+    no launch of that kernel, and the CPU's values within ``TOL_F32``; #4
+    past its limit (``testing.stack_past_limit_case``: a flag-on BackBone
+    at D 640) raises the wrapper's ``ValueError`` with no launch."""
     from vmrframe_tpu_torch.config import Derived, load_config
     from vmrframe_tpu_torch.data.batcher import Batcher
-    from vmrframe_tpu_torch.testing import lift_drop_path, make_synthetic_data, past_limit_cases
+    from vmrframe_tpu_torch.kernels import dual_stack as S
+    from vmrframe_tpu_torch.testing import (lift_drop_path, make_synthetic_data, past_limit_cases,
+                                            stack_past_limit_case)
     from vmrframe_tpu_torch.train.evaluator import Evaluator
 
     stats = {}
@@ -2805,6 +2854,21 @@ def phase_repairs(kernels, card: str) -> dict:
                      for x in xs)
 
     first = lambda o: o[0] if isinstance(o, tuple) else o  # noqa: E731
+    model, batch = stack_past_limit_case()
+    zero_counts(kernels)
+    try:
+        with torch.no_grad():
+            model.cuda()(move((batch,), "cuda")[0])
+        message = None
+    except ValueError as e:
+        message = str(e)
+    ok = message is not None and "the kernel takes D in" in message and \
+        S.dual_attention_stack.launches == 0
+    log(f"[repairs] flag-on BackBone at D 640 on the card: {message!r}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure("repairs: #4 past its limit did not raise the wrapper's ValueError")
+    stats["dual_attention_stack D=640"] = {"raises": message}
+    del model
     for name, (kernel, module, inputs) in past_limit_cases().items():
         with torch.no_grad():
             want = module(*inputs)
@@ -2905,7 +2969,12 @@ def phase_profile(kernels, card: str) -> dict:
                        "hbm_largest_bytes_per_s": probes["hbm"]["largest_buffer_bytes_per_s"],
                        "launch_ms": probes["launch"]["ms_per_kernel"],
                        "chain_bytes_per_s": probes["chain"]["best_bytes_per_s"],
-                       "points": probes["hbm"]["points"]}
+                       "points": probes["hbm"]["points"],
+                       # the probes the profiler saw nothing of, timed by CUDA events
+                       "timed_by_cuda_events": [
+                           f"{kind} of {size} bytes"
+                           for size, rates in probes["hbm"]["by_buffer_size"].items()
+                           for kind, rate in rates.items() if rate["timer"] != "profiler"]}
     stats["roofline"] = roofline.roofline_row(128, probes, "cuda", steps=5, reps=1)
     log(f"[profile] roofline probes {json.dumps(stats['probes'])}; SeqPAN eval B 128 "
         f"{json.dumps(stats['roofline'])}, on {card}")
@@ -2917,7 +2986,8 @@ def phase_profile(kernels, card: str) -> dict:
     busy, ops_ms = trace["device_busy_ms_per_step"], trace["ops_ms_per_step"]
     rt = roofline_trace.decompose(trace, probes["hbm"])
     stats["trace"] = {k: trace[k] for k in ("step_ms", "device_busy_ms_per_step",
-                                            "device_ops_per_step", "ops_ms_per_step",
+                                            "device_ops_per_step", "profile_passes",
+                                            "ops_ms_per_step",
                                             "by_category", "kernel_launches_per_step")}
     stats["trace"]["top_sinks"] = trace_profile.top_sinks({"rows": trace["rows"]})
     stats["roofline_trace"] = {k: v for k, v in rt.items() if k not in ("groups", "unjoined")}
@@ -2981,6 +3051,10 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     time_cases, weights, long_cases, f32_cases, sentence_cases, blocks = table_cases(g)
     cases = {name: time_cases[name] for name in ATTENTION + (STACK,)}
+    wide = wide_stack_cases(g)  # #4 at D 256, 384, 512: 4 heads at Charades lengths
+    wide_check = [case for _, case in wide.values()] + [
+        case + (STACK_CHECK_HEADS,) for blocks, _ in wide.values()
+        for case in stack_cases(g, blocks, ((3, LV, LT),))]
     odd_hd = lambda make: [c for hd in AF_CHECK_HD for c in make(hd)]  # noqa: E731
     check_cases = {**cases, **{name: cases[name] + long_cases[name] + sentence_cases[name]
                                for name in ATTENTION},
@@ -2988,7 +3062,7 @@ def main() -> int:
                    + odd_hd(lambda hd: banded_cases(g, (1000,), hd=hd)),
                    STACK: cases[STACK] + stack_cases(g, blocks, STACK_CHECK_SHAPES[1:])
                    + long_cases[STACK] + [case + (STACK_CHECK_HEADS,) for case in stack_cases(
-                       g, blocks, ((3, LV, LT),))]}
+                       g, blocks, ((3, LV, LT),))] + wide_check}
     bwd_check = banded_bwd_cases(g, AF_CHECK_T) + odd_hd(
         lambda hd: banded_bwd_cases(g, (1000,), hd))
     for name in BWD_KERNELS:  # the two backward kernels share their cases
@@ -3012,8 +3086,10 @@ def main() -> int:
         check_cases[name] = cases[name]
     for name in ("banded_attention",) + BWD_KERNELS:
         check_cases[name] = check_cases[name][:len(AF_CHECK_T)]
-    del long_cases, f32_cases, bwd_check, sentence_cases
+    del long_cases, f32_cases, bwd_check, sentence_cases, wide_check
     time_module_path(blocks, cases[STACK][0], record["time"], card)
+    time_wide_stack(fns, wide, record["time"], card)
+    del wide
     # the profiling tools before the serve phases, in a process whose
     # profiler has recorded nothing yet
     record["profile"] = phase("profile", phase_profile, kernels, card)
@@ -3032,6 +3108,7 @@ def main() -> int:
     record["verify_stack"] = phase("verify-stack", phase_verify, cfg_stack, derived, dataset,
                                    store, "verify-stack")
     record["verify_stack_long"] = phase("verify-stack-long", phase_verify_long, True)
+    record["verify_stack_wide"] = phase("verify-stack-wide", phase_verify_wide)
     record["serve_router"] = phase("serve-router", phase_serve_router, kernels, card)
     record["train_seqpan"] = phase("train-SeqPAN", phase_train_seqpan, K, S, card)
     record["verify_train_seqpan"] = phase("verify-train-SeqPAN", phase_verify_train_seqpan, K, S)
@@ -3121,6 +3198,12 @@ def main() -> int:
             for key in ("serve_cca", "train_cca", "serve_cpl", "train_cpl")}
         if "module_path_ms" in t:  # the other route to the same result, not a library call
             out[-1]["module_path_ms"] = t["module_path_ms"]
+        if name == STACK:  # D 256, 384, 512 at Charades lengths, outside the means
+            out[-1]["wide_shapes"] = {
+                k: [{"shape": r["shape"], "ms": r["ms"]["median"], "bound_ms": r["bound_ms"],
+                     "module_path_ms": r["module_path_ms"]}
+                    for r in record["time"][name][k]["wide_shapes"]]
+                for k in ("bf16", "f32")}
         if name in ATTENTION:  # TACoS width and the sentence variants' shapes, outside the means
             for extra in ("long_shapes", "sentence_shapes"):
                 out[-1][extra] = {

@@ -9,7 +9,9 @@
   and lies inside their tile's K_WIN slice; and the schedule emulated in
   torch (span keys only, plus the padding-row rule) equals
   ``banded_attention_plain`` on every row at 1e-6, padding rows included;
-- ``kernels/build.py`` names a library by its source and its headers.
+- ``kernels/build.py`` names a library by its source and its headers (a
+  library of several parts by every part and the headers their headers
+  include).
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -144,3 +146,56 @@ def test_library_name_hashes_the_headers_a_source_includes(tmp_path, monkeypatch
     (tmp_path / "h.cuh").write_text("// two\n")
     assert build.library_path("k") != first
     assert build.library_path("k").parent == build.BUILD_DIR
+
+
+def test_library_name_hashes_every_part_and_the_headers_headers_include(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\nint x;\n')
+    (tmp_path / "k_2.cu").write_text('#include "h.cuh"\nint y;\n')
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "PARTS", {"k": ("k", "k_2")})
+    first = build.library_path("k")
+    (tmp_path / "g.cuh").write_text("// two\n")  # included by a header
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "k_2.cu").write_text('#include "h.cuh"\nint z;\n')  # a part that is not first
+    assert build.library_path("k") not in (first, second)
+    assert build.library_path("k").name.startswith("libk-")
+
+
+_FAKE_NVCC = """#!/usr/bin/env python3
+import subprocess, sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+inputs = [a for a in args if a.endswith((".cu", ".o")) and a != out]
+print("ptxas info    : Used 1 registers (" + " ".join(inputs) + ")")
+cu = ["-x", "c++"] if any(a.endswith(".cu") for a in inputs) else []
+mode = ["-c"] if "-c" in args else ["-shared"]
+sys.exit(subprocess.call(["g++", "-fPIC", *mode, "-o", out, *cu, *inputs]))
+"""
+
+
+def test_build_all_compiles_the_parts_apart_and_links_them(tmp_path, monkeypatch):
+    """A library of two parts (a C++ compiler in nvcc's place, which this
+    machine lacks): each part compiled to an object, linked into one
+    library whose entry calls the other part; both reports in its log; no
+    object left behind."""
+    import ctypes
+
+    fake = tmp_path / "nvcc"
+    fake.write_text(_FAKE_NVCC)
+    fake.chmod(0o755)
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text('extern "C" int part();\nextern "C" int entry() { return 40 + part(); }\n')
+    (src / "k_2.cu").write_text('extern "C" int part() { return 2; }\n')
+    monkeypatch.setattr(build, "CSRC", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "PARTS", {"k": ("k", "k_2")})
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    lib = build.build_all(["k"])["k"]
+    assert ctypes.CDLL(str(lib)).entry() == 42
+    log = lib.with_suffix(".log").read_text()
+    assert "k.cu" in log and "k_2.cu" in log and ".o" in log  # the parts, then the link
+    assert sorted(p.suffix for p in lib.parent.iterdir()) == [".log", ".so"]

@@ -17,6 +17,11 @@ and its weight stacks against the JAX package.
   port over the sample's own Lt rows, as the JAX MODULE path does; so that
   sample is held against the module path (1e-4, the modules' bar) and the
   other samples against the kernel;
+- the same at D 256 (4 heads, f32) and D 512 (8 heads, bf16), the widths
+  the kernel's wider instances take, on stacks made with numpy from a seed;
+- ``takes`` accepts every (D, H) the models' gate (``use_fused_stack``, the
+  JAX package's conditions) passes up to D 512 with head dims 4-128, and the
+  wrapper refuses D 640 and head dim 192 with a message that names the set;
 - the stacks of the port's ``DualAttentionBlock`` equal
   ``DualAttentionBlockParams.apply`` on the carried-over weights, exactly;
 - ``MultiHeadAttentionBlock`` against the flax module at 1e-4.
@@ -169,6 +174,81 @@ def test_empty_to_side_follows_the_module_path(blocks):
     np.testing.assert_allclose(got_v[1:].numpy(), np.asarray(want_v)[1:], atol=ATOL)
     np.testing.assert_allclose(got_t[1:].numpy(), np.asarray(want_t)[1:], atol=ATOL)
     assert np.abs(got_v[0].numpy() - np.asarray(want_v)[0]).max() > 1e-3
+
+
+def _np_stacks(rng, D):
+    """One layer's stacks at width D, every leaf random, as numpy arrays."""
+    ln = 0.1 * rng.standard_normal((6, D)).astype(np.float32)
+    ln[0::2] += 1.0  # the scales
+    return {"W": rng.standard_normal((14, D, D)).astype(np.float32) / np.sqrt(D),
+            "b": 0.1 * rng.standard_normal((14, D)).astype(np.float32), "ln": ln,
+            "xb": 0.1 * rng.standard_normal((2, D)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("D,H,dtype,B,Lv,Lt", [(256, 4, "f32", 3, 20, 9),
+                                               (512, 8, "bf16", 2, 12, 5)])
+def test_plain_matches_pallas_interpret_at_wider_d(D, H, dtype, B, Lv, Lt):
+    """The widths #4's wider instances take: f32 at ``ATOL`` on every row
+    (the last sample wholly padded), bf16 (features and W) at 2**-6 of the
+    largest output."""
+    rng = np.random.default_rng(D + H)
+    p1, p2 = _np_stacks(rng, D), _np_stacks(rng, D)
+    v = rng.standard_normal((B, Lv, D)).astype(np.float32)
+    t = rng.standard_normal((B, Lt, D)).astype(np.float32)
+    vlens, tlens = rng.integers(1, Lv + 1, B), rng.integers(1, Lt + 1, B)
+    vlens[-1] = tlens[-1] = 0
+    vm = (np.arange(Lv)[None] < vlens[:, None]).astype(np.float32)
+    tm = (np.arange(Lt)[None] < tlens[:, None]).astype(np.float32)
+    jd, td = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jp = lambda p: {k: jnp.asarray(x, jd if k == "W" else jnp.float32) for k, x in p.items()}  # noqa: E731
+    tp = lambda p: {k: _t(x, td if k == "W" else torch.float32) for k, x in p.items()}  # noqa: E731
+    want = j_stack(jnp.asarray(v, jd), jnp.asarray(t, jd), jnp.asarray(vm), jnp.asarray(tm),
+                   jp(p1), jp(p2), H, interpret=True)
+    with torch.no_grad():
+        got = S.dual_attention_stack(_t(v, td), _t(t, td), _t(vm), _t(tm), tp(p1), tp(p2), H)
+    for g, w in zip(got, want):
+        assert g.dtype == td and g.shape == w.shape
+        w = np.asarray(w.astype(jnp.float32))
+        tol = ATOL if dtype == "f32" else 2.0 ** -6 * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g.float().numpy(), w, atol=tol)
+
+
+def test_takes_every_width_the_gate_passes_up_to_512():
+    """The models' gate passes D a multiple of 128 and heads dividing D; the
+    kernel takes those of D <= 512 whose head dim is a multiple of 4 and at
+    most 128, and no other."""
+    from vmrframe_tpu_torch.models.common import use_fused_stack
+    from vmrframe_tpu_torch.tools.serve import make_cfg
+
+    for D in range(64, 1152, 64):
+        for H in (h for h in range(1, D + 1) if D % h == 0):
+            m = make_cfg(dim=D, fused_dual_stack=True).updated({"model.num_heads": H}).model
+            gate = use_fused_stack(m, deterministic=True)
+            hd = D // H
+            want = gate and D <= 512 and hd % 4 == 0 and hd <= 128
+            assert S.takes(torch.bfloat16, D, H, 64, 30) == want, (D, H)
+            assert S.takes(torch.float32, D, H, 1, 1) == want, (D, H)
+    assert set(S.KERNEL_WIDTHS) == {128, 256, 384, 512} and S.MAX_HEAD_DIM == 128
+    assert not S.takes(torch.float16, 256, 4, 64, 30) and not S.takes(torch.float32, 256, 4, 0, 3)
+
+
+@pytest.mark.parametrize("D,H", [(640, 4), (768, 4), (128, 64)])
+def test_wrapper_refuses_past_the_limit_naming_the_set(D, H):
+    """Off the CPU the wrapper holds the shapes to ``takes`` before it looks
+    for a card: D 640, head dim 192 (D 768, 4 heads) and head dim 2 raise
+    the ValueError that names the widths and head dims it takes (shown here
+    on meta tensors); D 128 at 1 head passes that check (and then wants a
+    card)."""
+    meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
+    p = {"W": meta(14, D, D), "b": meta(14, D), "ln": meta(6, D), "xb": meta(2, D)}
+    args = (meta(2, 16, D), meta(2, 8, D), meta(2, 16), meta(2, 8), p, p)
+    with pytest.raises(ValueError, match=r"the kernel takes D in \(128, 256, 384, 512\), a head "
+                                         r"dim that is a multiple of 4 and at most 128"):
+        S.dual_attention_stack(*args, H)
+    p1 = {"W": meta(14, 128, 128), "b": meta(14, 128), "ln": meta(6, 128), "xb": meta(2, 128)}
+    with pytest.raises(ValueError, match="on the CPU or a CUDA device"):
+        S.dual_attention_stack(meta(2, 16, 128), meta(2, 8, 128), meta(2, 16), meta(2, 8), p1,
+                               p1, 1)
 
 
 def test_wrapper_checks_shapes_on_any_device(blocks):

@@ -561,12 +561,71 @@ def test_dual_stack_kernel_with_an_empty_to_side_and_8_heads(cuda):
     _close(got, S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, 8), torch.float32)
 
 
+WIDE = (256, 384, 512)  # #4's wider instances
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Lv,Lt", [(3, 64, 30), (2, 256, 30), (2, 13, 5)])
+@pytest.mark.parametrize("H", [4, 8])
+@pytest.mark.parametrize("D", WIDE)
+def test_dual_stack_kernel_at_wider_d(cuda, D, H, B, Lv, Lt, dtype):
+    """#4 at D 256, 384 and 512 against its plain version on every row: 4
+    heads (head dims 64, 96, 128: a kernel of their own at each width) and 8
+    (32, 48, 64: the shared kernel, 48 padded to 64); Charades lengths (the
+    video side past a row tile of 32 or 16, its self attention in chunks
+    with its values in A), 256 video rows, and a short pair that each width
+    walks in one stage; sample 0 wholly masked."""
+    g = torch.Generator().manual_seed(D + H + Lv)
+    args = _stack_inputs(g, B, Lv, Lt, dtype, cuda, D=D, H=H)
+    before = S.dual_attention_stack.launches
+    got = S.dual_attention_stack(*args)
+    torch.cuda.synchronize()
+    assert S.dual_attention_stack.launches == before + 1
+    _close(got, S.dual_attention_stack_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", WIDE)
+def test_dual_stack_kernel_at_wider_d_with_an_empty_to_side(cuda, D, dtype):
+    """A valid video row facing a text side with no valid key, at each wider
+    width: the uniform average over that sample's own text rows, as the
+    plain version gives it."""
+    g = torch.Generator().manual_seed(D)
+    v, t, vm, tm, p1, p2, H = _stack_inputs(g, 3, 40, 20, dtype, cuda, D=D)
+    vm[1], tm[1] = 1.0, 0.0
+    got = S.dual_attention_stack(v, t, vm, tm, p1, p2, H)
+    torch.cuda.synchronize()
+    _close(got, S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, H), dtype)
+
+
+def test_dual_stack_takes_what_the_c_entry_takes(cuda):
+    """``takes`` and the C entry accept the same set: every head count of D
+    = 64-768 in steps of 64 that ``takes`` accepts runs (f32 and bf16,
+    against the plain version: every head dim of every width, those the
+    shared kernel pads among them); every other one the C entry refuses
+    with cudaErrorInvalidValue (1) before any launch."""
+    lib = S.load_kernels()
+    for D in range(64, 832, 64):
+        for H in (h for h in range(1, D + 1) if D % h == 0):
+            if not S.takes(torch.float32, D, H, 5, 3):
+                assert lib.vmr_dual_stack(0, *[None] * 12, 2, D, 5, 3, H, None) == 1, (D, H)
+                continue
+            for dtype in DTYPES:
+                g = torch.Generator().manual_seed(D * H)
+                args = _stack_inputs(g, 2, 5, 3, dtype, cuda, D=D, H=H)
+                got = S.dual_attention_stack(*args)
+                torch.cuda.synchronize()
+                _close(got, S.dual_attention_stack_plain(*args), dtype)
+    assert not S.takes(torch.float32, 128, 4, 0, 3)
+    assert lib.vmr_dual_stack(0, *[None] * 12, 2, 128, 0, 3, 4, None) == 1
+
+
 def test_dual_stack_attention_is_on_the_tensor_cores():
     """#4's attention runs on mma.sync in both bodies: the CUDA-core
     routines it replaced are gone from the source (no card needed)."""
     from pathlib import Path
 
-    src = (Path(S.__file__).parent / "csrc" / "dual_stack.cu").read_text()
+    src = (Path(S.__file__).parent / "csrc" / "dual_stack.cuh").read_text()  # the body
     for gone in ("attention_one", "attention_chunked", "task_scores", "task_pv"):
         assert gone not in src, gone
     for used in ("scores_bf16", "scores_tf32", "mma_bf16(", "mma_3xtf32<"):
@@ -574,22 +633,28 @@ def test_dual_stack_attention_is_on_the_tensor_cores():
 
 
 def test_dual_stack_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    """Either side of the limit: D 640, head dim 192 (D 768, 4 heads) and
+    head dim 2 raise the ValueError that names the set, D 128 at 1 head
+    (head dim 128) runs; f16 and mixed types raise too."""
     g = torch.Generator().manual_seed(8)
     v, t, vm, tm, p1, p2, H = _stack_inputs(g, 2, 16, 8, torch.float32, cuda)
     before = S.dual_attention_stack.launches
-    with pytest.raises(ValueError, match="the kernel takes"):  # head dim 2
+    with pytest.raises(ValueError, match="the kernel takes D in"):  # head dim 2
         S.dual_attention_stack(v, t, vm, tm, p1, p2, 64)
-    with pytest.raises(ValueError, match="the kernel takes"):  # D = 256
-        wide = {k: torch.zeros(*(256 if d == 128 else d for d in x.shape), device=cuda)
-                for k, x in p1.items()}
-        S.dual_attention_stack(torch.zeros(2, 16, 256, device=cuda),
-                               torch.zeros(2, 8, 256, device=cuda), vm, tm, wide, wide, H)
+    for D in (640, 768):  # D past the set; head dim 192
+        with pytest.raises(ValueError, match=r"the kernel takes D in \(128, 256, 384, 512\)"):
+            wide = {k: torch.zeros(*(D if d == 128 else d for d in x.shape), device=cuda)
+                    for k, x in p1.items()}
+            S.dual_attention_stack(torch.zeros(2, 16, D, device=cuda),
+                                   torch.zeros(2, 8, D, device=cuda), vm, tm, wide, wide, H)
     with pytest.raises(TypeError):
         half = {k: x.half() for k, x in p1.items()}
         S.dual_attention_stack(v.half(), t.half(), vm, tm, half, half, H)
     with pytest.raises(ValueError, match="share"):
         S.dual_attention_stack(v, t, vm, tm, {**p1, "W": p1["W"].bfloat16()}, p2, H)
     assert S.dual_attention_stack.launches == before
+    S.dual_attention_stack(v, t, vm, tm, p1, p2, 1)  # head dim 128: the edge it takes
+    assert S.dual_attention_stack.launches == before + 1
 
 
 def test_family_forward_with_the_fused_stack_matches_plain_on_cpu(cuda):
@@ -621,6 +686,49 @@ def test_family_forward_with_the_fused_stack_matches_plain_on_cpu(cuda):
             for key in ("slogits", "elogits"):
                 torch.testing.assert_close(outs[0][key].cpu(), other[key].cpu(), rtol=0,
                                            atol=1e-3)
+
+
+def test_seqpan_flag_on_at_d256_launches_the_stack(cuda):
+    """SeqPAN at D 256 with ``model.fused_dual_stack`` set: #4 once and #2
+    never per eval forward on the card (until now the plain stack ran
+    there), and the CPU's plain path's logits within 1e-3 (f32)."""
+    from vmrframe_tpu_torch.config import Derived
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+    from vmrframe_tpu_torch.tools.serve import make_cfg
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+
+    cfg = make_cfg(vlen=40, tlen=12, vdim=64, dim=256, batch_size=8, compute_dtype="float32",
+                   fused_dual_stack=True)
+    ds, store = make_synthetic_data(cfg, seed=0, n_train=8, n_test=8)
+    der = Derived(num_words=ds["n_words"], num_chars=ds["n_chars"])
+    batch = Batcher(ds["test_set"], store, cfg, der).make_batch(list(range(6)))
+    counted = (S.dual_attention_stack, K.fused_dual_attention)
+    outs = []
+    for device, want in ((cuda, [1, 0]), ("cpu", [0, 0])):
+        before = [fn.launches for fn in counted]
+        ev = Evaluator(cfg, der, ds["word_vector"], device=device, seed=0)
+        outs.append(ev.forward(ev.to_device(batch)))
+        assert [fn.launches - b for fn, b in zip(counted, before)] == want
+    for key in ("slogits", "elogits"):
+        torch.testing.assert_close(outs[0][key].cpu(), outs[1][key], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dim,heads", [(640, 4), (768, 4)])
+def test_flag_on_past_the_stack_limit_raises(cuda, dim, heads):
+    """A flag-on BackBone the gate passes (D a multiple of 128) at a width
+    #4 does not take (D 640; head dim 192 at D 768) raises the wrapper's
+    ValueError on the card, where the plain stack used to run without a
+    word; on the CPU the plain stack runs."""
+    from vmrframe_tpu_torch.testing import stack_past_limit_case
+
+    model, batch = stack_past_limit_case(dim, heads)
+    with torch.no_grad():
+        assert torch.isfinite(model(batch)["slogits"]).all()
+        before = S.dual_attention_stack.launches
+        with pytest.raises(ValueError, match="the kernel takes D in"):
+            model.to(cuda)({k: v.to(cuda) for k, v in batch.items()})
+    assert S.dual_attention_stack.launches == before
 
 
 # --------------------------------------- the train route's Functions of #1-#3
@@ -786,9 +894,10 @@ def test_input_pipeline_augments_on_the_card_keeping_the_gt(cuda, mode):
 
 
 def test_gates_route_past_each_limit_to_the_plain_version(cuda):
-    """Just past each kernel's limit (#4 at D 256, #5 at head dim 192, #3 at
-    a 1025-position context, #1 at head dim 264) the models' gates take the
-    plain route on the card: no launch, and the CPU's values (f32, 1e-4)."""
+    """Just past each kernel's limit (#5 at head dim 192, #3 at a
+    1025-position context, #1 at head dim 264) the models' gates take the
+    plain route on the card: no launch, and the CPU's values (f32, 1e-4).
+    #4 raises instead (``test_flag_on_past_the_stack_limit_raises``)."""
     from vmrframe_tpu_torch.testing import past_limit_cases
 
     for name, (kernel, module, inputs) in past_limit_cases().items():

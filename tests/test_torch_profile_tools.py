@@ -16,7 +16,9 @@
 - ``roofline_trace``'s floors on a small trace written here, by hand
   arithmetic: the join by name and shapes, the byte rate of the probe at
   each call's bytes, the FLOPs of a product at its type's peak, the copies
-  left out of ``floor_no_copies_ms``, a row under its floor reported.
+  left out of ``floor_no_copies_ms``, a row under its floor reported;
+- a profile on the card run again while the profiler sees no device time,
+  and a streaming probe timed by events where it never does.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -276,3 +278,45 @@ def test_roofline_trace_floors_by_hand():
     # 0.05 ms measured against mm's floor of 0.0597: below it, reported
     assert [g["op"] for g in res["below_floor"]] == ["aten::mm"]
     assert res["min_measured_over_floor"] == pytest.approx(0.05 / mm)
+
+
+def test_device_profile_runs_a_pass_again_while_the_profiler_sees_nothing(monkeypatch):
+    """On the card a pass in which the profiler recorded no device operation
+    is run again, up to ``PROFILE_TRIES`` passes: the first pass that sees
+    device time is the report, and ``profile_passes`` counts the passes."""
+    import contextlib
+
+    from vmrframe_tpu_torch.tools import profile_serve as PS
+
+    reports = iter([None, None, 0.5])
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(PS, "PROFILE_PAUSE_S", 0.0)
+    monkeypatch.setattr(PS, "_card_report",
+                        lambda prof, steps, ops: {"device_busy_ms_per_step": next(reports)})
+    steps = []
+    rep = PS._device_profile(lambda: steps.append(1), 2, device="cuda")
+    assert rep == {"device_busy_ms_per_step": 0.5, "profile_passes": 3} and len(steps) == 6
+
+    monkeypatch.setattr(PS, "_card_report",
+                        lambda prof, steps, ops: {"device_busy_ms_per_step": None})
+    rep = PS._device_profile(lambda: None, 2, device="cuda")
+    assert rep == {"device_busy_ms_per_step": None, "profile_passes": PS.PROFILE_TRIES}
+
+
+def test_probe_times_by_events_where_the_profiler_sees_nothing(monkeypatch):
+    """A streaming probe the profiler saw no device time of in any pass is
+    timed by ``bench_kernels.device_ms`` (CUDA events on the card, the host
+    clock here) and says so; the others keep the profiler's time."""
+    from vmrframe_tpu_torch.tools import profile_serve as PS
+
+    monkeypatch.setattr(PS, "_device_profile",
+                        lambda fn, reps, device: {"device_busy_ms_per_step": None})
+    hbm = roofline.measure_hbm_bw("cpu", roofline.SMALL_PROBE_SIZES[:1], reps=1)
+    (rates,) = hbm["by_buffer_size"].values()
+    assert set(rates) == {"copy", "add", "sum", "zero", "cast"}
+    assert all(r["timer"] == "cuda_events" and r["bytes_per_s"] > 0 for r in rates.values())
+    monkeypatch.undo()
+    hbm = roofline.measure_hbm_bw("cpu", roofline.SMALL_PROBE_SIZES[:1], reps=1)
+    assert {r["timer"] for r in next(iter(hbm["by_buffer_size"].values())).values()} \
+        == {"profiler"}

@@ -1,21 +1,25 @@
 """Kernel #4's schedule, emulated in torch on the CPU against the plain
 version (``dual_attention_stack_plain``).
 
-``csrc/dual_stack.cu`` cannot run here.  ``emulate_stack`` repeats its
-schedule with the kernel's rounding points: every call first projects both
-sides' keys and values ``TILE_ROWS`` rows at a time and keeps them in the
-compute type, then walks the from-rows in tiles of ``TILE_ROWS``.  Its
+``csrc/dual_stack.cu`` (its body ``dual_stack.cuh``) cannot run here.
+``emulate_stack`` repeats its schedule at each width D with the kernel's
+rounding points (``SCHEDULES[D]``: the rows of a tile, the most keys of one
+stage, the keys of a longer side's chunk): every call first projects both sides' keys and values a tile of
+rows at a time and keeps them in the compute type, then walks the from-rows
+in tiles (64 rows at D 128, 32 at D 256, 16 at D 384 and 512).  Its
 attention (``_attend``) is the kernel's mma tasks: ``TASK_ROWS`` query rows
 and one head (rows past the tile's length invalid, computed and dropped),
 the head dim padded with zeros to the instruction's k (16 for bf16's
-m16n8k16, 8 for f32's m16n8k8) and P.V's n to 8.  A side of at most
-``STAGE_KEYS`` keys is one stage of 32 or 64 keys (-inf past the side) and
-one walk; a longer one goes in chunks: bf16 walks twice (the max and sum
-over ``STAGE_KEYS``-key chunks with rescaling, then p = exp(s - max) (1 /
-sum) rounded to bf16 and P.V over ``CHUNK_KEYS``-key chunks, summed in f32
-and rounded after the last), f32 once (``CHUNK_KEYS``-key chunks, the max
-and sum rescaled as they grow and the context with them, times 1 / sum
-after the last).  bf16 products are exact in f32 (bf16 operands, f32 sums);
+m16n8k16, 8 for f32's m16n8k8) and P.V's n to 8 (the wider widths' shared
+kernels pad it further, to 16-128, with more zeros: the same sums).  A side
+of at most a stage's keys is one stage (the chunk's keys or the stage's,
+-inf past the side) and one walk; a longer one goes in chunks: bf16 walks
+twice (the max and sum over stage-sized chunks with rescaling, then p =
+exp(s - max) (1 / sum) rounded to bf16 and P.V over chunks, summed in f32
+and rounded after the last), f32 once (chunks, the max and sum rescaled as
+they grow and the context with them, times 1 / sum after the last).  At the
+wider D a long self attention stages its values in the buffer of fn, which
+the tile takes again from LN1 of its rows: the same values.  bf16 products are exact in f32 (bf16 operands, f32 sums);
 f32 products are 3xTF32 in steps of 8 (``tests/_tf32.py``).  A planted
 fault (``quad_max=False``: each lane's row max over its own columns, not
 reduced over the quad of lanes that holds the row) must fail.
@@ -23,12 +27,14 @@ reduced over the quad of lanes that holds the row) must fail.
 Cases: lengths at and past tile and chunk edges (65, 129, 256 video rows;
 30 and 257 text rows), a wholly masked sample, a valid video facing an empty
 text side, 8 heads of 16, 16 heads of 8 and 32 heads of 4 (head dims padded
-to the instruction's k and n).  Inputs and weights are made with numpy from
+to the instruction's k and n); at D 256, 384 and 512 the video side past a
+tile of 32 or 16 rows, a short pair in one stage, 4 and 8 heads (head dims
+32-128; 48 and 12 at D 384).  Inputs and weights are made with numpy from
 a seed.  Tolerances: f32 1e-5 (the same products, summed in another order,
 3xTF32 within ~2^-22 of each); bf16 2**-6 of the largest output (a few bf16
 ulps: a p rounded on either side of a bf16 boundary where the two sums
-differ in their last bit).  The schedule's constants are read back from the
-CUDA source.
+differ in their last bit).  The schedule's constants, the widths and the
+longest head dim are read back from the CUDA source.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -47,11 +53,13 @@ from vmrframe_tpu_torch.kernels import dual_stack as S
 from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 
 D = 128
-CSRC = Path(S.__file__).resolve().parent / "csrc" / "dual_stack.cu"
-# the kernel's schedule (kTile, kStage, kKeys, kRows in the source): rows
-# per tile; the most keys one stage holds; keys per chunk of a longer side
-# with K and V staged together; query rows per warp task
-TILE_ROWS, STAGE_KEYS, CHUNK_KEYS, TASK_ROWS = 64, 64, 32, 16
+CSRC = Path(S.__file__).resolve().parent / "csrc" / "dual_stack.cuh"  # the body
+# the kernel's schedule at each width (Lay<D>'s kTile, kStage, kKeys in the
+# source): rows per tile; the most keys one stage holds; keys per chunk of a
+# longer side; and (kRows) query rows per warp task
+SCHEDULES = {128: (64, 64, 32), 256: (32, 32, 32), 384: (16, 16, 16), 512: (16, 16, 16)}
+TILE_ROWS, STAGE_KEYS, CHUNK_KEYS = SCHEDULES[D]
+TASK_ROWS = 16
 MMA_K = {torch.bfloat16: 16, torch.float32: 8}  # m16n8k16 bf16, m16n8k8 tf32
 MMA_N = 8
 
@@ -63,8 +71,9 @@ def _up(n, m):
 def _attend(q, k, v, fm, km, H, cd, quad_max=True):
     """The kernel's attention of q (B, M, D) over k, v (B, T, D), all in
     cd; fm (B, M) and km (B, T) validities; the context (B, M, D) in cd."""
-    B, M, _ = q.shape
-    T, hd = k.shape[1], D // H
+    B, M, Dq = q.shape
+    T, hd = k.shape[1], Dq // H
+    _, STAGE_KEYS, CHUNK_KEYS = SCHEDULES[Dq]
     Mp = _up(M, TASK_ROWS)  # whole tasks: the rows past M invalid
     f32 = cd == torch.float32
     prod = _tf32.product if f32 else torch.matmul
@@ -100,6 +109,11 @@ def _attend(q, k, v, fm, km, H, cd, quad_max=True):
         p = (e * (1.0 / e.sum(-1, keepdim=True))).to(cd).float()
         ctx = prod(p, vh)
     elif f32:  # one walk, the max and sum rescaled as they grow
+        # with the fault each lane rescales by its own max, and lane 0's max
+        # and sum are what the next chunk reads back: the output column c is
+        # held by the lane of key column 2 ((c mod 8) / 2)
+        lane = (lambda x: x) if quad_max else \
+            (lambda x: x[..., torch.arange(vh.shape[-1]) % MMA_N // 2 * 2])  # noqa: E731
         m = torch.full((B, H, Mp, 1), -math.inf)
         l = torch.zeros(B, H, Mp, 1)
         ctx = torch.zeros(B, H, Mp, vh.shape[-1])
@@ -108,10 +122,10 @@ def _attend(q, k, v, fm, km, H, cd, quad_max=True):
             m_new = torch.maximum(m, row_max(s))
             f = torch.exp(m - m_new)
             e = torch.exp(s - m_new)
-            l = l * f + e.sum(-1, keepdim=True)
-            ctx = ctx * f + prod(e, vh[:, :, c0:c0 + CHUNK_KEYS])
-            m = m_new
-        ctx = ctx * (1.0 / l)
+            l_new = l * f + e.sum(-1, keepdim=True)
+            ctx = ctx * lane(f) + prod(e, vh[:, :, c0:c0 + CHUNK_KEYS])
+            m, l = m_new[..., :1], l_new[..., :1]
+        ctx = ctx * (1.0 / lane(l_new))
     else:  # bf16: max and sum first, then p rounded and P.V
         m = torch.full((B, H, Mp, 1), -math.inf)
         l = torch.zeros(B, H, Mp, 1)
@@ -125,12 +139,13 @@ def _attend(q, k, v, fm, km, H, cd, quad_max=True):
         for c0 in range(0, T, CHUNK_KEYS):
             p = (torch.exp(scores(c0, c0 + CHUNK_KEYS) - m) * inv).to(cd).float()
             ctx = ctx + p @ vh[:, :, c0:c0 + CHUNK_KEYS]
-    return ctx[:, :, :M, :hd].transpose(1, 2).reshape(B, M, D).to(cd)
+    return ctx[:, :, :M, :hd].transpose(1, 2).reshape(B, M, Dq).to(cd)
 
 
 def _dab_tiles(x, y, fm, tm, W, b, ln, xb, H, cd, quad_max=True):
     """One DualAttentionBlock call in the kernel's schedule; (B, F, D) f32."""
     dot = S._dot
+    TILE_ROWS = SCHEDULES[x.shape[2]][0]
 
     def keys_values(src, lns, lnb, wk, wv):
         ks, vs = [], []
@@ -177,8 +192,8 @@ def emulate_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads, quad_max=True):
     return v.to(vfeat.dtype), t.to(tfeat.dtype)
 
 
-def _stacks(rng, dtype):
-    """One layer's stacks with every leaf random."""
+def _stacks(rng, dtype, D=D):
+    """One layer's stacks at width D with every leaf random."""
     W = rng.standard_normal((14, D, D)).astype(np.float32) / math.sqrt(D)
     ln = 0.1 * rng.standard_normal((6, D)).astype(np.float32)
     ln[0::2] += 1.0  # the scales
@@ -188,10 +203,10 @@ def _stacks(rng, dtype):
             "xb": torch.from_numpy(0.1 * rng.standard_normal((2, D)).astype(np.float32))}
 
 
-def _case(seed, B, Lv, Lt, dtype, empty_to_side=False):
+def _case(seed, B, Lv, Lt, dtype, empty_to_side=False, D=D):
     """Features, masks of random lengths (the last sample wholly masked when
     B > 2; sample 0's text side empty with empty_to_side) and two layers'
-    stacks."""
+    stacks, at width D."""
     rng = np.random.default_rng(seed)
     v = torch.from_numpy(rng.standard_normal((B, Lv, D)).astype(np.float32)).to(dtype)
     t = torch.from_numpy(rng.standard_normal((B, Lt, D)).astype(np.float32)).to(dtype)
@@ -202,7 +217,7 @@ def _case(seed, B, Lv, Lt, dtype, empty_to_side=False):
         vlens[0], tlens[0] = Lv, 0
     vm = torch.from_numpy((np.arange(Lv)[None] < vlens[:, None]).astype(np.float32))
     tm = torch.from_numpy((np.arange(Lt)[None] < tlens[:, None]).astype(np.float32))
-    return v, t, vm, tm, _stacks(rng, dtype), _stacks(rng, dtype)
+    return v, t, vm, tm, _stacks(rng, dtype, D), _stacks(rng, dtype, D)
 
 
 CASES = [  # B, Lv, Lt, heads, empty_to_side
@@ -216,6 +231,14 @@ CASES = [  # B, Lv, Lt, heads, empty_to_side
     (2, 30, 100, 32, False),  # 32 heads of 4, one stage and chunks
 ]
 HEAD_CASES = CASES[-2:]  # head dims 8 and 4: k and n padded in registers
+WIDE_CASES = [  # D, B, Lv, Lt, heads, empty_to_side: the wider widths' tiles and chunks
+    (256, 3, 40, 30, 4, False),   # past a 32-row tile; the text side in one stage
+    (256, 2, 30, 33, 8, True),    # the video side one past a stage; an empty text side
+    (384, 3, 20, 17, 8, False),   # head dim 48; both sides past a 16-row tile
+    (384, 2, 13, 5, 32, False),   # head dim 12; one stage each way
+    (512, 3, 33, 9, 4, False),    # head dim 128; past two tiles
+    (512, 2, 17, 16, 8, True),    # head dim 64; an empty text side
+]
 
 
 @pytest.mark.parametrize("B,Lv,Lt,H,empty", CASES)
@@ -242,6 +265,19 @@ def test_emulated_schedule_matches_plain_bf16(B, Lv, Lt, H, empty):
         assert (g.float() - w.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,B,Lv,Lt,H,empty", WIDE_CASES)
+def test_emulated_schedule_matches_plain_at_wider_d(D, B, Lv, Lt, H, empty, dtype):
+    v, t, vm, tm, p1, p2 = _case(D + B * Lv + Lt, B, Lv, Lt, dtype, empty, D)
+    with torch.no_grad():
+        got = emulate_stack(v, t, vm, tm, p1, p2, H)
+        want = S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, H)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol
+
+
 def test_chunked_softmax_walks_differ_from_one_softmax_only_in_rounding():
     """The f32 walk over chunks, its max and sum and context rescaled as
     they grow, gives the one-pass softmax over the same 3xTF32 products: at
@@ -262,12 +298,14 @@ def test_chunked_softmax_walks_differ_from_one_softmax_only_in_rounding():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_a_row_max_not_reduced_over_the_quad_fails(dtype):
+@pytest.mark.parametrize("D", sorted(SCHEDULES))
+def test_a_row_max_not_reduced_over_the_quad_fails(dtype, D):
     """The planted fault: each lane's row max taken over its own columns
     only, not over the quad of lanes that holds the row, breaks the softmax,
     and the comparison with the plain version at the stated tolerance
-    catches it; the same case without the fault passes it."""
-    v, t, vm, tm, p1, p2 = _case(11, 3, 64, 30, dtype)
+    catches it, at every width's row tile; the same case without the fault
+    passes it."""
+    v, t, vm, tm, p1, p2 = _case(11, 3, 64 if D == 128 else 40, 30, dtype, D=D)
     with torch.no_grad():
         want = S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, 4)
         errs = [max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
@@ -279,8 +317,18 @@ def test_a_row_max_not_reduced_over_the_quad_fails(dtype):
 
 
 def test_schedule_constants_are_the_kernels():
+    """Each width's tile, stage and chunk, the widths themselves (the set
+    ``takes`` accepts) and the longest head dim, as the source states them."""
     src = CSRC.read_text()
-    for name, value in (("kTile", TILE_ROWS), ("kStage", STAGE_KEYS), ("kKeys", CHUNK_KEYS),
-                        ("kRows", TASK_ROWS), ("kD", S.KERNEL_D)):
+    layouts = dict(re.findall(r"template <> struct Lay<(\d+)> \{ (static constexpr int [^}]*)\};",
+                              src))
+    assert sorted(int(w) for w in layouts) == sorted(SCHEDULES)
+    for width, (tile, stage, keys) in SCHEDULES.items():
+        fields = dict((k, int(v)) for k, v in re.findall(r"(k\w+) = (\d+)", layouts[str(width)]))
+        assert (fields["kTile"], fields["kStage"], fields["kKeys"]) == (tile, stage, keys), width
+        assert fields["kShare"] == (2 * keys <= stage), width  # K and V of a chunk in one buffer
+    widths = re.search(r"constexpr int kWidths\[\] = \{([\d, ]+)\};", src)
+    assert widths and tuple(int(w) for w in widths.group(1).split(",")) == S.KERNEL_WIDTHS
+    for name, value in (("kRows", TASK_ROWS), ("kMaxHeadDim", S.MAX_HEAD_DIM)):
         found = re.search(rf"constexpr int {name} = (\d+);", src)
         assert found and int(found.group(1)) == value, name

@@ -2,9 +2,12 @@
 
 One ``nvcc`` per source, for ``sm_90a``, into ``kernels/_build/`` (listed in
 ``.gitignore``); ``build_all`` starts the compilers of several sources
-together.  The library's name carries a hash of the source, the ``csrc``
-headers it includes and the flags, so an edited source or header builds anew
-and an unchanged one is reused.  The libraries
+together.  A library of several sources (``PARTS``: the first holds the C
+entry, the others one share each of the instances) compiles each to an
+object, all at once with the rest, and links them.  The library's name
+carries a hash of its sources, the ``csrc`` headers they include (and those
+include) and the flags, so an edited source or header builds anew and an
+unchanged one is reused.  The libraries
 have a plain C interface and are loaded with ``ctypes``; nothing includes
 PyTorch's headers, so a build takes seconds.
 """
@@ -25,6 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the libraries built from several sources, entry first: #4's widths
+PARTS = {"dual_stack": ("dual_stack", "dual_stack_256", "dual_stack_384", "dual_stack_512")}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()  # one build at a time: builds in a process share a temp name
@@ -40,44 +45,78 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _headers(text: str, seen: set) -> list:
+    """The ``csrc`` headers ``text`` includes (``#include "x.cuh"``), and
+    theirs, each once, in the order they are first met."""
+    out = []
+    for header in _INCLUDE.findall(text):
+        if header not in seen:
+            seen.add(header)
+            out += [header] + _headers((CSRC / header).read_text(), seen)
+    return out
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to; the name hashes the source, each
-    ``csrc`` header it includes (``#include "x.cuh"``) and the flags."""
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source)
-    for header in _INCLUDE.findall(source.decode()):
-        digest.update((CSRC / header).read_bytes())
+    """Where ``csrc/<name>.cu`` (and its ``PARTS``) builds to; the name hashes
+    each source, the ``csrc`` headers it includes and the flags."""
+    digest = hashlib.sha256()
+    for part in PARTS.get(name, (name,)):
+        source = (CSRC / f"{part}.cu").read_bytes()
+        digest.update(source)
+        for header in _headers(source.decode(), set()):
+            digest.update((CSRC / header).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Sequence[str]) -> Dict[str, Path]:
     """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
-    ``nvcc`` for each, all started together.  A compiler's report
-    (registers, shared memory, spills) goes to a ``.log`` beside its
-    library."""
+    ``nvcc`` for each source (each of a library's ``PARTS``), all started
+    together; then link the parts.  The compilers' report (registers, shared
+    memory, spills) goes to a ``.log`` beside each library."""
     outs = {name: library_path(name) for name in names}
     with _lock:
-        running = []
+        running = []  # (name, library, its temporary file, [(process, report)], objects)
         for name, out in outs.items():
             if out.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            with open(out.with_suffix(".log"), "w") as report:
-                proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                         str(CSRC / f"{name}.cu")],
-                                        stdout=report, stderr=subprocess.STDOUT)
-            running.append((name, out, tmp, proc))
+            parts = PARTS.get(name, (name,))
+            if len(parts) == 1:
+                jobs = [(_nvcc_job([*NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                                   out.with_suffix(".log")))]
+                running.append((name, out, tmp, jobs, []))
+                continue
+            objs = [out.with_name(f"{out.stem}.{part}.{os.getpid()}.o") for part in parts]
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            jobs = [_nvcc_job([*compile_flags, "-c", "-o", str(obj), str(CSRC / f"{part}.cu")],
+                              obj.with_suffix(".log")) for part, obj in zip(parts, objs)]
+            running.append((name, out, tmp, jobs, objs))
         failed = []
-        for name, out, tmp, proc in running:
-            if proc.wait() != 0:
+        for name, out, tmp, jobs, objs in running:
+            codes = [proc.wait() for proc, _ in jobs]
+            if objs and not any(codes):  # link the parts
+                jobs.append(_nvcc_job([*NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                                      out.with_name(f"{out.stem}.link.log")))
+                codes.append(jobs[-1][0].wait())
+            if objs:
+                out.with_suffix(".log").write_text("".join(r.read_text() for _, r in jobs))
+                for f in objs + [report for _, report in jobs]:
+                    f.unlink(missing_ok=True)
+            if any(codes):
                 failed.append(f"nvcc failed on {name}.cu:\n{out.with_suffix('.log').read_text()}")
             else:
                 os.replace(tmp, out)  # atomic: another process never loads a partial file
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
+
+
+def _nvcc_job(args: list, report: Path):
+    """One ``nvcc`` started, its output into ``report``: (process, report)."""
+    with open(report, "w") as f:
+        return subprocess.Popen([_nvcc(), *args], stdout=f, stderr=subprocess.STDOUT), report
 
 
 def load(name: str) -> ctypes.CDLL:

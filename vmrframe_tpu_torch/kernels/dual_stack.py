@@ -1,7 +1,8 @@
 """The whole 2-layer dual-attention stack of the SeqPAN family as one
 hand-written CUDA kernel for Hopper, beside its plain PyTorch version.
 
-``dual_attention_stack`` -> CUDA ``vmr_dual_stack`` (``csrc/dual_stack.cu``);
+``dual_attention_stack`` -> CUDA ``vmr_dual_stack`` (``csrc/dual_stack.cu``,
+its body ``dual_stack.cuh``, with a part of its own for each wider width);
 replaces ``vmrframe_tpu/kernels/dual_stack.py::dual_attention_stack``
 (``_stack_kernel``).  It computes
 
@@ -35,16 +36,21 @@ On the card every product runs on the tensor cores but the f32
 projections: the bf16 projections and both types' attention on
 ``mma.sync`` (f32 attention in 3xTF32).  Attention is a warp task of 16
 query rows and one head (head dims 4-128 padded to the instruction's k and
-n with zeros in registers), a side of up to 64 keys in one stage and one
-walk, a longer one in 32-key chunks: bf16 twice (the max and sum, then p
-rounded to bf16 and P.V), f32 once with the max and sum rescaled.  4 heads
-(every config that sets ``model.fused_dual_stack``) have a kernel of their
-own.  ``tests/test_torch_stack_tiles.py`` emulates this schedule on the CPU.
+n with zeros in registers), a side of up to ``kStage`` keys in one stage and
+one walk, a longer one in chunks: bf16 twice (the max and sum, then p
+rounded to bf16 and P.V), f32 once with the max and sum rescaled.  The
+kernel takes D = 128, 256, 384 and 512 (``KERNEL_WIDTHS``), each with a
+layout of its own (``Lay<D>`` in the source: row tiles of 64, 32, 16 and 16
+so that five f32 buffers fit a block's shared memory), and 4 heads (every
+config that sets ``model.fused_dual_stack``) have a kernel of their own at
+each width.  ``tests/test_torch_stack_tiles.py`` emulates this schedule on
+the CPU.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises (the kernel takes D = 128 and heads dividing D
-with a head dim that is a multiple of 4, at any lengths Lv, Lt >= 1), and
-counts the launch in ``dual_attention_stack.launches``.
+launches the kernel or raises (``takes``: D in ``KERNEL_WIDTHS`` and heads
+dividing D into head dims that are multiples of 4 and at most
+``MAX_HEAD_DIM``, at any lengths Lv, Lt >= 1), and counts the launch in
+``dual_attention_stack.launches``.
 """
 
 from __future__ import annotations
@@ -65,15 +71,16 @@ W_Q, W_FK, W_FV, W_TK, W_TV = 0, 1, 2, 3, 4
 W_SD, W_XD, W_SG, W_XG, W_GD = 5, 6, 7, 8, 9
 W_BL1, W_BL2, W_D1, W_D2 = 10, 11, 12, 13
 LN1_S, LN1_B, LNT_S, LNT_B, LN2_S, LN2_B = 0, 1, 2, 3, 4, 5
-KERNEL_D = 128  # what csrc/dual_stack.cu takes
+KERNEL_WIDTHS = (128, 256, 384, 512)  # the D csrc/dual_stack.cuh takes (kWidths)
+MAX_HEAD_DIM = 128  # its longest head dim (kMaxHeadDim)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I] + [_P] * 12 + [_I] * 4 + [_P]
+_ARGTYPES = [_I] + [_P] * 12 + [_I] * 5 + [_P]
 _lib = None
 
 
 def load_kernels() -> ctypes.CDLL:
-    """The compiled ``csrc/dual_stack.cu`` (built on first use)."""
+    """The compiled ``csrc/dual_stack.cu`` and its parts (built on first use)."""
     global _lib
     if _lib is None:
         from vmrframe_tpu_torch.kernels import build
@@ -175,12 +182,13 @@ def _check(vfeat, tfeat, vmask, tmask, p1, p2, num_heads) -> Tuple[int, int, int
 
 
 def takes(dtype: torch.dtype, D: int, num_heads: int, Lv: int, Lt: int) -> bool:
-    """Whether the kernel takes these shapes: f32 or bf16, D = ``KERNEL_D``,
-    heads dividing D into head dims that are multiples of 4, Lv, Lt >= 1.
-    The models' gate reads it before a launch (``models/common.py``); the
-    wrapper raises on what it refuses."""
-    return (dtype in _DTYPE_CODE and D == KERNEL_D and num_heads > 0 and D % num_heads == 0
-            and (D // num_heads) % 4 == 0 and Lv >= 1 and Lt >= 1)
+    """Whether the kernel takes these shapes: f32 or bf16, D in
+    ``KERNEL_WIDTHS``, heads dividing D into head dims that are multiples of
+    4 and at most ``MAX_HEAD_DIM``, Lv, Lt >= 1 (the C entry refuses the
+    rest).  The wrapper raises on what it refuses."""
+    hd = D // num_heads if num_heads > 0 else 0
+    return (dtype in _DTYPE_CODE and D in KERNEL_WIDTHS and num_heads > 0 and D % num_heads == 0
+            and hd % 4 == 0 and hd <= MAX_HEAD_DIM and Lv >= 1 and Lt >= 1)
 
 
 def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
@@ -195,17 +203,17 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
                            vmask, tmask, p1, p2, num_heads)
     what = "dual_attention_stack"
     device, dtype = vfeat.device, vfeat.dtype
-    if device.type != "cuda":
-        raise ValueError(f"{what}: tensors must be on the CPU or a CUDA device, got {device}")
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: the kernel takes float32 or bfloat16, got {dtype}")
+    if not takes(dtype, D, num_heads, Lv, Lt):
+        raise ValueError(f"{what}: the kernel takes D in {KERNEL_WIDTHS}, a head dim that is a "
+                         f"multiple of 4 and at most {MAX_HEAD_DIM}, and Lv, Lt >= 1; got D = "
+                         f"{D}, {num_heads} heads, Lv = {Lv}, Lt = {Lt}")
+    if device.type != "cuda":
+        raise ValueError(f"{what}: tensors must be on the CPU or a CUDA device, got {device}")
     for t in (tfeat, p1["W"], p2["W"]):
         if t.device != device or t.dtype != dtype:
             raise ValueError(f"{what}: features and weights must share {device} and {dtype}")
-    if not takes(dtype, D, num_heads, Lv, Lt):
-        raise ValueError(f"{what}: the kernel takes D = {KERNEL_D}, a head dim that is a "
-                         f"multiple of 4 and Lv, Lt >= 1; got D = {D}, {num_heads} heads, "
-                         f"Lv = {Lv}, Lt = {Lt}")
     f32 = lambda key: torch.stack([p1[key], p2[key]]).to(device, torch.float32).contiguous()  # noqa: E731
     W = torch.stack([p1["W"], p2["W"]]).contiguous()
     b, ln, xb = f32("b"), f32("ln"), f32("xb")
@@ -221,7 +229,7 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
         err = load_kernels().vmr_dual_stack(
             _DTYPE_CODE[dtype], v.data_ptr(), t.data_ptr(), vm.data_ptr(), tm.data_ptr(),
             W.data_ptr(), b.data_ptr(), ln.data_ptr(), xb.data_ptr(), v_out.data_ptr(),
-            t_out.data_ptr(), scratch.data_ptr(), kv_scratch.data_ptr(), B, Lv, Lt, num_heads,
+            t_out.data_ptr(), scratch.data_ptr(), kv_scratch.data_ptr(), B, D, Lv, Lt, num_heads,
             _stream(v))
     _raise_on(err, "vmr_dual_stack")
     dual_attention_stack.launches += 1

@@ -24,8 +24,7 @@ import torch
 from torch import nn
 
 from vmrframe_tpu_torch.kernels import counting
-from vmrframe_tpu_torch.kernels.dual_stack import dual_attention_stack, dual_attention_stack_plain
-from vmrframe_tpu_torch.kernels.dual_stack import takes as stack_takes
+from vmrframe_tpu_torch.kernels.dual_stack import dual_attention_stack
 from vmrframe_tpu_torch.layers.attention import CQAttention, CQConcatenate, DualAttentionBlock
 from vmrframe_tpu_torch.layers.basic import Embedding, FeatureEncoder, VisualProjection
 
@@ -35,10 +34,9 @@ def use_fused_stack(m, deterministic: bool) -> bool:
     eval mode, ``model.fused_dual_stack`` set (off by default), D a multiple
     of 128 and heads dividing D.  Any truthy flag selects the fused route
     (the JAX package's ``"interpret"`` has no meaning here): on CPU tensors
-    the wrapper then runs the plain version; on CUDA tensors
-    ``encode_and_fuse`` launches the kernel where its limit function
-    (``kernels/dual_stack.py::takes``: D = 128 today) takes the shapes, and
-    runs the plain version of the same stack elsewhere.  Inside
+    the wrapper then runs the plain version; on CUDA tensors it launches the
+    kernel, or raises where its limit (``kernels/dual_stack.py::takes``: D
+    128-512, head dims 4-128) refuses the shapes.  Inside
     ``kernels.counting_route`` the four block calls run, whose count is the
     flag-off route's (the stack's plain version multiplies more)."""
     if not deterministic or not bool(m.get("fused_dual_stack", False)) or counting():
@@ -81,11 +79,8 @@ def encode_and_fuse(module: nn.Module, batch: Dict[str, torch.Tensor],
     if hasattr(module, "dual_attention_block_1"):
         blocks = (module.dual_attention_block_1, module.dual_attention_block_2)
         if use_fused_stack(module.model_cfg, not module.training):
-            H = int(module.model_cfg.num_heads)
-            fits = stack_takes(vfeat.dtype, vfeat.shape[2], H, vfeat.shape[1], tfeat.shape[1])
-            stack = dual_attention_stack if fits else dual_attention_stack_plain
-            vfeat, tfeat = stack(vfeat, tfeat, vmask, tmask, blocks[0].stacks(),
-                                 blocks[1].stacks(), H)
+            vfeat, tfeat = dual_attention_stack(vfeat, tfeat, vmask, tmask, blocks[0].stacks(),
+                                                blocks[1].stacks(), int(module.model_cfg.num_heads))
         else:
             for block in blocks:
                 vfeat, tfeat = (block(vfeat, tfeat, vmask, tmask, g),

@@ -200,21 +200,17 @@ def past_limit_cases(seed: int = 0) -> dict:
     """One case just past each hand-written kernel's limit, for checking on
     a card that the models' gates route it to the plain version: name ->
     (the kernel wrapper that must count no launch, a seeded module in eval
-    mode on the CPU, its CPU inputs).  #4 at D 256 (a BackBone with the
-    stack's flag on), #5 at head dim 192, #3 at a 1025-position context, #1
-    at head dim 264; f32, small batches."""
+    mode on the CPU, its CPU inputs).  #5 at head dim 192, #3 at a
+    1025-position context, #1 at head dim 264; f32, small batches.  #4 has
+    no such route: past its limit the wrapper raises on the card
+    (``stack_past_limit_case``)."""
     import torch
 
-    from vmrframe_tpu_torch.config import Derived
-    from vmrframe_tpu_torch.data.batcher import Batcher
     from vmrframe_tpu_torch.kernels import attention as K
-    from vmrframe_tpu_torch.kernels import dual_stack as S
     from vmrframe_tpu_torch.kernels import window_attention as W
     from vmrframe_tpu_torch.layers.actionformer import MaskedMHCA
     from vmrframe_tpu_torch.layers.attention import CQAttention
     from vmrframe_tpu_torch.layers.predictor import TopSelfAttention
-    from vmrframe_tpu_torch.registry import get_model_entry
-    from vmrframe_tpu_torch.tools.serve import make_cfg
     from vmrframe_tpu_torch.weights import init_weights
 
     g = torch.Generator().manual_seed(seed)
@@ -223,24 +219,42 @@ def past_limit_cases(seed: int = 0) -> dict:
         lens = torch.randint(L // 2, L + 1, (B,), generator=g)
         return (torch.arange(L)[None] < lens[:, None]).float()
 
-    cfg = make_cfg(vlen=16, tlen=8, vdim=32, dim=256, batch_size=2, compute_dtype="float32",
-                   model="BackBone", fused_dual_stack=True)
+    cases = {
+        "banded_attention hd=192": (
+            W.banded_attention, MaskedMHCA(768, 4, window_size=19, pallas_min_len=256),
+            (torch.randn(2, 512, 768, generator=g), mask(2, 512))),
+        "fused_cq_attention Lc=1025": (
+            K.fused_cq_attention, CQAttention(32),
+            (torch.randn(2, 1025, 32, generator=g), torch.randn(2, 8, 32, generator=g),
+             mask(2, 1025), mask(2, 8))),
+        "fused_masked_attention hd=264": (
+            K.fused_masked_attention, TopSelfAttention(1056, 4),
+            (torch.randn(2, 16, 1056, generator=g), mask(2, 16))),
+    }
+    for _, module, _ in cases.values():
+        init_weights(module, seed).eval()
+    return cases
+
+
+def stack_past_limit_case(dim: int = 640, num_heads: int = 4, seed: int = 0):
+    """(a seeded BackBone with ``model.fused_dual_stack`` set, in eval mode on
+    the CPU, one batch of its CPU inputs) at a width the gate passes (D a
+    multiple of 128, heads dividing it) and #4 does not take (D 640 by
+    default): its forward on the card raises the wrapper's ``ValueError``;
+    on the CPU it runs the plain stack.  f32, batch 2."""
+    import torch
+
+    from vmrframe_tpu_torch.config import Derived
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.registry import get_model_entry
+    from vmrframe_tpu_torch.tools.serve import make_cfg
+    from vmrframe_tpu_torch.weights import init_weights
+
+    cfg = make_cfg(vlen=16, tlen=8, vdim=32, dim=dim, batch_size=2, compute_dtype="float32",
+                   model="BackBone", fused_dual_stack=True).updated({"model.num_heads": num_heads})
     data, store = make_synthetic_data(cfg, seed=seed, n_train=2, n_test=2)
     derived = Derived(num_words=data["n_words"], num_chars=data["n_chars"])
     batch = Batcher(data["test_set"], store, cfg, derived, "test").make_batch([0, 1])
     batch = {k: torch.as_tensor(v) for k, v in batch.items() if k != "num_valid"}
-    backbone = get_model_entry("BackBone").model_cls(cfg, derived, data["word_vector"])
-    cases = {"dual_attention_stack D=256": (S.dual_attention_stack, backbone, (batch,))}
-    cases["banded_attention hd=192"] = (
-        W.banded_attention, MaskedMHCA(768, 4, window_size=19, pallas_min_len=256),
-        (torch.randn(2, 512, 768, generator=g), mask(2, 512)))
-    cases["fused_cq_attention Lc=1025"] = (
-        K.fused_cq_attention, CQAttention(32),
-        (torch.randn(2, 1025, 32, generator=g), torch.randn(2, 8, 32, generator=g),
-         mask(2, 1025), mask(2, 8)))
-    cases["fused_masked_attention hd=264"] = (
-        K.fused_masked_attention, TopSelfAttention(1056, 4),
-        (torch.randn(2, 16, 1056, generator=g), mask(2, 16)))
-    for _, module, _ in cases.values():
-        init_weights(module, seed).eval()
-    return cases
+    model = get_model_entry("BackBone").model_cls(cfg, derived, data["word_vector"])
+    return init_weights(model, seed).eval(), batch

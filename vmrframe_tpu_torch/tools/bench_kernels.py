@@ -4,7 +4,8 @@
 For each of the seven kernels at the shapes the main paths give it (SeqPAN's
 Charades forward for #1-#4, ActionFormer's long config for #5-#7, launch
 weighted over a forward's shapes), and as extra rows at TACoS and ANet
-widths, at the sentence variants' shapes and at the JAX tool's own shapes
+widths, #4 at D 256, 384 and 512 (Charades lengths, 4 heads, beside the
+module path), at the sentence variants' shapes and at the JAX tool's own shapes
 (``--jax-shapes``: #2 at Charades and TACoS widths, #5 at T 512, 1024 and
 2304 with window 19, #3 at L 64 and 256): the kernel's time, its plain
 version's, one PyTorch call computing the same function where there is one
@@ -45,6 +46,7 @@ import time
 import torch
 import torch.nn.functional as F
 
+from vmrframe_tpu_torch.kernels.dual_stack import KERNEL_WIDTHS
 from vmrframe_tpu_torch.tools.h100 import HBM_BYTES_PER_S, peak_ops
 
 B, H, HD, LV, LT, D = 128, 4, 32, 64, 30, 128
@@ -57,6 +59,7 @@ AF_LAUNCHES = {2304: 2, 1152: 1, 576: 1}  # banded launches per forward at each 
 B_TRAIN = 2  # the long config's training batch
 BWD_KERNELS = ("banded_attention_dq", "banded_attention_dkv")
 STACK = "dual_attention_stack"
+STACK_WIDTHS = KERNEL_WIDTHS[1:]  # #4's wider instances: extra rows at Charades lengths, 4 heads
 ATTENTION = ("fused_masked_attention", "fused_dual_attention", "fused_cq_attention")
 BOTH_DTYPES = BWD_KERNELS + (STACK,) + ATTENTION  # timed in f32 and bf16
 STACK_CAST = (0, 1, 4, 8)  # of a stack case, what the policy casts: v, t and the two W
@@ -188,17 +191,17 @@ def sentence_kernel_cases(g: torch.Generator, batch: int = B):
     }
 
 
-def stack_blocks(seed: int, device="cuda"):
-    """Two ``DualAttentionBlock``s on the card in f32, seeded, with every
-    leaf random (the initialisers leave LN at 1/0 and the BiLinear extra
-    bias at 0, which would hide them)."""
+def stack_blocks(seed: int, device="cuda", dim: int = D):
+    """Two ``DualAttentionBlock``s of width ``dim`` with ``H`` heads on the
+    card in f32, seeded, with every leaf random (the initialisers leave LN
+    at 1/0 and the BiLinear extra bias at 0, which would hide them)."""
     from vmrframe_tpu_torch.layers.attention import DualAttentionBlock
     from vmrframe_tpu_torch.weights import init_weights
 
     g = torch.Generator().manual_seed(seed)
     blocks = []
     for i in range(2):
-        block = init_weights(DualAttentionBlock(D, H), seed + i).eval()
+        block = init_weights(DualAttentionBlock(dim, H), seed + i).eval()
         with torch.no_grad():
             for name, p in block.named_parameters():
                 if "layer_norm" in name or name.endswith("bias_value"):
@@ -208,11 +211,12 @@ def stack_blocks(seed: int, device="cuda"):
 
 
 def stack_cases(g: torch.Generator, blocks, shapes):
-    """(v, t, vmask, tmask, W1, b1, ln1, xb1, W2, b2, ln2, xb2) per shape;
-    random lengths, sample 0 wholly masked."""
+    """(v, t, vmask, tmask, W1, b1, ln1, xb1, W2, b2, ln2, xb2) per shape, at
+    the blocks' width; random lengths, sample 0 wholly masked."""
     with torch.no_grad():
         stacks = [p[key] for block in blocks for p in (block.stacks(),)
                   for key in ("W", "b", "ln", "xb")]
+    Dc = stacks[0].shape[-1]
     cases = []
     for Bc, Lv, Lt in shapes:
         masks = []
@@ -220,9 +224,19 @@ def stack_cases(g: torch.Generator, blocks, shapes):
             lens = torch.randint(1, L + 1, (Bc,), generator=g, device=g.device)
             lens[0] = 0
             masks.append((torch.arange(L, device=g.device)[None] < lens[:, None]).float())
-        cases.append((torch.randn(Bc, Lv, D, generator=g, device=g.device),
-                      torch.randn(Bc, Lt, D, generator=g, device=g.device), *masks, *stacks))
+        cases.append((torch.randn(Bc, Lv, Dc, generator=g, device=g.device),
+                      torch.randn(Bc, Lt, Dc, generator=g, device=g.device), *masks, *stacks))
     return cases
+
+
+def wide_stack_cases(g: torch.Generator, batch: int = B) -> dict:
+    """{D: (seeded blocks, one case at Charades lengths)} for each of
+    ``STACK_WIDTHS``, 4 heads: #4's wider instances."""
+    out = {}
+    for dim in STACK_WIDTHS:
+        blocks = stack_blocks(seed=0, device=g.device, dim=dim)
+        out[dim] = (blocks, stack_cases(g, blocks, ((batch, LV, LT),))[0])
+    return out
 
 
 def stack_call(fn):
@@ -325,7 +339,8 @@ def work(name: str, args) -> tuple:
     if name == STACK:
         from vmrframe_tpu_torch.tools.bench_stack import stack_work
 
-        return stack_work(args[0].shape[0], args[0].shape[1], args[1].shape[1], size)
+        Bs, Lv, Ds = args[0].shape
+        return stack_work(Bs, Lv, args[1].shape[1], size, Ds)
     if name.startswith("banded_attention"):
         # tensors read and written besides the mask (forward: q, k, v, out;
         # dq: q, k, v, g, dq; dk/dv: q, k, v, g, dk, dv); the band's products
@@ -504,34 +519,54 @@ def time_kernels(fns, cases, weights, card: str, long_cases: dict, f32_cases: di
     return results
 
 
-def time_module_path(blocks, case, results, card: str) -> None:
+def module_path_ms(blocks, case, dtype: torch.dtype) -> dict:
     """The module path's time for the same stack on the same inputs: 4
-    ``DualAttentionBlock`` calls, each through kernel #2 (``fused_dual_attention``),
-    the projections in cuBLAS.  The other route to the same result, not a
-    library call: written beside the stack kernel's numbers."""
+    ``DualAttentionBlock`` calls, each through kernel #2
+    (``fused_dual_attention``), the projections in cuBLAS.  The other route
+    to the same result, not a library call."""
     import copy
 
     from vmrframe_tpu_torch.ops.precision import cast_module_
 
     v, t, vm, tm = case[:4]
+    mods = [cast_module_(copy.deepcopy(b), dtype) for b in blocks]
+    x, y = v.to(dtype), t.to(dtype)
+
+    @torch.no_grad()
+    def run():
+        a, b = x, y
+        for m in mods:
+            a, b = m(a, b, vm, tm), m(b, a, tm, vm)
+        return a, b
+
+    return device_ms(run, n=N_QUEUED_SMALL_OPS, device=v.device.type)
+
+
+def time_module_path(blocks, case, results, card: str) -> None:
+    """``module_path_ms`` in both types, written beside the stack kernel's
+    numbers."""
     for key, dtype in DTYPE_KEYS.items():
-        mods = [cast_module_(copy.deepcopy(b), dtype) for b in blocks]
-        x, y = v.to(dtype), t.to(dtype)
-
-        @torch.no_grad()
-        def run():
-            a, b = x, y
-            for m in mods:
-                a, b = m(a, b, vm, tm), m(b, a, tm, vm)
-            return a, b
-
-        ms = device_ms(run, n=N_QUEUED_SMALL_OPS, device=v.device.type)
+        ms = module_path_ms(blocks, case, dtype)
         results[STACK][key]["module_path_ms"] = ms["median"]
         results[STACK][key]["module_path_ms_spread"] = ms
         log(f"[time] {STACK} {key}: the module path for the same stack (4 DualAttentionBlock "
             f"calls through fused_dual_attention) {ms['median']:.4f} ms, against the one-launch "
             f"kernel's {results[STACK][key]['ms']:.4f} ms, on {card}")
 
+
+def time_wide_stack(fns, wide: dict, results, card: str) -> None:
+    """#4 at each wider D of ``wide`` (``wide_stack_cases``), in both types:
+    the kernel, its plain version and its bound (``time_row``) beside the
+    module path, as extra rows (``wide_shapes``) outside the means."""
+    wrapper, plain = fns[STACK]
+    for dim, (blocks, case) in wide.items():
+        for key, dtype in DTYPE_KEYS.items():
+            row = time_row(STACK, wrapper, plain, case, key, 0)
+            ms = module_path_ms(blocks, case, dtype)
+            row["module_path_ms"] = ms["median"]
+            results[STACK][key].setdefault("wide_shapes", []).append(row)
+            log(f"[time] {STACK} {key} D {dim}: kernel {row['ms']['median']:.4f} ms, module "
+                f"path {ms['median']:.4f}, bound {row['bound_ms']:.4f}, on {card}")
 
 
 def _host_ms(fn, n: int, reps: int) -> dict:
@@ -631,6 +666,16 @@ def jax_tool_cases(g: torch.Generator, names=KERNEL_NAMES) -> dict:
     return {name: make() for name, make in out.items() if name in names}
 
 
+def extra_row(r: dict) -> dict:
+    """An extra row's medians (and the module path's, where it was timed)."""
+    out = {"shape": r["shape"], "ms": r["ms"]["median"], "plain_ms": r["plain_ms"]["median"],
+           "bound_ms": r["bound_ms"],
+           "library_ms": r["library_ms"]["median"] if r["library_ms"] else None}
+    if "module_path_ms" in r:
+        out["module_path_ms"] = r["module_path_ms"]
+    return out
+
+
 def kernel_rows(results: dict, card: str) -> list:
     """One row a kernel: its line type's numbers (bf16 for the forward
     kernels, f32 for the backward ones, as the long config trains), and the
@@ -650,12 +695,9 @@ def kernel_rows(results: dict, card: str) -> list:
                         f"library_ms_{other}": by_type[other]["library_ms"]})
         if "module_path_ms" in t:
             row["module_path_ms"] = t["module_path_ms"]
-        for extra in ("long_shapes", "sentence_shapes", "jax_tool_shapes"):
+        for extra in ("long_shapes", "sentence_shapes", "jax_tool_shapes", "wide_shapes"):
             if t.get(extra):
-                row[extra] = [{"shape": r["shape"], "ms": r["ms"]["median"],
-                               "plain_ms": r["plain_ms"]["median"], "bound_ms": r["bound_ms"],
-                               "library_ms": r["library_ms"]["median"] if r["library_ms"]
-                               else None} for r in t[extra]]
+                row[extra] = [extra_row(r) for r in t[extra]]
         rows.append(row)
     return rows
 
@@ -700,6 +742,7 @@ def main(argv=None) -> list:
                            sentence_cases, jax_cases)
     if blocks is not None:
         time_module_path(blocks, cases[STACK][0], results, card)
+        time_wide_stack(functions(K, W, S), wide_stack_cases(g, args.batch), results, card)
     rows = kernel_rows({n: results[n] for n in names}, card)
     for row in rows:
         print(json.dumps(row), flush=True)

@@ -70,8 +70,9 @@ def features(g: torch.Generator, B: int, Lv: int, Lt: int):
             torch.randn(B, Lt, D, generator=g, device="cuda"), *masks)
 
 
-def stack_work(B: int, Lv: int, Lt: int, size: int) -> tuple:
-    """(bytes, operations) of the stack with ``size``-byte features and W.
+def stack_work(B: int, Lv: int, Lt: int, size: int, D: int) -> tuple:
+    """(bytes, operations) of the stack at width ``D`` with ``size``-byte
+    features and W.
     Bytes: v, t in and out, the masks (f32), one pass over both layers'
     stacks (W in the compute type, b, ln, xb in f32).  Operations: per call
     with F from-rows and T to-rows, 12 F D^2 + 2 T D^2 multiply-adds of
@@ -85,7 +86,7 @@ def stack_work(B: int, Lv: int, Lt: int, size: int) -> tuple:
 
 
 def bound_ms(B: int, Lv: int, Lt: int, dtype: torch.dtype) -> float:
-    nbytes, ops = stack_work(B, Lv, Lt, torch.finfo(dtype).bits // 8)
+    nbytes, ops = stack_work(B, Lv, Lt, torch.finfo(dtype).bits // 8, D)
     return max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]) * 1e3
 
 

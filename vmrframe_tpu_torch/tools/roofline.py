@@ -6,8 +6,9 @@ Three probes of what the card sustains, then the traffic of the step:
 1. **Streaming bandwidth** (``measure_hbm_bw``): a copy, an add, a sum, a
    fill and an f32-to-bf16 cast over buffers of 64 KiB to 1 GiB (sizes a
    factor 2 apart); each kernel's own device time from the profiler
-   (``profile_serve._device_profile``), so launch gaps do not count.  A
-   rate at each size, and the best.
+   (``profile_serve._device_profile``), so launch gaps do not count, or
+   from CUDA events where the profiler saw no device time.  A rate at each
+   size, and the best.
 2. **Launch overhead** (``measure_launch_overhead``): a chain of 1000
    data-dependent one-element kernels queued behind a sleep kernel, so the
    host's queueing does not show: the card's time per kernel.
@@ -206,28 +207,28 @@ def count_traffic(fn, *args) -> dict:
 # ------------------------------------------------------------------ probes
 
 
-PROFILE_TRIES = 3
-
-
-def _kernel_ms(fn, device: str, reps: int) -> float:
-    """Device ms of one call of ``fn``: its kernels' own time (the
-    profiler's), the mean over ``reps`` calls.  A pass in which the
-    profiler saw no device time is run again, up to ``PROFILE_TRIES``."""
+def _kernel_ms(fn, device: str, reps: int) -> tuple:
+    """(device ms of one call of ``fn``, the timer): its kernels' own time
+    (the profiler's), the mean over ``reps`` calls; where the profiler saw
+    no device time in any of its passes, CUDA events around ``reps`` calls
+    queued behind a sleep kernel (``bench_kernels.device_ms``: the gaps
+    between the calls included)."""
+    from vmrframe_tpu_torch.tools.bench_kernels import device_ms
     from vmrframe_tpu_torch.tools.profile_serve import _device_profile
 
     fn()
-    for _ in range(PROFILE_TRIES):
-        ms = _device_profile(fn, reps, device=device)["device_busy_ms_per_step"]
-        if ms:
-            return ms
-    raise RuntimeError(f"the profiler saw no device time in {PROFILE_TRIES} passes")
+    ms = _device_profile(fn, reps, device=device)["device_busy_ms_per_step"]
+    if ms:
+        return ms, "profiler"
+    return device_ms(fn, n=reps, device=device)["median"], "cuda_events"
 
 
 def measure_hbm_bw(device: str = "cuda", sizes=PROBE_SIZES, reps: int = 5) -> dict:
     """Bytes a second of a copy (reads and writes a buffer), an add of a
     scalar (the same), a sum (reads it), a zero fill (writes it) and a cast
     to bf16 (reads it, writes half of it) at each buffer size, each from
-    its kernels' own time; ``points``: (bytes moved, rate) of each."""
+    its kernels' own time (``_kernel_ms``: ``timer`` says whose);
+    ``points``: (bytes moved, rate) of each."""
     points, detail = [], {}
     for size in sizes:
         n = size // 4
@@ -239,11 +240,9 @@ def measure_hbm_bw(device: str = "cuda", sizes=PROBE_SIZES, reps: int = 5) -> di
                  "cast": (lambda: half.copy_(x), size + size // 2)}
         rates = {}
         for kind, (fn, moved) in kinds.items():
-            try:
-                ms = _kernel_ms(fn, device, reps)
-            except RuntimeError as e:
-                raise RuntimeError(f"measure_hbm_bw: {kind} of {size} bytes: {e}") from None
-            rates[kind] = {"bytes": moved, "ms": ms, "bytes_per_s": moved / (ms / 1e3)}
+            ms, timer = _kernel_ms(fn, device, reps)
+            rates[kind] = {"bytes": moved, "ms": ms, "bytes_per_s": moved / (ms / 1e3),
+                           "timer": timer}
             points.append([moved, rates[kind]["bytes_per_s"]])
         detail[str(size)] = rates
         del x, y, half
