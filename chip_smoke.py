@@ -94,6 +94,8 @@ Phases, in order; any failure exits non-zero:
    batch 128) with the flag set: one bf16 eval forward on the card launches
    1/0/2/2 of stack/dual/CQ/masked, and one f32 forward matches the CPU's
    plain path (``TOL_MODEL_F32``), 1/0/2/2 too.
+12d. verify-stack-heads: phase 12c at #4's wide and narrow heads, D 512 at
+   1 head (head dim 512) and D 384 at 128 heads (head dim 3), batch 16.
 13. serve-router: SeqPAN and BackBone (flag set) and BaseFast at full
    Charades width, bf16, behind one ``ModelRouter`` over real HTTP: a burst
    on each route with that route's launch counts (1/0/2/2, 1/0/2/2, 0/0/2/2
@@ -323,6 +325,9 @@ N_ROUTE_STEPS = N_TIMED_STEPS // 4  # the pipeline phase's fed steps, on each of
 STACK_CHECK_SHAPES = ((B, LV, LT), (3, LV, LT), (2, 13, 5), (B, LV_ANET, LT), (3, 129, 65))
 STACK_CHECK_HEADS = 8  # one more check case at Charades lengths: 8 heads of 16
 WIDE_DIM = 512  # verify-stack-wide: SeqPAN at the widest D #4 takes, 4 heads of 128
+# verify-stack-heads: SeqPAN at #4's wide and narrow heads (head dims 512 and
+# 3), at a batch whose CPU forward is short
+WIDE_NARROW_HEADS, WIDE_NARROW_BATCH = ((512, 1), (384, 128)), 16
 # calls queued per timed repetition of the stack's plain version and module
 # path: each is hundreds of small launches, and more than the host can queue
 # during the sleep kernel would time the host, not the card
@@ -356,12 +361,9 @@ def phase_build() -> dict:
     S.load_kernels()
     seconds = time.perf_counter() - t0
     log(f"[build] {', '.join(SOURCES.values())} built (in parallel) and loaded in {seconds:.1f} s")
-    for name in SOURCES:
-        report = build.library_path(name).with_suffix(".log")
-        if report.exists():
-            for line in report.read_text().splitlines():
-                if "Function properties" in line or "registers" in line or "spill" in line:
-                    log(f"[build]   {name}: {line.strip()}")
+    for name in SOURCES:  # each kernel's registers, each function's spills, each source's seconds
+        for line in build.ptxas_report(name):
+            log(f"[build]   {name}: {line}")
     return {"seconds": seconds}
 
 
@@ -523,19 +525,20 @@ def phase_serve(kernels, card: str, fused: bool = False):
     return stats, dataset, store, derived, cfg
 
 
-def phase_verify(cfg, derived, dataset, store, phase: str = "verify") -> dict:
-    """One f32 batch: kernels on the card against the plain versions on the
-    CPU.  With ``model.fused_dual_stack`` set in ``cfg`` (verify-stack) the
-    card must have launched the whole-stack kernel once and kernel #2 never."""
+def phase_verify(cfg, derived, dataset, store, phase: str = "verify", size: int = B) -> dict:
+    """One f32 batch of ``size``: kernels on the card against the plain
+    versions on the CPU.  With ``model.fused_dual_stack`` set in ``cfg``
+    (verify-stack) the card must have launched the whole-stack kernel once
+    and kernel #2 never."""
     from vmrframe_tpu_torch.data.batcher import Batcher
     from vmrframe_tpu_torch.kernels import attention as K
     from vmrframe_tpu_torch.kernels import dual_stack as S
 
-    batch = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B)))
+    batch = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(size)))
     zero_counts(K.KERNELS + S.KERNELS)
     vlen = int(cfg.model.vlen)
     out = verify_forward(phase, cfg, derived, dataset["word_vector"], batch,
-                         {"slogits": (B, vlen), "elogits": (B, vlen)})
+                         {"slogits": (size, vlen), "elogits": (size, vlen)})
     want = SERVE_LAUNCHES[bool(cfg.model.get("fused_dual_stack", False))]
     got = {fn.__name__: fn.launches for fn in K.KERNELS + S.KERNELS}
     log(f"[{phase}] launches in one forward on the card: {json.dumps(got)}")
@@ -562,11 +565,12 @@ def phase_verify_long(fused: bool = False) -> dict:
                         "verify-stack-long" if fused else "verify-long")
 
 
-def phase_verify_wide() -> dict:
-    """SeqPAN at D ``WIDE_DIM`` (4 heads of 128; Charades lengths, batch
-    ``B``) with the stack's flag set: one bf16 eval forward on the card (the
-    serving policy) launches #4 once, #2 never, #3 and #1 twice, with finite
-    logits; then phase_verify's f32 forward against the CPU's plain path."""
+def verify_flag_on(phase: str, dim: int, heads: int, size: int) -> dict:
+    """SeqPAN at D ``dim`` with ``heads`` heads (Charades lengths, batch
+    ``size``) with the stack's flag set: one bf16 eval forward on the card
+    (the serving policy) launches #4 once, #2 never, #3 and #1 twice, with
+    finite logits; then phase_verify's f32 forward against the CPU's plain
+    path."""
     from vmrframe_tpu_torch.config import Derived
     from vmrframe_tpu_torch.data.batcher import Batcher
     from vmrframe_tpu_torch.kernels import attention as K
@@ -575,25 +579,39 @@ def phase_verify_wide() -> dict:
     from vmrframe_tpu_torch.tools.serve import make_cfg
     from vmrframe_tpu_torch.train.evaluator import Evaluator
 
-    phase = "verify-stack-wide"
-    cfg = make_cfg(dim=WIDE_DIM, fused_dual_stack=True)
-    dataset, store = make_synthetic_data(cfg, seed=0, n_train=B, n_test=B)
+    cfg = make_cfg(dim=dim, batch_size=size, fused_dual_stack=True).updated(
+        {"model.num_heads": heads})
+    dataset, store = make_synthetic_data(cfg, seed=0, n_train=size, n_test=size)
     derived = Derived(num_words=dataset["n_words"], num_chars=dataset["n_chars"])
-    batch = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(B)))
+    batch = Batcher(dataset["test_set"], store, cfg, derived).make_batch(list(range(size)))
     ev = Evaluator(cfg, derived, dataset["word_vector"], device="cuda", seed=0)
     kernels = K.KERNELS + S.KERNELS
     zero_counts(kernels)
     out = ev.forward(ev.to_device(batch))
     torch.cuda.synchronize()
     got = {fn.__name__: fn.launches for fn in kernels}
-    log(f"[{phase}] one {cfg.train.compute_dtype} eval forward at D {WIDE_DIM}: launches "
-        f"{json.dumps(got)}")
+    log(f"[{phase}] one {cfg.train.compute_dtype} eval forward at D {dim}, {heads} heads: "
+        f"launches {json.dumps(got)}")
     if got != SERVE_LAUNCHES[True]:
         raise SmokeFailure(f"{phase}: launches {got}, want {SERVE_LAUNCHES[True]}")
     if not all(torch.isfinite(out[k].float()).all() for k in ("slogits", "elogits")):
         raise SmokeFailure(f"{phase}: the bf16 logits are not finite")
     del ev
-    return {**phase_verify(cfg, derived, dataset, store, phase), "bf16_launches": got}
+    return {**phase_verify(cfg, derived, dataset, store, phase, size), "bf16_launches": got}
+
+
+def phase_verify_wide() -> dict:
+    """``verify_flag_on`` at D ``WIDE_DIM`` (4 heads of 128), batch ``B``."""
+    return verify_flag_on("verify-stack-wide", WIDE_DIM, H, B)
+
+
+def phase_verify_heads() -> dict:
+    """``verify_flag_on`` at #4's wide and narrow heads (``WIDE_NARROW_HEADS``:
+    D 512 at 1 head of 512, D 384 at 128 heads of 3), batch
+    ``WIDE_NARROW_BATCH``."""
+    return {f"D={dim} heads={heads}": verify_flag_on("verify-stack-heads", dim, heads,
+                                                     WIDE_NARROW_BATCH)
+            for dim, heads in WIDE_NARROW_HEADS}
 
 
 def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict,
@@ -3052,8 +3070,8 @@ def main() -> int:
     time_cases, weights, long_cases, f32_cases, sentence_cases, blocks = table_cases(g)
     cases = {name: time_cases[name] for name in ATTENTION + (STACK,)}
     wide = wide_stack_cases(g)  # #4 at D 256, 384, 512: 4 heads at Charades lengths
-    wide_check = [case for _, case in wide.values()] + [
-        case + (STACK_CHECK_HEADS,) for blocks, _ in wide.values()
+    wide_check = [case for _, _, _, case in wide] + [
+        case + (STACK_CHECK_HEADS,) for _, _, blocks, _ in wide
         for case in stack_cases(g, blocks, ((3, LV, LT),))]
     odd_hd = lambda make: [c for hd in AF_CHECK_HD for c in make(hd)]  # noqa: E731
     check_cases = {**cases, **{name: cases[name] + long_cases[name] + sentence_cases[name]
@@ -3109,6 +3127,7 @@ def main() -> int:
                                    store, "verify-stack")
     record["verify_stack_long"] = phase("verify-stack-long", phase_verify_long, True)
     record["verify_stack_wide"] = phase("verify-stack-wide", phase_verify_wide)
+    record["verify_stack_heads"] = phase("verify-stack-heads", phase_verify_heads)
     record["serve_router"] = phase("serve-router", phase_serve_router, kernels, card)
     record["train_seqpan"] = phase("train-SeqPAN", phase_train_seqpan, K, S, card)
     record["verify_train_seqpan"] = phase("verify-train-SeqPAN", phase_verify_train_seqpan, K, S)

@@ -11,7 +11,8 @@
   ``banded_attention_plain`` on every row at 1e-6, padding rows included;
 - ``kernels/build.py`` names a library by its source and its headers (a
   library of several parts by every part and the headers their headers
-  include).
+  include), builds the parts apart and links them, and reads back each
+  kernel's registers, each function's spills and each source's seconds.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -199,3 +200,25 @@ def test_build_all_compiles_the_parts_apart_and_links_them(tmp_path, monkeypatch
     log = lib.with_suffix(".log").read_text()
     assert "k.cu" in log and "k_2.cu" in log and ".o" in log  # the parts, then the link
     assert sorted(p.suffix for p in lib.parent.iterdir()) == [".log", ".so"]
+    built = [line for line in log.splitlines() if line.startswith("built ")]
+    assert [line.split(" in ")[0] for line in built] == ["built k.cu", "built k_2.cu",
+                                                         "built the link"]
+    assert build.ptxas_report("k") == built  # the fake reports no kernel or function
+
+
+def test_ptxas_report_names_registers_spills_and_seconds(tmp_path, monkeypatch):
+    """The compilers' report read back: a kernel's spills and registers and
+    a device function's spills, one line each, then each source's
+    seconds."""
+    (tmp_path / "libk.log").write_text(
+        "ptxas info    : Compiling entry function 'stack' for 'sm_90a'\n"
+        "ptxas info    : Function properties for stack\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n"
+        "ptxas info    : Function properties for body\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "built k.cu in 3.5 s\n")
+    monkeypatch.setattr(build, "build_all", lambda names: {names[0]: tmp_path / "libk.so"})
+    assert build.ptxas_report("k") == [
+        "stack: spills 8 / 12 bytes (stores / loads)", "stack: 128 registers",
+        "body: spills 0 / 0 bytes (stores / loads)", "built k.cu in 3.5 s"]

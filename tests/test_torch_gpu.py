@@ -7,7 +7,7 @@ file imports no JAX, so it runs on a machine without it:
 
 (``--noconftest`` because ``tests/conftest.py`` sets JAX up.)  Shapes are
 ragged on purpose (lengths that are no multiple of a tile, head dims 1 to
-256) and the masks hold wholly masked rows and a wholly masked sample.
+512) and the masks hold wholly masked rows and a wholly masked sample.
 Tolerances: f32 1e-4 (sums in another order); bf16 2**-6 of the largest
 output magnitude (a few bf16 ulps).
 """
@@ -537,9 +537,9 @@ def test_dual_stack_kernel(cuda, dtype, B, Lv, Lt, H):
     masked sample, an odd batch, a short ragged pair, one position; SeqPAN's
     TACoS (256) and ANet (100) lengths on either side, and lengths one past
     a 64-row tile (65) and past two tiles and a 32-key chunk (129); 4 heads
-    of 32, and every other head count the kernel takes: 16 and 32 heads
-    (head dims 8 and 4, padded to the mma's k and n in registers) one stage
-    and past it, 8 heads of 16, 2 and 1 of 64 and 128."""
+    of 32, and the other head counts of D 128 from head dim 4 up: 16 and 32
+    heads (head dims 8 and 4, padded to the mma's k and n in registers) one
+    stage and past it, 8 heads of 16, 2 and 1 of 64 and 128."""
     g = torch.Generator().manual_seed(6)
     args = _stack_inputs(g, B, Lv, Lt, dtype, cuda, H=H)
     before = S.dual_attention_stack.launches
@@ -598,17 +598,56 @@ def test_dual_stack_kernel_at_wider_d_with_an_empty_to_side(cuda, D, dtype):
     _close(got, S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, H), dtype)
 
 
+# every (D, heads) of D <= 512 the gate passes whose head dim is past 128 or
+# not a multiple of 4: the wide and the narrow heads
+ODD_HEADS = [(D, H) for D in S.KERNEL_WIDTHS for H in range(1, D + 1)
+             if D % H == 0 and ((D // H) % 4 or D // H > 128)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,H", ODD_HEADS)
+def test_dual_stack_kernel_at_wide_and_narrow_heads(cuda, D, H, dtype):
+    """#4 at head dims 192-512 (loops to the head dim at run time) and 1, 2,
+    3, 6 (element reads, statistics in device memory) against its plain
+    version on every row: Charades lengths and a pair past every width's
+    stage on both sides (the statistics' walk), sample 0 wholly masked; one
+    launch a call."""
+    g = torch.Generator().manual_seed(D + H)
+    for Lv, Lt in ((64, 30), (70, 66)):
+        args = _stack_inputs(g, 3, Lv, Lt, dtype, cuda, D=D, H=H)
+        before = S.dual_attention_stack.launches
+        got = S.dual_attention_stack(*args)
+        torch.cuda.synchronize()
+        assert S.dual_attention_stack.launches == before + 1
+        _close(got, S.dual_attention_stack_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,H", [(128, 128), (512, 1)])
+def test_dual_stack_kernel_at_hd_1_and_512_with_an_empty_to_side(cuda, D, H, dtype):
+    """A valid video row facing a text side with no valid key at head dims
+    1 and 512: the uniform average over the sample's own text rows."""
+    g = torch.Generator().manual_seed(D * H)
+    v, t, vm, tm, p1, p2, _ = _stack_inputs(g, 3, 40, 20, dtype, cuda, D=D, H=H)
+    vm[1], tm[1] = 1.0, 0.0
+    got = S.dual_attention_stack(v, t, vm, tm, p1, p2, H)
+    torch.cuda.synchronize()
+    _close(got, S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, H), dtype)
+
+
 def test_dual_stack_takes_what_the_c_entry_takes(cuda):
     """``takes`` and the C entry accept the same set: every head count of D
     = 64-768 in steps of 64 that ``takes`` accepts runs (f32 and bf16,
-    against the plain version: every head dim of every width, those the
-    shared kernel pads among them); every other one the C entry refuses
-    with cudaErrorInvalidValue (1) before any launch."""
+    against the plain version: every head dim of every width, 1-512, those
+    the shared kernel pads, loops over or reads element by element among
+    them); every other one the C entry refuses with cudaErrorInvalidValue
+    (1) before any launch, as it refuses narrow heads without their
+    statistics' scratch."""
     lib = S.load_kernels()
     for D in range(64, 832, 64):
         for H in (h for h in range(1, D + 1) if D % h == 0):
             if not S.takes(torch.float32, D, H, 5, 3):
-                assert lib.vmr_dual_stack(0, *[None] * 12, 2, D, 5, 3, H, None) == 1, (D, H)
+                assert lib.vmr_dual_stack(0, *[None] * 13, 2, D, 5, 3, H, None) == 1, (D, H)
                 continue
             for dtype in DTYPES:
                 g = torch.Generator().manual_seed(D * H)
@@ -617,7 +656,8 @@ def test_dual_stack_takes_what_the_c_entry_takes(cuda):
                 torch.cuda.synchronize()
                 _close(got, S.dual_attention_stack_plain(*args), dtype)
     assert not S.takes(torch.float32, 128, 4, 0, 3)
-    assert lib.vmr_dual_stack(0, *[None] * 12, 2, 128, 0, 3, 4, None) == 1
+    assert lib.vmr_dual_stack(0, *[None] * 13, 2, 128, 0, 3, 4, None) == 1
+    assert lib.vmr_dual_stack(0, *[None] * 13, 2, 128, 5, 3, 64, None) == 1  # no stat_scratch
 
 
 def test_dual_stack_attention_is_on_the_tensor_cores():
@@ -633,15 +673,13 @@ def test_dual_stack_attention_is_on_the_tensor_cores():
 
 
 def test_dual_stack_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
-    """Either side of the limit: D 640, head dim 192 (D 768, 4 heads) and
-    head dim 2 raise the ValueError that names the set, D 128 at 1 head
-    (head dim 128) runs; f16 and mixed types raise too."""
+    """Either side of the limit: D 640 and D 768 (4 heads of 192) raise the
+    ValueError that names the set, D 128 at 1 head (head dim 128) and at 64
+    (head dim 2) run; f16 and mixed types raise too."""
     g = torch.Generator().manual_seed(8)
     v, t, vm, tm, p1, p2, H = _stack_inputs(g, 2, 16, 8, torch.float32, cuda)
     before = S.dual_attention_stack.launches
-    with pytest.raises(ValueError, match="the kernel takes D in"):  # head dim 2
-        S.dual_attention_stack(v, t, vm, tm, p1, p2, 64)
-    for D in (640, 768):  # D past the set; head dim 192
+    for D in (640, 768):  # D past the set
         with pytest.raises(ValueError, match=r"the kernel takes D in \(128, 256, 384, 512\)"):
             wide = {k: torch.zeros(*(D if d == 128 else d for d in x.shape), device=cuda)
                     for k, x in p1.items()}
@@ -653,8 +691,9 @@ def test_dual_stack_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="share"):
         S.dual_attention_stack(v, t, vm, tm, {**p1, "W": p1["W"].bfloat16()}, p2, H)
     assert S.dual_attention_stack.launches == before
-    S.dual_attention_stack(v, t, vm, tm, p1, p2, 1)  # head dim 128: the edge it takes
-    assert S.dual_attention_stack.launches == before + 1
+    S.dual_attention_stack(v, t, vm, tm, p1, p2, 1)  # head dim 128
+    S.dual_attention_stack(v, t, vm, tm, p1, p2, 64)  # head dim 2
+    assert S.dual_attention_stack.launches == before + 2
 
 
 def test_family_forward_with_the_fused_stack_matches_plain_on_cpu(cuda):

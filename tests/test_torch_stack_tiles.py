@@ -11,7 +11,9 @@ attention (``_attend``) is the kernel's mma tasks: ``TASK_ROWS`` query rows
 and one head (rows past the tile's length invalid, computed and dropped),
 the head dim padded with zeros to the instruction's k (16 for bf16's
 m16n8k16, 8 for f32's m16n8k8) and P.V's n to 8 (the wider widths' shared
-kernels pad it further, to 16-128, with more zeros: the same sums).  A side
+kernels pad it further, to 16-128, with more zeros: the same sums; the
+narrow heads, 1, 2, 3 and 6, take one k-step and one n-tile, ``NARROW_HD``;
+the wide ones, 192-512, are multiples of 16 and padded not at all).  A side
 of at most a stage's keys is one stage (the chunk's keys or the stage's,
 -inf past the side) and one walk; a longer one goes in chunks: bf16 walks
 twice (the max and sum over stage-sized chunks with rescaling, then p =
@@ -26,15 +28,18 @@ reduced over the quad of lanes that holds the row) must fail.
 
 Cases: lengths at and past tile and chunk edges (65, 129, 256 video rows;
 30 and 257 text rows), a wholly masked sample, a valid video facing an empty
-text side, 8 heads of 16, 16 heads of 8 and 32 heads of 4 (head dims padded
-to the instruction's k and n); at D 256, 384 and 512 the video side past a
-tile of 32 or 16 rows, a short pair in one stage, 4 and 8 heads (head dims
-32-128; 48 and 12 at D 384).  Inputs and weights are made with numpy from
-a seed.  Tolerances: f32 1e-5 (the same products, summed in another order,
+text side, 8 heads of 16, 16 heads of 8, 32 heads of 4 and 64 and 128 heads
+of 2 and 1 (head dims padded to the instruction's k and n); at D 256, 384
+and 512 the video side past a tile of 32 or 16 rows, a short pair in one
+stage, 4 and 8 heads (head dims 32-128; 48 and 12 at D 384), and every
+wide and narrow head dim (192-512; 1, 2, 3, 6) with a side longer than a
+stage, so that the max and sum of each (row, head) are carried between
+chunks.  Inputs and weights are made with numpy from a seed.  Tolerances: f32 1e-5 (the same products, summed in another order,
 3xTF32 within ~2^-22 of each); bf16 2**-6 of the largest output (a few bf16
 ulps: a p rounded on either side of a bf16 boundary where the two sums
 differ in their last bit).  The schedule's constants, the widths and the
-longest head dim are read back from the CUDA source.
+narrow and the longest head dims and the narrow heads' statistics are read
+back from the CUDA source.
 """
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
@@ -62,6 +67,7 @@ TILE_ROWS, STAGE_KEYS, CHUNK_KEYS = SCHEDULES[D]
 TASK_ROWS = 16
 MMA_K = {torch.bfloat16: 16, torch.float32: 8}  # m16n8k16 bf16, m16n8k8 tf32
 MMA_N = 8
+NARROW_HD = 8  # the narrow heads' body (kNarrowHD): one k-step and one n-tile
 
 
 def _up(n, m):
@@ -229,8 +235,10 @@ CASES = [  # B, Lv, Lt, heads, empty_to_side
     (2, 256, 30, 4, True),    # a valid video facing an empty text side
     (2, 64, 30, 16, False),   # 16 heads of 8, one stage each way (8 and 4 key tiles)
     (2, 30, 100, 32, False),  # 32 heads of 4, one stage and chunks
+    (2, 70, 30, 64, False),   # 64 heads of 2: the video side past a stage
+    (3, 30, 70, 128, True),   # 128 heads of 1: the text side past a stage; an empty one
 ]
-HEAD_CASES = CASES[-2:]  # head dims 8 and 4: k and n padded in registers
+HEAD_CASES = CASES[-4:]  # head dims 8, 4, 2, 1: k and n padded in registers
 WIDE_CASES = [  # D, B, Lv, Lt, heads, empty_to_side: the wider widths' tiles and chunks
     (256, 3, 40, 30, 4, False),   # past a 32-row tile; the text side in one stage
     (256, 2, 30, 33, 8, True),    # the video side one past a stage; an empty text side
@@ -238,6 +246,15 @@ WIDE_CASES = [  # D, B, Lv, Lt, heads, empty_to_side: the wider widths' tiles an
     (384, 2, 13, 5, 32, False),   # head dim 12; one stage each way
     (512, 3, 33, 9, 4, False),    # head dim 128; past two tiles
     (512, 2, 17, 16, 8, True),    # head dim 64; an empty text side
+    # the wide and the narrow heads, a side longer than a stage
+    (256, 2, 40, 33, 1, False),   # head dim 256; both sides past a stage of 32
+    (256, 3, 20, 34, 128, False),  # head dim 2
+    (384, 2, 17, 20, 2, False),   # head dim 192
+    (384, 3, 20, 5, 128, True),   # head dim 3; an empty text side
+    (384, 2, 18, 17, 64, False),  # head dim 6
+    (384, 2, 17, 9, 1, False),    # head dim 384
+    (512, 2, 20, 17, 1, False),   # head dim 512
+    (512, 3, 9, 18, 512, False),  # head dim 1
 ]
 
 
@@ -318,7 +335,10 @@ def test_a_row_max_not_reduced_over_the_quad_fails(dtype, D):
 
 def test_schedule_constants_are_the_kernels():
     """Each width's tile, stage and chunk, the widths themselves (the set
-    ``takes`` accepts) and the longest head dim, as the source states them."""
+    ``takes`` accepts), the narrow heads' body and statistics (room for a
+    max and a sum of every (row, head) of a tile at every width, as the
+    wrapper allocates them) and the longest head dim, as the source states
+    them."""
     src = CSRC.read_text()
     layouts = dict(re.findall(r"template <> struct Lay<(\d+)> \{ (static constexpr int [^}]*)\};",
                               src))
@@ -329,6 +349,10 @@ def test_schedule_constants_are_the_kernels():
         assert fields["kShare"] == (2 * keys <= stage), width  # K and V of a chunk in one buffer
     widths = re.search(r"constexpr int kWidths\[\] = \{([\d, ]+)\};", src)
     assert widths and tuple(int(w) for w in widths.group(1).split(",")) == S.KERNEL_WIDTHS
-    for name, value in (("kRows", TASK_ROWS), ("kMaxHeadDim", S.MAX_HEAD_DIM)):
-        found = re.search(rf"constexpr int {name} = (\d+);", src)
-        assert found and int(found.group(1)) == value, name
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))  # noqa: E731
+    assert const("kRows") == TASK_ROWS and const("kNarrowHD") == NARROW_HD
+    assert NARROW_HD == MMA_N <= min(MMA_K.values())
+    assert const("kMaxHeadDim") >= max(S.KERNEL_WIDTHS)  # one head of the widest D
+    assert const("kNarrowStat") == S.NARROW_STAT_FLOATS
+    assert all(2 * tile * width <= S.NARROW_STAT_FLOATS
+               for width, (tile, _, _) in SCHEDULES.items())

@@ -21,6 +21,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -73,10 +74,11 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
     """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
     ``nvcc`` for each source (each of a library's ``PARTS``), all started
     together; then link the parts.  The compilers' report (registers, shared
-    memory, spills) goes to a ``.log`` beside each library."""
+    memory, spills) and each source's seconds go to a ``.log`` beside each
+    library."""
     outs = {name: library_path(name) for name in names}
     with _lock:
-        running = []  # (name, library, its temporary file, [(process, report)], objects)
+        running = []  # (name, library, its temporary file, its nvcc jobs, objects)
         for name, out in outs.items():
             if out.exists():
                 continue
@@ -84,26 +86,29 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             parts = PARTS.get(name, (name,))
             if len(parts) == 1:
-                jobs = [(_nvcc_job([*NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                                   out.with_suffix(".log")))]
+                jobs = [_nvcc_job([*NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                                  out.with_suffix(".log"), f"{name}.cu")]
                 running.append((name, out, tmp, jobs, []))
                 continue
             objs = [out.with_name(f"{out.stem}.{part}.{os.getpid()}.o") for part in parts]
             compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
             jobs = [_nvcc_job([*compile_flags, "-c", "-o", str(obj), str(CSRC / f"{part}.cu")],
-                              obj.with_suffix(".log")) for part, obj in zip(parts, objs)]
+                              obj.with_suffix(".log"), f"{part}.cu") for part, obj in zip(parts, objs)]
             running.append((name, out, tmp, jobs, objs))
+        _finish([job for *_, jobs, _ in running for job in jobs])
         failed = []
         for name, out, tmp, jobs, objs in running:
-            codes = [proc.wait() for proc, _ in jobs]
-            if objs and not any(codes):  # link the parts
+            if objs and not any(job["code"] for job in jobs):  # link the parts
                 jobs.append(_nvcc_job([*NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
-                                      out.with_name(f"{out.stem}.link.log")))
-                codes.append(jobs[-1][0].wait())
+                                      out.with_name(f"{out.stem}.link.log"), "the link"))
+                _finish(jobs[-1:])
+            out.with_suffix(".log").write_text(
+                "".join(job["report"].read_text() for job in jobs)
+                + "".join(f"built {job['source']} in {job['seconds']:.1f} s\n" for job in jobs))
             if objs:
-                out.with_suffix(".log").write_text("".join(r.read_text() for _, r in jobs))
-                for f in objs + [report for _, report in jobs]:
+                for f in objs + [job["report"] for job in jobs]:
                     f.unlink(missing_ok=True)
+            codes = [job["code"] for job in jobs]
             if any(codes):
                 failed.append(f"nvcc failed on {name}.cu:\n{out.with_suffix('.log').read_text()}")
             else:
@@ -113,12 +118,61 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
     return outs
 
 
-def _nvcc_job(args: list, report: Path):
-    """One ``nvcc`` started, its output into ``report``: (process, report)."""
+def _nvcc_job(args: list, report: Path, source: str) -> dict:
+    """One ``nvcc`` on ``source`` started, its output into ``report``."""
     with open(report, "w") as f:
-        return subprocess.Popen([_nvcc(), *args], stdout=f, stderr=subprocess.STDOUT), report
+        proc = subprocess.Popen([_nvcc(), *args], stdout=f, stderr=subprocess.STDOUT)
+    return {"proc": proc, "report": report, "source": source, "t0": time.monotonic(),
+            "code": None, "seconds": None}
+
+
+def _finish(jobs) -> None:
+    """Waits for every job, noting its exit code and its seconds from its
+    start."""
+    while any(job["code"] is None for job in jobs):
+        for job in jobs:
+            if job["code"] is None and job["proc"].poll() is not None:
+                job["code"], job["seconds"] = job["proc"].returncode, time.monotonic() - job["t0"]
+        time.sleep(0.05)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library for ``csrc/<name>.cu``, built on first use, loaded."""
     return ctypes.CDLL(str(build_all([name])[name]))
+
+
+def ptxas_report(name: str) -> list:
+    """From the compilers' report of ``name``'s library (built first): one
+    line for each kernel (its registers) and each function ptxas lists (its
+    spill stores and loads in bytes), names demangled where ``c++filt`` is
+    found; then the seconds each source took to build."""
+    text = build_all([name])[name].with_suffix(".log").read_text()
+    filt = shutil.which("c++filt")
+
+    def readable(mangled):
+        if filt:
+            mangled = subprocess.run([filt, mangled], capture_output=True, text=True).stdout
+        name = re.sub(r"_INTERNAL_\w+::|\(anonymous namespace\)::|^void ", "", mangled.strip())
+        return name.split("(")[0]
+
+    lines, kernel = [], None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            kernel = readable(m.group(1))
+        elif (m := re.search(r"Used (\d+) registers", line)) and kernel:
+            lines.append(f"{kernel}: {m.group(1)} registers")
+            kernel = None
+        elif m := re.search(r"Function properties for (\S+)", line):
+            lines.append(readable(m.group(1)))
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and lines:
+            lines[-1] += f": spills {m.group(1)} / {m.group(2)} bytes (stores / loads)"
+        elif line.startswith("built "):
+            lines.append(line)
+    return lines
+
+
+if __name__ == "__main__":
+    import sys
+
+    # python -m vmrframe_tpu_torch.kernels.build NAME: build csrc/NAME.cu, print its report
+    print("\n".join(ptxas_report(sys.argv[1])))

@@ -54,10 +54,10 @@
 // through a double buffer, each warp 4 rows and 128 columns, each lane 4
 // columns, 16 accumulators a thread (at D 384 12 of the 16 warps work).
 //
-// Attention (attention<T, D, HD, kExact>: HD the head dim, or at the wider
-// D a bound on it, the head dim then read at run time): a warp task is (16
-// query rows, one head), S = Q K^T and P.V on mma.sync, bf16 on
-// m16n8k16 with f32 accumulation, f32 on m16n8k8 in 3xTF32 (mma_tf32.cuh;
+// Attention (attention<T, D, HD, kExact>: HD the head dim, or a bound on
+// it, the head dim then read at run time): a warp task is (16 query rows,
+// one head), S = Q K^T and P.V on mma.sync, bf16 on m16n8k16 with f32
+// accumulation, f32 on m16n8k8 in 3xTF32 (mma_tf32.cuh;
 // each operand split as it is read: split copies of K and V do not fit
 // beside the five buffers); k past the head dim and n past it are zero in
 // registers, and a task stores only its own columns.  Q's A fragments come
@@ -89,11 +89,20 @@
 // reach another's (bf16 staging leaves bit patterns in such rows of Bf and
 // C that need not be finite as f32).
 //
-// Takes D = 128, 256, 384 or 512, H dividing D into head dims that are
-// multiples of 4 and at most 128, and any Lv, Lt >= 1 (kernels/dual_stack.py
-// ::takes is the same set).  4 heads have a kernel of their own at each D;
-// other head counts share one a width, whose attention rounds the head dim
-// up to 16, 32, 64 or 128 (exact at D 128), zero past it in registers.
+// Takes D = 128, 256, 384 or 512 at every head count H dividing D (head
+// dims 1-512), and any Lv, Lt >= 1 (kernels/dual_stack.py::takes is the same
+// set; D 640 and up it refuses).  4 heads have a kernel of their own at each
+// D; other head counts share one a width, whose attention has a body for
+// each class of head dim: exact at D 128 for 4-128, else the head dim
+// rounded up to 16, 32, 64 or 128, zero past it in registers; the wide
+// heads (192-512) one body whose loops over the head dim run to it at run
+// time, in rounds of 32 columns that are whole; the narrow heads (1, 2, 3,
+// 6) one body that reads and writes q, K and the context one element at a
+// time (an odd head dim starts its heads on odd columns, where a pair would
+// be misaligned and hold the next head's first column), with each (row,
+// head)'s max and sum, up to D heads of a tile, in device memory
+// (stat_scratch, 64 KB a sample, L2-resident): grown in shared memory they
+// would not fit a block at D 128, 256 or 512.
 // Interface: plain C, loaded with ctypes; the entry returns
 // cudaGetLastError() after its launch.
 //
@@ -105,26 +114,26 @@
 #include "dual_stack.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16 (features, weights, outputs and
-// kv_scratch); masks, b, ln, xb and scratch are float32.  scratch: (B, Lv +
-// Lt, D), the first layer's results; kv_scratch: (B, 2 (Lv + Lt), D), a
-// call's keys and values.  Returns 1 (cudaErrorInvalidValue), before any
+// kv_scratch); masks, b, ln, xb, scratch and stat_scratch are float32.
+// scratch: (B, Lv + Lt, D), the first layer's results; kv_scratch: (B, 2 (Lv
+// + Lt), D), a call's keys and values; stat_scratch: (B, kNarrowStat), the
+// narrow heads' statistics, needed when the head dim is not a multiple of 4
+// (may be null otherwise).  Returns 1 (cudaErrorInvalidValue), before any
 // launch, for a shape the kernel does not take: D not in kWidths, H not
-// dividing D into head dims that are multiples of 4 and at most
-// kMaxHeadDim, or B, Lv, Lt < 1.
+// dividing D, B, Lv, Lt < 1, or narrow heads without stat_scratch.
 extern "C" int vmr_dual_stack(int dtype, const void* v, const void* t, const void* vm,
                               const void* tm, const void* W, const void* b, const void* ln,
                               const void* xb, void* v_out, void* t_out, void* scratch,
-                              void* kv_scratch, int B, int D, int Lv, int Lt, int H,
-                              void* stream) {
+                              void* kv_scratch, void* stat_scratch, int B, int D, int Lv, int Lt,
+                              int H, void* stream) {
   bool taken = false;
   for (int w : kWidths) taken = taken || D == w;
-  if (!taken || B < 1 || Lv < 1 || Lt < 1 || H < 1 || D % H || (D / H) % 4 ||
-      D / H > kMaxHeadDim)
+  if (!taken || B < 1 || Lv < 1 || Lt < 1 || H < 1 || D % H || ((D / H) % 4 && !stat_scratch))
     return (int)cudaErrorInvalidValue;
   auto* width = D == 128   ? stack_width<128>
                 : D == 256 ? vmr_dual_stack_256
                 : D == 384 ? vmr_dual_stack_384
                            : vmr_dual_stack_512;
-  return width(dtype, v, t, vm, tm, W, b, ln, xb, v_out, t_out, scratch, kv_scratch, B, Lv, Lt, H,
-               static_cast<cudaStream_t>(stream));
+  return width(dtype, v, t, vm, tm, W, b, ln, xb, v_out, t_out, scratch, kv_scratch, stat_scratch,
+               B, Lv, Lt, H, static_cast<cudaStream_t>(stream));
 }

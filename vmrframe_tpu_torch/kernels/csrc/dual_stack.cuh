@@ -20,7 +20,14 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;  // attention: query rows per warp task, one mma row tile
-constexpr int kMaxHeadDim = 128;
+// attention's bodies past the exact ones: kNarrowHD bounds the narrow heads
+// (head dims 1, 2, 3 and 6: element reads, statistics in device memory),
+// kMaxHeadDim the wide ones (192-512: loops to the head dim at run time)
+constexpr int kNarrowHD = 8;
+constexpr int kMaxHeadDim = 512;
+// floats of one block's narrow-head statistics in device memory: a max and a
+// sum for each (row, head) of a tile, 2 kTile D at most
+constexpr int kNarrowStat = 16384;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory an H100 block may hold
 constexpr float kMask = -1e30f;
 constexpr float kLnEps = 1e-6f;
@@ -59,6 +66,7 @@ template <int D> struct L : Lay<D> {
   static constexpr int kChunkPer = kKC * D / kThreads;  // gemm_f32: weights a thread stages
 
   static_assert(kSmemFloats * 4 <= kSmemLimit, "the layout fits a block");
+  static_assert(2 * kTile * D <= kNarrowStat && D <= kMaxHeadDim, "every head count's statistics");
   static_assert(kTile % 16 == 0 && kWarps % (kTile / 16) == 0 && kWarpCols % 8 == 0, "bands");
   static_assert(D % kWK == 0 && kWK % 16 == 0 && D / kWK % 2 == 0,
                 "a product streams an even number of whole chunks: the next one's first goes to slot 0");
@@ -461,6 +469,23 @@ __device__ __forceinline__ void stage_keys(float* kb, float* vb, float* km, cons
   if (j0 < NK) km[j0] = kmv;
 }
 
+// The steps of a product over the head dim, step(kk) for kk < n: unrolled
+// when HD bounds it (n = (HD + W - 1) / W), a loop to the head dim read at
+// run time past kSliceHD (n = hd / W; the wide heads are multiples of 32),
+// one step at a time (two at once spilled the f32 body's registers at D
+// 384 and 512).
+constexpr int kSliceHD = 128;
+template <int HD, int W, typename Step>
+__device__ __forceinline__ void head_steps(int hd, Step step) {
+  if constexpr (HD > kSliceHD) {
+#pragma unroll 1
+    for (int kk = 0; kk < hd / W; ++kk) step(kk);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < (HD + W - 1) / W; ++kk) step(kk);
+  }
+}
+
 // s[j] += Q K^T for the task's 16 rows (ra = r0 + g and ra + 8 of q) and the
 // NT n-tiles of 8 staged keys (bf16 rows 8 j + g of ks), over the head's hd
 // columns from c0 (HD a bound on hd), on mma.sync m16n8k16.  A fragments are
@@ -468,38 +493,53 @@ __device__ __forceinline__ void stage_keys(float* kb, float* vb, float* km, cons
 // holds values already rounded, so this is exact), B fragments as pairs of
 // staged bf16 (rows of kKS / 2 words, 4 apart mod 32: the 32 lanes on 32
 // banks); k past hd is zero in registers: no neighbouring head's column
-// enters a product.
-template <int D, int HD, int NT>
+// enters a product.  Narrow heads (kNarrow: hd below 8, odd ones starting on
+// odd columns, where a pair would be misaligned and could take the next
+// head's first column) read each element alone, held to the head.
+template <int D, int HD, int NT, bool kNarrow>
 __device__ __forceinline__ void scores_bf16(float (&s)[NT][4], const float* q, const bf16* ks,
                                             int ra, int c0, int g, int t, int hd) {
   constexpr int kLD = L<D>::kLD, kKS = L<D>::kKS;
-#pragma unroll
-  for (int kk = 0; kk < (HD + 15) / 16; ++kk) {
-    const int c = c0 + 16 * kk + 2 * t;
-    const bool lo = 16 * kk + 2 * t < hd, hi = 16 * kk + 2 * t + 8 < hd;
-    const float* qa = q + ra * kLD + c;
-    uint32_t a[4];
-    a[0] = lo ? pack_pair(qa) : 0u;
-    a[1] = lo ? pack_pair(qa + 8 * kLD) : 0u;
-    a[2] = hi ? pack_pair(qa + 8) : 0u;
-    a[3] = hi ? pack_pair(qa + 8 * kLD + 8) : 0u;
+  if constexpr (kNarrow) {  // one k-step, its upper half zero
+    const int c = 2 * t;
+    const bool e0 = c < hd, e1 = c + 1 < hd;
+    const float* qa = q + ra * kLD + c0 + c;
+    const uint32_t a[4] = {pack_bf16(e0 ? qa[0] : 0.f, e1 ? qa[1] : 0.f),
+                           pack_bf16(e0 ? qa[8 * kLD] : 0.f, e1 ? qa[8 * kLD + 1] : 0.f), 0u, 0u};
+    const unsigned short* k16 = reinterpret_cast<const unsigned short*>(ks) + c0 + c;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const bf16* kp = ks + (8 * j + g) * kKS + c;
-      mma_bf16(s[j], a, lo ? *reinterpret_cast<const uint32_t*>(kp) : 0u,
-               hi ? *reinterpret_cast<const uint32_t*>(kp + 8) : 0u);
+      const unsigned short* kp = k16 + (8 * j + g) * kKS;
+      mma_bf16(s[j], a, (e0 ? (uint32_t)kp[0] : 0u) | (e1 ? (uint32_t)kp[1] << 16 : 0u), 0u);
     }
+  } else {
+    head_steps<HD, 16>(hd, [&](int kk) {
+      const int c = c0 + 16 * kk + 2 * t;
+      const bool lo = 16 * kk + 2 * t < hd, hi = 16 * kk + 2 * t + 8 < hd;
+      const float* qa = q + ra * kLD + c;
+      uint32_t a[4];
+      a[0] = lo ? pack_pair(qa) : 0u;
+      a[1] = lo ? pack_pair(qa + 8 * kLD) : 0u;
+      a[2] = hi ? pack_pair(qa + 8) : 0u;
+      a[3] = hi ? pack_pair(qa + 8 * kLD + 8) : 0u;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const bf16* kp = ks + (8 * j + g) * kKS + c;
+        mma_bf16(s[j], a, lo ? *reinterpret_cast<const uint32_t*>(kp) : 0u,
+                 hi ? *reinterpret_cast<const uint32_t*>(kp + 8) : 0u);
+      }
+    });
   }
 }
 
 // scores_bf16's product in f32 on mma.sync m16n8k8 in 3xTF32 (mma_tf32.cuh):
-// each operand split into big and small TF32 parts as it is read.
+// each operand split into big and small TF32 parts as it is read, one
+// element at a time (so narrow heads need nothing of their own).
 template <int D, int HD, int NT>
 __device__ __forceinline__ void scores_tf32(float (&s)[NT][4], const float* q, const float* kb,
                                             int ra, int c0, int g, int t, int hd) {
   constexpr int kLD = L<D>::kLD;
-#pragma unroll
-  for (int kk = 0; kk < (HD + 7) / 8; ++kk) {
+  head_steps<HD, 8>(hd, [&](int kk) {
     const int c = c0 + 8 * kk + t;
     const bool lo = 8 * kk + t < hd, hi = 8 * kk + t + 4 < hd;
     const float* qa = q + ra * kLD + c;
@@ -520,7 +560,7 @@ __device__ __forceinline__ void scores_tf32(float (&s)[NT][4], const float* q, c
       }
       mma_3xtf32<kRound>(s, j0, ab, as, bb, bs, kRound);
     }
-  }
+  });
 }
 
 // e^x for the softmax (x <= 0, or -inf): in bf16 ex2.approx, its p being
@@ -548,7 +588,9 @@ enum Walk {
 // against the NT n-tiles of 8 keys staged in kb (and values in vb), of which
 // the first n are keys of the side.  The head dim is HD, or with !kExact
 // hd_rt <= HD (products past it zero in registers, columns past it never
-// stored).  The scores take the additive mask (1 - fm km) kMask and -inf past
+// stored): narrow heads (HD kNarrowHD) read and write q, K and out one
+// element at a time, wide ones (HD kMaxHeadDim) loop to hd at run time.
+// The scores take the additive mask (1 - fm km) kMask and -inf past
 // n; their row max and sum are reduced over the quad (the 4 lanes that hold
 // one mma row); p's C fragments are P.V's A fragments as they stand.  out
 // (f32 rows of stride kLD) gets the task's own rows and head columns only;
@@ -561,6 +603,7 @@ __device__ __forceinline__ void attend_task(const float* q, float* out, const fl
                                             bool first, bool last, int hd_rt) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int kLD = L<D>::kLD, kKS = L<D>::kKS;
+  constexpr bool kNarrow = !kExact && HD == kNarrowHD;
   constexpr int ND = (HD + 7) / 8, G = ND < 4 ? ND : 4;
   static_assert(!kBf16 || NT % 2 == 0, "bf16 P.V takes keys 16 at a time");
   const int hd = kExact ? HD : hd_rt, H = D / hd;
@@ -571,7 +614,7 @@ __device__ __forceinline__ void attend_task(const float* q, float* out, const fl
 #pragma unroll
   for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
   if constexpr (kBf16)
-    scores_bf16<D, HD, NT>(s, q, reinterpret_cast<const bf16*>(kb), ra, c0, g, t, hd);
+    scores_bf16<D, HD, NT, kNarrow>(s, q, reinterpret_cast<const bf16*>(kb), ra, c0, g, t, hd);
   else
     scores_tf32<D, HD, NT>(s, q, kb, ra, c0, g, t, hd);
   __syncwarp();  // every lane has read its q before out (q itself in place) is written
@@ -636,9 +679,10 @@ __device__ __forceinline__ void attend_task(const float* q, float* out, const fl
       for (int e = 0; e < 4; ++e) s[j][e] *= e & 2 ? ib : ia;
   }
 
-  // out (+)= P V, in groups of G n-tiles of 8 head columns; past hd the
-  // values are zero in registers (f32) or their products are never stored
-  // (bf16: columns past hd are the next head's, or a row's padding)
+  // out (+)= P V, in rounds of G n-tiles of 8 head columns (at run time to
+  // hd for wide heads: their rounds are whole); past hd the values are zero
+  // in registers (f32) or their products are never stored (bf16: columns
+  // past hd are the next head's, or a row's padding)
   uint32_t pa[kBf16 ? NT / 2 : 1][4];
   if constexpr (kBf16) {
 #pragma unroll
@@ -649,17 +693,23 @@ __device__ __forceinline__ void attend_task(const float* q, float* out, const fl
       pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
   }
-#pragma unroll
-  for (int d0 = 0; d0 < ND; d0 += G) {
+  float* oa = out + ra * kLD + c0;
+  float* ob = out + rb * kLD + c0;
+  head_steps<HD, 8 * G>(hd, [&](int step) {
+    const int d0 = G * step;
     float o[G][4];
 #pragma unroll
     for (int u = 0; u < G; ++u) {
       const int col = 8 * (d0 + u) + 2 * t;
       if (W == kOne || first || col >= hd) {
         o[u][0] = o[u][1] = o[u][2] = o[u][3] = 0.f;
+      } else if constexpr (kNarrow) {  // the pair's second column may be the next head's
+        const bool e1 = col + 1 < hd;
+        o[u][0] = oa[col] * fa_, o[u][1] = e1 ? oa[col + 1] * fa_ : 0.f;
+        o[u][2] = ob[col] * fb_, o[u][3] = e1 ? ob[col + 1] * fb_ : 0.f;
       } else {
-        const float2 a = *reinterpret_cast<const float2*>(out + ra * kLD + c0 + col);
-        const float2 b = *reinterpret_cast<const float2*>(out + rb * kLD + c0 + col);
+        const float2 a = *reinterpret_cast<const float2*>(oa + col);
+        const float2 b = *reinterpret_cast<const float2*>(ob + col);
         o[u][0] = a.x * fa_, o[u][1] = a.y * fa_, o[u][2] = b.x * fb_, o[u][3] = b.y * fb_;
       }
     }
@@ -667,8 +717,8 @@ __device__ __forceinline__ void attend_task(const float* q, float* out, const fl
       // B from the staged bf16 V: ldmatrix.trans, two n-tiles an x4 (one an
       // x2 at head dim 8), where every head's columns start on 16 bytes (the
       // head dims past 16 of every width are multiples of 8); else pairs of
-      // elements (head dims 4, and up to 16 in the shared kernels of the
-      // wider D), zero past hd
+      // elements (head dims 4, the narrow ones, and up to 16 in the shared
+      // kernels of the wider D), zero past hd
       const bf16* vs = reinterpret_cast<const bf16*>(vb);
       const int mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
@@ -731,10 +781,15 @@ __device__ __forceinline__ void attend_task(const float* q, float* out, const fl
         a.x = round_to<T>(a.x), a.y = round_to<T>(a.y), b.x = round_to<T>(b.x);
         b.y = round_to<T>(b.y);
       }
-      *reinterpret_cast<float2*>(out + ra * kLD + c0 + col) = a;
-      *reinterpret_cast<float2*>(out + rb * kLD + c0 + col) = b;
+      if constexpr (kNarrow) {
+        oa[col] = a.x, ob[col] = b.x;
+        if (col + 1 < hd) oa[col + 1] = a.y, ob[col + 1] = b.y;
+      } else {
+        *reinterpret_cast<float2*>(oa + col) = a;
+        *reinterpret_cast<float2*>(ob + col) = b;
+      }
     }
-  }
+  });
 }
 
 // The tasks of one stage: (16 rows, one head) for every row group below M,
@@ -759,6 +814,10 @@ __device__ __forceinline__ void attend_stage(const float* q, float* out, int M, 
 // buffer at out_at.  The head dim is HD, or with !kExact hd_rt <= HD.  sm.fm
 // holds the tile rows' validity (0 beyond M), km_g (Tn,) the keys'.  Rows of
 // the last row group beyond M are computed on finite values and never read.
+// The max and sum of each (row, head) go to sm.stat; narrow heads, up to D
+// of them (more than sm.stat holds), keep theirs in stat_g: the block's
+// kNarrowStat floats of device memory (L2-resident, read back by the warp
+// that wrote them).
 //
 // Tn <= kStage: K and V staged once (kKeys or kStage keys) into Bf and C,
 // one walk, the scores in registers; out may be q (a task reads only its own
@@ -771,7 +830,8 @@ __device__ __forceinline__ void attend_stage(const float* q, float* out, int M, 
 // f32 is the identity, so this is exact up to the order of the sums).
 template <typename T, int D, int HD, bool kExact>
 __device__ __noinline__ void attention(int q_at, int out_at, int v_at, int M, const T* kg,
-                                       const T* vg, const float* km_g, int Tn, int hd) {
+                                       const T* vg, const float* km_g, int Tn, int hd,
+                                       float* stat_g) {
   using Ly = L<D>;
   constexpr int kStage = Ly::kStage, kKeys = Ly::kKeys;
   // the buffers rebuilt from smem_base(): shared-memory accesses (a pointer
@@ -779,7 +839,8 @@ __device__ __noinline__ void attention(int q_at, int out_at, int v_at, int M, co
   const Smem<D> sm(smem_base());
   const float* q = smem_base() + q_at;
   float* out = smem_base() + out_at;
-  float *kb = sm.Bf, *vb = sm.C, *km = sm.km, *stat = sm.stat;
+  float *kb = sm.Bf, *vb = sm.C, *km = sm.km;
+  float* stat = !kExact && HD == kNarrowHD ? stat_g : sm.stat;
   const float* fm = sm.fm;
   if (Tn <= kStage) {
     if (kKeys < kStage && Tn <= kKeys) {
@@ -824,33 +885,41 @@ __device__ __noinline__ void attention(int q_at, int out_at, int v_at, int M, co
 }
 
 // attention<T, D, HD, true>, or with HD 0 the body for the head dim D / H:
-// exact at D 128 (head dims 4-128 are powers of two), else the next of 16,
-// 32, 64, 128 at or above it; q and out are activation buffers of sm.  A
+// narrow heads (1, 2, 3, 6) their own; exact at D 128 (the other head dims,
+// 4-128, are powers of two), else the next of 16, 32, 64, 128 at or above it,
+// and the wide body past 128; q and out are activation buffers of sm.  A
 // longer side's V goes to C, or to A when C is out (self attention whose
 // context cannot go over q).
 template <typename T, int D, int HD>
 __device__ __forceinline__ void attend(const float* q, float* out, int M, const T* kg, const T* vg,
-                                       const float* km_g, int Tn, int H, const Smem<D>& sm) {
+                                       const float* km_g, int Tn, int H, const Smem<D>& sm,
+                                       float* stat_g) {
   const int q_at = (int)(q - sm.A), out_at = (int)(out - sm.A);  // sm.A is smem_base()
   const int v_at = out == sm.C ? 0 : (int)(sm.C - sm.A);
   const int hd = D / H;
+#define VMR_ATTEND(HD_, EXACT_) \
+  return attention<T, D, HD_, EXACT_>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd, stat_g)
   if constexpr (HD != 0) {
-    attention<T, D, HD, true>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, HD);
+    VMR_ATTEND(HD, true);
+  } else if (hd % 4) {
+    VMR_ATTEND(kNarrowHD, false);
   } else if constexpr (D == 128) {
     switch (hd) {
-      case 128: return attention<T, D, 128, true>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
-      case 64: return attention<T, D, 64, true>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
-      case 32: return attention<T, D, 32, true>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
-      case 16: return attention<T, D, 16, true>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
-      case 8: return attention<T, D, 8, true>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
-      default: return attention<T, D, 4, true>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
+      case 128: VMR_ATTEND(128, true);
+      case 64: VMR_ATTEND(64, true);
+      case 32: VMR_ATTEND(32, true);
+      case 16: VMR_ATTEND(16, true);
+      case 8: VMR_ATTEND(8, true);
+      default: VMR_ATTEND(4, true);
     }
   } else {
-    if (hd <= 16) return attention<T, D, 16, false>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
-    if (hd <= 32) return attention<T, D, 32, false>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
-    if (hd <= 64) return attention<T, D, 64, false>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
-    return attention<T, D, 128, false>(q_at, out_at, v_at, M, kg, vg, km_g, Tn, hd);
+    if (hd <= 16) VMR_ATTEND(16, false);
+    if (hd <= 32) VMR_ATTEND(32, false);
+    if (hd <= 64) VMR_ATTEND(64, false);
+    if (hd <= kSliceHD) VMR_ATTEND(kSliceHD, false);
+    VMR_ATTEND(kMaxHeadDim, false);
   }
+#undef VMR_ATTEND
 }
 
 // Writes rows [0, M) of two activation buffers (values already rounded) to
@@ -886,7 +955,7 @@ template <typename T, int D, int HD>
 __device__ __noinline__ void dab_call(Act x, Act y, Act out, const float* fm_g,
                                       const float* tm_g, int F, int Tn, int H, const T* W,
                                       const float* b, const float* ln, const float* xb, T* kvg,
-                                      const T* Wafter, const T*& pending) {
+                                      float* stat_g, const T* Wafter, const T*& pending) {
   using Ly = L<D>;
   constexpr int kTile = Ly::kTile, kLD = Ly::kLD, kStage = Ly::kStage;
   const Smem<D> sm(smem_base());
@@ -939,10 +1008,10 @@ __device__ __noinline__ void dab_call(Act x, Act y, Act out, const float* fm_g,
     gemm<T, D, 1, false>(A, nullptr, M, Wm[W_Q], Wm[W_XD], sm, pending, biased_rounded(Dq, W_Q));
     // cross attention -> E; self attention -> S, in place over q when one
     // stage holds the from-side's keys; R: the buffer that stays free
-    attend<T, D, HD>(Dq, E, M, tk, tv, tm_g, Tn, H, sm);
+    attend<T, D, HD>(Dq, E, M, tk, tv, tm_g, Tn, H, sm, stat_g);
     float* S = F <= kStage ? Dq : C;
     float* R = F <= kStage ? C : Dq;
-    attend<T, D, HD>(Dq, S, M, fk, fv, fm_g, F, H, sm);
+    attend<T, D, HD>(Dq, S, M, fk, fv, fm_g, F, H, sm, stat_g);
     if (!Ly::kShare && F > kStage) fn();  // A held the self attention's values
     // values and cross gates
     gemm<T, D, 1, false>(E, nullptr, M, Wm[W_XD], Wm[W_SD], sm, pending, biased(Bf, W_XD));
@@ -989,7 +1058,7 @@ template <typename T, int D, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     stack_kernel(const T* v_in, const T* t_in, const float* vm, const float* tm, const T* W,
                  const float* b, const float* ln, const float* xb, T* v_out, T* t_out,
-                 float* scratch, T* kv_scratch, int Lv, int Lt, int H) {
+                 float* scratch, T* kv_scratch, float* stat_scratch, int Lv, int Lt, int H) {
   float* smem = smem_base();
   // rows beyond a tile's length are read (never used) by the products
   for (int i = threadIdx.x; i < 5 * L<D>::kBuf; i += kThreads) smem[i] = 0.f;
@@ -1002,6 +1071,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Act t1{scratch + s * rows * D + (long long)Lv * D, true};
   const Act v2{v_out + s * Lv * D, false}, t2{t_out + s * Lt * D, false};
   T* kvg = kv_scratch + s * 2 * rows * D;
+  float* stat_g = stat_scratch ? stat_scratch + s * kNarrowStat : nullptr;  // narrow heads only
   const float* vmask = vm + s * Lv;
   const float* tmask = tm + s * Lt;
   const T* pending = nullptr;  // the matrix whose first chunk gemm_mma has in flight
@@ -1014,9 +1084,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // each call's first product is W_TK: of this layer, then of the next
     const T* Wnext = layer ? nullptr : W + kNumW * D * D + W_TK * D * D;
     dab_call<T, D, HD>(xv, xt, layer ? v2 : v1, vmask, tmask, Lv, Lt, H, Wl, bl, lnl, xbl, kvg,
-                       Wl + W_TK * D * D, pending);
+                       stat_g, Wl + W_TK * D * D, pending);
     dab_call<T, D, HD>(xt, xv, layer ? t2 : t1, tmask, vmask, Lt, Lv, H, Wl, bl, lnl, xbl, kvg,
-                       Wnext, pending);
+                       stat_g, Wnext, pending);
     __syncthreads();  // the scratch rows written above are read by other threads below
   }
 }
@@ -1024,7 +1094,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <typename T, int D, int HD>
 int launch(const void* v, const void* t, const void* vm, const void* tm, const void* W,
            const void* b, const void* ln, const void* xb, void* v_out, void* t_out,
-           void* scratch, void* kv_scratch, int B, int Lv, int Lt, int H, cudaStream_t stream) {
+           void* scratch, void* kv_scratch, void* stat_scratch, int B, int Lv, int Lt, int H,
+           cudaStream_t stream) {
   const size_t bytes = (size_t)L<D>::kSmemFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(stack_kernel<T, D, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1033,8 +1104,8 @@ int launch(const void* v, const void* t, const void* vm, const void* tm, const v
       static_cast<const T*>(v), static_cast<const T*>(t), static_cast<const float*>(vm),
       static_cast<const float*>(tm), static_cast<const T*>(W), static_cast<const float*>(b),
       static_cast<const float*>(ln), static_cast<const float*>(xb), static_cast<T*>(v_out),
-      static_cast<T*>(t_out), static_cast<float*>(scratch), static_cast<T*>(kv_scratch), Lv, Lt,
-      H);
+      static_cast<T*>(t_out), static_cast<float*>(scratch), static_cast<T*>(kv_scratch),
+      static_cast<float*>(stat_scratch), Lv, Lt, H);
   return (int)cudaGetLastError();
 }
 
@@ -1043,11 +1114,11 @@ int launch(const void* v, const void* t, const void* vm, const void* tm, const v
 template <int D>
 int stack_width(int dtype, const void* v, const void* t, const void* vm, const void* tm,
                 const void* W, const void* b, const void* ln, const void* xb, void* v_out,
-                void* t_out, void* scratch, void* kv_scratch, int B, int Lv, int Lt, int H,
-                cudaStream_t s) {
+                void* t_out, void* scratch, void* kv_scratch, void* stat_scratch, int B, int Lv,
+                int Lt, int H, cudaStream_t s) {
   auto go = [&](auto kernel_launch) {
-    return kernel_launch(v, t, vm, tm, W, b, ln, xb, v_out, t_out, scratch, kv_scratch, B, Lv, Lt,
-                         H, s);
+    return kernel_launch(v, t, vm, tm, W, b, ln, xb, v_out, t_out, scratch, kv_scratch,
+                         stat_scratch, B, Lv, Lt, H, s);
   };
   if (dtype == 1)
     return H == 4 ? go(launch<bf16, D, D / 4>) : go(launch<bf16, D, 0>);
@@ -1060,7 +1131,7 @@ int stack_width(int dtype, const void* v, const void* t, const void* vm, const v
 #define VMR_DUAL_STACK_PART_ARGS                                                              \
   int dtype, const void *v, const void *t, const void *vm, const void *tm, const void *W,     \
       const void *b, const void *ln, const void *xb, void *v_out, void *t_out, void *scratch, \
-      void *kv_scratch, int B, int Lv, int Lt, int H, cudaStream_t s
+      void *kv_scratch, void *stat_scratch, int B, int Lv, int Lt, int H, cudaStream_t s
 extern "C" int vmr_dual_stack_256(VMR_DUAL_STACK_PART_ARGS);
 extern "C" int vmr_dual_stack_384(VMR_DUAL_STACK_PART_ARGS);
 extern "C" int vmr_dual_stack_512(VMR_DUAL_STACK_PART_ARGS);

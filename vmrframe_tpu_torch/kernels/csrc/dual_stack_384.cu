@@ -4,6 +4,6 @@
 #include "dual_stack.cuh"
 
 extern "C" int vmr_dual_stack_384(VMR_DUAL_STACK_PART_ARGS) {
-  return stack_width<384>(dtype, v, t, vm, tm, W, b, ln, xb, v_out, t_out, scratch, kv_scratch, B,
-                         Lv, Lt, H, s);
+  return stack_width<384>(dtype, v, t, vm, tm, W, b, ln, xb, v_out, t_out, scratch, kv_scratch,
+                         stat_scratch, B, Lv, Lt, H, s);
 }

@@ -9,7 +9,7 @@ replaces ``vmrframe_tpu/kernels/dual_stack.py::dual_attention_stack``
     v1 = dab1(v, t);  t1 = dab1(t, v);  v2 = dab2(v1, t1);  t2 = dab2(t1, v1)
 
 where one ``dab`` call is LN of both sides, the shared query and the two
-key/value pairs, 4-head self and cross attention, the cross gates, the
+key/value pairs, H-head self and cross attention, the cross gates, the
 BiLinear sigmoid gate, dense + residual, LN, dense + residual: 14 D x D
 projections per call, every product inside the kernel's own source.
 
@@ -35,22 +35,23 @@ same on every route.
 On the card every product runs on the tensor cores but the f32
 projections: the bf16 projections and both types' attention on
 ``mma.sync`` (f32 attention in 3xTF32).  Attention is a warp task of 16
-query rows and one head (head dims 4-128 padded to the instruction's k and
-n with zeros in registers), a side of up to ``kStage`` keys in one stage and
-one walk, a longer one in chunks: bf16 twice (the max and sum, then p
-rounded to bf16 and P.V), f32 once with the max and sum rescaled.  The
-kernel takes D = 128, 256, 384 and 512 (``KERNEL_WIDTHS``), each with a
-layout of its own (``Lay<D>`` in the source: row tiles of 64, 32, 16 and 16
-so that five f32 buffers fit a block's shared memory), and 4 heads (every
-config that sets ``model.fused_dual_stack``) have a kernel of their own at
-each width.  ``tests/test_torch_stack_tiles.py`` emulates this schedule on
-the CPU.
+query rows and one head (head dims padded to the instruction's k and n with
+zeros in registers; head dims 192-512 looped over at run time; head dims 1,
+2, 3 and 6 read one element at a time, their max and sum a (row, head) in
+device memory, ``NARROW_STAT_FLOATS`` a sample), a side of up to ``kStage``
+keys in one stage and one walk, a longer one in chunks: bf16 twice (the max
+and sum, then p rounded to bf16 and P.V), f32 once with the max and sum
+rescaled.  The kernel takes D = 128, 256, 384 and 512 (``KERNEL_WIDTHS``)
+at every head count dividing D, each width with a layout of its own
+(``Lay<D>`` in the source: row tiles of 64, 32, 16 and 16 so that five f32
+buffers fit a block's shared memory), and 4 heads (every config that sets
+``model.fused_dual_stack``) have a kernel of their own at each width.
+``tests/test_torch_stack_tiles.py`` emulates this schedule on the CPU.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises (``takes``: D in ``KERNEL_WIDTHS`` and heads
-dividing D into head dims that are multiples of 4 and at most
-``MAX_HEAD_DIM``, at any lengths Lv, Lt >= 1), and counts the launch in
-``dual_attention_stack.launches``.
+launches the kernel or raises (``takes``: D in ``KERNEL_WIDTHS``, heads
+dividing D, any lengths Lv, Lt >= 1; D 640 and up raises), and counts the
+launch in ``dual_attention_stack.launches``.
 """
 
 from __future__ import annotations
@@ -72,10 +73,12 @@ W_SD, W_XD, W_SG, W_XG, W_GD = 5, 6, 7, 8, 9
 W_BL1, W_BL2, W_D1, W_D2 = 10, 11, 12, 13
 LN1_S, LN1_B, LNT_S, LNT_B, LN2_S, LN2_B = 0, 1, 2, 3, 4, 5
 KERNEL_WIDTHS = (128, 256, 384, 512)  # the D csrc/dual_stack.cuh takes (kWidths)
-MAX_HEAD_DIM = 128  # its longest head dim (kMaxHeadDim)
+# f32 a sample of the narrow heads' statistics (head dims not a multiple of
+# 4): a max and a sum for each (row, head) of a tile (kNarrowStat)
+NARROW_STAT_FLOATS = 16384
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I] + [_P] * 12 + [_I] * 5 + [_P]
+_ARGTYPES = [_I] + [_P] * 13 + [_I] * 5 + [_P]
 _lib = None
 
 
@@ -183,12 +186,11 @@ def _check(vfeat, tfeat, vmask, tmask, p1, p2, num_heads) -> Tuple[int, int, int
 
 def takes(dtype: torch.dtype, D: int, num_heads: int, Lv: int, Lt: int) -> bool:
     """Whether the kernel takes these shapes: f32 or bf16, D in
-    ``KERNEL_WIDTHS``, heads dividing D into head dims that are multiples of
-    4 and at most ``MAX_HEAD_DIM``, Lv, Lt >= 1 (the C entry refuses the
-    rest).  The wrapper raises on what it refuses."""
-    hd = D // num_heads if num_heads > 0 else 0
+    ``KERNEL_WIDTHS``, heads dividing D (every head dim 1-512), Lv, Lt >= 1
+    (the C entry refuses the rest).  The wrapper raises on what it
+    refuses."""
     return (dtype in _DTYPE_CODE and D in KERNEL_WIDTHS and num_heads > 0 and D % num_heads == 0
-            and hd % 4 == 0 and hd <= MAX_HEAD_DIM and Lv >= 1 and Lt >= 1)
+            and Lv >= 1 and Lt >= 1)
 
 
 def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
@@ -206,9 +208,9 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: the kernel takes float32 or bfloat16, got {dtype}")
     if not takes(dtype, D, num_heads, Lv, Lt):
-        raise ValueError(f"{what}: the kernel takes D in {KERNEL_WIDTHS}, a head dim that is a "
-                         f"multiple of 4 and at most {MAX_HEAD_DIM}, and Lv, Lt >= 1; got D = "
-                         f"{D}, {num_heads} heads, Lv = {Lv}, Lt = {Lt}")
+        raise ValueError(f"{what}: the kernel takes D in {KERNEL_WIDTHS} at every head count "
+                         f"dividing D, and Lv, Lt >= 1; got D = {D}, {num_heads} heads, Lv = "
+                         f"{Lv}, Lt = {Lt}")
     if device.type != "cuda":
         raise ValueError(f"{what}: tensors must be on the CPU or a CUDA device, got {device}")
     for t in (tfeat, p1["W"], p2["W"]):
@@ -225,12 +227,15 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
     # layer's results in f32, and a call's keys and values in the compute type
     scratch = torch.empty(B, Lv + Lt, D, dtype=torch.float32, device=device)
     kv_scratch = torch.empty(B, 2 * (Lv + Lt), D, dtype=dtype, device=device)
+    # narrow heads: each (row, head)'s max and sum between the chunks of a side
+    stats = (torch.empty(B, NARROW_STAT_FLOATS, dtype=torch.float32, device=device)
+             if (D // num_heads) % 4 else None)
     with launch_range("dual_attention_stack"):
         err = load_kernels().vmr_dual_stack(
             _DTYPE_CODE[dtype], v.data_ptr(), t.data_ptr(), vm.data_ptr(), tm.data_ptr(),
             W.data_ptr(), b.data_ptr(), ln.data_ptr(), xb.data_ptr(), v_out.data_ptr(),
-            t_out.data_ptr(), scratch.data_ptr(), kv_scratch.data_ptr(), B, D, Lv, Lt, num_heads,
-            _stream(v))
+            t_out.data_ptr(), scratch.data_ptr(), kv_scratch.data_ptr(),
+            None if stats is None else stats.data_ptr(), B, D, Lv, Lt, num_heads, _stream(v))
     _raise_on(err, "vmr_dual_stack")
     dual_attention_stack.launches += 1
     layer = lambda i: {"W": W[i], "b": b[i], "ln": ln[i], "xb": xb[i]}  # noqa: E731

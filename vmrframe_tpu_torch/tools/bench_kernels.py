@@ -5,7 +5,9 @@ For each of the seven kernels at the shapes the main paths give it (SeqPAN's
 Charades forward for #1-#4, ActionFormer's long config for #5-#7, launch
 weighted over a forward's shapes), and as extra rows at TACoS and ANet
 widths, #4 at D 256, 384 and 512 (Charades lengths, 4 heads, beside the
-module path), at the sentence variants' shapes and at the JAX tool's own shapes
+module path) and at every head count of D 128-512 whose head dim is past 128
+or not a multiple of 4 (``ODD_HEADS``: the wide and the narrow heads, the
+same way), at the sentence variants' shapes and at the JAX tool's own shapes
 (``--jax-shapes``: #2 at Charades and TACoS widths, #5 at T 512, 1024 and
 2304 with window 19, #3 at L 64 and 256): the kernel's time, its plain
 version's, one PyTorch call computing the same function where there is one
@@ -60,6 +62,9 @@ B_TRAIN = 2  # the long config's training batch
 BWD_KERNELS = ("banded_attention_dq", "banded_attention_dkv")
 STACK = "dual_attention_stack"
 STACK_WIDTHS = KERNEL_WIDTHS[1:]  # #4's wider instances: extra rows at Charades lengths, 4 heads
+# #4's wide (192-512) and narrow (1, 2, 3, 6) head dims: extra rows, (D, heads)
+ODD_HEADS = tuple((w, h) for w in KERNEL_WIDTHS for h in range(1, w + 1)
+                  if w % h == 0 and ((w // h) % 4 or w // h > 128))
 ATTENTION = ("fused_masked_attention", "fused_dual_attention", "fused_cq_attention")
 BOTH_DTYPES = BWD_KERNELS + (STACK,) + ATTENTION  # timed in f32 and bf16
 STACK_CAST = (0, 1, 4, 8)  # of a stack case, what the policy casts: v, t and the two W
@@ -191,17 +196,17 @@ def sentence_kernel_cases(g: torch.Generator, batch: int = B):
     }
 
 
-def stack_blocks(seed: int, device="cuda", dim: int = D):
-    """Two ``DualAttentionBlock``s of width ``dim`` with ``H`` heads on the
-    card in f32, seeded, with every leaf random (the initialisers leave LN
-    at 1/0 and the BiLinear extra bias at 0, which would hide them)."""
+def stack_blocks(seed: int, device="cuda", dim: int = D, heads: int = H):
+    """Two ``DualAttentionBlock``s of width ``dim`` with ``heads`` heads on
+    the card in f32, seeded, with every leaf random (the initialisers leave
+    LN at 1/0 and the BiLinear extra bias at 0, which would hide them)."""
     from vmrframe_tpu_torch.layers.attention import DualAttentionBlock
     from vmrframe_tpu_torch.weights import init_weights
 
     g = torch.Generator().manual_seed(seed)
     blocks = []
     for i in range(2):
-        block = init_weights(DualAttentionBlock(dim, H), seed + i).eval()
+        block = init_weights(DualAttentionBlock(dim, heads), seed + i).eval()
         with torch.no_grad():
             for name, p in block.named_parameters():
                 if "layer_norm" in name or name.endswith("bias_value"):
@@ -229,13 +234,16 @@ def stack_cases(g: torch.Generator, blocks, shapes):
     return cases
 
 
-def wide_stack_cases(g: torch.Generator, batch: int = B) -> dict:
-    """{D: (seeded blocks, one case at Charades lengths)} for each of
-    ``STACK_WIDTHS``, 4 heads: #4's wider instances."""
-    out = {}
-    for dim in STACK_WIDTHS:
-        blocks = stack_blocks(seed=0, device=g.device, dim=dim)
-        out[dim] = (blocks, stack_cases(g, blocks, ((batch, LV, LT),))[0])
+def wide_stack_cases(g: torch.Generator, batch: int = B, pairs=None) -> list:
+    """[(D, heads, seeded blocks, one case at Charades lengths)] for each
+    (D, heads) of ``pairs``: by default each of ``STACK_WIDTHS`` at 4 heads,
+    #4's wider instances.  A case at other than ``H`` heads ends with its
+    head count (``stack_call``)."""
+    out = []
+    for dim, heads in pairs or [(w, H) for w in STACK_WIDTHS]:
+        blocks = stack_blocks(seed=0, device=g.device, dim=dim, heads=heads)
+        case = stack_cases(g, blocks, ((batch, LV, LT),))[0]
+        out.append((dim, heads, blocks, case if heads == H else case + (heads,)))
     return out
 
 
@@ -522,15 +530,15 @@ def time_kernels(fns, cases, weights, card: str, long_cases: dict, f32_cases: di
 def module_path_ms(blocks, case, dtype: torch.dtype) -> dict:
     """The module path's time for the same stack on the same inputs: 4
     ``DualAttentionBlock`` calls, each through kernel #2
-    (``fused_dual_attention``), the projections in cuBLAS.  The other route
-    to the same result, not a library call."""
+    (``fused_dual_attention``; past its head dim 256 the plain attention),
+    the projections in cuBLAS.  The other route to the same result, not a
+    library call."""
     import copy
 
     from vmrframe_tpu_torch.ops.precision import cast_module_
 
-    v, t, vm, tm = case[:4]
+    x, y, vm, tm = (a.to(dtype) for a in case[:4])  # the masks too, as the policy casts a batch
     mods = [cast_module_(copy.deepcopy(b), dtype) for b in blocks]
-    x, y = v.to(dtype), t.to(dtype)
 
     @torch.no_grad()
     def run():
@@ -539,7 +547,7 @@ def module_path_ms(blocks, case, dtype: torch.dtype) -> dict:
             a, b = m(a, b, vm, tm), m(b, a, tm, vm)
         return a, b
 
-    return device_ms(run, n=N_QUEUED_SMALL_OPS, device=v.device.type)
+    return device_ms(run, n=N_QUEUED_SMALL_OPS, device=x.device.type)
 
 
 def time_module_path(blocks, case, results, card: str) -> None:
@@ -554,19 +562,19 @@ def time_module_path(blocks, case, results, card: str) -> None:
             f"kernel's {results[STACK][key]['ms']:.4f} ms, on {card}")
 
 
-def time_wide_stack(fns, wide: dict, results, card: str) -> None:
-    """#4 at each wider D of ``wide`` (``wide_stack_cases``), in both types:
-    the kernel, its plain version and its bound (``time_row``) beside the
-    module path, as extra rows (``wide_shapes``) outside the means."""
+def time_wide_stack(fns, wide: list, results, card: str) -> None:
+    """#4 at each (D, heads) of ``wide`` (``wide_stack_cases``), in both
+    types: the kernel, its plain version and its bound (``time_row``) beside
+    the module path, as extra rows (``wide_shapes``) outside the means."""
     wrapper, plain = fns[STACK]
-    for dim, (blocks, case) in wide.items():
+    for dim, heads, blocks, case in wide:
         for key, dtype in DTYPE_KEYS.items():
             row = time_row(STACK, wrapper, plain, case, key, 0)
             ms = module_path_ms(blocks, case, dtype)
-            row["module_path_ms"] = ms["median"]
+            row["heads"], row["module_path_ms"] = heads, ms["median"]
             results[STACK][key].setdefault("wide_shapes", []).append(row)
-            log(f"[time] {STACK} {key} D {dim}: kernel {row['ms']['median']:.4f} ms, module "
-                f"path {ms['median']:.4f}, bound {row['bound_ms']:.4f}, on {card}")
+            log(f"[time] {STACK} {key} D {dim}, {heads} heads: kernel {row['ms']['median']:.4f} "
+                f"ms, module path {ms['median']:.4f}, bound {row['bound_ms']:.4f}, on {card}")
 
 
 def _host_ms(fn, n: int, reps: int) -> dict:
@@ -671,8 +679,9 @@ def extra_row(r: dict) -> dict:
     out = {"shape": r["shape"], "ms": r["ms"]["median"], "plain_ms": r["plain_ms"]["median"],
            "bound_ms": r["bound_ms"],
            "library_ms": r["library_ms"]["median"] if r["library_ms"] else None}
-    if "module_path_ms" in r:
-        out["module_path_ms"] = r["module_path_ms"]
+    for key in ("heads", "module_path_ms"):
+        if key in r:
+            out[key] = r[key]
     return out
 
 
@@ -742,7 +751,8 @@ def main(argv=None) -> list:
                            sentence_cases, jax_cases)
     if blocks is not None:
         time_module_path(blocks, cases[STACK][0], results, card)
-        time_wide_stack(functions(K, W, S), wide_stack_cases(g, args.batch), results, card)
+        time_wide_stack(functions(K, W, S), wide_stack_cases(g, args.batch)
+                        + wide_stack_cases(g, args.batch, ODD_HEADS), results, card)
     rows = kernel_rows({n: results[n] for n in names}, card)
     for row in rows:
         print(json.dumps(row), flush=True)
