@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero:
    lengths (100 and 256 against 30 text positions, batch 128), on a
    ragged pair past its 64-row tiles (3, 129 video, 65 text) and with 8
    heads of 16 (3, 64 video, 30 text), and at D 256, 384 and 512 (batch
-   128 with 4 heads, batch 3 with 8: head dims 64, 96, 128 and 32, 48, 64),
+   128 with 4 heads, batch 3 with 8: head dims 64, 96, 128 and 32, 48, 64)
+   and at the cluster's D 640, 768, 896 and 1024 (batch 128 with 4 heads of
+   160-256, each crossing a 128-column slice edge; batch 3 with 8 heads of
+   80-128; D 768 at 4 heads with a valid video facing an empty text side),
    every leaf of its weight stacks random; the
    banded kernel at the shapes ActionFormer's long config gives it (B=8, 4
    heads of 128, window 19, T = 2304, 1152, 576), a ragged T=1000 and T=300
@@ -34,7 +37,7 @@ Phases, in order; any failure exits non-zero:
    banded forward (#5) in f32 at the training batch (2) as its f32 time.  The
    whole-stack kernel (#4) in bf16 and f32, and beside it the module path's
    time for the same stack (4 ``DualAttentionBlock`` calls through kernel #2);
-   the same at D 256, 384 and 512 as extra rows, beside their bound.
+   the same at D 256-1024 as extra rows, beside their bound.
 4b. profile: the profiling and roofline tools at one or two reps on
    SeqPAN at Charades width, before any other phase runs the profiler:
    ``ops/chunked.py`` at B 512 in chunks of 256, f32, against the direct
@@ -96,6 +99,11 @@ Phases, in order; any failure exits non-zero:
    plain path (``TOL_MODEL_F32``), 1/0/2/2 too.
 12d. verify-stack-heads: phase 12c at #4's wide and narrow heads, D 512 at
    1 head (head dim 512) and D 384 at 128 heads (head dim 3), batch 16.
+12e. verify-stack-wider: phase 12c at D 768 (BERT-base's width, as
+   ``configs/charades_backbone_alignfeature.yaml``; 4 heads of 192, #4 as a
+   cluster of 6 CTAs a sample), batch 128; then at the cluster's wide and
+   narrow heads, D 1024 at 1 head (head dim 1024), D 640 at 128 (head dim
+   5) and D 896 at 64 (head dim 14), batch 16.
 13. serve-router: SeqPAN and BackBone (flag set) and BaseFast at full
    Charades width, bf16, behind one ``ModelRouter`` over real HTTP: a burst
    on each route with that route's launch counts (1/0/2/2, 1/0/2/2, 0/0/2/2
@@ -206,7 +214,7 @@ Phases, in order; any failure exits non-zero:
    CPU within 1e-5.
 28. repairs: the bf16 forward against the f32 forward on the card of
    BackBoneActionFormer and of SeqPAN with the stack's flag off (4 launches
-   of #2 in its bf16 forward), a flag-on BackBone at D 640, past #4's
+   of #2 in its bf16 forward), a flag-on BackBone at D 1152, past #4's
    limit, whose forward on the card raises the wrapper's ``ValueError``,
    and one case just past each other
    kernel's limit (#5 at head dim 192, #3 at Lc 1025, #1 at
@@ -328,6 +336,10 @@ WIDE_DIM = 512  # verify-stack-wide: SeqPAN at the widest D #4 takes, 4 heads of
 # verify-stack-heads: SeqPAN at #4's wide and narrow heads (head dims 512 and
 # 3), at a batch whose CPU forward is short
 WIDE_NARROW_HEADS, WIDE_NARROW_BATCH = ((512, 1), (384, 128)), 16
+# verify-stack-wider: SeqPAN at BERT-base's width (the sentence variants'
+# D 768), 4 heads of 192, batch B; then the cluster's wide and narrow heads
+# (head dims 1024, 5 and 14) at WIDE_NARROW_BATCH
+WIDER_DIM, WIDER_HEADS = 768, ((1024, 1), (640, 128), (896, 64))
 # calls queued per timed repetition of the stack's plain version and module
 # path: each is hundreds of small launches, and more than the host can queue
 # during the sleep kernel would time the host, not the card
@@ -612,6 +624,25 @@ def phase_verify_heads() -> dict:
     return {f"D={dim} heads={heads}": verify_flag_on("verify-stack-heads", dim, heads,
                                                      WIDE_NARROW_BATCH)
             for dim, heads in WIDE_NARROW_HEADS}
+
+
+def phase_verify_wider() -> dict:
+    """``verify_flag_on`` at D ``WIDER_DIM`` (4 heads of 192), batch ``B``,
+    and at ``WIDER_HEADS``, batch ``WIDE_NARROW_BATCH``: #4 as a cluster of
+    D / 128 CTAs a sample."""
+    out = {f"D={WIDER_DIM} heads={H}": verify_flag_on("verify-stack-wider", WIDER_DIM, H, B)}
+    for dim, heads in WIDER_HEADS:
+        out[f"D={dim} heads={heads}"] = verify_flag_on("verify-stack-wider", dim, heads,
+                                                       WIDE_NARROW_BATCH)
+    return out
+
+
+def empty_to_side_case(g, blocks) -> tuple:
+    """One stack case (3, 40 video, 20 text positions) whose sample 1 has
+    every video row valid and no valid text row."""
+    case = stack_cases(g, blocks, ((3, 40, 20),))[0]
+    case[2][1], case[3][1] = 1.0, 0.0
+    return case
 
 
 def verify_forward(phase: str, cfg, derived, word_vector, batch, shapes: dict,
@@ -2833,7 +2864,7 @@ def phase_repairs(kernels, card: str) -> dict:
     head dim 192, #3 at a 1025-position context, #1 at head dim 264), f32:
     no launch of that kernel, and the CPU's values within ``TOL_F32``; #4
     past its limit (``testing.stack_past_limit_case``: a flag-on BackBone
-    at D 640) raises the wrapper's ``ValueError`` with no launch."""
+    at D 1152) raises the wrapper's ``ValueError`` with no launch."""
     from vmrframe_tpu_torch.config import Derived, load_config
     from vmrframe_tpu_torch.data.batcher import Batcher
     from vmrframe_tpu_torch.kernels import dual_stack as S
@@ -2882,10 +2913,11 @@ def phase_repairs(kernels, card: str) -> dict:
         message = str(e)
     ok = message is not None and "the kernel takes D in" in message and \
         S.dual_attention_stack.launches == 0
-    log(f"[repairs] flag-on BackBone at D 640 on the card: {message!r}  {'ok' if ok else 'FAIL'}")
+    log(f"[repairs] flag-on BackBone at D 1152 on the card: {message!r}  "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SmokeFailure("repairs: #4 past its limit did not raise the wrapper's ValueError")
-    stats["dual_attention_stack D=640"] = {"raises": message}
+    stats["dual_attention_stack D=1152"] = {"raises": message}
     del model
     for name, (kernel, module, inputs) in past_limit_cases().items():
         with torch.no_grad():
@@ -3069,10 +3101,11 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     time_cases, weights, long_cases, f32_cases, sentence_cases, blocks = table_cases(g)
     cases = {name: time_cases[name] for name in ATTENTION + (STACK,)}
-    wide = wide_stack_cases(g)  # #4 at D 256, 384, 512: 4 heads at Charades lengths
+    wide = wide_stack_cases(g)  # #4 at D 256-1024: 4 heads at Charades lengths
     wide_check = [case for _, _, _, case in wide] + [
         case + (STACK_CHECK_HEADS,) for _, _, blocks, _ in wide
-        for case in stack_cases(g, blocks, ((3, LV, LT),))]
+        for case in stack_cases(g, blocks, ((3, LV, LT),))] + [
+        empty_to_side_case(g, blocks) for dim, _, blocks, _ in wide if dim == WIDER_DIM]
     odd_hd = lambda make: [c for hd in AF_CHECK_HD for c in make(hd)]  # noqa: E731
     check_cases = {**cases, **{name: cases[name] + long_cases[name] + sentence_cases[name]
                                for name in ATTENTION},
@@ -3128,6 +3161,7 @@ def main() -> int:
     record["verify_stack_long"] = phase("verify-stack-long", phase_verify_long, True)
     record["verify_stack_wide"] = phase("verify-stack-wide", phase_verify_wide)
     record["verify_stack_heads"] = phase("verify-stack-heads", phase_verify_heads)
+    record["verify_stack_wider"] = phase("verify-stack-wider", phase_verify_wider)
     record["serve_router"] = phase("serve-router", phase_serve_router, kernels, card)
     record["train_seqpan"] = phase("train-SeqPAN", phase_train_seqpan, K, S, card)
     record["verify_train_seqpan"] = phase("verify-train-SeqPAN", phase_verify_train_seqpan, K, S)
@@ -3217,7 +3251,7 @@ def main() -> int:
             for key in ("serve_cca", "train_cca", "serve_cpl", "train_cpl")}
         if "module_path_ms" in t:  # the other route to the same result, not a library call
             out[-1]["module_path_ms"] = t["module_path_ms"]
-        if name == STACK:  # D 256, 384, 512 at Charades lengths, outside the means
+        if name == STACK:  # D 256-1024 at Charades lengths, outside the means
             out[-1]["wide_shapes"] = {
                 k: [{"shape": r["shape"], "ms": r["ms"]["median"], "bound_ms": r["bound_ms"],
                      "module_path_ms": r["module_path_ms"]}

@@ -18,15 +18,18 @@ and its weight stacks against the JAX package.
   sample is held against the module path (1e-4, the modules' bar) and the
   other samples against the kernel;
 - the same at D 256 (4 heads, f32) and D 512 (8 heads, bf16), the widths
-  the kernel's wider instances take, on stacks made with numpy from a seed;
-- the wide and the narrow heads, head dims 192, 512, 1, 3 and 6, against
+  the kernel's wider instances take, and at D 640 (4 heads of 160, f32) and
+  768 (4 of 192, bf16), two of the cluster's, on stacks made with numpy from
+  a seed;
+- the wide and the narrow heads, head dims 192, 512, 1, 3 and 6, and the
+  cluster's head dims 5 (D 640), 14 (D 896) and 1024 (D 1024), against
   the JAX module path (``DualAttentionBlock``, jitted: the Pallas body
   walks the heads one at a time, 20-40 s a call in interpret mode at 64-128
   heads), f32 at ``ATOL`` and bf16 at 2**-6 of the largest output, on every
   row;
 - ``takes`` accepts every (D, H) the models' gate (``use_fused_stack``, the
-  JAX package's conditions) passes up to D 512, and the wrapper refuses D
-  640, 768 and 1024 with a message that names the set;
+  JAX package's conditions) passes up to D 1024, and the wrapper refuses D
+  1152, 1280 and 2048 with a message that names the set;
 - the stacks of the port's ``DualAttentionBlock`` equal
   ``DualAttentionBlockParams.apply`` on the carried-over weights, exactly;
 - ``MultiHeadAttentionBlock`` against the flax module at 1e-4.
@@ -193,11 +196,14 @@ def _np_stacks(rng, D):
 
 
 @pytest.mark.parametrize("D,H,dtype,B,Lv,Lt", [(256, 4, "f32", 3, 20, 9),
-                                               (512, 8, "bf16", 2, 12, 5)])
+                                               (512, 8, "bf16", 2, 12, 5),
+                                               (640, 4, "f32", 3, 9, 5),
+                                               (768, 4, "bf16", 2, 6, 3)])
 def test_plain_matches_pallas_interpret_at_wider_d(D, H, dtype, B, Lv, Lt):
-    """The widths #4's wider instances take: f32 at ``ATOL`` on every row
-    (the last sample wholly padded), bf16 (features and W) at 2**-6 of the
-    largest output."""
+    """The widths #4's wider instances take, and two of the cluster's (D 640
+    and 768, heads of 160 and 192): f32 at ``ATOL`` on every row (the last
+    sample wholly padded), bf16 (features and W) at 2**-6 of the largest
+    output."""
     rng = np.random.default_rng(D + H)
     p1, p2 = _np_stacks(rng, D), _np_stacks(rng, D)
     v = rng.standard_normal((B, Lv, D)).astype(np.float32)
@@ -240,11 +246,14 @@ def _jax_stack_params(D, H, seed):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("D,H", [(384, 2), (512, 1), (128, 128), (384, 128), (384, 64)],
-                         ids=["hd192", "hd512", "hd1", "hd3", "hd6"])
+@pytest.mark.parametrize("D,H", [(384, 2), (512, 1), (128, 128), (384, 128), (384, 64),
+                                 (640, 128), (896, 64), (1024, 1)],
+                         ids=["hd192", "hd512", "hd1", "hd3", "hd6", "d640-hd5", "d896-hd14",
+                              "d1024-hd1024"])
 def test_plain_matches_jax_at_wide_and_narrow_heads(D, H, dtype):
-    """The head dims #4's wide and narrow bodies take (192, 512; 1, 3, 6)
-    against the JAX module path (two ``DualAttentionBlock``s, jitted; in
+    """The head dims #4's wide and narrow bodies take (192, 512; 1, 3, 6;
+    and the cluster's 5 and 14 at D 640 and 896, 1024 at D 1024) against
+    the JAX module path (two ``DualAttentionBlock``s, jitted; in
     bf16 every leaf and the features cast, as the JAX bf16 route casts
     them): the Pallas kernel in interpret mode takes 3-4 s a call at 1-2
     heads and 20-40 s at 64-128.  f32 at ``ATOL``, bf16 at 2**-6 of the
@@ -282,39 +291,43 @@ def test_plain_matches_jax_at_wide_and_narrow_heads(D, H, dtype):
 
 def test_takes_every_width_the_gate_passes_up_to_512():
     """The models' gate passes D a multiple of 128 and heads dividing D; the
-    kernel takes those of D <= 512 (every head dim, 1-512), and no other."""
+    kernel takes those of D <= 1024 (every head dim, 1-1024: one CTA a
+    sample to D 512, a cluster of D / 128 past it), and no other."""
     from vmrframe_tpu_torch.models.common import use_fused_stack
     from vmrframe_tpu_torch.tools.serve import make_cfg
 
-    for D in range(64, 1152, 64):
+    for D in range(64, 1216, 64):
         for H in (h for h in range(1, D + 1) if D % h == 0):
             m = make_cfg(dim=D, fused_dual_stack=True).updated({"model.num_heads": H}).model
             gate = use_fused_stack(m, deterministic=True)
-            want = gate and D <= 512
+            want = gate and D <= 1024
             assert S.takes(torch.bfloat16, D, H, 64, 30) == want, (D, H)
             assert S.takes(torch.float32, D, H, 1, 1) == want, (D, H)
     assert set(S.KERNEL_WIDTHS) == {128, 256, 384, 512}
+    assert set(S.CLUSTER_WIDTHS) == {640, 768, 896, 1024}
     assert not S.takes(torch.float16, 256, 4, 64, 30) and not S.takes(torch.float32, 256, 4, 0, 3)
 
 
-@pytest.mark.parametrize("D,H", [(640, 4), (768, 4), (1024, 2)])
+@pytest.mark.parametrize("D,H", [(1152, 4), (1280, 4), (2048, 2)])
 def test_wrapper_refuses_past_the_limit_naming_the_set(D, H):
     """Off the CPU the wrapper holds the shapes to ``takes`` before it looks
-    for a card: D 640, 768 and 1024 (4 heads of 160 and 192, 2 of 512)
-    raise the ValueError that names the widths it takes at every head count
-    (shown here on meta tensors); D 128 at 1 head and at 128 (head dims 128
-    and 1) pass that check (and then want a card)."""
+    for a card: D 1152, 1280 and 2048 (4 heads of 288 and 320, 2 of 1024),
+    past the largest portable cluster, raise the ValueError that names the
+    widths it takes at every head count (shown here on meta tensors); D 128
+    at 1 head and at 128 (head dims 128 and 1) and D 1024 at 4 heads and at
+    1024 pass that check (and then want a card)."""
     meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
     p = {"W": meta(14, D, D), "b": meta(14, D), "ln": meta(6, D), "xb": meta(2, D)}
     args = (meta(2, 16, D), meta(2, 8, D), meta(2, 16), meta(2, 8), p, p)
-    with pytest.raises(ValueError, match=r"the kernel takes D in \(128, 256, 384, 512\) at every "
-                                         r"head count dividing D"):
+    with pytest.raises(ValueError, match=r"the kernel takes D in \(128, 256, 384, 512, 640, 768, "
+                                         r"896, 1024\) at every head count dividing D"):
         S.dual_attention_stack(*args, H)
-    p1 = {"W": meta(14, 128, 128), "b": meta(14, 128), "ln": meta(6, 128), "xb": meta(2, 128)}
-    for heads in (1, 128):
+    for width, heads in ((128, 1), (128, 128), (1024, 4), (1024, 1024)):
+        p1 = {"W": meta(14, width, width), "b": meta(14, width), "ln": meta(6, width),
+              "xb": meta(2, width)}
         with pytest.raises(ValueError, match="on the CPU or a CUDA device"):
-            S.dual_attention_stack(meta(2, 16, 128), meta(2, 8, 128), meta(2, 16), meta(2, 8), p1,
-                                   p1, heads)
+            S.dual_attention_stack(meta(2, 16, width), meta(2, 8, width), meta(2, 16),
+                                   meta(2, 8), p1, p1, heads)
 
 
 def test_wrapper_checks_shapes_on_any_device(blocks):

@@ -7,7 +7,7 @@ file imports no JAX, so it runs on a machine without it:
 
 (``--noconftest`` because ``tests/conftest.py`` sets JAX up.)  Shapes are
 ragged on purpose (lengths that are no multiple of a tile, head dims 1 to
-512) and the masks hold wholly masked rows and a wholly masked sample.
+1024) and the masks hold wholly masked rows and a wholly masked sample.
 Tolerances: f32 1e-4 (sums in another order); bf16 2**-6 of the largest
 output magnitude (a few bf16 ulps).
 """
@@ -635,16 +635,54 @@ def test_dual_stack_kernel_at_hd_1_and_512_with_an_empty_to_side(cuda, D, H, dty
     _close(got, S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, H), dtype)
 
 
+# every (D, heads) of the cluster widths, D 640-1024 (61 pairs): the exact
+# heads (multiples of 4 up to 128, those past 128 / hd crossing a slice edge),
+# the wide ones (160-1024, every one crossing) and the narrow ones (1, 2, 3,
+# 5, 6, 7, 10, 14)
+CLUSTER_HEADS = [(D, H) for D in S.CLUSTER_WIDTHS for H in range(1, D + 1) if D % H == 0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,H", CLUSTER_HEADS)
+def test_dual_stack_kernel_at_cluster_widths(cuda, D, H, dtype):
+    """#4 at D 640-1024 (a cluster of D / 128 CTAs a sample) at every head
+    count against its plain version on every row: Charades lengths (the
+    video side past a 32-row tile and a 32-key stage) and a pair past a
+    stage on both sides, sample 0 wholly masked; one launch a call."""
+    g = torch.Generator().manual_seed(D + H)
+    for Lv, Lt in ((64, 30), (70, 33)):
+        args = _stack_inputs(g, 3, Lv, Lt, dtype, cuda, D=D, H=H)
+        before = S.dual_attention_stack.launches
+        got = S.dual_attention_stack(*args)
+        torch.cuda.synchronize()
+        assert S.dual_attention_stack.launches == before + 1
+        _close(got, S.dual_attention_stack_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,H", [(768, 4), (1024, 4), (768, 256)])
+def test_dual_stack_kernel_at_cluster_widths_with_an_empty_to_side(cuda, D, H, dtype):
+    """A valid video row facing a text side with no valid key at D 768 and
+    1024 (heads of 192 and 256 crossing slice edges; 256 narrow heads of 3):
+    the uniform average over the sample's own text rows."""
+    g = torch.Generator().manual_seed(D + H)
+    v, t, vm, tm, p1, p2, _ = _stack_inputs(g, 3, 40, 20, dtype, cuda, D=D, H=H)
+    vm[1], tm[1] = 1.0, 0.0
+    got = S.dual_attention_stack(v, t, vm, tm, p1, p2, H)
+    torch.cuda.synchronize()
+    _close(got, S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, H), dtype)
+
+
 def test_dual_stack_takes_what_the_c_entry_takes(cuda):
     """``takes`` and the C entry accept the same set: every head count of D
-    = 64-768 in steps of 64 that ``takes`` accepts runs (f32 and bf16,
-    against the plain version: every head dim of every width, 1-512, those
+    = 64-1152 in steps of 64 that ``takes`` accepts runs (f32 and bf16,
+    against the plain version: every head dim of every width, 1-1024, those
     the shared kernel pads, loops over or reads element by element among
-    them); every other one the C entry refuses with cudaErrorInvalidValue
-    (1) before any launch, as it refuses narrow heads without their
-    statistics' scratch."""
+    them, and the cluster's at D 640-1024); every other one the C entry
+    refuses with cudaErrorInvalidValue (1) before any launch, as it refuses
+    narrow heads at D 128-512 without their statistics' scratch."""
     lib = S.load_kernels()
-    for D in range(64, 832, 64):
+    for D in range(64, 1216, 64):
         for H in (h for h in range(1, D + 1) if D % h == 0):
             if not S.takes(torch.float32, D, H, 5, 3):
                 assert lib.vmr_dual_stack(0, *[None] * 13, 2, D, 5, 3, H, None) == 1, (D, H)
@@ -673,18 +711,19 @@ def test_dual_stack_attention_is_on_the_tensor_cores():
 
 
 def test_dual_stack_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
-    """Either side of the limit: D 640 and D 768 (4 heads of 192) raise the
-    ValueError that names the set, D 128 at 1 head (head dim 128) and at 64
-    (head dim 2) run; f16 and mixed types raise too."""
+    """Either side of the limit: D 1152 (4 heads of 288, and 9 of 128) raises
+    the ValueError that names the set, D 128 at 1 head (head dim 128) and at
+    64 (head dim 2) run; f16 and mixed types raise too."""
     g = torch.Generator().manual_seed(8)
     v, t, vm, tm, p1, p2, H = _stack_inputs(g, 2, 16, 8, torch.float32, cuda)
     before = S.dual_attention_stack.launches
-    for D in (640, 768):  # D past the set
-        with pytest.raises(ValueError, match=r"the kernel takes D in \(128, 256, 384, 512\)"):
+    for D, heads in ((1152, 4), (1152, 9)):  # D past the set
+        with pytest.raises(ValueError, match=r"the kernel takes D in \(128, 256, 384, 512, 640, "
+                                             r"768, 896, 1024\)"):
             wide = {k: torch.zeros(*(D if d == 128 else d for d in x.shape), device=cuda)
                     for k, x in p1.items()}
             S.dual_attention_stack(torch.zeros(2, 16, D, device=cuda),
-                                   torch.zeros(2, 8, D, device=cuda), vm, tm, wide, wide, H)
+                                   torch.zeros(2, 8, D, device=cuda), vm, tm, wide, wide, heads)
     with pytest.raises(TypeError):
         half = {k: x.half() for k, x in p1.items()}
         S.dual_attention_stack(v.half(), t.half(), vm, tm, half, half, H)
@@ -753,12 +792,43 @@ def test_seqpan_flag_on_at_d256_launches_the_stack(cuda):
         torch.testing.assert_close(outs[0][key].cpu(), outs[1][key], rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("dim,heads", [(640, 4), (768, 4)])
+def test_seqpan_flag_on_at_d768_launches_the_stack_once(cuda):
+    """SeqPAN at D 768 (4 heads of 192, each crossing a 128-column slice
+    edge) with ``model.fused_dual_stack`` set: one eval forward on the card
+    launches #4/#2/#3/#1 1/0/2/2 times, in f32 within 1e-3 of the CPU's
+    plain path and in bf16 with finite logits."""
+    from vmrframe_tpu_torch.config import Derived
+    from vmrframe_tpu_torch.data.batcher import Batcher
+    from vmrframe_tpu_torch.testing import make_synthetic_data
+    from vmrframe_tpu_torch.tools.serve import make_cfg
+    from vmrframe_tpu_torch.train.evaluator import Evaluator
+
+    cfg = make_cfg(vlen=40, tlen=12, vdim=64, dim=768, batch_size=8, compute_dtype="float32",
+                   fused_dual_stack=True)
+    ds, store = make_synthetic_data(cfg, seed=0, n_train=8, n_test=8)
+    der = Derived(num_words=ds["n_words"], num_chars=ds["n_chars"])
+    batch = Batcher(ds["test_set"], store, cfg, der).make_batch(list(range(6)))
+    counted = (S.dual_attention_stack, K.fused_dual_attention, K.fused_cq_attention,
+               K.fused_masked_attention)
+    outs = []
+    for run_cfg, device, want in ((cfg, cuda, [1, 0, 2, 2]), (cfg, "cpu", [0, 0, 0, 0]),
+                                  (cfg.updated({"train.compute_dtype": "bfloat16"}), cuda,
+                                   [1, 0, 2, 2])):
+        before = [fn.launches for fn in counted]
+        ev = Evaluator(run_cfg, der, ds["word_vector"], device=device, seed=0)
+        outs.append(ev.forward(ev.to_device(batch)))
+        assert [fn.launches - b for fn, b in zip(counted, before)] == want
+    for key in ("slogits", "elogits"):
+        torch.testing.assert_close(outs[0][key].cpu(), outs[1][key], rtol=0, atol=1e-3)
+        assert torch.isfinite(outs[2][key].float()).all()
+
+
+@pytest.mark.parametrize("dim,heads", [(1152, 4), (1152, 9)])
 def test_flag_on_past_the_stack_limit_raises(cuda, dim, heads):
     """A flag-on BackBone the gate passes (D a multiple of 128) at a width
-    #4 does not take (D 640; head dim 192 at D 768) raises the wrapper's
-    ValueError on the card, where the plain stack used to run without a
-    word; on the CPU the plain stack runs."""
+    #4 does not take (D 1152, at 4 heads of 288 and 9 of 128) raises the
+    wrapper's ValueError on the card, where the plain stack used to run
+    without a word; on the CPU the plain stack runs."""
     from vmrframe_tpu_torch.testing import stack_past_limit_case
 
     model, batch = stack_past_limit_case(dim, heads)

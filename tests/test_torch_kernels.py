@@ -131,11 +131,13 @@ def test_limit_functions_match_what_the_wrappers_refuse():
     assert not K.cq_takes(0, 30, 128) and not K.cq_takes(64, 30, 128, torch.float64)
     with pytest.raises(ValueError, match="Lc and Lq from 1 to 1024"):
         K.cq_plan(1025, 30, 128)
-    # #4: D = 128, 256, 384, 512, every head count dividing it, any lengths
+    # #4: D = 128-1024 in steps of 128 (a cluster of D / 128 CTAs past 512),
+    # every head count dividing it, any lengths
     assert S.takes(bf16, 128, 4, 64, 30) and S.takes(f32, 128, 32, 1, 1)
     assert S.takes(bf16, 256, 4, 64, 30) and S.takes(f32, 384, 32, 1, 1)  # head dim 12
     assert S.takes(bf16, 512, 4, 1, 1) and S.takes(bf16, 512, 2, 64, 30)  # head dim 256
-    assert not S.takes(bf16, 640, 4, 64, 30) and not S.takes(bf16, 64, 4, 64, 30)
+    assert S.takes(bf16, 640, 4, 64, 30) and S.takes(f32, 1024, 1, 1, 1)  # head dims 160, 1024
+    assert not S.takes(bf16, 1152, 4, 64, 30) and not S.takes(bf16, 64, 4, 64, 30)
     assert S.takes(bf16, 128, 64, 64, 30) and S.takes(f32, 384, 128, 1, 1)  # head dims 2, 3
     assert not S.takes(bf16, 128, 3, 64, 30) and not S.takes(bf16, 128, 4, 0, 30)
     # #5-#7: head dims 1-128, one key window within the padded length

@@ -26,6 +26,16 @@ f32 products are 3xTF32 in steps of 8 (``tests/_tf32.py``).  A planted
 fault (``quad_max=False``: each lane's row max over its own columns, not
 reduced over the quad of lanes that holds the row) must fail.
 
+At D 640, 768, 896 and 1024 the kernel is a cluster of D / 128 CTAs a
+sample (``csrc/dual_stack_cluster.cu``); ``emulate_stack(..., cluster=True)``
+repeats that schedule: rows in tiles of 32, keys in stages and chunks of 32
+(``CLUSTER_SCHEDULE``), every product summed over the 128-row k-chunks of W
+in rank order (the BiLinear's two operands into one sum, fn's chunks
+first), each LayerNorm's mean and variance from the 128-column slices'
+partial sums added in rank order, and each head's scores as the sum, in
+rank order, of its pieces' partial products (a head cut at the 128-column
+slice edges), before one softmax and P.V.
+
 Cases: lengths at and past tile and chunk edges (65, 129, 256 video rows;
 30 and 257 text rows), a wholly masked sample, a valid video facing an empty
 text side, 8 heads of 16, 16 heads of 8, 32 heads of 4 and 64 and 128 heads
@@ -59,11 +69,14 @@ from vmrframe_tpu_torch.ops.masking import MASK_VALUE
 
 D = 128
 CSRC = Path(S.__file__).resolve().parent / "csrc" / "dual_stack.cuh"  # the body
+CLUSTER_SRC = CSRC.with_name("dual_stack_cluster.cu")  # the body at D 640-1024
 # the kernel's schedule at each width (Lay<D>'s kTile, kStage, kKeys in the
 # source): rows per tile; the most keys one stage holds; keys per chunk of a
 # longer side; and (kRows) query rows per warp task
 SCHEDULES = {128: (64, 64, 32), 256: (32, 32, 32), 384: (16, 16, 16), 512: (16, 16, 16)}
 TILE_ROWS, STAGE_KEYS, CHUNK_KEYS = SCHEDULES[D]
+# the cluster's (kCTile, kCStage, kCStage) and the columns a CTA owns (kSlice)
+CLUSTER_SCHEDULE, SLICE = (32, 32, 32), 128
 TASK_ROWS = 16
 MMA_K = {torch.bfloat16: 16, torch.float32: 8}  # m16n8k16 bf16, m16n8k8 tf32
 MMA_N = 8
@@ -74,12 +87,52 @@ def _up(n, m):
     return -(-n // m) * m
 
 
-def _attend(q, k, v, fm, km, H, cd, quad_max=True):
+def _pieces(h, hd):
+    """Head h's global columns cut at the slice edges, in rank order."""
+    a, end = h * hd, (h + 1) * hd
+    while a < end:
+        b = min(end, (a // SLICE + 1) * SLICE)
+        yield a, b
+        a = b
+
+
+def _chunk_dot(w, *operands):
+    """The cluster's product: each operand (..., D) in the compute type
+    against w (D, D), summed in f32 over the 128-row k-chunks in rank order,
+    the operands one after another into the same sum."""
+    acc = 0
+    for x in operands:
+        for k0 in range(0, x.shape[-1], SLICE):
+            acc = acc + x[..., k0:k0 + SLICE].float() @ w[k0:k0 + SLICE].float()
+    return acc
+
+
+def _cluster_ln(x, s, b, eps=1e-6):
+    """LayerNorm as the cluster takes it: the slices' partial sums added in
+    rank order, times 1 / D, for the mean, then the same for the squared
+    deviations."""
+    x = x.float()
+    D = x.shape[-1]
+
+    def total(t):
+        acc = 0
+        for r0 in range(0, D, SLICE):
+            acc = acc + t[..., r0:r0 + SLICE].sum(-1, keepdim=True)
+        return acc
+
+    mu = total(x) * (1.0 / D)
+    var = total((x - mu).square()) * (1.0 / D)
+    return (x - mu) * torch.rsqrt(var + eps) * s + b
+
+
+def _attend(q, k, v, fm, km, H, cd, quad_max=True, cluster=False):
     """The kernel's attention of q (B, M, D) over k, v (B, T, D), all in
-    cd; fm (B, M) and km (B, T) validities; the context (B, M, D) in cd."""
+    cd; fm (B, M) and km (B, T) validities; the context (B, M, D) in cd.
+    With ``cluster`` each head's scores are its pieces' partial products
+    added in rank order."""
     B, M, Dq = q.shape
     T, hd = k.shape[1], Dq // H
-    _, STAGE_KEYS, CHUNK_KEYS = SCHEDULES[Dq]
+    _, STAGE_KEYS, CHUNK_KEYS = CLUSTER_SCHEDULE if cluster else SCHEDULES[Dq]
     Mp = _up(M, TASK_ROWS)  # whole tasks: the rows past M invalid
     f32 = cd == torch.float32
     prod = _tf32.product if f32 else torch.matmul
@@ -95,8 +148,22 @@ def _attend(q, k, v, fm, km, H, cd, quad_max=True):
     fmp = F.pad(fm.float(), (0, Mp - M))[:, None, :, None]
     kmp = F.pad(km.float(), (0, Tp - T))[:, None, None, :]
 
+    qp = F.pad(q.float(), (0, 0, 0, Mp - M))
+    kp = F.pad(k.float(), (0, 0, 0, Tp - T))
+
+    def products(c0, c1):  # q k^T over keys [c0, c1): (B, H, Mp, c1 - c0)
+        if not cluster:
+            return prod(qh, kh[:, :, c0:c1].transpose(-1, -2))
+        heads_ = []
+        for h in range(H):
+            s = 0
+            for a, b in _pieces(h, hd):
+                s = s + prod(qp[..., a:b], kp[:, c0:c1, a:b].transpose(-1, -2))
+            heads_.append(s)
+        return torch.stack(heads_, 1)
+
     def scores(c0, c1):  # keys [c0, c1) of the side: scaled, masked, -inf past T
-        s = prod(qh, kh[:, :, c0:c1].transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+        s = products(c0, c1) * (1.0 / math.sqrt(hd))
         s = s + MASK_VALUE * (1.0 - fmp * kmp[..., c0:c1])
         return s.masked_fill(torch.arange(c0, c1) >= T, -math.inf)
 
@@ -148,15 +215,20 @@ def _attend(q, k, v, fm, km, H, cd, quad_max=True):
     return ctx[:, :, :M, :hd].transpose(1, 2).reshape(B, M, Dq).to(cd)
 
 
-def _dab_tiles(x, y, fm, tm, W, b, ln, xb, H, cd, quad_max=True):
-    """One DualAttentionBlock call in the kernel's schedule; (B, F, D) f32."""
-    dot = S._dot
-    TILE_ROWS = SCHEDULES[x.shape[2]][0]
+def _dab_tiles(x, y, fm, tm, W, b, ln, xb, H, cd, quad_max=True, cluster=False):
+    """One DualAttentionBlock call in the kernel's schedule (with
+    ``cluster``, the cluster's); (B, F, D) f32."""
+    if cluster:
+        dot, ln_, TILE_ROWS = (lambda a, w: _chunk_dot(w, a)), _cluster_ln, CLUSTER_SCHEDULE[0]
+        dot2 = lambda a, c, w: _chunk_dot(w, a, c)  # noqa: E731
+    else:
+        dot, ln_, TILE_ROWS = S._dot, S._ln, SCHEDULES[x.shape[2]][0]
+        dot2 = lambda a, c, w: S._dot(a, w) + S._dot(c, w)  # noqa: E731
 
     def keys_values(src, lns, lnb, wk, wv):
         ks, vs = [], []
         for r0 in range(0, src.shape[1], TILE_ROWS):
-            n = S._ln(src[:, r0:r0 + TILE_ROWS], ln[lns], ln[lnb]).to(cd)
+            n = ln_(src[:, r0:r0 + TILE_ROWS], ln[lns], ln[lnb]).to(cd)
             ks.append((dot(n, W[wk]) + b[wk]).to(cd))
             vs.append((dot(n, W[wv]) + b[wv]).to(cd))
         return torch.cat(ks, 1), torch.cat(vs, 1)
@@ -166,34 +238,35 @@ def _dab_tiles(x, y, fm, tm, W, b, ln, xb, H, cd, quad_max=True):
     out = []
     for r0 in range(0, x.shape[1], TILE_ROWS):
         xt, fmt = x[:, r0:r0 + TILE_ROWS].float(), fm[:, r0:r0 + TILE_ROWS]
-        fn = S._ln(xt, ln[S.LN1_S], ln[S.LN1_B]).to(cd)
+        fn = ln_(xt, ln[S.LN1_S], ln[S.LN1_B]).to(cd)
         q = (dot(fn, W[S.W_Q]) + b[S.W_Q]).to(cd)
-        x_att = _attend(q, tk, tv, fmt, tm, H, cd, quad_max)
-        s_att = _attend(q, fk, fv, fmt, fm, H, cd, quad_max)
+        x_att = _attend(q, tk, tv, fmt, tm, H, cd, quad_max, cluster)
+        s_att = _attend(q, fk, fv, fmt, fm, H, cd, quad_max, cluster)
         x_value = dot(x_att, W[S.W_XD]) + b[S.W_XD]
         s_value = dot(s_att, W[S.W_SD]) + b[S.W_SD]
         x_score = dot(x_value.to(cd), W[S.W_XG]) + b[S.W_XG]
         s_score = dot(s_value.to(cd), W[S.W_SG]) + b[S.W_SG]
         gc = (dot((s_score * x_value + x_score * s_value).to(cd), W[S.W_GD]) + b[S.W_GD]).to(cd)
-        scores = dot(fn, W[S.W_BL1]) + dot(gc, W[S.W_BL1]) + 2.0 * b[S.W_BL1] + xb[0]
-        values = dot(fn, W[S.W_BL2]) + dot(gc, W[S.W_BL2]) + 2.0 * b[S.W_BL2] + xb[1]
+        scores = dot2(fn, gc, W[S.W_BL1]) + 2.0 * b[S.W_BL1] + xb[0]
+        values = dot2(fn, gc, W[S.W_BL2]) + 2.0 * b[S.W_BL2] + xb[1]
         dma = torch.sigmoid(scores + MASK_VALUE * (1.0 - fmt[:, :, None])) * values
         residual = dot(dma.to(cd), W[S.W_D1]) + b[S.W_D1] + xt
-        z = S._ln(residual, ln[S.LN2_S], ln[S.LN2_B])
+        z = ln_(residual, ln[S.LN2_S], ln[S.LN2_B])
         out.append(dot(z.to(cd), W[S.W_D2]) + b[S.W_D2] + residual)
     return torch.cat(out, 1)
 
 
-def emulate_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads, quad_max=True):
+def emulate_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads, quad_max=True, cluster=False):
     """The 2-layer stack in the kernel's schedule (nothing rounded between
-    the layers); ``quad_max=False`` plants the fault of a row max not
-    reduced over the quad."""
+    the layers; with ``cluster``, the schedule of a cluster of D / 128
+    CTAs); ``quad_max=False`` plants the fault of a row max not reduced
+    over the quad."""
     cd = p1["W"].dtype
     vm, tm = vmask.float(), tmask.float()
     v, t = vfeat, tfeat
     for p in (p1, p2):
         args = (p["W"], p["b"].float(), p["ln"].float(), p["xb"].float(), num_heads, cd,
-                quad_max)
+                quad_max, cluster)
         v, t = _dab_tiles(v, t, vm, tm, *args), _dab_tiles(t, v, tm, vm, *args)
     return v.to(vfeat.dtype), t.to(tfeat.dtype)
 
@@ -256,6 +329,15 @@ WIDE_CASES = [  # D, B, Lv, Lt, heads, empty_to_side: the wider widths' tiles an
     (512, 2, 20, 17, 1, False),   # head dim 512
     (512, 3, 9, 18, 512, False),  # head dim 1
 ]
+# D, B, Lv, Lt, heads, empty_to_side: the cluster's widths (kCTile 32, kCStage 32)
+CLUSTER_CASES = [
+    (640, 3, 40, 30, 4, False),    # heads of 160 across slice edges; the video side past a tile
+    (768, 2, 33, 9, 4, True),      # heads of 192; past a stage; an empty text side
+    (640, 2, 20, 34, 128, False),  # head dim 5 (narrow), across edges; the text side past a stage
+    (768, 3, 17, 12, 64, False),   # head dim 12 (exact), across edges; a wholly masked sample
+    (768, 2, 9, 35, 1, False),     # head dim 768 over all six slices
+    (640, 2, 12, 5, 10, False),    # head dim 64: no head crosses an edge
+]
 
 
 @pytest.mark.parametrize("B,Lv,Lt,H,empty", CASES)
@@ -315,18 +397,32 @@ def test_chunked_softmax_walks_differ_from_one_softmax_only_in_rounding():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("D", sorted(SCHEDULES))
+@pytest.mark.parametrize("D,B,Lv,Lt,H,empty", CLUSTER_CASES)
+def test_emulated_cluster_schedule_matches_plain(D, B, Lv, Lt, H, empty, dtype):
+    v, t, vm, tm, p1, p2 = _case(D + B * Lv + Lt + H, B, Lv, Lt, dtype, empty, D)
+    with torch.no_grad():
+        got = emulate_stack(v, t, vm, tm, p1, p2, H, cluster=True)
+        want = S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, H)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", sorted(SCHEDULES) + [640])
 def test_a_row_max_not_reduced_over_the_quad_fails(dtype, D):
     """The planted fault: each lane's row max taken over its own columns
     only, not over the quad of lanes that holds the row, breaks the softmax,
     and the comparison with the plain version at the stated tolerance
-    catches it, at every width's row tile; the same case without the fault
-    passes it."""
+    catches it, at every width's row tile and in the cluster's schedule (D
+    640); the same case without the fault passes it."""
     v, t, vm, tm, p1, p2 = _case(11, 3, 64 if D == 128 else 40, 30, dtype, D=D)
     with torch.no_grad():
         want = S.dual_attention_stack_plain(v, t, vm, tm, p1, p2, 4)
         errs = [max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-                for got in (emulate_stack(v, t, vm, tm, p1, p2, 4, quad_max=quad_max)
+                for got in (emulate_stack(v, t, vm, tm, p1, p2, 4, quad_max=quad_max,
+                                          cluster=D > max(SCHEDULES))
                             for quad_max in (True, False))]
     scale = max(w.float().abs().max().item() for w in want)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * max(1.0, scale)
@@ -356,3 +452,18 @@ def test_schedule_constants_are_the_kernels():
     assert const("kNarrowStat") == S.NARROW_STAT_FLOATS
     assert all(2 * tile * width <= S.NARROW_STAT_FLOATS
                for width, (tile, _, _) in SCHEDULES.items())
+    # the cluster part: its tile and stage, the columns a CTA owns, the
+    # cluster sizes (the widths ``takes`` accepts past D 512), the narrow and
+    # the longest head dims, and room for every piece's statistics
+    src = CLUSTER_SRC.read_text()
+    const = lambda name: int(  # noqa: E731
+        re.search(rf"constexpr int {name} = (\w+);", src).group(1))
+    assert (const("kCTile"), const("kCStage"), const("kCStage")) == CLUSTER_SCHEDULE
+    assert const("kSlice") == SLICE and TASK_ROWS == 16
+    assert tuple(range(const("kMinCluster") * SLICE, const("kMaxCluster") * SLICE + 1, SLICE)) \
+        == S.CLUSTER_WIDTHS
+    assert const("kMaxCluster") <= 8  # the portable cluster size: no non-portable attribute
+    assert const("kCNarrowHD") == 16 >= max(w // h for w in S.CLUSTER_WIDTHS
+                                            for h in range(1, w + 1) if w % h == 0 and (w // h) % 4)
+    assert re.search(r"constexpr int kCMaxHeadDim = kSlice \* kMaxCluster;", src)
+    assert re.search(r"constexpr int kCMaxPieces = kSlice;", src)  # head dim 1: 128 pieces

@@ -29,8 +29,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# the libraries built from several sources, entry first: #4's widths
-PARTS = {"dual_stack": ("dual_stack", "dual_stack_256", "dual_stack_384", "dual_stack_512")}
+# the libraries built from several sources, entry first: #4's widths (D
+# 640-1024 in the cluster part)
+PARTS = {"dual_stack": ("dual_stack", "dual_stack_256", "dual_stack_384", "dual_stack_512",
+                        "dual_stack_cluster")}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()  # one build at a time: builds in a process share a temp name

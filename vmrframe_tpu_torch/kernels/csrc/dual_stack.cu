@@ -90,8 +90,10 @@
 // C that need not be finite as f32).
 //
 // Takes D = 128, 256, 384 or 512 at every head count H dividing D (head
-// dims 1-512), and any Lv, Lt >= 1 (kernels/dual_stack.py::takes is the same
-// set; D 640 and up it refuses).  4 heads have a kernel of their own at each
+// dims 1-512), and any Lv, Lt >= 1; D 640, 768, 896 and 1024 go to a
+// cluster of D / 128 CTAs a sample (csrc/dual_stack_cluster.cu), at every
+// head count too (kernels/dual_stack.py::takes is the same set; past D 1024
+// it refuses).  4 heads have a kernel of their own at each
 // D; other head counts share one a width, whose attention has a body for
 // each class of head dim: exact at D 128 for 4-128, else the head dim
 // rounded up to 16, 32, 64 or 128, zero past it in registers; the wide
@@ -108,8 +110,9 @@
 //
 // Sources: the body is csrc/dual_stack.cuh; this file compiles it for D 128
 // and holds the C entry, and dual_stack_256.cu, dual_stack_384.cu and
-// dual_stack_512.cu compile it for one wider width each, in parallel with
-// this one (kernels/build.py::PARTS), into the same library.
+// dual_stack_512.cu compile it for one wider width each, and
+// dual_stack_cluster.cu holds D 640-1024, in parallel with this one
+// (kernels/build.py::PARTS), into the same library.
 
 #include "dual_stack.cuh"
 
@@ -118,9 +121,17 @@
 // scratch: (B, Lv + Lt, D), the first layer's results; kv_scratch: (B, 2 (Lv
 // + Lt), D), a call's keys and values; stat_scratch: (B, kNarrowStat), the
 // narrow heads' statistics, needed when the head dim is not a multiple of 4
-// (may be null otherwise).  Returns 1 (cudaErrorInvalidValue), before any
-// launch, for a shape the kernel does not take: D not in kWidths, H not
-// dividing D, B, Lv, Lt < 1, or narrow heads without stat_scratch.
+// at D 128-512 (may be null otherwise; the cluster keeps its statistics in
+// shared memory).  Returns 1 (cudaErrorInvalidValue), before any launch, for
+// a shape the kernel does not take: D neither in kWidths nor a cluster width
+// (640-1024), H not dividing D, B, Lv, Lt < 1, or narrow heads at D 128-512
+// without stat_scratch.
+extern "C" int vmr_dual_stack_cluster(int dtype, const void* v, const void* t, const void* vm,
+                                      const void* tm, const void* W, const void* b, const void* ln,
+                                      const void* xb, void* v_out, void* t_out, void* scratch,
+                                      void* kv_scratch, int B, int D, int Lv, int Lt, int H,
+                                      cudaStream_t s);
+
 extern "C" int vmr_dual_stack(int dtype, const void* v, const void* t, const void* vm,
                               const void* tm, const void* W, const void* b, const void* ln,
                               const void* xb, void* v_out, void* t_out, void* scratch,
@@ -128,6 +139,9 @@ extern "C" int vmr_dual_stack(int dtype, const void* v, const void* t, const voi
                               int H, void* stream) {
   bool taken = false;
   for (int w : kWidths) taken = taken || D == w;
+  if (!taken && D > kWidths[3])  // the cluster widths; it refuses any other
+    return vmr_dual_stack_cluster(dtype, v, t, vm, tm, W, b, ln, xb, v_out, t_out, scratch,
+                                  kv_scratch, B, D, Lv, Lt, H, static_cast<cudaStream_t>(stream));
   if (!taken || B < 1 || Lv < 1 || Lt < 1 || H < 1 || D % H || ((D / H) % 4 && !stat_scratch))
     return (int)cudaErrorInvalidValue;
   auto* width = D == 128   ? stack_width<128>

@@ -1,8 +1,9 @@
 // The body of kernel #4 (the whole dual-attention stack), included by
 // csrc/dual_stack.cu (D 128 and the C entry) and by dual_stack_256.cu,
-// dual_stack_384.cu and dual_stack_512.cu (one wider width each), which
-// compile in parallel and link into one library.  csrc/dual_stack.cu states
-// what it replaces, what bounds it and its design.
+// dual_stack_384.cu and dual_stack_512.cu (one wider width each), and by
+// dual_stack_cluster.cu (D 640-1024, which uses its helpers), which compile
+// in parallel and link into one library.  csrc/dual_stack.cu states what it
+// replaces, what bounds it and its design.
 
 #pragma once
 

@@ -2,7 +2,8 @@
 hand-written CUDA kernel for Hopper, beside its plain PyTorch version.
 
 ``dual_attention_stack`` -> CUDA ``vmr_dual_stack`` (``csrc/dual_stack.cu``,
-its body ``dual_stack.cuh``, with a part of its own for each wider width);
+its body ``dual_stack.cuh``, with a part of its own for each wider width,
+and ``dual_stack_cluster.cu`` for D 640-1024);
 replaces ``vmrframe_tpu/kernels/dual_stack.py::dual_attention_stack``
 (``_stack_kernel``).  It computes
 
@@ -45,13 +46,18 @@ rescaled.  The kernel takes D = 128, 256, 384 and 512 (``KERNEL_WIDTHS``)
 at every head count dividing D, each width with a layout of its own
 (``Lay<D>`` in the source: row tiles of 64, 32, 16 and 16 so that five f32
 buffers fit a block's shared memory), and 4 heads (every config that sets
-``model.fused_dual_stack``) have a kernel of their own at each width.
-``tests/test_torch_stack_tiles.py`` emulates this schedule on the CPU.
+``model.fused_dual_stack``) have a kernel of their own at each width.  At D
+640, 768, 896 and 1024 (``CLUSTER_WIDTHS``) one block no longer holds a row
+tile: a thread-block cluster of D / 128 CTAs takes each sample, each CTA
+128 columns of every activation (LN partials, the products' operand chunks
+and the partial scores of heads that cross 128-column edges exchanged
+through distributed shared memory), at every head count dividing D.
+``tests/test_torch_stack_tiles.py`` emulates both schedules on the CPU.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises (``takes``: D in ``KERNEL_WIDTHS``, heads
-dividing D, any lengths Lv, Lt >= 1; D 640 and up raises), and counts the
-launch in ``dual_attention_stack.launches``.
+launches the kernel or raises (``takes``: D in ``KERNEL_WIDTHS`` or
+``CLUSTER_WIDTHS``, heads dividing D, any lengths Lv, Lt >= 1; past D 1024
+it raises), and counts the launch in ``dual_attention_stack.launches``.
 """
 
 from __future__ import annotations
@@ -72,9 +78,13 @@ W_Q, W_FK, W_FV, W_TK, W_TV = 0, 1, 2, 3, 4
 W_SD, W_XD, W_SG, W_XG, W_GD = 5, 6, 7, 8, 9
 W_BL1, W_BL2, W_D1, W_D2 = 10, 11, 12, 13
 LN1_S, LN1_B, LNT_S, LNT_B, LN2_S, LN2_B = 0, 1, 2, 3, 4, 5
-KERNEL_WIDTHS = (128, 256, 384, 512)  # the D csrc/dual_stack.cuh takes (kWidths)
+KERNEL_WIDTHS = (128, 256, 384, 512)  # the D csrc/dual_stack.cuh takes, a CTA a sample (kWidths)
+# the D csrc/dual_stack_cluster.cu takes, a cluster of D / 128 CTAs a sample
+# (kMinCluster-kMaxCluster: the portable cluster sizes)
+CLUSTER_WIDTHS = (640, 768, 896, 1024)
 # f32 a sample of the narrow heads' statistics (head dims not a multiple of
-# 4): a max and a sum for each (row, head) of a tile (kNarrowStat)
+# 4) at D 128-512: a max and a sum for each (row, head) of a tile
+# (kNarrowStat; the cluster keeps them in shared memory)
 NARROW_STAT_FLOATS = 16384
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -186,11 +196,11 @@ def _check(vfeat, tfeat, vmask, tmask, p1, p2, num_heads) -> Tuple[int, int, int
 
 def takes(dtype: torch.dtype, D: int, num_heads: int, Lv: int, Lt: int) -> bool:
     """Whether the kernel takes these shapes: f32 or bf16, D in
-    ``KERNEL_WIDTHS``, heads dividing D (every head dim 1-512), Lv, Lt >= 1
-    (the C entry refuses the rest).  The wrapper raises on what it
-    refuses."""
-    return (dtype in _DTYPE_CODE and D in KERNEL_WIDTHS and num_heads > 0 and D % num_heads == 0
-            and Lv >= 1 and Lt >= 1)
+    ``KERNEL_WIDTHS`` or ``CLUSTER_WIDTHS`` (every multiple of 128 up to
+    1024), heads dividing D (every head dim 1-1024), Lv, Lt >= 1 (the C
+    entry refuses the rest).  The wrapper raises on what it refuses."""
+    return (dtype in _DTYPE_CODE and D in KERNEL_WIDTHS + CLUSTER_WIDTHS and num_heads > 0
+            and D % num_heads == 0 and Lv >= 1 and Lt >= 1)
 
 
 def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
@@ -208,9 +218,9 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: the kernel takes float32 or bfloat16, got {dtype}")
     if not takes(dtype, D, num_heads, Lv, Lt):
-        raise ValueError(f"{what}: the kernel takes D in {KERNEL_WIDTHS} at every head count "
-                         f"dividing D, and Lv, Lt >= 1; got D = {D}, {num_heads} heads, Lv = "
-                         f"{Lv}, Lt = {Lt}")
+        raise ValueError(f"{what}: the kernel takes D in {KERNEL_WIDTHS + CLUSTER_WIDTHS} at "
+                         f"every head count dividing D, and Lv, Lt >= 1; got D = {D}, "
+                         f"{num_heads} heads, Lv = {Lv}, Lt = {Lt}")
     if device.type != "cuda":
         raise ValueError(f"{what}: tensors must be on the CPU or a CUDA device, got {device}")
     for t in (tfeat, p1["W"], p2["W"]):
@@ -227,9 +237,10 @@ def dual_attention_stack(vfeat, tfeat, vmask, tmask, p1, p2, num_heads: int):
     # layer's results in f32, and a call's keys and values in the compute type
     scratch = torch.empty(B, Lv + Lt, D, dtype=torch.float32, device=device)
     kv_scratch = torch.empty(B, 2 * (Lv + Lt), D, dtype=dtype, device=device)
-    # narrow heads: each (row, head)'s max and sum between the chunks of a side
+    # narrow heads at D 128-512: each (row, head)'s max and sum between the
+    # chunks of a side
     stats = (torch.empty(B, NARROW_STAT_FLOATS, dtype=torch.float32, device=device)
-             if (D // num_heads) % 4 else None)
+             if (D // num_heads) % 4 and D in KERNEL_WIDTHS else None)
     with launch_range("dual_attention_stack"):
         err = load_kernels().vmr_dual_stack(
             _DTYPE_CODE[dtype], v.data_ptr(), t.data_ptr(), vm.data_ptr(), tm.data_ptr(),

@@ -36,7 +36,7 @@ def use_fused_stack(m, deterministic: bool) -> bool:
     (the JAX package's ``"interpret"`` has no meaning here): on CPU tensors
     the wrapper then runs the plain version; on CUDA tensors it launches the
     kernel, or raises where its limit (``kernels/dual_stack.py::takes``: D
-    128-512 at every head count) refuses the shapes (D 640 and up).  Inside
+    128-1024 at every head count) refuses the shapes (D 1152 and up).  Inside
     ``kernels.counting_route`` the four block calls run, whose count is the
     flag-off route's (the stack's plain version multiplies more)."""
     if not deterministic or not bool(m.get("fused_dual_stack", False)) or counting():

@@ -236,10 +236,10 @@ def past_limit_cases(seed: int = 0) -> dict:
     return cases
 
 
-def stack_past_limit_case(dim: int = 640, num_heads: int = 4, seed: int = 0):
+def stack_past_limit_case(dim: int = 1152, num_heads: int = 4, seed: int = 0):
     """(a seeded BackBone with ``model.fused_dual_stack`` set, in eval mode on
     the CPU, one batch of its CPU inputs) at a width the gate passes (D a
-    multiple of 128, heads dividing it) and #4 does not take (D 640 by
+    multiple of 128, heads dividing it) and #4 does not take (D 1152 by
     default): its forward on the card raises the wrapper's ``ValueError``;
     on the CPU it runs the plain stack.  f32, batch 2."""
     import torch

@@ -4,10 +4,13 @@
 For each of the seven kernels at the shapes the main paths give it (SeqPAN's
 Charades forward for #1-#4, ActionFormer's long config for #5-#7, launch
 weighted over a forward's shapes), and as extra rows at TACoS and ANet
-widths, #4 at D 256, 384 and 512 (Charades lengths, 4 heads, beside the
-module path) and at every head count of D 128-512 whose head dim is past 128
-or not a multiple of 4 (``ODD_HEADS``: the wide and the narrow heads, the
-same way), at the sentence variants' shapes and at the JAX tool's own shapes
+widths, #4 at D 256-1024 (Charades lengths, 4 heads, beside the module
+path; D 640-1024 the cluster body, its heads of 160-256 crossing slice
+edges) and at every head count of D 128-512 whose head dim is past 128 or
+not a multiple of 4 (``ODD_HEADS``: the wide and the narrow heads, the same
+way) and at the cluster's wide and narrow heads (``CLUSTER_HEADS``: D 1024
+at 1 head, D 640 at 128, D 896 at 64), at the sentence variants' shapes
+and at the JAX tool's own shapes
 (``--jax-shapes``: #2 at Charades and TACoS widths, #5 at T 512, 1024 and
 2304 with window 19, #3 at L 64 and 256): the kernel's time, its plain
 version's, one PyTorch call computing the same function where there is one
@@ -48,7 +51,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-from vmrframe_tpu_torch.kernels.dual_stack import KERNEL_WIDTHS
+from vmrframe_tpu_torch.kernels.dual_stack import CLUSTER_WIDTHS, KERNEL_WIDTHS
 from vmrframe_tpu_torch.tools.h100 import HBM_BYTES_PER_S, peak_ops
 
 B, H, HD, LV, LT, D = 128, 4, 32, 64, 30, 128
@@ -61,10 +64,14 @@ AF_LAUNCHES = {2304: 2, 1152: 1, 576: 1}  # banded launches per forward at each 
 B_TRAIN = 2  # the long config's training batch
 BWD_KERNELS = ("banded_attention_dq", "banded_attention_dkv")
 STACK = "dual_attention_stack"
-STACK_WIDTHS = KERNEL_WIDTHS[1:]  # #4's wider instances: extra rows at Charades lengths, 4 heads
+# #4's wider instances and the cluster's widths: extra rows at Charades
+# lengths, 4 heads
+STACK_WIDTHS = KERNEL_WIDTHS[1:] + CLUSTER_WIDTHS
 # #4's wide (192-512) and narrow (1, 2, 3, 6) head dims: extra rows, (D, heads)
 ODD_HEADS = tuple((w, h) for w in KERNEL_WIDTHS for h in range(1, w + 1)
                   if w % h == 0 and ((w // h) % 4 or w // h > 128))
+# the cluster's wide and narrow heads: head dims 1024, 5 and 14
+CLUSTER_HEADS = ((1024, 1), (640, 128), (896, 64))
 ATTENTION = ("fused_masked_attention", "fused_dual_attention", "fused_cq_attention")
 BOTH_DTYPES = BWD_KERNELS + (STACK,) + ATTENTION  # timed in f32 and bf16
 STACK_CAST = (0, 1, 4, 8)  # of a stack case, what the policy casts: v, t and the two W
@@ -237,7 +244,7 @@ def stack_cases(g: torch.Generator, blocks, shapes):
 def wide_stack_cases(g: torch.Generator, batch: int = B, pairs=None) -> list:
     """[(D, heads, seeded blocks, one case at Charades lengths)] for each
     (D, heads) of ``pairs``: by default each of ``STACK_WIDTHS`` at 4 heads,
-    #4's wider instances.  A case at other than ``H`` heads ends with its
+    #4's wider instances and the cluster's widths.  A case at other than ``H`` heads ends with its
     head count (``stack_call``)."""
     out = []
     for dim, heads in pairs or [(w, H) for w in STACK_WIDTHS]:
@@ -752,7 +759,8 @@ def main(argv=None) -> list:
     if blocks is not None:
         time_module_path(blocks, cases[STACK][0], results, card)
         time_wide_stack(functions(K, W, S), wide_stack_cases(g, args.batch)
-                        + wide_stack_cases(g, args.batch, ODD_HEADS), results, card)
+                        + wide_stack_cases(g, args.batch, ODD_HEADS + CLUSTER_HEADS), results,
+                        card)
     rows = kernel_rows({n: results[n] for n in names}, card)
     for row in rows:
         print(json.dumps(row), flush=True)
